@@ -1,0 +1,331 @@
+// PDHG restart window for a batch of box-row LPs/QPs sharing one dense
+// constraint matrix A (m x n): n_iters iterations per scenario of
+//
+//     x1 = clip((x - tau*A'y - tau*c) * 1/(1 + tau*q), l, u)
+//     w  = y + sigma*A(2*x1 - x)
+//     y1 = w - clip(w, sigma*bl, sigma*bu)
+//     xs += x1;  ys += y1
+//
+// with done scenarios frozen: they run with tau = sigma = 0 and keep
+// their iterates bit for bit (even an iterate one rounding outside its
+// box), while their window sums keep accumulating.  Infinite row bounds
+// are clipped to +-1e30 first, so sigma = 0 never meets inf.
+//
+// Replaces mpisppy_tpu/ops/pdhg_pallas.py::run_window (_tile_math, both
+// the single-buffer grid kernel and the double-buffered pipeline, which
+// compute the same function; the double buffering was a TPU data-movement
+// device).
+//
+// What bounds it on an H100: each iteration reads all of A twice (A'y and
+// A v) for 4*m*n flops.  At the sslp 15x45 shape A is 60 x 705 f32
+// (165 KiB): it stays in L2, and the per-iteration solver state of a
+// scenario (~24 KB) lives in shared memory for the whole window, so
+// device memory sees each input once and each output once per window.
+// What is left is L2 and shared-memory traffic per multiply-add.  The
+// design cuts it by putting SPB scenarios in one block, so each element
+// of A read from L2 feeds SPB multiply-adds held in registers.  A
+// resident in shared memory and tensor-core products are later work.
+//
+// Arithmetic modes (compile-time template):
+//   MODE_F32    IEEE f32 fused multiply-add;
+//   MODE_BF16   one product of bf16-rounded operands (hi*hi);
+//   MODE_BF16X3 hi*hi + hi*lo + lo*hi of bf16 splits (rounded with
+//               __float2bfloat16_rn), accumulated in f32; bf16 x bf16
+//               products are exact in f32.
+// A'y is computed column-parallel (one thread per column); A v is one
+// warp per row with a fixed-order butterfly reduction, so the kernel is
+// deterministic.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -shared -Xcompiler -fPIC -o libpdhg_window.so pdhg_window.cu
+// Bound to Python with ctypes (ops/pdhg_window.py).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kBig = 1e30f;
+
+enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_BF16X3 = 3 };
+
+struct Args {
+  const float* A;     // (m, n) row-major: A (f32) or its bf16 hi part
+  const float* A_lo;  // (m, n) bf16 lo part (MODE_BF16X3 only)
+  int m, n, S, n_iters;
+  const float* tau;   // (S,)
+  const float* sigma; // (S,)
+  const float* done;  // (S,) 1.0 = frozen
+  const float* c;  long long c_stride;   // scenario strides: 0 = shared
+  const float* q;  long long q_stride;
+  const float* l;  long long l_stride;
+  const float* u;  long long u_stride;
+  const float* bl; long long bl_stride;
+  const float* bu; long long bu_stride;
+  const float* x; const float* y; const float* xs; const float* ys;
+  float* xo; float* yo; float* xso; float* yso;
+};
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float clip(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// shared-memory floats per scenario: eight n-vectors, six m-vectors
+__host__ __device__ inline long long smem_floats(int m, int n) {
+  return 8LL * n + 6LL * m;
+}
+
+template <int MODE>
+__device__ __forceinline__ float mac(float acc, float a, float a_lo,
+                                     float v_hi, float v_lo) {
+  if (MODE == MODE_F32) return fmaf(a, v_hi, acc);
+  if (MODE == MODE_BF16) return fmaf(a, v_hi, acc);
+  acc = fmaf(a, v_hi, acc);
+  acc = fmaf(a, v_lo, acc);
+  return fmaf(a_lo, v_hi, acc);
+}
+
+template <int MODE, int SPB>
+__global__ void __launch_bounds__(kThreads)
+pdhg_window_kernel(Args g) {
+  extern __shared__ float smem[];
+  const int m = g.m, n = g.n;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.x * SPB;
+
+  // per-scenario shared-memory vectors
+  float* base = smem;
+  float* x_[SPB]; float* xs_[SPB]; float* tc_[SPB]; float* pre_[SPB];
+  float* l_[SPB]; float* u_[SPB]; float* vh_[SPB]; float* vl_[SPB];
+  float* y_[SPB]; float* ys_[SPB]; float* sbl_[SPB]; float* sbu_[SPB];
+  float* yh_[SPB]; float* yl_[SPB];
+  __shared__ float tau_s[SPB], sigma_s[SPB];
+  __shared__ bool frozen_s[SPB];
+#pragma unroll
+  for (int s = 0; s < SPB; ++s) {
+    float* b = base + s * smem_floats(m, n);
+    x_[s] = b;          xs_[s] = b + n;      tc_[s] = b + 2 * n;
+    pre_[s] = b + 3 * n; l_[s] = b + 4 * n;  u_[s] = b + 5 * n;
+    vh_[s] = b + 6 * n; vl_[s] = b + 7 * n;
+    float* r = b + 8 * n;
+    y_[s] = r;          ys_[s] = r + m;      sbl_[s] = r + 2 * m;
+    sbu_[s] = r + 3 * m; yh_[s] = r + 4 * m; yl_[s] = r + 5 * m;
+  }
+
+  // ---- load: hoisted loop invariants (tc, pre, sigma*bl, sigma*bu) ----
+  if (tid < SPB) {
+    const int sc = s0 + tid;
+    float t = 0.f, sg = 0.f, live = 0.f;
+    if (sc < g.S) {
+      live = 1.0f - g.done[sc];
+      t = g.tau[sc] * live;
+      sg = g.sigma[sc] * live;
+    }
+    tau_s[tid] = t;
+    sigma_s[tid] = sg;
+    frozen_s[tid] = live == 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < SPB; ++s) {
+    const int sc = s0 + s;
+    const bool valid = sc < g.S;
+    const float t = tau_s[s], sg = sigma_s[s];
+    for (int j = tid; j < n; j += kThreads) {
+      float xv = 0.f, xsv = 0.f, cv = 0.f, qv = 0.f, lv = 0.f, uv = 0.f;
+      if (valid) {
+        xv = g.x[(long long)sc * n + j];
+        xsv = g.xs[(long long)sc * n + j];
+        cv = g.c[sc * g.c_stride + j];
+        qv = g.q[sc * g.q_stride + j];
+        lv = g.l[sc * g.l_stride + j];
+        uv = g.u[sc * g.u_stride + j];
+      }
+      x_[s][j] = xv;
+      xs_[s][j] = xsv;
+      tc_[s][j] = t * cv;
+      pre_[s][j] = 1.0f / (1.0f + t * qv);
+      l_[s][j] = lv;
+      u_[s][j] = uv;
+    }
+    for (int i = tid; i < m; i += kThreads) {
+      float yv = 0.f, ysv = 0.f, blv = 0.f, buv = 0.f;
+      if (valid) {
+        yv = g.y[(long long)sc * m + i];
+        ysv = g.ys[(long long)sc * m + i];
+        blv = clip(g.bl[sc * g.bl_stride + i], -kBig, kBig);
+        buv = clip(g.bu[sc * g.bu_stride + i], -kBig, kBig);
+      }
+      y_[s][i] = yv;
+      ys_[s][i] = ysv;
+      sbl_[s][i] = sg * blv;
+      sbu_[s][i] = sg * buv;
+    }
+  }
+  __syncthreads();
+
+  for (int it = 0; it < g.n_iters; ++it) {
+    // ---- split y for the bf16 modes ----
+    if (MODE != MODE_F32) {
+#pragma unroll
+      for (int s = 0; s < SPB; ++s) {
+        for (int i = tid; i < m; i += kThreads) {
+          const float v = y_[s][i];
+          const float hi = bf16_round(v);
+          yh_[s][i] = hi;
+          yl_[s][i] = MODE == MODE_BF16X3 ? bf16_round(v - hi) : 0.f;
+        }
+      }
+      __syncthreads();
+    }
+    // ---- primal step: A'y column-parallel, then the box prox ----
+    for (int j = tid; j < n; j += kThreads) {
+      float acc[SPB];
+#pragma unroll
+      for (int s = 0; s < SPB; ++s) acc[s] = 0.f;
+      for (int i = 0; i < m; ++i) {
+        const float a = g.A[(long long)i * n + j];
+        const float alo = MODE == MODE_BF16X3 ? g.A_lo[(long long)i * n + j]
+                                              : 0.f;
+#pragma unroll
+        for (int s = 0; s < SPB; ++s) {
+          const float vh = MODE == MODE_F32 ? y_[s][i] : yh_[s][i];
+          const float vl = MODE == MODE_BF16X3 ? yl_[s][i] : 0.f;
+          acc[s] = mac<MODE>(acc[s], a, alo, vh, vl);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < SPB; ++s) {
+        const float xv = x_[s][j];
+        float x1 = xv - tau_s[s] * acc[s];
+        x1 = (x1 - tc_[s][j]) * pre_[s][j];
+        x1 = frozen_s[s] ? xv : clip(x1, l_[s][j], u_[s][j]);
+        x_[s][j] = x1;
+        xs_[s][j] += x1;
+        const float v = 2.0f * x1 - xv;
+        if (MODE == MODE_F32) {
+          vh_[s][j] = v;
+        } else {
+          const float hi = bf16_round(v);
+          vh_[s][j] = hi;
+          vl_[s][j] = MODE == MODE_BF16X3 ? bf16_round(v - hi) : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+    // ---- dual step: A v one warp per row, then the row prox ----
+    for (int i = warp; i < m; i += kWarps) {
+      float acc[SPB];
+#pragma unroll
+      for (int s = 0; s < SPB; ++s) acc[s] = 0.f;
+      const float* Arow = g.A + (long long)i * n;
+      const float* Arow_lo =
+          MODE == MODE_BF16X3 ? g.A_lo + (long long)i * n : nullptr;
+      for (int j = lane; j < n; j += 32) {
+        const float a = Arow[j];
+        const float alo = MODE == MODE_BF16X3 ? Arow_lo[j] : 0.f;
+#pragma unroll
+        for (int s = 0; s < SPB; ++s)
+          acc[s] = mac<MODE>(acc[s], a, alo, vh_[s][j],
+                             MODE == MODE_BF16X3 ? vl_[s][j] : 0.f);
+      }
+#pragma unroll
+      for (int s = 0; s < SPB; ++s) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], off);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int s = 0; s < SPB; ++s) {
+          const float w = y_[s][i] + sigma_s[s] * acc[s];
+          const float y1 = frozen_s[s]
+                               ? y_[s][i]
+                               : w - clip(w, sbl_[s][i], sbu_[s][i]);
+          y_[s][i] = y1;
+          ys_[s][i] += y1;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- write back ----
+#pragma unroll
+  for (int s = 0; s < SPB; ++s) {
+    const int sc = s0 + s;
+    if (sc >= g.S) continue;
+    for (int j = tid; j < n; j += kThreads) {
+      g.xo[(long long)sc * n + j] = x_[s][j];
+      g.xso[(long long)sc * n + j] = xs_[s][j];
+    }
+    for (int i = tid; i < m; i += kThreads) {
+      g.yo[(long long)sc * m + i] = y_[s][i];
+      g.yso[(long long)sc * m + i] = ys_[s][i];
+    }
+  }
+}
+
+template <int MODE, int SPB>
+cudaError_t launch(const Args& g, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * SPB * smem_floats(g.m, g.n);
+  cudaError_t err = cudaFuncSetAttribute(
+      pdhg_window_kernel<MODE, SPB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (g.S + SPB - 1) / SPB;
+  pdhg_window_kernel<MODE, SPB><<<blocks, kThreads, bytes, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// Scenarios per block: several only pay once the batch fills the card;
+// a small batch (the 64-scenario straggler tail) keeps one per block so
+// it still spreads over the SMs.
+template <int MODE>
+cudaError_t dispatch_spb(const Args& g, cudaStream_t stream) {
+  int dev = 0, smem_max = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long per = (long long)sizeof(float) * smem_floats(g.m, g.n);
+  if (g.S >= 8LL * sms && 4 * per <= smem_max) return launch<MODE, 4>(g, stream);
+  if (per <= smem_max) return launch<MODE, 1>(g, stream);
+  return cudaErrorInvalidValue;  // one scenario's state does not fit
+}
+
+}  // namespace
+
+extern "C" int pdhg_window_launch(
+    const float* A, const float* A_lo, int m, int n, int S, int n_iters,
+    int mode, const float* tau, const float* sigma, const float* done,
+    const float* c, long long c_stride, const float* q, long long q_stride,
+    const float* l, long long l_stride, const float* u, long long u_stride,
+    const float* bl, long long bl_stride, const float* bu,
+    long long bu_stride, const float* x, const float* y, const float* xs,
+    const float* ys, float* xo, float* yo, float* xso, float* yso,
+    void* stream) {
+  if (S <= 0) return 0;
+  if (m <= 0 || n <= 0 || n_iters < 0) return (int)cudaErrorInvalidValue;
+  Args g{A, A_lo, m, n, S, n_iters, tau, sigma, done,
+         c, c_stride, q, q_stride, l, l_stride, u, u_stride,
+         bl, bl_stride, bu, bu_stride, x, y, xs, ys, xo, yo, xso, yso};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (mode) {
+    case MODE_F32: err = dispatch_spb<MODE_F32>(g, st); break;
+    case MODE_BF16: err = dispatch_spb<MODE_BF16>(g, st); break;
+    case MODE_BF16X3:
+      if (A_lo == nullptr) return (int)cudaErrorInvalidValue;
+      err = dispatch_spb<MODE_BF16X3>(g, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
+}

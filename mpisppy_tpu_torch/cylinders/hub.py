@@ -1,0 +1,355 @@
+###############################################################################
+# Hub: runs the hub algorithm (PH), feeds spokes, tracks bounds, decides
+# termination (port of the core of mpisppy_tpu/cylinders/hub.py;
+# ref:mpisppy/cylinders/hub.py:28-724).
+#
+# Termination semantics match ref:mpisppy/cylinders/hub.py:82-166:
+#   * rel_gap  <= options['rel_gap']   (gap = (inner-outer)/|inner|;
+#     when |inner| ~ 0 the denominator widens to max(|inner|,|outer|))
+#   * abs_gap  <= options['abs_gap']
+#   * inner bounds stalled for 'max_stalled_iters' hub iterations
+#
+# Not ported yet: the telemetry event stream (here the per-iteration
+# trace rows are appended directly), checkpoints and preemption, the
+# watchdog, fault plans and the dispatch-scheduler plumbing.
+###############################################################################
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+
+from mpisppy_tpu_torch import global_toc
+from mpisppy_tpu_torch.cylinders.spcommunicator import SPCommunicator
+from mpisppy_tpu_torch.cylinders.spoke import ConvergerSpokeType
+
+
+class Hub(SPCommunicator):
+    """Bound bookkeeping + termination (ref:cylinders/hub.py:28-243)."""
+
+    def __init__(self, opt, options: dict | None = None, spokes=None):
+        super().__init__(opt, options)
+        self.spokes = spokes or []
+        self.BestOuterBound = -math.inf  # min problems: lower bound
+        self.BestInnerBound = math.inf
+        self.latest_ib_char = ""
+        self.latest_ob_char = ""
+        self._inner_bound_update_iter = 0
+        self._iter = 0
+        self._t0 = time.monotonic()
+        # one row per hub iteration (iter, conv, bounds, gaps, chars, t)
+        self.trace: list[dict] = []
+        # sense-contradiction bookkeeping: the DISTINCT spokes whose
+        # bounds contradicted the CURRENT incumbent of each side
+        self._contra: dict[str, list] = {"outer": [], "inner": []}
+
+    # -- bound bookkeeping (ref:hub.py:207-243) ---------------------------
+    # Non-finite values never enter: a NaN outer bound would poison every
+    # later max() silently, and a +inf outer would fire gap termination.
+    def OuterBoundUpdate(self, new_bound: float, char: str = "*"):
+        if math.isfinite(new_bound) and new_bound > self.BestOuterBound:
+            self.BestOuterBound = new_bound
+            self.latest_ob_char = char
+        return self.BestOuterBound
+
+    def InnerBoundUpdate(self, new_bound: float, char: str = "*"):
+        if math.isfinite(new_bound) and new_bound < self.BestInnerBound:
+            self.BestInnerBound = new_bound
+            self.latest_ib_char = char
+            self._inner_bound_update_iter = self._iter
+        return self.BestInnerBound
+
+    def _validate_bound(self, sense: str, b: float) -> str | None:
+        """None when `b` is acceptable, else a rejection reason: non-
+        finite, or SENSE-VIOLATING (an outer bound above the incumbent or
+        an inner bound below the outer bound) by more than `bound_slack`
+        relative (default 5e-3)."""
+        if not math.isfinite(b):
+            return f"non-finite {sense} bound {b!r}"
+        slack = float(self.options.get("bound_slack", 5e-3))
+        if sense == "outer" and math.isfinite(self.BestInnerBound):
+            lim = self.BestInnerBound \
+                + slack * max(1.0, abs(self.BestInnerBound))
+            if b > lim:
+                return (f"sense-violating outer bound {b:.6g} > "
+                        f"inner {self.BestInnerBound:.6g} + slack")
+        if sense == "inner" and math.isfinite(self.BestOuterBound):
+            lim = self.BestOuterBound \
+                - slack * max(1.0, abs(self.BestOuterBound))
+            if b < lim:
+                return (f"sense-violating inner bound {b:.6g} < "
+                        f"outer {self.BestOuterBound:.6g} - slack")
+        return None
+
+    # -- gaps + termination (ref:hub.py:82-166) ---------------------------
+    def compute_gaps(self) -> tuple[float, float]:
+        abs_gap = self.BestInnerBound - self.BestOuterBound
+        nano = 1e-10
+        if self.BestInnerBound in (math.inf, -math.inf):
+            rel_gap = math.inf
+        else:
+            # reference semantics: divide by |inner|; only when the
+            # optimum is near zero fall back to the larger magnitude
+            denom = abs(self.BestInnerBound)
+            ob = abs(self.BestOuterBound)
+            near_zero = denom < 1e-6 * max(1.0, ob if math.isfinite(ob)
+                                           else 0.0)
+            if near_zero and math.isfinite(ob):
+                denom = max(denom, ob)
+            rel_gap = abs_gap / max(nano, denom)
+        return abs_gap, rel_gap
+
+    def determine_termination(self) -> bool:
+        abs_gap, rel_gap = self.compute_gaps()
+        opt = self.options
+        if "rel_gap" in opt and rel_gap <= opt["rel_gap"]:
+            global_toc(f"Terminating: rel_gap {rel_gap:.4e} <= "
+                       f"{opt['rel_gap']}", True)
+            self._term_reason = "converged"
+            return True
+        if "abs_gap" in opt and abs_gap <= opt["abs_gap"]:
+            global_toc(f"Terminating: abs_gap {abs_gap:.4e} <= "
+                       f"{opt['abs_gap']}", True)
+            self._term_reason = "converged"
+            return True
+        if "max_stalled_iters" in opt:
+            # the stall budget counts in EXCHANGE rounds
+            period = max(1, int(opt.get("spoke_sync_period", 1)))
+            if (self._iter - self._inner_bound_update_iter
+                    >= opt["max_stalled_iters"] * period
+                    and self.BestInnerBound < math.inf):
+                global_toc("Terminating: inner bound stalled", True)
+                self._term_reason = "stalled"
+                return True
+        return False
+
+    def is_converged(self) -> bool:
+        return self.determine_termination()
+
+
+class PHHub(Hub):
+    """PH as the hub algorithm (ref:cylinders/hub.py:462-573).  `opt` is
+    an algos.ph.PH driver; the hub installs itself as `opt.spcomm` so the
+    PH loop calls sync()/is_converged() each iteration."""
+
+    def setup_hub(self):
+        self.opt.spcomm = self
+        for sp in self.spokes:
+            sp.make_windows()
+        ext = getattr(self.opt, "extobject", None)
+        if ext is not None:
+            if hasattr(ext, "setup_hub"):
+                ext.setup_hub()
+            if hasattr(ext, "initialize_spoke_indices"):
+                ext.initialize_spoke_indices()
+
+    def _snapshot(self) -> dict:
+        """Tensor snapshot for classic spokes (ref:hub.py:517-532)."""
+        st = self.opt.state
+        batch = self.opt.batch
+        return {
+            "W": st.W,
+            "nonants": batch.nonants(st.solver.x),
+            "xbar_scen": st.xbar,
+            "xbar_nodes": st.xbar_nodes,
+            "iter": self._iter,
+            "bounds": (self.BestOuterBound, self.BestInnerBound),
+        }
+
+    def _harvest_all(self, only=None):
+        """Fold every spoke's latest result into the bound bookkeeping.
+        Non-finite bounds count a strike against the producing spoke
+        (disabled after `spoke_max_strikes`); sense-violating ones are
+        rejected without blame and recorded as contradictions against the
+        standing opposite incumbent."""
+        max_strikes = int(self.options.get("spoke_max_strikes", 3))
+        for j, sp in enumerate(self.spokes):
+            if only is not None and sp not in only:
+                continue
+            if getattr(sp, "disabled", False):
+                continue
+            b = sp.harvest()
+            if b is None:
+                continue
+            types = sp.converger_spoke_types
+            if ConvergerSpokeType.OUTER_BOUND in types:
+                sense = "outer"
+            elif ConvergerSpokeType.INNER_BOUND in types:
+                sense = "inner"
+            else:
+                continue  # cut/rc providers publish no bound
+            reason = self._validate_bound(sense, b)
+            if reason is not None:
+                # scrub the offending value from the spoke's monotone
+                # cache, or it would re-offer itself every sync
+                if getattr(sp, "bound", None) is not None:
+                    sp.bound = None
+                if reason.startswith("sense-violating"):
+                    self._note_contradiction(sense, sp, reason)
+                else:
+                    self._strike(j, sp, reason, max_strikes)
+                continue
+            ch = getattr(sp, "converger_spoke_char",
+                         type(sp).__name__[0])
+            if sense == "outer":
+                self.OuterBoundUpdate(b, ch)
+            else:
+                before = self.BestInnerBound
+                self.InnerBoundUpdate(b, ch)
+                # hub-side incumbent cache: BestInnerBound always has a
+                # backing solution, even if the spoke is later scrubbed
+                if (self.BestInnerBound < before
+                        and getattr(sp, "best_xhat", None) is not None):
+                    self._best_inner_xhat = sp.best_xhat
+            # an accepted bound is consistent with the opposite incumbent
+            other = "inner" if sense == "outer" else "outer"
+            self._contra[other] = []
+            sp.trace.append((self._iter, float(b)))
+
+    def _strike(self, j: int, sp, reason: str, max_strikes: int):
+        """One unambiguously-garbage (non-finite) bound = one strike; K
+        strikes disable the spoke."""
+        sp.strikes = getattr(sp, "strikes", 0) + 1
+        global_toc(f"hub: rejected bound from spoke {j} "
+                   f"({type(sp).__name__}): {reason} "
+                   f"[strike {sp.strikes}/{max_strikes}]",
+                   self.options.get("display_progress", False))
+        if sp.strikes >= max_strikes and not getattr(sp, "disabled",
+                                                     False):
+            sp.disabled = True
+            global_toc(f"hub: DISABLED spoke {j} ({type(sp).__name__}) "
+                       f"after {sp.strikes} strikes; continuing with "
+                       f"the remaining spokes", True)
+
+    def _note_contradiction(self, sense: str, sp, reason: str):
+        """A finite sense-violating bound is ambiguous: EITHER it or the
+        standing opposite incumbent is garbage.  Contradictions from
+        enough DISTINCT spokes (bound_evict_contras, default 3) evict the
+        incumbent; one rogue spoke can only log its dissent."""
+        global_toc(f"hub: rejected {reason}",
+                   self.options.get("display_progress", False))
+        other = "outer" if sense == "inner" else "inner"
+        rec = self._contra[other]
+        if sp not in rec:
+            rec.append(sp)
+        if len(rec) >= int(self.options.get("bound_evict_contras", 3)):
+            self._evict_incumbent(other, rec)
+
+    def _evict_incumbent(self, side: str, contradictors: list):
+        """Reset a contradicted incumbent (no strikes, no blame); the
+        surviving producers re-establish the bound next exchange."""
+        val = self.BestOuterBound if side == "outer" \
+            else self.BestInnerBound
+        global_toc(f"hub: EVICTING the {side} incumbent ({val:.6g}) — "
+                   f"contradicted by {len(contradictors)} distinct "
+                   f"spokes", True)
+        if side == "outer":
+            self.BestOuterBound = -math.inf
+            self.latest_ob_char = ""
+            # re-fold the hub's own certified trivial bound
+            if (getattr(self, "_trivial_bound_folded", False)
+                    and getattr(self.opt, "trivial_bound_certified",
+                                False)
+                    and self.opt.trivial_bound is not None):
+                self.OuterBoundUpdate(self.opt.trivial_bound, "T")
+        else:
+            self.BestInnerBound = math.inf
+            self.latest_ib_char = ""
+            self._best_inner_xhat = None
+            self._inner_bound_update_iter = self._iter
+        self._contra[side] = []
+
+    def sync(self):
+        """One hub<->spoke exchange: harvest the spokes' results (fused
+        spokes every iteration, classic ones every spoke_sync_period),
+        then launch the classic spokes' next round on a fresh snapshot,
+        then record the iteration's trace row."""
+        self._iter += 1
+        period = max(1, int(self.options.get("spoke_sync_period", 1)))
+        do_spokes = (self._iter <= 2) or (self._iter % period == 0)
+        fused = [sp for sp in self.spokes if getattr(sp, "fused", False)]
+        classic = [sp for sp in self.spokes
+                   if not getattr(sp, "fused", False)]
+        self._harvest_all(only=fused)
+        if do_spokes:
+            self._harvest_all(only=classic)
+            ext = getattr(self.opt, "extobject", None)
+            if ext is not None and hasattr(ext, "sync_with_spokes"):
+                ext.sync_with_spokes()
+        if (do_spokes and classic) or self.options.get("publish_snapshots"):
+            payload = self._snapshot()
+            self.from_hub.put(payload)
+            if do_spokes:
+                for sp in classic:
+                    if not getattr(sp, "disabled", False):
+                        sp.update(payload)
+        abs_gap, rel_gap = self.compute_gaps()
+        conv = self.opt._read_conv()
+        self.trace.append({
+            "iter": self._iter, "conv": conv,
+            "outer": self.BestOuterBound, "inner": self.BestInnerBound,
+            "abs_gap": abs_gap, "rel_gap": rel_gap,
+            "ob_char": self.latest_ob_char, "ib_char": self.latest_ib_char,
+            "t": time.monotonic() - self._t0,
+        })
+        if self.options.get("display_progress"):
+            global_toc(
+                f"iter {self._iter:4d} conv {conv:9.3e}"
+                f" outer {self.BestOuterBound:12.5g}"
+                f" inner {self.BestInnerBound:12.5g} rel_gap {rel_gap:8.3e}"
+                f" ({self.latest_ob_char}/{self.latest_ib_char})", True)
+
+    def is_converged(self) -> bool:
+        # the PH trivial bound is the initial outer bound (ref:hub.py:544)
+        # — only when its dual-residual certificate held
+        if (self.opt.trivial_bound is not None
+                and not getattr(self, "_trivial_bound_folded", False)
+                and getattr(self.opt, "trivial_bound_certified", False)):
+            self._trivial_bound_folded = True
+            self.OuterBoundUpdate(self.opt.trivial_bound, "T")
+        return self.determine_termination()
+
+    def main(self):
+        """ref:cylinders/hub.py:571-573."""
+        return self.opt.ph_main()
+
+    def finalize(self):
+        # one last harvest so late results count; fused drivers first
+        # sync their pipelined scalar cache to the final iterate
+        if hasattr(self.opt, "flush_scalars"):
+            self.opt.flush_scalars()
+        self._harvest_all()
+        return self.BestInnerBound
+
+    def hub_finalize(self):
+        abs_gap, rel_gap = self.compute_gaps()
+        global_toc(f"Final bounds: outer {self.BestOuterBound:.6g} "
+                   f"inner {self.BestInnerBound:.6g} rel_gap {rel_gap:.3e}",
+                   self.options.get("display_progress", False))
+
+    # -- solution access --------------------------------------------------
+    def best_nonants(self):
+        """(num_nodes, N) numpy nonants of the solution that achieved
+        BestInnerBound (ref:spin_the_wheel.py:171-195); falls back to the
+        final xbar when no incumbent exists."""
+        winner, best = None, math.inf
+        for sp in self.spokes:
+            if (ConvergerSpokeType.INNER_BOUND in sp.converger_spoke_types
+                    and not getattr(sp, "disabled", False)
+                    and sp.bound is not None and math.isfinite(sp.bound)
+                    and sp.bound < best
+                    and self._validate_bound("inner", sp.bound) is None
+                    and getattr(sp, "best_xhat", None) is not None):
+                winner, best = sp, sp.bound
+        xhat = None
+        if winner is not None:
+            xhat = np.asarray(winner.best_xhat)
+        elif getattr(self, "_best_inner_xhat", None) is not None:
+            xhat = np.asarray(self._best_inner_xhat)
+        if xhat is not None:
+            if xhat.ndim == 1:
+                num_nodes = self.opt.batch.tree.num_nodes
+                return np.broadcast_to(xhat, (num_nodes, xhat.shape[0]))
+            return xhat
+        return self.opt.state.xbar_nodes.cpu().numpy()

@@ -1,0 +1,66 @@
+###############################################################################
+# WheelSpinner: top-level orchestration (port of the core of
+# mpisppy_tpu/spin_the_wheel.py; ref:mpisppy/spin_the_wheel.py:18-242).
+#
+# All cylinders drive one device from one host process.  hub_dict /
+# list_of_spoke_dicts keep the reference's shape:
+#
+#   hub_dict = {"hub_class": PHHub, "hub_kwargs": {"options": {...}},
+#               "opt_class": FusedPH, "opt_kwargs": {...}}
+#   spoke_dict = {"spoke_class": FusedLagrangianOuterBound,
+#                 "opt_kwargs": {"options": {...}}}
+#
+# Preemption handlers and emergency checkpoints are not ported yet.
+###############################################################################
+from __future__ import annotations
+
+from mpisppy_tpu_torch import global_toc
+
+
+class WheelSpinner:
+    """ref:mpisppy/spin_the_wheel.py:18."""
+
+    def __init__(self, hub_dict: dict, list_of_spoke_dict=None):
+        self.hub_dict = hub_dict
+        self.list_of_spoke_dict = list_of_spoke_dict or []
+        self.spcomm = None
+        self.opt = None
+
+    def build(self):
+        """Construct opt + spokes + hub without running."""
+        if self.spcomm is not None:
+            return self
+        hd = self.hub_dict
+        self.opt = hd["opt_class"](**hd.get("opt_kwargs", {}))
+        spokes = []
+        for sd in self.list_of_spoke_dict:
+            kw = dict(sd.get("opt_kwargs", {}))
+            spokes.append(sd["spoke_class"](self.opt, kw.get("options", kw)))
+        hub_kwargs = dict(hd.get("hub_kwargs", {}))
+        self.spcomm = hd["hub_class"](self.opt,
+                                      hub_kwargs.get("options", {}),
+                                      spokes=spokes)
+        self.spcomm.make_windows()
+        self.spcomm.setup_hub()
+        return self
+
+    def spin(self):
+        """Build, run the hub algorithm to completion, terminate and
+        finalize (ref:spin_the_wheel.py:43-149 run())."""
+        self.build()
+        global_toc("Starting wheel spin", False)
+        self.spcomm.main()
+        self.spcomm.send_terminate()
+        self.spcomm.finalize()
+        self.spcomm.hub_finalize()
+        self.spcomm.free_windows()
+        return self
+
+    # -- results (ref:spin_the_wheel.py:151-222) --------------------------
+    @property
+    def BestInnerBound(self):
+        return self.spcomm.BestInnerBound
+
+    @property
+    def BestOuterBound(self):
+        return self.spcomm.BestOuterBound

@@ -1,0 +1,73 @@
+# Import guard for the PyTorch / CUDA port: no module under
+# mpisppy_tpu_torch/, and not chip_smoke.py, imports JAX or anything of
+# the JAX package (mpisppy_tpu), not even its numpy-only modules.
+# Checked with an AST scan of every import statement, relative imports
+# resolved against the module's package.
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "mpisppy_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "mpisppy_tpu")
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py"))
+    smoke = ROOT / "chip_smoke.py"
+    if smoke.exists():
+        files.append(smoke)
+    return files
+
+
+def imported_modules(src: str, package: str):
+    """Every module an import statement in `src` names."""
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                parts = package.split(".")
+                base = parts[:len(parts) - node.level + 1]
+                yield ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module
+
+
+def forbidden(mod: str) -> bool:
+    return any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_tree_is_scanned():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for must in ("mpisppy_tpu_torch/ops/pdhg_window.py",
+                 "mpisppy_tpu_torch/ops/pdhg.py",
+                 "mpisppy_tpu_torch/core/batch.py",
+                 "mpisppy_tpu_torch/algos/fused_wheel.py",
+                 "mpisppy_tpu_torch/cylinders/hub.py",
+                 "mpisppy_tpu_torch/spin_the_wheel.py",
+                 "mpisppy_tpu_torch/convert.py", "chip_smoke.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    rel = path.relative_to(ROOT)
+    package = ".".join(rel.with_suffix("").parts[:-1])
+    bad = [m for m in imported_modules(path.read_text(), package)
+           if forbidden(m)]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_guard_catches_forbidden_imports():
+    """Plain, from-, aliased, dotted and relative imports of the JAX
+    package are all found; the port's own name is not a false hit."""
+    src = ("import jax.numpy as jnp\nfrom mpisppy_tpu.models import sslp\n"
+           "import mpisppy_tpu_torch\nfrom mpisppy_tpu_torch.ops import pdhg\n"
+           "from ..ops import boxqp\n")
+    mods = list(imported_modules(src, "mpisppy_tpu.algos"))
+    assert [m for m in mods if forbidden(m)] == [
+        "jax.numpy", "mpisppy_tpu.models", "mpisppy_tpu.ops"]

@@ -1,0 +1,111 @@
+# Port parity: the PDHG restart window.  The port's run_window on CPU
+# tensors is the plain version of the CUDA kernel (csrc/pdhg_window.cu);
+# it is held here against the JAX package's Pallas kernel run in
+# interpret mode (mpisppy_tpu/ops/pdhg_pallas.py::run_window), the
+# function the CUDA kernel replaces.  Both engines of the Pallas kernel
+# (single-buffer grid, double-buffered pipeline) are covered, in f32 and
+# in the bf16x3 split mode (on the CPU only the interpret path computes
+# true bf16x3: XLA treats Precision.HIGH as HIGHEST there).  Tolerance:
+# atol/rtol 1e-4 on x and y after one 40-iteration window, as in
+# tests/test_pdhg_pallas.py — both sides run f32 arithmetic, with the
+# matvec sums taken in another order.
+import numpy as np
+import pytest
+import torch
+
+from mpisppy_tpu.core import batch as jbatch
+from mpisppy_tpu.models import sslp as jsslp
+from mpisppy_tpu.ops import pdhg_pallas
+from mpisppy_tpu.ops.boxqp import make_boxqp as jmake_boxqp
+from mpisppy_tpu_torch import convert
+from mpisppy_tpu_torch.ops import pdhg_window
+
+torch.set_num_threads(1)
+
+N_ITERS = 40
+TOL = 1e-4
+
+
+def _random_lp(S=13, m=7, n=11, seed=0):
+    """Shared dense A, per-scenario c and row bounds; two rows are
+    one-sided (+-inf bounds), as on sslp's capacity rows."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n))
+    x_feas = rng.uniform(0.2, 0.8, size=(S, n))
+    b = np.einsum("mn,sn->sm", A, x_feas)
+    bl = b - rng.uniform(0.5, 1.5, size=(S, m))
+    bu = b + rng.uniform(0.5, 1.5, size=(S, m))
+    bl[:, 0] = -np.inf
+    bu[:, 1] = np.inf
+    return jmake_boxqp(c=rng.normal(size=(S, n)), A=A, bl=bl, bu=bu,
+                       l=np.zeros((S, n)), u=np.ones((S, n)))
+
+
+def _sslp_qp(S=13):
+    inst = jsslp.synthetic_instance(5, 15, seed=0)
+    specs = [jsslp.scenario_creator(nm, instance=inst, num_scens=S,
+                                    lp_relax=True)
+             for nm in jsslp.scenario_names_creator(S)]
+    return jbatch.from_specs(specs).qp
+
+
+def _window_inputs(jqp, seed=0):
+    """A box-feasible primal, a nonzero dual, window sums, per-scenario
+    step sizes and a done mask with three frozen lanes."""
+    rng = np.random.default_rng(seed)
+    c = np.asarray(jqp.c)
+    S, n = c.shape
+    m = np.asarray(jqp.A).shape[0]
+    l = np.broadcast_to(np.asarray(jqp.l), (S, n))  # noqa: E741
+    u = np.broadcast_to(np.asarray(jqp.u), (S, n))
+    x = np.clip(rng.uniform(-0.5, 1.5, (S, n)), l, u).astype(np.float32)
+    y = rng.normal(scale=0.1, size=(S, m)).astype(np.float32)
+    xs = rng.normal(size=(S, n)).astype(np.float32)
+    ys = rng.normal(size=(S, m)).astype(np.float32)
+    L = np.linalg.norm(np.asarray(jqp.A), 2)
+    omega = rng.uniform(0.5, 2.0, S)
+    tau = (0.99 * omega / L).astype(np.float32)
+    sigma = (0.99 / (omega * L)).astype(np.float32)
+    done = np.zeros(S, bool)
+    done[[1, 6, S - 1]] = True
+    return x, y, xs, ys, tau, sigma, done
+
+
+@pytest.mark.parametrize("problem,precision,pipeline", [
+    ("random", None, False), ("random", "bf16x3", True),
+    ("sslp", None, True), ("sslp", "bf16x3", False)])
+def test_plain_window_matches_pallas_interpret(problem, precision, pipeline):
+    jqp = _random_lp() if problem == "random" else _sslp_qp()
+    args = _window_inputs(jqp)
+    jout = pdhg_pallas.run_window(jqp, *args, N_ITERS, tile_s=4,
+                                  precision=precision, pipeline=pipeline,
+                                  interpret=True)
+    tqp = convert.boxqp_from_arrays(convert.arrays_of(jqp), device="cpu")
+    targs = [torch.as_tensor(a) for a in args]
+    tout = pdhg_window.run_window(tqp, *targs, N_ITERS, precision=precision)
+    for name, j, t in zip(("x", "y", "x_sum", "y_sum"), jout, tout):
+        j = np.asarray(j)
+        assert np.all(np.isfinite(t.numpy())), name
+        tol = TOL if name in ("x", "y") else N_ITERS * TOL
+        np.testing.assert_allclose(t.numpy(), j, atol=tol, rtol=tol,
+                                   err_msg=name)
+    # frozen lanes come back bit-unchanged; their sums accumulate
+    done = args[-1]
+    x, y, xs, ys = args[:4]
+    np.testing.assert_array_equal(tout[0].numpy()[done], x[done])
+    np.testing.assert_array_equal(tout[1].numpy()[done], y[done])
+    np.testing.assert_allclose(tout[2].numpy()[done],
+                               xs[done] + N_ITERS * x[done], rtol=1e-5)
+
+
+def test_bf16x3_differs_from_f32_but_stays_close():
+    """The bf16x3 mode really splits (its result is not the f32 one) and
+    stays within the split's ~1e-5 relative error per matvec."""
+    jqp = _sslp_qp()
+    tqp = convert.boxqp_from_arrays(convert.arrays_of(jqp), device="cpu")
+    targs = [torch.as_tensor(a) for a in _window_inputs(jqp)]
+    f32 = pdhg_window.run_window(tqp, *targs, N_ITERS)
+    b3 = pdhg_window.run_window(tqp, *targs, N_ITERS, precision="bf16x3")
+    assert not torch.equal(f32[1], b3[1])
+    torch.testing.assert_close(b3[0], f32[0], atol=1e-3, rtol=1e-3)
+
