@@ -2,15 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version at the main path's shapes, runs a
-small wheel on the card and on the CPU and compares their bounds, then
-drives the headline workload — the sslp 15x45 fused PH wheel at 10,000
-scenarios — through WheelSpinner(hub_dict, spokes).spin() and shows
-that it went through the kernel.  One line per phase; then one JSON line
-describing each kernel, then the last line
-{"ok": true, "device": {...}}.  Any failed check raises (exit code 1);
-without CUDA the script exits 2 and prints no result.
+Builds the port's CUDA kernel from the sources in this checkout and
+drives its two main paths:
+
+* sslp — holds the box-row kernel against its plain PyTorch version at
+  the main path's shapes, runs a small wheel on the card and on the CPU
+  and compares their bounds, then drives the headline workload, the
+  sslp 15x45 fused PH wheel at 10,000 scenarios;
+* ccopf --soc — the branch-flow SOCP relaxation of AC power flow on a
+  3-stage tree: holds the kernel's SOC instantiation against its plain
+  version (ccopf at 10,000 scenarios and the 33-bus feeder), runs the
+  (3,3) wheel on the card and on the CPU, then the (100,100) wheel at
+  10,000 scenarios;
+
+each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
+counts set to 0 just before it and read just after, to show that it went
+through its kernel.  One line per phase; then one JSON line describing
+each kernel, then the last line {"ok": true, "device": {...}}.  Any
+failed check raises (exit code 1); without CUDA the script exits 2 and
+prints no result.
 """
 import json
 import math
@@ -36,6 +46,20 @@ HEADLINE_MAX_ITERS = 150              # cap: a few minutes on one H100
 # window: f32 differs only in summation order (~1e-6 measured); bf16x3
 # splits a value whose last bits differ, so its terms move by ~2^-16
 TOLS = {"f32": (1e-4, 1e-4), "bf16x3": (1e-3, 1e-3)}
+# ccopf --soc (tests/test_cones.py's wheel options, the fused wheel)
+CCOPF_BFS = (100, 100)                # 10,000 scenarios, 101 tree nodes
+CCOPF_SMALL_BFS = (3, 3)
+CCOPF_MAX_ITERS = 80
+WIDE_FEEDER_BUSES, WIDE_SCENS = 33, 256   # the wider parity shape
+# The JAX package's fused wheel at CCOPF_BFS on the CPU, the same options
+# (tools/ccopf_soc_jax_reference.py 100 100): (outer, inner).  Its
+# bounds cross by 1.9e-5 relative, inside the hub's own bound_slack
+# (5e-3 relative), with which it accepted both; the port's must agree
+# with them to 1e-3 relative and cross by no more than that slack.
+CCOPF_JAX_BOUNDS = (72.08553314208984, 72.08416748046875)
+HUB_BOUND_SLACK = 5e-3
+# live duals after a window lie in the polar cone up to f32 rounding
+POLAR_TOL = 1e-6
 
 
 def phase(name, **fields):
@@ -59,6 +83,22 @@ def sslp_batch(S, n_servers, n_clients, device):
                                    lp_relax=True)
              for nm in sslp.scenario_names_creator(S)]
     return batch_mod.from_specs(specs, device=device)
+
+
+def ccopf_batch(bfs, device, n_buses=4):
+    """The ccopf --soc batch on a feeder of n_buses (the CLI's default:
+    4) over the (b1, b2) tree."""
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import ccopf
+    inst = ccopf.feeder_instance(n_buses=n_buses)
+    specs = [ccopf.scenario_creator(nm, instance=inst, branching_factors=bfs,
+                                    soc=True)
+             for nm in ccopf.scenario_names_creator(bfs[0] * bfs[1])]
+    b = batch_mod.from_specs(specs, tree=ccopf.make_tree(bfs, inst),
+                             device=device)
+    if b.qp.cones is None:
+        raise AssertionError("ccopf --soc batch lost its cone spec")
+    return b
 
 
 def window_inputs(batch, seed=0):
@@ -128,16 +168,23 @@ def window_bound_ms(args, mode):
     """Least time one window could take on an H100: the larger of the
     bytes it must move (each input read once, each output written once)
     over the memory rate, and its operations over the peak rate of
-    their type (bf16 products at the tensor-core rate in bf16x3 mode)."""
+    their type (bf16 products at the tensor-core rate in bf16x3 mode).
+    SOC rows add about 6 flops each per iteration (shift, square, sum,
+    scale, subtract, window sum) and each block a sqrt and a divide."""
     qp, x, y = args[0], args[1], args[2]
     S, n = x.shape
     m = y.shape[1]
     it = args[8]
     ins = [qp.A, qp.c, qp.q, qp.l, qp.u, qp.bl, qp.bu] + list(args[1:8])
+    if qp.cones is not None:
+        ins += list(qp.cones.csr(x.device))
     nbytes = sum(t.numel() * t.element_size() for t in ins) \
         + 2 * (x.numel() + y.numel()) * 4
     mac_flops = 4.0 * m * n * S * it            # A'y and A v per iteration
     elem_flops = (9.0 * n + 6.0 * m) * S * it   # prox, clips, sums
+    if qp.cones is not None:
+        soc_rows = int(qp.cones.is_soc.sum())
+        elem_flops += (6.0 * soc_rows + 2.0 * qp.cones.num_cones) * S * it
     if mode == "bf16x3":
         t_ops = 3 * mac_flops / BF16_FLOPS + elem_flops / F32_FLOPS
     else:
@@ -147,18 +194,34 @@ def window_bound_ms(args, mode):
                                        else "bytes")
 
 
-def wheel(batch, iter_precision, max_iterations, tol, subproblem_windows):
-    from mpisppy_tpu_torch.algos import fused_wheel as fw
+def sslp_options(iter_precision, max_iterations, tol, subproblem_windows):
+    """bench_sslp_gap's PH options."""
     from mpisppy_tpu_torch.algos import ph as ph_mod
-    from mpisppy_tpu_torch.cylinders import spoke
-    from mpisppy_tpu_torch.cylinders.hub import PHHub
     from mpisppy_tpu_torch.ops import pdhg
-    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
-    opts = ph_mod.PHOptions(
+    return ph_mod.PHOptions(
         default_rho=20.0, max_iterations=max_iterations, conv_thresh=0.0,
         subproblem_windows=subproblem_windows,
         pdhg=pdhg.PDHGOptions(tol=tol, restart_period=N_ITERS,
                               iter_precision=iter_precision))
+
+
+def ccopf_options():
+    """tests/test_cones.py's ccopf --soc options: rho 10, PDHG tol 1e-6,
+    f32 iteration matvecs, capped at CCOPF_MAX_ITERS hub iterations."""
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.ops import pdhg
+    return ph_mod.PHOptions(default_rho=10.0,
+                            max_iterations=CCOPF_MAX_ITERS, conv_thresh=0.0,
+                            pdhg=pdhg.PDHGOptions(tol=1e-6))
+
+
+def wheel(batch, opts):
+    """The fused PH wheel (PH hub, fused Lagrangian and x̂-x̄ spokes) to
+    a 1% gap; returns the spinner and its wall seconds."""
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
     hub = {"hub_class": PHHub,
            "hub_kwargs": {"options": {"rel_gap": 0.01}},
            "opt_class": fw.FusedPH,
@@ -175,6 +238,191 @@ def wheel(batch, iter_precision, max_iterations, tol, subproblem_windows):
     return ws, time.perf_counter() - t0
 
 
+def reset_launches():
+    from mpisppy_tpu_torch.ops import pdhg_window
+    for name in pdhg_window.run_window.launches:
+        pdhg_window.run_window.launches[name] = 0
+
+
+def kernel_entry(name, replaces, launches, err, timing):
+    ms, plain, bound, by = timing
+    return {"name": name, "route": "cuda",
+            "source": "mpisppy_tpu_torch/csrc/pdhg_window.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def parity(args, mode, label, S, **extra):
+    """Kernel against its plain version on the same inputs; done lanes
+    must come back bit-unchanged.  Returns (max_abs_err, kernel out)."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    k = pdhg_window.run_window(*args, precision=mode)
+    r = pdhg_window.run_window_reference(*args, precision=mode)
+    torch.cuda.synchronize()
+    err, ok = max_err(k, r, mode)
+    done = args[7]
+    frozen = torch.equal(k[0][done], args[1][done]) \
+        and torch.equal(k[1][done], args[2][done])
+    phase(label, S=S, mode=mode, max_abs_err=err,
+          tol=f"{TOLS[mode][0]}+{TOLS[mode][1]}*|plain|", ok=ok,
+          done_lanes_unchanged=frozen, **extra)
+    if not (ok and frozen):
+        raise AssertionError(f"{label}: window kernel disagrees ({mode})")
+    return err, k
+
+
+def window_times(args, label, scens, **extra):
+    """Kernel, plain and bound ms of one window at each S in `scens`
+    (the larger ones tiled from `args`), in f32 and bf16x3."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    S0 = args[1].shape[0]
+    timing = {}
+    for S in scens:
+        a = args if S == S0 else tiled(args, S // S0)
+        for mode in ("f32", "bf16x3"):
+            ms = time_ms(lambda: pdhg_window.run_window(*a, precision=mode))
+            plain = time_ms(lambda: pdhg_window.run_window_reference(
+                *a, precision=mode), reps=2)
+            bound, by = window_bound_ms(a, mode)
+            timing[S, mode] = (ms, plain, bound, by)
+            phase(label, S=S, mode=mode, n_iters=N_ITERS,
+                  kernel_ms=round(ms, 3), plain_ms=round(plain, 3),
+                  bound_ms=round(bound, 4), bound_by=by, **extra)
+        del a
+    torch.cuda.empty_cache()
+    return timing
+
+
+def small_wheel(label, model, gpu_batch, cpu_batch, opts):
+    """The same wheel on the card and on the CPU: both certify 1% and
+    their bounds agree to 1e-3 relative."""
+    g, g_s = wheel(gpu_batch, opts)
+    c, c_s = wheel(cpu_batch, opts)
+    g_gap = g.spcomm.compute_gaps()[1]
+    c_gap = c.spcomm.compute_gaps()[1]
+    rel = [abs(a - b) / abs(b) for a, b in
+           ((g.BestOuterBound, c.BestOuterBound),
+            (g.BestInnerBound, c.BestInnerBound))]
+    phase(label, S=gpu_batch.num_scenarios, model=model,
+          gpu_iters=g.spcomm._iter, cpu_iters=c.spcomm._iter,
+          outer=g.BestOuterBound, inner=g.BestInnerBound, rel_gap=g_gap,
+          cpu_outer=c.BestOuterBound, cpu_inner=c.BestInnerBound,
+          cpu_rel_gap=c_gap, max_rel_diff=max(rel), gpu_s=round(g_s, 2),
+          cpu_s=round(c_s, 2))
+    if not (g_gap <= 0.01 and c_gap <= 0.01 and max(rel) <= 1e-3):
+        raise AssertionError(f"{label}: no 1% certificate on the card or "
+                             "the CPU, or their bounds disagree")
+
+
+def main_wheel(label, kernel, batch, opts, slack=0.0, **fields):
+    """Drive one main path with the launch counts set to 0 just before
+    and read just after; its kernel must have launched, and its bounds
+    be finite and ordered (outer <= inner + slack * max(1, |inner|))."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    reset_launches()
+    ws, secs = wheel(batch, opts)
+    launches = dict(pdhg_window.run_window.launches)
+    outer, inner = ws.BestOuterBound, ws.BestInnerBound
+    rel_gap = ws.spcomm.compute_gaps()[1]
+    iters = ws.spcomm._iter
+    phase(label, S=batch.num_scenarios, **fields, iterations=iters,
+          outer=outer, inner=inner, rel_gap=rel_gap,
+          certified=rel_gap <= 0.01, seconds=round(secs, 2),
+          kernel_launches=launches[kernel],
+          launches_per_hub_iter=round(launches[kernel] / max(1, iters), 2),
+          all_launches=json.dumps(launches).replace(" ", ""))
+    if not (launches[kernel] > 0 and math.isfinite(outer)
+            and math.isfinite(inner)
+            and outer <= inner + slack * max(1.0, abs(inner))):
+        raise AssertionError(f"{label}: no {kernel} launches, or bounds "
+                             "not finite and ordered")
+    return ws, launches[kernel]
+
+
+def sslp_path(dev):
+    """The sslp phases: box-row parity, window times, the S=64 wheel on
+    card and CPU, and the sslp 15x45 headline at S=10,000."""
+    batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    args = window_inputs(batch)
+    errs = {mode: parity(args, mode, "parity", HEADLINE_SCENS)[0]
+            for mode in ("f32", "bf16x3")}
+    tail = sslp_batch(64, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    parity(window_inputs(tail, seed=1), "bf16x3", "parity", 64)
+    timing = window_times(args, "window_time", SWEEP_SCENS)
+    del tail
+
+    small_wheel("wheel_small", "sslp_5_15", sslp_batch(64, 5, 15, dev),
+                sslp_batch(64, 5, 15, "cpu"),
+                sslp_options(None, 200, 1e-7, 10))
+
+    # the headline: sslp 15x45, 10,000 scenarios, bench_sslp_gap's
+    # options, through the kernel
+    _, launches = main_wheel(
+        "headline", "pdhg_window", batch,
+        sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8),
+        model="sslp_15_45", iter_precision="bf16x3")
+    return kernel_entry("pdhg_window", "mpisppy_tpu/ops/pdhg_pallas.py:663",
+                        launches, errs["bf16x3"],
+                        timing[HEADLINE_SCENS, "bf16x3"])
+
+
+def ccopf_path(dev):
+    """The ccopf --soc phases: SOC-kernel parity (ccopf at S=10,000 and
+    the 33-bus feeder), window times, the (3,3) wheel on card and CPU,
+    and the (100,100) wheel at S=10,000."""
+    from mpisppy_tpu_torch.ops import cones
+    S = CCOPF_BFS[0] * CCOPF_BFS[1]
+    t0 = time.perf_counter()
+    batch = ccopf_batch(CCOPF_BFS, dev)
+    phase("ccopf_build", S=S, n=batch.qp.n, m=batch.qp.m,
+          soc_blocks=batch.qp.cones.num_cones,
+          soc_rows=int(batch.qp.cones.is_soc.sum()),
+          tree_nodes=batch.tree.num_nodes,
+          seconds=round(time.perf_counter() - t0, 2))
+    args = window_inputs(batch)
+    errs = {}
+    for mode in ("f32", "bf16x3"):
+        # the iterates lie in the polar cone (frozen lanes keep the
+        # solver's polar-cone duals)
+        err, k = parity(args, mode, "parity_soc", S, model="ccopf_soc")
+        dcr = float(cones.dual_cone_residual_rows(batch.qp.cones,
+                                                  k[1]).max())
+        phase("parity_soc", S=S, mode=mode, polar_cone_residual=dcr,
+              tol=POLAR_TOL)
+        if not dcr <= POLAR_TOL:
+            raise AssertionError("SOC kernel: duals left the polar cone")
+        errs[mode] = err
+    wide = ccopf_batch((WIDE_SCENS, 1), dev, n_buses=WIDE_FEEDER_BUSES)
+    parity(window_inputs(wide, seed=2), "f32", "parity_soc", WIDE_SCENS,
+           model=f"ccopf_soc_{WIDE_FEEDER_BUSES}bus", n=wide.qp.n,
+           m=wide.qp.m, soc_blocks=wide.qp.cones.num_cones)
+    del wide
+    timing = window_times(args, "window_time_soc", SWEEP_SCENS,
+                          model="ccopf_soc")
+
+    small_wheel("wheel_soc_small", "ccopf_soc_3x3",
+                ccopf_batch(CCOPF_SMALL_BFS, dev),
+                ccopf_batch(CCOPF_SMALL_BFS, "cpu"), ccopf_options())
+
+    ws, launches = main_wheel(
+        "ccopf_soc", "pdhg_window_soc", batch, ccopf_options(),
+        slack=HUB_BOUND_SLACK, model="ccopf_soc",
+        bfs="x".join(map(str, CCOPF_BFS)), iter_precision="f32")
+    nodes = ws.spcomm.best_nonants().shape[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        (ws.BestOuterBound, ws.BestInnerBound), CCOPF_JAX_BOUNDS))
+    phase("ccopf_soc", best_nonants_rows=nodes,
+          jax_outer=CCOPF_JAX_BOUNDS[0], jax_inner=CCOPF_JAX_BOUNDS[1],
+          max_rel_diff_vs_jax=rel)
+    if nodes != batch.tree.num_nodes or rel > 1e-3:
+        raise AssertionError("ccopf_soc: not one best_nonants row per tree "
+                             "node, or bounds off the JAX reference")
+    return kernel_entry("pdhg_window_soc",
+                        "mpisppy_tpu/ops/pdhg_pallas.py:192", launches,
+                        errs["f32"], timing[S, "f32"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -185,12 +433,12 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
-    # 1. the card
+    # the card
     phase("card", nvidia_smi=f"'{card_line()}'", torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
     print(card_line(), flush=True)
 
-    # 2. build the kernel from this checkout's sources
+    # build the kernel (both instantiations) from this checkout's sources
     t0 = time.perf_counter()
     log = pdhg_window.build()
     regs = sorted({ln.split("Used ")[1].split(",")[0]
@@ -199,101 +447,11 @@ def main() -> int:
           seconds=round(time.perf_counter() - t0, 2),
           ptxas_registers="/".join(regs))
 
-    # 3. kernel against its plain version at the main path's shapes
-    batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
-    args = window_inputs(batch)
-    errs = {}
-    for mode in ("f32", "bf16x3"):
-        k = pdhg_window.run_window(*args, precision=mode)
-        r = pdhg_window.run_window_reference(*args, precision=mode)
-        torch.cuda.synchronize()
-        err, ok = max_err(k, r, mode)
-        done = args[7]
-        frozen = torch.equal(k[0][done], args[1][done]) \
-            and torch.equal(k[1][done], args[2][done])
-        phase("parity", S=HEADLINE_SCENS, mode=mode, max_abs_err=err,
-              tol=f"{TOLS[mode][0]}+{TOLS[mode][1]}*|plain|", ok=ok,
-              done_lanes_unchanged=frozen)
-        if not (ok and frozen):
-            raise AssertionError(f"window kernel disagrees ({mode})")
-        errs[mode] = err
-    tail = sslp_batch(64, SSLP_SERVERS, SSLP_CLIENTS, dev)
-    targs = window_inputs(tail, seed=1)
-    err, ok = max_err(pdhg_window.run_window(*targs, precision="bf16x3"),
-                      pdhg_window.run_window_reference(*targs,
-                                                       precision="bf16x3"),
-                      "bf16x3")
-    phase("parity", S=64, mode="bf16x3", max_abs_err=err,
-          tol=f"{TOLS['bf16x3'][0]}+{TOLS['bf16x3'][1]}*|plain|", ok=ok)
-    if not ok:
-        raise AssertionError("window kernel disagrees at the tail shape")
-
-    timing = {}
-    for S in SWEEP_SCENS:
-        a = args if S == HEADLINE_SCENS else tiled(args, S // HEADLINE_SCENS)
-        for mode in ("f32", "bf16x3"):
-            ms = time_ms(lambda: pdhg_window.run_window(*a, precision=mode))
-            plain = time_ms(lambda: pdhg_window.run_window_reference(
-                *a, precision=mode), reps=2)
-            bound, by = window_bound_ms(a, mode)
-            timing[S, mode] = (ms, plain, bound, by)
-            phase("window_time", S=S, mode=mode, n_iters=N_ITERS,
-                  kernel_ms=round(ms, 3), plain_ms=round(plain, 3),
-                  bound_ms=round(bound, 4), bound_by=by)
-        del a
+    kernels = [sslp_path(dev)]
     torch.cuda.empty_cache()
+    kernels.append(ccopf_path(dev))
 
-    # 4. small wheel on the card and on the CPU: same batch, same bounds
-    small_gpu = sslp_batch(64, 5, 15, dev)
-    small_cpu = sslp_batch(64, 5, 15, "cpu")
-    g, g_s = wheel(small_gpu, None, 200, 1e-7, 10)
-    c, c_s = wheel(small_cpu, None, 200, 1e-7, 10)
-    g_gap = g.spcomm.compute_gaps()[1]
-    rel = [abs(a - b) / abs(b) for a, b in
-           ((g.BestOuterBound, c.BestOuterBound),
-            (g.BestInnerBound, c.BestInnerBound))]
-    phase("wheel_small", S=64, model="sslp_5_15", gpu_iters=g.spcomm._iter,
-          cpu_iters=c.spcomm._iter, outer=g.BestOuterBound,
-          inner=g.BestInnerBound, rel_gap=g_gap,
-          cpu_outer=c.BestOuterBound, cpu_inner=c.BestInnerBound,
-          max_rel_diff=max(rel), gpu_s=round(g_s, 2), cpu_s=round(c_s, 2))
-    if not (g_gap <= 0.01 and max(rel) <= 1e-3):
-        raise AssertionError("small wheel: no 1% certificate on the card, "
-                             "or bounds disagree with the CPU run")
-
-    # 5. the headline: sslp 15x45, 10,000 scenarios, bench_sslp_gap's
-    #    options, through the kernel
-    del small_gpu, small_cpu, g, c
-    pdhg_window.run_window.launches = 0
-    ws, secs = wheel(batch, "bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8)
-    launches = pdhg_window.run_window.launches
-    outer, inner = ws.BestOuterBound, ws.BestInnerBound
-    rel_gap = ws.spcomm.compute_gaps()[1]
-    phase("headline", model="sslp_15_45", S=HEADLINE_SCENS,
-          iter_precision="bf16x3", iterations=ws.spcomm._iter, outer=outer,
-          inner=inner, rel_gap=rel_gap, certified=rel_gap <= 0.01,
-          seconds=round(secs, 2), kernel_launches=launches,
-          launches_per_hub_iter=round(launches / max(1, ws.spcomm._iter), 2))
-    if not (launches > 0 and math.isfinite(outer) and math.isfinite(inner)
-            and outer <= inner):
-        raise AssertionError("headline wheel: no kernel launches, or "
-                             "bounds not finite and ordered")
-
-    # 6. the kernels
-    ms, plain, bound, by = timing[HEADLINE_SCENS, "bf16x3"]
-    print(json.dumps({"kernels": [{
-        "name": "pdhg_window",
-        "route": "cuda",
-        "source": "mpisppy_tpu_torch/csrc/pdhg_window.cu",
-        "replaces": "mpisppy_tpu/ops/pdhg_pallas.py:663",
-        "launches": launches,
-        "max_abs_err": errs["bf16x3"],
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": bound,
-        "bound_by": by,
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

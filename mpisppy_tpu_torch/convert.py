@@ -2,8 +2,8 @@
 # Carrying state across from the JAX package, with numpy in and out.
 #
 # arrays_of() turns any dataclass of arrays — this package's BoxQP,
-# PDHGState or ScenarioBatch, or their JAX counterparts — into nested
-# dicts of numpy arrays without importing JAX (it only calls
+# ConeSpec, PDHGState or ScenarioBatch, or their JAX counterparts — into
+# nested dicts of numpy arrays without importing JAX (it only calls
 # np.asarray).  The *_from_arrays() builders turn such dicts into this
 # package's objects on a device.  Tests use the pair to feed both
 # packages identical data, including the power-iteration norm estimate
@@ -20,6 +20,7 @@ from mpisppy_tpu_torch import resolve_device
 from mpisppy_tpu_torch.core.batch import ScenarioBatch
 from mpisppy_tpu_torch.core.tree import ScenarioTree
 from mpisppy_tpu_torch.ops.boxqp import BoxQP
+from mpisppy_tpu_torch.ops.cones import ConeSpec
 from mpisppy_tpu_torch.ops.pdhg import PDHGState
 
 
@@ -30,11 +31,12 @@ def _to_numpy(v):
 
 
 def arrays_of(obj):
-    """Nested dict of numpy arrays from a dataclass of arrays; plain
-    Python values (ints, tuples, None) pass through."""
+    """Nested dict of numpy arrays from a dataclass of arrays (its
+    constructor fields; caches are left behind); plain Python values
+    (ints, tuples, None) pass through."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {f.name: arrays_of(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
+                for f in dataclasses.fields(obj) if f.init}
     if obj is None or isinstance(obj, (bool, int, float, str, tuple)):
         return obj
     return _to_numpy(obj)
@@ -45,11 +47,27 @@ def _tensor(v, device, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def cone_spec_from_arrays(d: dict | None, device=None) -> ConeSpec | None:
+    """A ConeSpec from a dict of its fields (is_soc, is_head, seg,
+    num_cones, max_dim, head_rows), or None for None."""
+    if d is None:
+        return None
+    dev = resolve_device(device)
+    return ConeSpec(is_soc=_tensor(d["is_soc"], dev, torch.bool),
+                    is_head=_tensor(d["is_head"], dev, torch.bool),
+                    seg=_tensor(d["seg"], dev, torch.int64),
+                    num_cones=int(d["num_cones"]),
+                    max_dim=int(d["max_dim"]),
+                    head_rows=tuple(int(h) for h in d["head_rows"]))
+
+
 def boxqp_from_arrays(d: dict, device=None) -> BoxQP:
-    """A BoxQP from a dict with the fields c, q, A, bl, bu, l, u."""
+    """A BoxQP from a dict with the fields c, q, A, bl, bu, l, u and,
+    where present, cones (a ConeSpec's fields, or None)."""
     dev = resolve_device(device)
     return BoxQP(**{k: _tensor(d[k], dev, torch.float32)
-                    for k in ("c", "q", "A", "bl", "bu", "l", "u")})
+                    for k in ("c", "q", "A", "bl", "bu", "l", "u")},
+                 cones=cone_spec_from_arrays(d.get("cones"), dev))
 
 
 def pdhg_state_from_arrays(d: dict, device=None) -> PDHGState:

@@ -1,6 +1,6 @@
 ###############################################################################
 # Scenario batch: the data plane (port of mpisppy_tpu/core/batch.py,
-# dense constraint matrices only).
+# dense constraint matrices, box rows and second-order-cone blocks).
 #
 #   specs (host, numpy)  --from_specs-->  ScenarioBatch (device tensors)
 #
@@ -17,6 +17,7 @@ import torch
 
 from mpisppy_tpu_torch import resolve_device
 from mpisppy_tpu_torch.core.tree import ScenarioTree, two_stage_tree
+from mpisppy_tpu_torch.ops import cones as cones_mod
 from mpisppy_tpu_torch.ops.boxqp import BoxQP, ruiz_scale
 
 Tensor = torch.Tensor
@@ -45,6 +46,10 @@ class ScenarioSpec:
     # per-slot nonant weights for variable-probability problems
     # (ref:mpisppy/spbase.py:398-441); None -> ordinary probabilities
     var_prob: np.ndarray | None = None
+    # second-order-cone row blocks: a list of int row-index arrays, HEAD
+    # FIRST; SOC rows carry bl == bu == b.  The pattern must be identical
+    # across the batch.  None -> a pure box problem (ops/cones.py).
+    soc_blocks: list | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,12 +213,27 @@ def from_specs(specs: list[ScenarioSpec],
         return torch.as_tensor(np.asarray(a, np.float32))
 
     A = stack("A")
+    cones = None
+    if any(sp.soc_blocks for sp in specs):
+        blocks0 = [np.asarray(b, np.int64)
+                   for b in (specs[0].soc_blocks or [])]
+        for sp in specs[1:]:
+            other = sp.soc_blocks or []
+            if len(other) != len(blocks0) or not all(
+                    np.array_equal(np.asarray(b, np.int64), b0)
+                    for b, b0 in zip(other, blocks0)):
+                raise ValueError(
+                    f"scenario {sp.name}: SOC block pattern differs from "
+                    "scenario 0's (the cone partition is shared across "
+                    "the batch, like the nonant layout)")
+        cones = cones_mod.cone_spec(specs[0].A.shape[0], blocks0)
+        cones_mod.validate_against_bounds(cones, stack("bl"), stack("bu"))
     c = np.stack([np.asarray(sp.c, np.float64) for sp in specs])
     q = np.stack([np.zeros(n) if sp.q is None
                   else np.asarray(sp.q, np.float64) for sp in specs])
     qp = BoxQP(c=f32(c), q=f32(q), A=f32(A),
                bl=f32(stack("bl")), bu=f32(stack("bu")),
-               l=f32(stack("l")), u=f32(stack("u")))
+               l=f32(stack("l")), u=f32(stack("u")), cones=cones)
     if scale:
         qp, scaling = ruiz_scale(qp)
         d_col, d_row = scaling.d_col, scaling.d_row
@@ -236,8 +256,11 @@ def from_specs(specs: list[ScenarioSpec],
             for i, sp in enumerate(specs)])).to(dev)
 
     idx = torch.as_tensor(nonant_idx)
-    qp = BoxQP(**{f.name: getattr(qp, f.name).to(dev)
-                  for f in dataclasses.fields(qp)})
+    if cones is not None:
+        cones = cones.to(dev)
+    qp = BoxQP(c=qp.c.to(dev), q=qp.q.to(dev), A=qp.A.to(dev),
+               bl=qp.bl.to(dev), bu=qp.bu.to(dev), l=qp.l.to(dev),
+               u=qp.u.to(dev), cones=cones)
     return ScenarioBatch(
         var_prob=var_prob,
         qp=qp,
@@ -258,7 +281,8 @@ def from_specs(specs: list[ScenarioSpec],
 def pad_to_multiple(batch: ScenarioBatch, multiple: int) -> ScenarioBatch:
     """Pad the scenario axis to a multiple.  Padded rows duplicate the
     last scenario with probability 0, so every p-weighted reduction
-    (xbar, bounds, convergence) is unchanged."""
+    (xbar, bounds, convergence) is unchanged.  The cone partition is
+    shared across the batch and carries over as it is."""
     S = batch.num_scenarios
     pad = (-S) % multiple
     if pad == 0:

@@ -1,9 +1,10 @@
-// PDHG restart window for a batch of box-row LPs/QPs sharing one dense
+// PDHG restart window for a batch of LPs/QPs sharing one dense
 // constraint matrix A (m x n): n_iters iterations per scenario of
 //
 //     x1 = clip((x - tau*A'y - tau*c) * 1/(1 + tau*q), l, u)
 //     w  = y + sigma*A(2*x1 - x)
-//     y1 = w - clip(w, sigma*bl, sigma*bu)
+//     y1 = w - clip(w, sigma*bl, sigma*bu)        (box rows)
+//     y1 = Proj_polar(w - sigma*b)                 (SOC rows, b = bl = bu)
 //     xs += x1;  ys += y1
 //
 // with done scenarios frozen: they run with tau = sigma = 0 and keep
@@ -14,7 +15,7 @@
 // Replaces mpisppy_tpu/ops/pdhg_pallas.py::run_window (_tile_math, both
 // the single-buffer grid kernel and the double-buffered pipeline, which
 // compute the same function; the double buffering was a TPU data-movement
-// device).
+// device), including the SOC dual prox (_tile_math.soc_prox).
 //
 // What bounds it on an H100: each iteration reads all of A twice (A'y and
 // A v) for 4*m*n flops.  At the sslp 15x45 shape A is 60 x 705 f32
@@ -25,6 +26,25 @@
 // design cuts it by putting SPB scenarios in one block, so each element
 // of A read from L2 feeds SPB multiply-adds held in registers.  A
 // resident in shared memory and tensor-core products are later work.
+//
+// Second-order-cone rows (template flag CONES; the box-only
+// instantiation compiles to the code it had without them).  The blocks
+// arrive as CSR, cone_ptr (C+1) and cone_rows (head first, any row
+// order), staged once per thread block in shared memory.  The dual step
+// leaves w on SOC rows in shared memory; after a barrier one thread per
+// (scenario, block) forms wsh = w - sigma*b, the head t and ||z|| (sum of
+// squares, then sqrtf), and writes the polar projection back:
+//     ||z|| <= t   -> y1 = 0
+//     ||z|| <= -t  -> y1 = wsh
+//     otherwise    -> alpha = (t + ||z||)/2,  y1 = wsh - (alpha,
+//                     z*alpha/max(||z||, 1e-30))
+// All of it in IEEE f32 in every mode (the Pallas kernel ran it as
+// HIGHEST-precision dots); products and sums go through __fmul_rn /
+// __fadd_rn so no FMA contraction changes their rounding.  Frozen lanes
+// keep y bit for bit here too: tau = sigma = 0 does not make the cone
+// branch a no-op (Proj_polar(y) != y in general).  The Pallas kernel's
+// 0/1 membership-matrix dots were a way around Mosaic having no scatter
+// and are not carried over.
 //
 // Arithmetic modes (compile-time template):
 //   MODE_F32    IEEE f32 fused multiply-add;
@@ -38,6 +58,7 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libpdhg_window.so pdhg_window.cu
+// (no fast-math: sqrtf and the division stay IEEE).
 // Bound to Python with ctypes (ops/pdhg_window.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +68,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kBig = 1e30f;
+constexpr float kTiny = 1e-30f;
 
 enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_BF16X3 = 3 };
 
@@ -63,6 +85,9 @@ struct Args {
   const float* u;  long long u_stride;
   const float* bl; long long bl_stride;
   const float* bu; long long bu_stride;
+  const int* cone_ptr;   // (num_cones + 1,) CSR offsets (CONES only)
+  const int* cone_rows;  // (cone_nnz,) block rows, head first
+  int num_cones, cone_nnz;
   const float* x; const float* y; const float* xs; const float* ys;
   float* xo; float* yo; float* xso; float* yso;
 };
@@ -75,9 +100,16 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-// shared-memory floats per scenario: eight n-vectors, six m-vectors
-__host__ __device__ inline long long smem_floats(int m, int n) {
-  return 8LL * n + 6LL * m;
+// shared-memory floats per scenario: eight n-vectors, six m-vectors, and
+// with cones a seventh m-vector holding w on SOC rows
+__host__ __device__ inline long long smem_floats(int m, int n, bool cones) {
+  return 8LL * n + (cones ? 7LL : 6LL) * m;
+}
+
+// shared-memory ints of the cone layout: CSR offsets, CSR rows, and a
+// per-row SOC flag
+__host__ __device__ inline long long cone_ints(const Args& g) {
+  return (long long)g.num_cones + 1 + g.cone_nnz + g.m;
 }
 
 template <int MODE>
@@ -90,7 +122,44 @@ __device__ __forceinline__ float mac(float acc, float a, float a_lo,
   return fmaf(a_lo, v_hi, acc);
 }
 
-template <int MODE, int SPB>
+// The SOC dual prox of one block of one scenario: y1 = Proj_polar(wsh)
+// with wsh = w - sigma*b (sbl holds sigma*b on SOC rows).  rows[0] is
+// the head.  Frozen lanes keep y and only accumulate it.
+__device__ __forceinline__ void soc_block(const int* rows, int dim,
+                                          bool frozen, const float* w,
+                                          const float* sbl, float* y,
+                                          float* ys) {
+  if (frozen) {
+    for (int r = 0; r < dim; ++r) ys[rows[r]] += y[rows[r]];
+    return;
+  }
+  const int head = rows[0];
+  const float t = w[head] - sbl[head];
+  float zsq = 0.f;
+  for (int r = 1; r < dim; ++r) {
+    const float v = w[rows[r]] - sbl[rows[r]];
+    zsq = __fadd_rn(zsq, __fmul_rn(v, v));
+  }
+  const float znorm = sqrtf(zsq);
+  const bool inside = znorm <= t;
+  const bool polar = znorm <= -t;
+  const float alpha = 0.5f * (t + znorm);
+  const float scale =
+      inside ? 1.f : (polar ? 0.f : alpha / fmaxf(znorm, kTiny));
+  const float tnew = inside ? t : (polar ? 0.f : alpha);
+  const float yh = t - tnew;
+  y[head] = yh;
+  ys[head] += yh;
+  for (int r = 1; r < dim; ++r) {
+    const int row = rows[r];
+    const float v = w[row] - sbl[row];
+    const float y1 = v - __fmul_rn(v, scale);
+    y[row] = y1;
+    ys[row] += y1;
+  }
+}
+
+template <int MODE, int SPB, bool CONES>
 __global__ void __launch_bounds__(kThreads)
 pdhg_window_kernel(Args g) {
   extern __shared__ float smem[];
@@ -98,25 +167,31 @@ pdhg_window_kernel(Args g) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int s0 = blockIdx.x * SPB;
+  const long long per = smem_floats(m, n, CONES);
 
   // per-scenario shared-memory vectors
   float* base = smem;
   float* x_[SPB]; float* xs_[SPB]; float* tc_[SPB]; float* pre_[SPB];
   float* l_[SPB]; float* u_[SPB]; float* vh_[SPB]; float* vl_[SPB];
   float* y_[SPB]; float* ys_[SPB]; float* sbl_[SPB]; float* sbu_[SPB];
-  float* yh_[SPB]; float* yl_[SPB];
+  float* yh_[SPB]; float* yl_[SPB]; float* w_[SPB];
   __shared__ float tau_s[SPB], sigma_s[SPB];
   __shared__ bool frozen_s[SPB];
 #pragma unroll
   for (int s = 0; s < SPB; ++s) {
-    float* b = base + s * smem_floats(m, n);
+    float* b = base + s * per;
     x_[s] = b;          xs_[s] = b + n;      tc_[s] = b + 2 * n;
     pre_[s] = b + 3 * n; l_[s] = b + 4 * n;  u_[s] = b + 5 * n;
     vh_[s] = b + 6 * n; vl_[s] = b + 7 * n;
     float* r = b + 8 * n;
     y_[s] = r;          ys_[s] = r + m;      sbl_[s] = r + 2 * m;
     sbu_[s] = r + 3 * m; yh_[s] = r + 4 * m; yl_[s] = r + 5 * m;
+    w_[s] = r + 6 * m;  // CONES only
   }
+  // cone layout after the scenarios' state (CONES only)
+  int* cptr = reinterpret_cast<int*>(base + SPB * per);
+  int* crows = cptr + g.num_cones + 1;
+  int* soc_row = crows + g.cone_nnz;
 
   // ---- load: hoisted loop invariants (tc, pre, sigma*bl, sigma*bu) ----
   if (tid < SPB) {
@@ -131,7 +206,17 @@ pdhg_window_kernel(Args g) {
     sigma_s[tid] = sg;
     frozen_s[tid] = live == 0.f;
   }
+  if (CONES) {
+    for (int k = tid; k <= g.num_cones; k += kThreads)
+      cptr[k] = g.cone_ptr[k];
+    for (int k = tid; k < g.cone_nnz; k += kThreads)
+      crows[k] = g.cone_rows[k];
+    for (int i = tid; i < m; i += kThreads) soc_row[i] = 0;
+  }
   __syncthreads();
+  if (CONES) {
+    for (int k = tid; k < g.cone_nnz; k += kThreads) soc_row[crows[k]] = 1;
+  }
 #pragma unroll
   for (int s = 0; s < SPB; ++s) {
     const int sc = s0 + s;
@@ -219,7 +304,8 @@ pdhg_window_kernel(Args g) {
       }
     }
     __syncthreads();
-    // ---- dual step: A v one warp per row, then the row prox ----
+    // ---- dual step: A v one warp per row, then the box-row prox; SOC
+    //      rows leave w for the cone step ----
     for (int i = warp; i < m; i += kWarps) {
       float acc[SPB];
 #pragma unroll
@@ -242,9 +328,14 @@ pdhg_window_kernel(Args g) {
           acc[s] += __shfl_xor_sync(0xffffffffu, acc[s], off);
       }
       if (lane == 0) {
+        const bool soc = CONES && soc_row[i];
 #pragma unroll
         for (int s = 0; s < SPB; ++s) {
           const float w = y_[s][i] + sigma_s[s] * acc[s];
+          if (soc) {
+            w_[s][i] = w;
+            continue;
+          }
           const float y1 = frozen_s[s]
                                ? y_[s][i]
                                : w - clip(w, sbl_[s][i], sbu_[s][i]);
@@ -254,6 +345,16 @@ pdhg_window_kernel(Args g) {
       }
     }
     __syncthreads();
+    // ---- cone step: one thread per (scenario, SOC block) ----
+    if (CONES) {
+      for (int task = tid; task < SPB * g.num_cones; task += kThreads) {
+        const int s = task / g.num_cones, k = task - s * g.num_cones;
+        float* r = base + s * per + 8 * n;
+        soc_block(crows + cptr[k], cptr[k + 1] - cptr[k], frozen_s[s],
+                  r + 6 * m, r + 2 * m, r, r + m);
+      }
+      __syncthreads();
+    }
   }
 
   // ---- write back ----
@@ -272,32 +373,47 @@ pdhg_window_kernel(Args g) {
   }
 }
 
-template <int MODE, int SPB>
+template <int SPB, bool CONES>
+size_t smem_bytes(const Args& g) {
+  return sizeof(float) * SPB * smem_floats(g.m, g.n, CONES) +
+         (CONES ? sizeof(int) * cone_ints(g) : 0);
+}
+
+template <int MODE, int SPB, bool CONES>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * SPB * smem_floats(g.m, g.n);
+  const size_t bytes = smem_bytes<SPB, CONES>(g);
   cudaError_t err = cudaFuncSetAttribute(
-      pdhg_window_kernel<MODE, SPB>,
+      pdhg_window_kernel<MODE, SPB, CONES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (g.S + SPB - 1) / SPB;
-  pdhg_window_kernel<MODE, SPB><<<blocks, kThreads, bytes, stream>>>(g);
+  pdhg_window_kernel<MODE, SPB, CONES>
+      <<<blocks, kThreads, bytes, stream>>>(g);
   return cudaGetLastError();
 }
 
 // Scenarios per block: several only pay once the batch fills the card;
 // a small batch (the 64-scenario straggler tail) keeps one per block so
 // it still spreads over the SMs.
-template <int MODE>
+template <int MODE, bool CONES>
 cudaError_t dispatch_spb(const Args& g, cudaStream_t stream) {
   int dev = 0, smem_max = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long per = (long long)sizeof(float) * smem_floats(g.m, g.n);
-  if (g.S >= 8LL * sms && 4 * per <= smem_max) return launch<MODE, 4>(g, stream);
-  if (per <= smem_max) return launch<MODE, 1>(g, stream);
+  if (g.S >= 8LL * sms &&
+      smem_bytes<4, CONES>(g) <= (size_t)smem_max)
+    return launch<MODE, 4, CONES>(g, stream);
+  if (smem_bytes<1, CONES>(g) <= (size_t)smem_max)
+    return launch<MODE, 1, CONES>(g, stream);
   return cudaErrorInvalidValue;  // one scenario's state does not fit
+}
+
+template <int MODE>
+cudaError_t dispatch_cones(const Args& g, cudaStream_t stream) {
+  if (g.num_cones > 0) return dispatch_spb<MODE, true>(g, stream);
+  return dispatch_spb<MODE, false>(g, stream);
 }
 
 }  // namespace
@@ -308,22 +424,27 @@ extern "C" int pdhg_window_launch(
     const float* c, long long c_stride, const float* q, long long q_stride,
     const float* l, long long l_stride, const float* u, long long u_stride,
     const float* bl, long long bl_stride, const float* bu,
-    long long bu_stride, const float* x, const float* y, const float* xs,
-    const float* ys, float* xo, float* yo, float* xso, float* yso,
-    void* stream) {
+    long long bu_stride, const int* cone_ptr, const int* cone_rows,
+    int num_cones, int cone_nnz, const float* x, const float* y,
+    const float* xs, const float* ys, float* xo, float* yo, float* xso,
+    float* yso, void* stream) {
   if (S <= 0) return 0;
   if (m <= 0 || n <= 0 || n_iters < 0) return (int)cudaErrorInvalidValue;
+  if (num_cones < 0 || cone_nnz < 0 ||
+      (num_cones > 0 && (cone_ptr == nullptr || cone_rows == nullptr)))
+    return (int)cudaErrorInvalidValue;
   Args g{A, A_lo, m, n, S, n_iters, tau, sigma, done,
          c, c_stride, q, q_stride, l, l_stride, u, u_stride,
-         bl, bl_stride, bu, bu_stride, x, y, xs, ys, xo, yo, xso, yso};
+         bl, bl_stride, bu, bu_stride, cone_ptr, cone_rows, num_cones,
+         cone_nnz, x, y, xs, ys, xo, yo, xso, yso};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (mode) {
-    case MODE_F32: err = dispatch_spb<MODE_F32>(g, st); break;
-    case MODE_BF16: err = dispatch_spb<MODE_BF16>(g, st); break;
+    case MODE_F32: err = dispatch_cones<MODE_F32>(g, st); break;
+    case MODE_BF16: err = dispatch_cones<MODE_BF16>(g, st); break;
     case MODE_BF16X3:
       if (A_lo == nullptr) return (int)cudaErrorInvalidValue;
-      err = dispatch_spb<MODE_BF16X3>(g, st);
+      err = dispatch_cones<MODE_BF16X3>(g, st);
       break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,14 +1,16 @@
 ###############################################################################
 # BoxQP: the canonical subproblem form (port of mpisppy_tpu/ops/boxqp.py,
-# box rows only — second-order-cone rows wait for the cones slice).
+# dense constraint matrices).
 #
 #     min   c'x + 1/2 x' diag(q) x
 #     s.t.  bl <= A x <= bu          (two-sided row constraints)
 #           l  <=   x <= u           (box)
 #
-# Equality rows are bl == bu; one-sided rows use +/-inf.  A batch of S
-# scenarios adds a leading S axis to every field; a deterministic
-# constraint matrix (sslp) stays one shared (m, n) A.
+# Equality rows are bl == bu; one-sided rows use +/-inf.  An optional
+# ConeSpec (ops/cones.py) turns disjoint row blocks into second-order
+# cones, (A x - b)_block in K_soc, with the shift b stored in bl and bu.
+# A batch of S scenarios adds a leading S axis to every field; a
+# deterministic constraint matrix (sslp, ccopf) stays one shared (m, n) A.
 #
 # Precision: every matvec here is IEEE f32 (TF32 is off, see the package
 # __init__).  The iteration-precision aliases only select the arithmetic
@@ -23,6 +25,8 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import resolve_device
+from mpisppy_tpu_torch.ops import cones as cones_mod
+from mpisppy_tpu_torch.ops.cones import ConeSpec
 
 Tensor = torch.Tensor
 
@@ -65,7 +69,11 @@ class BoxQP:
     """One (or, with a leading batch axis, many) box-constrained QP(s).
 
     Shapes (unbatched): c,q,l,u: (n,); A: (m,n); bl,bu: (m,).  Batched:
-    a leading S axis on any field; A may stay (m,n) and broadcast."""
+    a leading S axis on any field; A may stay (m,n) and broadcast.
+
+    cones: optional ConeSpec partitioning the rows into box rows and
+    second-order-cone blocks, shared across the batch.  SOC rows store
+    their shift b in both bl and bu.  None is the pure box problem."""
 
     c: Tensor
     q: Tensor
@@ -74,6 +82,7 @@ class BoxQP:
     bu: Tensor
     l: Tensor  # noqa: E741
     u: Tensor
+    cones: ConeSpec | None = None
 
     @property
     def n(self) -> int:
@@ -101,17 +110,21 @@ class BoxQP:
 
 
 def make_boxqp(c, A, bl, bu, l, u, q=None,  # noqa: E741
-               device=None) -> BoxQP:
+               device=None, cones: ConeSpec | None = None) -> BoxQP:
     """Build a BoxQP from numpy-ish inputs (f32), defaulting q to zeros.
-    Runs on CUDA unless device="cpu" is given."""
+    Runs on CUDA unless device="cpu" is given; `cones` is checked
+    against the bounds (bl == bu on SOC rows) and moved to the device."""
     dev = resolve_device(device)
 
     def t(v):
         return torch.as_tensor(np.asarray(v, np.float32), device=dev)
 
+    if cones is not None:
+        cones_mod.validate_against_bounds(cones, bl, bu)
+        cones = cones.to(dev)
     c = t(c)
     return BoxQP(c=c, q=torch.zeros_like(c) if q is None else t(q),
-                 A=t(A), bl=t(bl), bu=t(bu), l=t(l), u=t(u))
+                 A=t(A), bl=t(bl), bu=t(bu), l=t(l), u=t(u), cones=cones)
 
 
 def objective(p: BoxQP, x: Tensor) -> Tensor:
@@ -135,9 +148,15 @@ def dual_objective(p: BoxQP, x: Tensor, y: Tensor) -> Tensor:
 
 
 def primal_residual(p: BoxQP, x: Tensor) -> Tensor:
-    """Per-row distance of Ax from [bl, bu]; 0 when feasible."""
+    """Per-row distance of Ax from the row set: [bl, bu] on box rows,
+    the shifted cone b + K on SOC blocks (rowwise |ax - Proj(ax)|);
+    0 when feasible."""
     ax = p.matvec(x)
-    return torch.clamp(ax - p.bu, min=0.0) + torch.clamp(p.bl - ax, min=0.0)
+    r = torch.clamp(ax - p.bu, min=0.0) + torch.clamp(p.bl - ax, min=0.0)
+    if p.cones is not None:
+        soc = cones_mod.primal_violation_rows(p.cones, ax, p.bl)
+        r = torch.where(p.cones.is_soc, soc, r)
+    return r
 
 
 def dual_residual(p: BoxQP, x: Tensor, y: Tensor) -> Tensor:
@@ -152,9 +171,15 @@ def dual_residual(p: BoxQP, x: Tensor, y: Tensor) -> Tensor:
 
 
 def kkt_residuals(p: BoxQP, x: Tensor, y: Tensor):
-    """(rel_primal, rel_dual, rel_gap) — relative inf-norm KKT residuals."""
+    """(rel_primal, rel_dual, rel_gap) — relative inf-norm KKT residuals.
+    Conic problems fold the distance of each dual SOC block to the polar
+    cone into rel_dual, so every certificate gate downstream refuses a
+    bound whose conic Fenchel accounting has not converged."""
     rp = primal_residual(p, x).abs().amax(dim=-1)
     rd = dual_residual(p, x, y).abs().amax(dim=-1)
+    if p.cones is not None:
+        rd = torch.maximum(rd, cones_mod.dual_cone_residual_rows(
+            p.cones, y).amax(dim=-1))
     b_scale = torch.maximum(_finite_or_zero(p.bl).abs(),
                             _finite_or_zero(p.bu).abs())
     c_scale = p.c.abs().amax(dim=-1)
@@ -172,7 +197,11 @@ def kkt_residuals(p: BoxQP, x: Tensor, y: Tensor):
 def infeasibility_certificate(p: BoxQP, y: Tensor, tol: float = 1e-6):
     """True where `y` certifies primal infeasibility (Farkas):
     q(y) = inf_{l<=x<=u} (A'y)'x - sup_{bl<=v<=bu} y'v > 0, tested on the
-    l1-normalized y against a scale-aware threshold."""
+    l1-normalized y against a scale-aware threshold.  On SOC blocks the
+    sup is b'y only for y in the polar cone, so y is projected there
+    first (box rows pass through)."""
+    if p.cones is not None:
+        y = cones_mod.project_polar_rows(p.cones, y)
     nrm = y.abs().sum(dim=-1, keepdim=True)
     yn = y / torch.clamp(nrm, min=1e-30)
     z = p.rmatvec(yn)
@@ -203,9 +232,14 @@ def unboundedness_certificate(p: BoxQP, d: Tensor, tol: float = 1e-6):
     nrm = d.abs().sum(dim=-1, keepdim=True)
     dn = d / torch.clamp(nrm, min=1e-30)
     ad = p.matvec(dn)
-    ok_rows = (torch.where(torch.isfinite(p.bu), ad <= tol, True)
-               & torch.where(torch.isfinite(p.bl), ad >= -tol, True)
-               ).all(dim=-1)
+    row_ok = torch.where(torch.isfinite(p.bu), ad <= tol, True) \
+        & torch.where(torch.isfinite(p.bl), ad >= -tol, True)
+    if p.cones is not None:
+        # the recession cone of b + K is K itself: the direction's block
+        # must lie in the cone, not vanish
+        soc_dist = (ad - cones_mod.project_soc_rows(p.cones, ad)).abs()
+        row_ok = torch.where(p.cones.is_soc, soc_dist <= tol, row_ok)
+    ok_rows = row_ok.all(dim=-1)
     ok_box = (torch.where(torch.isfinite(p.u), dn <= tol, True)
               & torch.where(torch.isfinite(p.l), dn >= -tol, True)
               ).all(dim=-1)
@@ -228,9 +262,32 @@ class Scaling:
     d_col: np.ndarray
 
 
+def group_row_scales(rmax: np.ndarray, cones: ConeSpec | None):
+    """Force row scale factors UNIFORM within each SOC block (the block
+    max): per-row scaling of a block breaks ||z|| <= t unless it is a
+    multiple of the identity on the block, while a shared scale maps
+    b + K to (d b) + K exactly.  Box rows keep their own scale.
+    rmax: (..., m) positive row maxima."""
+    if cones is None:
+        return rmax
+    seg = cones.seg.cpu().numpy()
+    is_soc = cones.is_soc.cpu().numpy()
+    C = cones.num_cones + 1
+    m = rmax.shape[-1]
+    bshape = rmax.shape[:-1]
+    B = int(np.prod(bshape)) if bshape else 1
+    flat = rmax.reshape(B, m)
+    blk = np.zeros((B, C), flat.dtype)
+    np.maximum.at(blk, (np.repeat(np.arange(B), m), np.tile(seg, B)),
+                  flat.reshape(-1))
+    grouped = np.where(is_soc[None, :], blk[:, seg], flat)
+    return grouped.reshape(rmax.shape)
+
+
 def ruiz_scale(p: BoxQP, iters: int = 10) -> tuple[BoxQP, Scaling]:
     """Iterative row/col inf-norm equilibration of a dense A, applied to
-    the whole problem.  Batched A gets per-batch scalings."""
+    the whole problem.  Batched A gets per-batch scalings; SOC blocks get
+    block-uniform row scales (group_row_scales)."""
     def f64(t):
         return t.detach().cpu().numpy().astype(np.float64)
 
@@ -242,6 +299,7 @@ def ruiz_scale(p: BoxQP, iters: int = 10) -> tuple[BoxQP, Scaling]:
         # compound 1/sqrt(eps) per sweep into an inf scaling)
         rmax = np.max(np.abs(A), axis=-1)
         rmax = np.where(rmax <= 0.0, 1.0, rmax)
+        rmax = group_row_scales(rmax, p.cones)
         A = A / np.sqrt(rmax)[..., None]
         dr = dr / np.sqrt(rmax)
         cmax = np.max(np.abs(A), axis=-2)
@@ -255,6 +313,6 @@ def ruiz_scale(p: BoxQP, iters: int = 10) -> tuple[BoxQP, Scaling]:
     scaled = BoxQP(
         c=t(f64(p.c) * dc), q=t(f64(p.q) * dc * dc), A=t(A),
         bl=t(f64(p.bl) * dr), bu=t(f64(p.bu) * dr),
-        l=t(f64(p.l) / dc), u=t(f64(p.u) / dc))
+        l=t(f64(p.l) / dc), u=t(f64(p.u) / dc), cones=p.cones)
     return scaled, Scaling(d_row=dr, d_col=dc)
 

@@ -1,6 +1,6 @@
 ###############################################################################
 # Restarted PDHG (PDLP-style) for batched BoxQPs (port of
-# mpisppy_tpu/ops/pdhg.py, box rows only).
+# mpisppy_tpu/ops/pdhg.py: box rows and second-order-cone blocks).
 #
 # The solver behind every cylinder: Chambolle-Pock primal-dual hybrid
 # gradient with the exact prox of c'x + 1/2 q x^2 over [l, u], the dual
@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from mpisppy_tpu_torch.ops import cones as cones_mod
 from mpisppy_tpu_torch.ops import pdhg_window
 from mpisppy_tpu_torch.ops.boxqp import (
     BoxQP, as_precision, infeasibility_certificate, kkt_residuals,
@@ -158,13 +159,18 @@ def init_state(p: BoxQP, opts: PDHGOptions = PDHGOptions(),
 def _pdhg_iter(p: BoxQP, st: PDHGState, tau: Tensor,
                sigma: Tensor) -> PDHGState:
     """One plain PDHG step (problems outside the window kernel's scope);
-    frozen for problems already `done`."""
+    frozen for problems already `done`.  Box rows take the two-sided
+    clip; conic problems route through cones.dual_prox, which applies
+    the Moreau second-order-cone projection blockwise on SOC rows."""
     t = tau[..., None]
     s = sigma[..., None]
     v = st.x - t * p.rmatvec(st.y)
     x1 = torch.clamp((v - t * p.c) / (1.0 + t * p.q), p.l, p.u)
     w = st.y + s * p.matvec(2.0 * x1 - st.x)
-    y1 = w - s * torch.clamp(w / s, p.bl, p.bu)
+    if p.cones is None:
+        y1 = w - s * torch.clamp(w / s, p.bl, p.bu)
+    else:
+        y1 = cones_mod.dual_prox(p.cones, w, s, p.bl, p.bu)
     keep = st.done[..., None]
     x1 = torch.where(keep, st.x, x1)
     y1 = torch.where(keep, st.y, y1)
@@ -297,7 +303,7 @@ def _window(p: BoxQP, st: PDHGState, opts: PDHGOptions) -> PDHGState:
     elif st.x.device.type == "cuda":
         raise NotImplementedError(
             "CUDA PDHG windows cover batched problems with one dense "
-            "shared A; per-scenario A, ELL and cones are not ported yet")
+            "shared A; per-scenario A and ELL are not ported yet")
     else:
         as_precision(opts.iter_precision)  # validate the alias
         for _ in range(opts.restart_period):

@@ -6,7 +6,10 @@
 # Replaces mpisppy_tpu/ops/pdhg_pallas.py::run_window — the Pallas TPU
 # kernel (_tile_math, run through either the single-buffer grid kernel or
 # the double-buffered pipeline; both compute the same function, so one
-# CUDA kernel ports both).
+# CUDA kernel ports both), box rows and the SOC dual prox
+# (_tile_math.soc_prox) alike.  The kernel has two instantiations,
+# counted apart in run_window.launches: "pdhg_window" (box rows only)
+# and "pdhg_window_soc" (a batch with second-order-cone blocks).
 #
 # What bounds it on an H100: per iteration a scenario does 4*m*n flops
 # of matvec against A (2 reads of A) and O(n + m) elementwise work.  The
@@ -32,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from mpisppy_tpu_torch.ops import cones as cones_mod
 from mpisppy_tpu_torch.ops.boxqp import BoxQP, as_precision
 
 Tensor = torch.Tensor
@@ -52,7 +56,8 @@ _lib = None
 
 def supported(p: BoxQP) -> bool:
     """The kernel's scope: a (S,)-batched problem with one dense shared
-    (m, n) constraint matrix and box rows."""
+    (m, n) constraint matrix, box rows and any second-order-cone
+    blocks."""
     return p.A.ndim == 2 and p.c.ndim == 2
 
 
@@ -82,8 +87,9 @@ def run_window_reference(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
                          y_sum: Tensor, tau: Tensor, sigma: Tensor,
                          done: Tensor, n_iters: int, precision=None):
     """The plain PyTorch version: the hoisted iteration of
-    pdhg_pallas._tile_math written out (tc, pre, sbl, sbu).  Returns
-    (x, y, x_sum, y_sum)."""
+    pdhg_pallas._tile_math written out (tc, pre, sbl, sbu).  On SOC rows
+    y1 = Proj_polar(w - sigma*b), with b read from bl (bl == bu there).
+    Returns (x, y, x_sum, y_sum)."""
     mode = as_precision(precision) or "f32"
     live = 1.0 - done.to(x.dtype)
     t = (tau * live)[:, None]
@@ -95,6 +101,9 @@ def run_window_reference(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     pre = 1.0 / (1.0 + t * p.q)
     sbl = s * torch.clamp(p.bl, -_BIG, _BIG)
     sbu = s * torch.clamp(p.bu, -_BIG, _BIG)
+    spec = p.cones
+    if spec is not None:
+        ssh = s * torch.where(spec.is_soc, p.bl, torch.zeros_like(p.bl))
     A, AT = p.A, p.A.T
     A_hi, A_lo = _split_bf16(A) if mode != "f32" else (None, None)
     AT_hi = None if A_hi is None else A_hi.T
@@ -106,7 +115,11 @@ def run_window_reference(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
                          torch.clamp((x - t * aty - tc) * pre, p.l, p.u))
         ax = _matmul(mode, 2.0 * x1 - x, AT, AT_hi, AT_lo)  # A v (S, m)
         w = y + s * ax
-        y1 = torch.where(frozen, y, w - torch.clamp(w, sbl, sbu))
+        y1 = w - torch.clamp(w, sbl, sbu)
+        if spec is not None:
+            y1 = torch.where(spec.is_soc,
+                             cones_mod.project_polar_rows(spec, w - ssh), y1)
+        y1 = torch.where(frozen, y, y1)
         xs = xs + x1
         ys = ys + y1
         x, y = x1, y1
@@ -126,7 +139,7 @@ def _library():
     fn = lib.pdhg_window_launch
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([P, P, I, I, I, I, I, P, P, P]
-                   + [P, L] * 6 + [P] * 9)
+                   + [P, L] * 6 + [P, P, I, I] + [P] * 9)
     fn.restype = I
     _lib = lib
     return lib
@@ -165,7 +178,8 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     (S,); A (m, n) shared; l/u/bl/bu shared or per-scenario.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in run_window.launches) or raise."""
+    (counted in run_window.launches under the instantiation's name) or
+    raise."""
     if x.device.type == "cpu":
         return run_window_reference(p, x, y, x_sum, y_sum, tau, sigma,
                                     done, n_iters, precision)
@@ -174,7 +188,7 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     if not supported(p):
         raise NotImplementedError(
             "the CUDA window kernel takes a batched problem with one dense "
-            "shared A; per-scenario A, ELL and cones are not ported yet")
+            "shared A; per-scenario A and ELL are not ported yet")
     mode = as_precision(precision) or "f32"
     S, n = x.shape
     m = y.shape[-1]
@@ -195,6 +209,16 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
                      (p.bl, m), (p.bu, m)):
         if t.shape[-1] != width or t.ndim > 2:
             raise ValueError("run_window: inconsistent operand shapes")
+    spec = p.cones
+    if spec is not None and spec.num_cones > 0:
+        if spec.m != m or spec.device != x.device:
+            raise ValueError("run_window: the cone spec must cover the m "
+                             "rows and lie on the CUDA device")
+        cone_ptr, cone_rows = spec.csr(x.device)
+        kernel = "pdhg_window_soc"
+    else:
+        cone_ptr = cone_rows = None
+        kernel = "pdhg_window"
     done_f = done.to(torch.float32).contiguous()
     if mode == "f32":
         A_main, A_lo = p.A, None
@@ -216,6 +240,10 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         ptr(p.u.data_ptr()), _stride(p.u, S),
         ptr(p.bl.data_ptr()), _stride(p.bl, S),
         ptr(p.bu.data_ptr()), _stride(p.bu, S),
+        ptr(0 if cone_ptr is None else cone_ptr.data_ptr()),
+        ptr(0 if cone_rows is None else cone_rows.data_ptr()),
+        0 if cone_ptr is None else spec.num_cones,
+        0 if cone_rows is None else cone_rows.numel(),
         ptr(x.data_ptr()), ptr(y.data_ptr()),
         ptr(x_sum.data_ptr()), ptr(y_sum.data_ptr()),
         ptr(xo.data_ptr()), ptr(yo.data_ptr()),
@@ -224,8 +252,8 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     if rc != 0:
         raise RuntimeError(f"pdhg_window kernel launch failed: CUDA error "
                            f"{rc}")
-    run_window.launches += 1
+    run_window.launches[kernel] += 1
     return xo, yo, xso, yso
 
 
-run_window.launches = 0
+run_window.launches = {"pdhg_window": 0, "pdhg_window_soc": 0}

@@ -6,15 +6,18 @@
 #
 # (--noconftest: tests/conftest.py configures JAX, which such a machine
 # does not have.)  The kernel is held to its plain version at a small
-# sslp shape; chip_smoke.py does the same at the main path's shapes.
+# sslp shape and, for its SOC instantiation, on the ccopf --soc batch
+# and on ragged blocks in any row order; chip_smoke.py does the same at
+# the main path's shapes.
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from mpisppy_tpu_torch.core import batch as batch_mod
-from mpisppy_tpu_torch.models import sslp
-from mpisppy_tpu_torch.ops import pdhg, pdhg_window
+from mpisppy_tpu_torch.models import ccopf, sslp
+from mpisppy_tpu_torch.ops import boxqp, cones, pdhg, pdhg_window
 
 pytestmark = pytest.mark.cuda
 
@@ -31,14 +34,18 @@ def _window_args(device, S=40):
     specs = [sslp.scenario_creator(nm, instance=inst, num_scens=S,
                                    lp_relax=True)
              for nm in sslp.scenario_names_creator(S)]
-    b = batch_mod.from_specs(specs, device=device)
+    return _solver_args(batch_mod.from_specs(specs, device=device).qp)
+
+
+def _solver_args(qp):
+    """Window inputs two cold windows into a solve, every 5th lane done."""
     opts = pdhg.PDHGOptions()
-    st = pdhg.solve_fixed(b.qp, 2, opts, pdhg.init_state(b.qp, opts))
+    st = pdhg.solve_fixed(qp, 2, opts, pdhg.init_state(qp, opts))
     tau = opts.step_margin * st.omega / st.Lnorm
     sigma = opts.step_margin / (st.omega * st.Lnorm)
     done = torch.zeros_like(st.done)
     done[::5] = True
-    return (b.qp, st.x, st.y, st.x_sum, st.y_sum, tau, sigma, done, 40)
+    return (qp, st.x, st.y, st.x_sum, st.y_sum, tau, sigma, done, 40)
 
 
 @pytest.mark.parametrize("precision,tol", [(None, 1e-4), ("bf16x3", 1e-3)])
@@ -47,15 +54,66 @@ def test_kernel_matches_plain_version(cuda, precision, tol):
     f32 differs only in summation order; bf16x3 splits values whose last
     bits differ, so its products move by ~2^-16."""
     args = _window_args(cuda)
-    before = pdhg_window.run_window.launches
+    before = dict(pdhg_window.run_window.launches)
     k = pdhg_window.run_window(*args, precision=precision)
     r = pdhg_window.run_window_reference(*args, precision=precision)
-    assert pdhg_window.run_window.launches == before + 1
+    assert dict(pdhg_window.run_window.launches) == {
+        **before, "pdhg_window": before["pdhg_window"] + 1}
     for a, b in zip(k, r):
         torch.testing.assert_close(a, b, atol=tol, rtol=tol)
     done = args[7]
     assert torch.equal(k[0][done], args[1][done])
     assert torch.equal(k[1][done], args[2][done])
+
+
+def _ccopf_soc_qp(device, bfs=(10, 10)):
+    specs = [ccopf.scenario_creator(nm, branching_factors=bfs, soc=True)
+             for nm in ccopf.scenario_names_creator(bfs[0] * bfs[1])]
+    return batch_mod.from_specs(specs, tree=ccopf.make_tree(bfs),
+                                device=device).qp
+
+
+def _ragged_soc_qp(device, S=300, seed=0):
+    """A random conic LP whose SOC blocks are ragged and out of row
+    order, with box rows between them."""
+    rng = np.random.default_rng(seed)
+    m, n = 14, 9
+    blocks = [np.array([3, 0, 7]), np.array([5, 1, 2, 9, 13]),
+              np.array([12, 4])]
+    spec = cones.cone_spec(m, blocks)
+    soc = spec.is_soc.numpy()
+    b = rng.normal(size=(S, m))
+    bl = np.where(soc, b, b - 1.0)
+    bu = np.where(soc, b, b + 1.0)
+    return boxqp.make_boxqp(rng.normal(size=(S, n)),
+                            rng.normal(size=(m, n)), bl, bu,
+                            np.full((S, n), -2.0), np.full((S, n), 2.0),
+                            device=device, cones=spec)
+
+
+@pytest.mark.parametrize("problem", ["ccopf", "ragged"])
+@pytest.mark.parametrize("precision,tol", [(None, 1e-4), ("bf16x3", 1e-3)])
+def test_soc_kernel_matches_plain_version(cuda, problem, precision, tol):
+    """The SOC instantiation against the plain version on the card, with
+    done lanes bit-unchanged and live duals in the polar cone."""
+    qp = _ccopf_soc_qp(cuda) if problem == "ccopf" else _ragged_soc_qp(cuda)
+    args = _solver_args(qp)
+    before = dict(pdhg_window.run_window.launches)
+    k = pdhg_window.run_window(*args, precision=precision)
+    r = pdhg_window.run_window_reference(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert dict(pdhg_window.run_window.launches) == {
+        **before, "pdhg_window_soc": before["pdhg_window_soc"] + 1}
+    for a, b in zip(k, r):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    done = args[7]
+    assert torch.equal(k[0][done], args[1][done])
+    assert torch.equal(k[1][done], args[2][done])
+    # a reflected block lands on the polar cone's boundary up to f32
+    # rounding of its own size
+    live = k[1][~done]
+    dcr = cones.dual_cone_residual_rows(qp.cones, live)
+    assert float(dcr.max()) <= 1e-6 * max(1.0, float(live.abs().max()))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_cover(cuda):
@@ -66,12 +124,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_cover(cuda):
     qp = args[0]
     per_scen = dataclasses.replace(
         qp, A=qp.A.expand(4, -1, -1).contiguous())
-    before = pdhg_window.run_window.launches
+    before = dict(pdhg_window.run_window.launches)
     with pytest.raises(NotImplementedError):
         pdhg_window.run_window(per_scen, *args[1:])
     with pytest.raises(ValueError):
         pdhg_window.run_window(*args[:7], args[7].cpu(), args[8])
-    assert pdhg_window.run_window.launches == before
+    assert dict(pdhg_window.run_window.launches) == before
 
 
 def test_entry_points_run_on_cuda_by_default(cuda):

@@ -98,7 +98,7 @@ def test_wheel_never_launches_the_kernel_on_cpu_tensors():
                                     lp_relax=True)
              for nm in tsslp.scenario_names_creator(4)]
     tb = tbatch.from_specs(specs, device="cpu")
-    before = pdhg_window.run_window.launches
+    before = dict(pdhg_window.run_window.launches)
     opts = tph.PHOptions(default_rho=20.0, max_iterations=2,
                          conv_thresh=0.0, iter0_windows=4)
     hub = {"hub_class": TPHHub, "hub_kwargs": {"options": {"rel_gap": 1e-2}},
@@ -108,7 +108,7 @@ def test_wheel_never_launches_the_kernel_on_cpu_tensors():
         {"spoke_class": tspoke.FusedLagrangianOuterBound,
          "opt_kwargs": {"options": {}}}]).spin()
     assert ws.spcomm._iter == 3  # the sync after Iter0, then two
-    assert pdhg_window.run_window.launches == before
+    assert dict(pdhg_window.run_window.launches) == before
 
 
 def test_slam_and_shuffle_planes_are_refused():
