@@ -14,6 +14,13 @@ drives its two main paths:
   version (ccopf at 10,000 scenarios and the 33-bus feeder), runs the
   (3,3) wheel on the card and on the CPU, then the (100,100) wheel at
   10,000 scenarios;
+* scengen — seeded scenario synthesis: builds the sslp 15x45 program's
+  VirtualBatch at 1,000,000 scenarios, holds the kernel's SYNTH
+  instantiation (draws its bound rows in-kernel) bit for bit against the
+  box kernel on the realized batch at 100,000 and 1,000,000 scenarios and
+  against its plain version, times both, runs an S=64 VirtualBatch wheel
+  on the card, over the materialized batch and on the CPU, then drives
+  the sslp 15x45 VirtualBatch wheel at 10,000 scenarios;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -24,6 +31,7 @@ prints no result.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +68,17 @@ CCOPF_JAX_BOUNDS = (72.08553314208984, 72.08416748046875)
 HUB_BOUND_SLACK = 5e-3
 # live duals after a window lie in the polar cone up to f32 rounding
 POLAR_TOL = 1e-6
+# scengen: the VirtualBatch build and the synth windows run at these
+# sizes; their solver state is one mid-solve state at SCENGEN_BASE_SCENS
+# tiled along the scenario axis (at 1,000,000 scenarios one (S, n) f32
+# tensor is 2.8 GB, too much for a solve just to make inputs)
+SCENGEN_SCENS = (100_000, 1_000_000)
+SCENGEN_BASE_SCENS = 10_000
+SCENGEN_SMALL_SCENS = 64
+# threefry2x32 operations per draw: 20 rounds of add, rotate (two shifts
+# and an or) and xor, the key injections, and the bits-to-float and
+# compare — integer work counted at the f32 CUDA-core rate
+THREEFRY_OPS = 125
 
 
 def phase(name, **fields):
@@ -123,17 +142,25 @@ def window_inputs(batch, seed=0):
             N_ITERS)
 
 
+def repeat_rows(t, reps):
+    """t repeated `reps` times along the scenario axis."""
+    return t.repeat((reps,) + (1,) * (t.ndim - 1)).contiguous()
+
+
+def tiled_state(args, reps):
+    """Only the solver state of window inputs (x, y, x_sum, y_sum, tau,
+    sigma, done), repeated `reps` times along the scenario axis."""
+    return tuple(repeat_rows(t, reps) for t in args[1:8])
+
+
 def tiled(args, reps):
     """The same window inputs repeated `reps` times along the scenario
     axis (the S=100,000 sweep shape without building 100,000 specs)."""
     import dataclasses
     qp = args[0]
-
-    def rep(t):
-        return t.repeat((reps,) + (1,) * (t.ndim - 1)).contiguous()
-    qp = dataclasses.replace(qp, c=rep(qp.c), q=rep(qp.q), bl=rep(qp.bl),
-                             bu=rep(qp.bu))
-    return (qp,) + tuple(rep(t) for t in args[1:8]) + (args[8],)
+    qp = dataclasses.replace(qp, **{f: repeat_rows(getattr(qp, f), reps)
+                                    for f in ("c", "q", "bl", "bu")})
+    return (qp,) + tiled_state(args, reps) + (args[8],)
 
 
 def max_err(kernel_out, plain_out, mode):
@@ -164,13 +191,24 @@ def time_ms(fn, reps=5):
     return t0.elapsed_time(t1) / reps
 
 
-def window_bound_ms(args, mode):
+def stored_bytes(t):
+    """Bytes an input holds: a stride-0 (S, k) view (a shared row
+    expanded over the batch) is read as its one row."""
+    if t.ndim == 2 and t.stride(0) == 0:
+        t = t[0]
+    return t.numel() * t.element_size()
+
+
+def window_bound_ms(args, mode, synth=None):
     """Least time one window could take on an H100: the larger of the
     bytes it must move (each input read once, each output written once)
     over the memory rate, and its operations over the peak rate of
     their type (bf16 products at the tensor-core rate in bf16x3 mode).
     SOC rows add about 6 flops each per iteration (shift, square, sum,
-    scale, subtract, window sum) and each block a sqrt and a divide."""
+    scale, subtract, window sum) and each block a sqrt and a divide.
+    With `synth` the drawn rows are not read: bl/bu are the shared
+    template rows, d_row is read once, and each scenario pays one key
+    fold and one draw per drawn row (THREEFRY_OPS each)."""
     qp, x, y = args[0], args[1], args[2]
     S, n = x.shape
     m = y.shape[1]
@@ -178,10 +216,14 @@ def window_bound_ms(args, mode):
     ins = [qp.A, qp.c, qp.q, qp.l, qp.u, qp.bl, qp.bu] + list(args[1:8])
     if qp.cones is not None:
         ins += list(qp.cones.csr(x.device))
-    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+    if synth is not None:
+        ins.append(synth.d_row)
+    nbytes = sum(stored_bytes(t) for t in ins) \
         + 2 * (x.numel() + y.numel()) * 4
     mac_flops = 4.0 * m * n * S * it            # A'y and A v per iteration
     elem_flops = (9.0 * n + 6.0 * m) * S * it   # prox, clips, sums
+    if synth is not None:
+        elem_flops += THREEFRY_OPS * (1 + synth.draws.count) * S
     if qp.cones is not None:
         soc_rows = int(qp.cones.is_soc.sum())
         elem_flops += (6.0 * soc_rows + 2.0 * qp.cones.num_cones) * S * it
@@ -238,6 +280,25 @@ def wheel(batch, opts):
     return ws, time.perf_counter() - t0
 
 
+def registers_by_instantiation(log):
+    """ptxas's register count of each kernel instantiation, keyed
+    mode/scenarios-per-block/kind (box, cones or synth), from the
+    build's -Xptxas -v output."""
+    modes = {"0": "f32", "1": "bf16", "3": "bf16x3"}
+    regs, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"pdhg_window_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+                      ln)
+        if m and "Compiling entry function" in ln:
+            kind = "cones" if m[3] == "1" else "synth" if m[4] == "1" \
+                else "box"
+            name = f"{modes[m[1]]}/{m[2]}/{kind}"
+        elif name and "Used " in ln and "registers" in ln:
+            regs[name] = int(ln.split("Used ")[1].split()[0])
+            name = None
+    return ",".join(f"{k}:{v}" for k, v in sorted(regs.items()))
+
+
 def reset_launches():
     from mpisppy_tpu_torch.ops import pdhg_window
     for name in pdhg_window.run_window.launches:
@@ -253,12 +314,12 @@ def kernel_entry(name, replaces, launches, err, timing):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def parity(args, mode, label, S, **extra):
+def parity(args, mode, label, S, synth=None, **extra):
     """Kernel against its plain version on the same inputs; done lanes
     must come back bit-unchanged.  Returns (max_abs_err, kernel out)."""
     from mpisppy_tpu_torch.ops import pdhg_window
-    k = pdhg_window.run_window(*args, precision=mode)
-    r = pdhg_window.run_window_reference(*args, precision=mode)
+    k = pdhg_window.run_window(*args, precision=mode, synth=synth)
+    r = pdhg_window.run_window_reference(*args, precision=mode, synth=synth)
     torch.cuda.synchronize()
     err, ok = max_err(k, r, mode)
     done = args[7]
@@ -294,9 +355,9 @@ def window_times(args, label, scens, **extra):
     return timing
 
 
-def small_wheel(label, model, gpu_batch, cpu_batch, opts):
+def small_wheel(label, model, gpu_batch, cpu_batch, opts, **extra):
     """The same wheel on the card and on the CPU: both certify 1% and
-    their bounds agree to 1e-3 relative."""
+    their bounds agree to 1e-3 relative.  Returns the card's spinner."""
     g, g_s = wheel(gpu_batch, opts)
     c, c_s = wheel(cpu_batch, opts)
     g_gap = g.spcomm.compute_gaps()[1]
@@ -309,10 +370,11 @@ def small_wheel(label, model, gpu_batch, cpu_batch, opts):
           outer=g.BestOuterBound, inner=g.BestInnerBound, rel_gap=g_gap,
           cpu_outer=c.BestOuterBound, cpu_inner=c.BestInnerBound,
           cpu_rel_gap=c_gap, max_rel_diff=max(rel), gpu_s=round(g_s, 2),
-          cpu_s=round(c_s, 2))
+          cpu_s=round(c_s, 2), **extra)
     if not (g_gap <= 0.01 and c_gap <= 0.01 and max(rel) <= 1e-3):
         raise AssertionError(f"{label}: no 1% certificate on the card or "
                              "the CPU, or their bounds disagree")
+    return g
 
 
 def main_wheel(label, kernel, batch, opts, slack=0.0, **fields):
@@ -423,6 +485,114 @@ def ccopf_path(dev):
                         errs["f32"], timing[S, "f32"])
 
 
+def sslp_program(S, n_servers=SSLP_SERVERS, n_clients=SSLP_CLIENTS):
+    """The sslp program (LP relaxation), seed 0: ClientPresent drawn
+    from threefry keys instead of scenario_creator's RandomState."""
+    from mpisppy_tpu_torch.models import sslp
+    return sslp.scenario_program(S, seed=0, n_servers=n_servers,
+                                 n_clients=n_clients, lp_relax=True)
+
+
+def scengen_path(dev):
+    """The scengen phases: the VirtualBatch build at S=1,000,000, the
+    SYNTH kernel against the box kernel on the realized batch and
+    against its plain version, its window times, the S=64 VirtualBatch
+    wheel three ways, and the sslp 15x45 VirtualBatch wheel at
+    S=10,000."""
+    from mpisppy_tpu_torch import scengen
+    from mpisppy_tpu_torch.ops import pdhg_window
+    run = pdhg_window.run_window
+
+    S_big = SCENGEN_SCENS[-1]
+    t0 = time.perf_counter()
+    big = scengen.virtual_batch(sslp_program(S_big), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    realize_ms = time_ms(big.realize, reps=3)
+    phase("scengen_build", S=S_big, model="sslp_15_45",
+          persistent_bytes=big.persistent_bytes(),
+          materialized_bytes=big.materialized_bytes(),
+          build_s=round(build_s, 3), realize_ms=round(realize_ms, 3))
+    del big
+
+    base = window_inputs(scengen.virtual_batch(
+        sslp_program(SCENGEN_BASE_SCENS), device=dev).realize(), seed=3)
+    errs, timing = {}, {}
+    for S in SCENGEN_SCENS:
+        vb = scengen.virtual_batch(sslp_program(S), device=dev)
+        state = tiled_state(base, S // SCENGEN_BASE_SCENS)
+        box_args = (vb.realize().qp,) + state + (N_ITERS,)
+        proxy, synth = scengen.window_inputs(vb)
+        syn_args = (proxy,) + state + (N_ITERS,)
+        for mode in ("f32", "bf16x3"):
+            k = run(*syn_args, precision=mode, synth=synth)
+            b = run(*box_args, precision=mode)
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in zip(k, b))
+            phase("parity_synth", S=S, mode=mode, equal_to_box=same)
+            if not same:
+                raise AssertionError(f"synth kernel differs from the box "
+                                     f"kernel on the realized batch ({mode})")
+            del k, b
+            if S == SCENGEN_SCENS[0]:
+                errs[mode] = parity(syn_args, mode, "parity_synth", S,
+                                    synth=synth, vs="plain")[0]
+        torch.cuda.empty_cache()
+        # counts from 0 just before and read just after: the synth path's
+        # launches are those of this timing phase
+        reset_launches()
+        reps = 5 if S <= SCENGEN_SCENS[0] else 2
+        for mode in ("f32", "bf16x3"):
+            ms = time_ms(lambda: run(*syn_args, precision=mode,
+                                     synth=synth), reps=reps)
+            box_ms = time_ms(lambda: run(*box_args, precision=mode),
+                             reps=reps)
+            plain = time_ms(lambda: pdhg_window.run_window_reference(
+                *syn_args, precision=mode, synth=synth), reps=1)
+            bound, by = window_bound_ms(syn_args, mode, synth)
+            timing[S, mode] = (ms, plain, bound, by)
+            phase("window_time_synth", S=S, mode=mode, n_iters=N_ITERS,
+                  kernel_ms=round(ms, 3), box_kernel_ms=round(box_ms, 3),
+                  plain_ms=round(plain, 3), bound_ms=round(bound, 4),
+                  bound_by=by)
+            torch.cuda.empty_cache()
+        launches = pdhg_window.run_window.launches["pdhg_window_synth"]
+        phase("window_time_synth", S=S, synth_launches=launches)
+        if launches <= 0:
+            raise AssertionError("no pdhg_window_synth launches")
+        del vb, state, box_args, proxy, syn_args
+        torch.cuda.empty_cache()
+    del base
+
+    prog = sslp_program(SCENGEN_SMALL_SCENS, 5, 15)
+    opts = sslp_options(None, 200, 1e-7, 10)
+    g = small_wheel("scengen_small", "sslp_5_15_scengen",
+                    scengen.virtual_batch(prog, device=dev),
+                    scengen.virtual_batch(prog, device="cpu"), opts)
+    m, _ = wheel(scengen.materialize(prog, device=dev), opts)
+    same = (m.BestOuterBound, m.BestInnerBound, m.spcomm._iter) == (
+        g.BestOuterBound, g.BestInnerBound, g.spcomm._iter)
+    phase("scengen_small", S=SCENGEN_SMALL_SCENS, materialized_outer=
+          m.BestOuterBound, materialized_inner=m.BestInnerBound,
+          materialized_iters=m.spcomm._iter, identical_to_virtual=same)
+    if not same:
+        raise AssertionError("scengen_small: the VirtualBatch wheel and the "
+                             "materialized wheel differ on the card")
+
+    # the full-width path: the sslp 15x45 program's VirtualBatch through
+    # the headline's wheel
+    vb = scengen.virtual_batch(sslp_program(HEADLINE_SCENS), device=dev)
+    ws, _ = main_wheel(
+        "scengen_wheel", "pdhg_window", vb,
+        sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8),
+        model="sslp_15_45_scengen", iter_precision="bf16x3")
+    if not ws.spcomm.compute_gaps()[1] <= 0.01:
+        raise AssertionError("scengen_wheel: no 1% certificate")
+    return kernel_entry("pdhg_window_synth",
+                        "mpisppy_tpu/ops/pdhg_pallas.py:624", launches,
+                        errs["bf16x3"], timing[S_big, "bf16x3"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -438,18 +608,18 @@ def main() -> int:
           cuda=torch.version.cuda, count=torch.cuda.device_count())
     print(card_line(), flush=True)
 
-    # build the kernel (both instantiations) from this checkout's sources
+    # build the kernel (every instantiation) from this checkout's sources
     t0 = time.perf_counter()
     log = pdhg_window.build()
-    regs = sorted({ln.split("Used ")[1].split(",")[0]
-                   for ln in log.splitlines() if "registers" in ln})
     phase("build", source="mpisppy_tpu_torch/csrc/pdhg_window.cu",
           seconds=round(time.perf_counter() - t0, 2),
-          ptxas_registers="/".join(regs))
+          ptxas_registers=registers_by_instantiation(log))
 
     kernels = [sslp_path(dev)]
     torch.cuda.empty_cache()
     kernels.append(ccopf_path(dev))
+    torch.cuda.empty_cache()
+    kernels.append(scengen_path(dev))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

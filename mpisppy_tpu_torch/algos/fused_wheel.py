@@ -28,7 +28,7 @@ import torch
 from mpisppy_tpu_torch.algos import lagrangian as lag_mod
 from mpisppy_tpu_torch.algos import ph as ph_mod
 from mpisppy_tpu_torch.algos import xhat as xhat_mod
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.dispatch.buckets import default_ladder
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 
@@ -219,6 +219,7 @@ def fused_iter0(batch: ScenarioBatch, rho: Tensor, opts: ph_mod.PHOptions,
                 wopts: FusedWheelOptions):
     """PH Iter0 plus spoke-plane state init: both plane solvers warm
     from the iter0 iterates (same A, so Lnorm/omega carry)."""
+    batch = concretize(batch)  # scengen: draw the scenario data here
     phst, tb, cert = ph_mod.ph_iter0(batch, rho, opts)
     solver = phst.solver
     dt, dev = batch.qp.c.dtype, batch.device
@@ -268,6 +269,7 @@ def fused_iterk(batch: ScenarioBatch, st: FusedWheelState,
     bound at the fresh W and the recourse value at round(x̄), each a
     fixed warm budget."""
     _require_ported_planes(wopts)
+    batch = concretize(batch)  # scengen: draw the scenario data here
     phst = ph_mod.ph_iterk(batch, st.ph, opts)
     out = dataclasses.replace(st, ph=phst)
     if wopts.lag_windows > 0:
@@ -288,8 +290,11 @@ def fused_iterk(batch: ScenarioBatch, st: FusedWheelState,
 
 
 # --- split-dispatch planes: each plane as its own step ------------------
+# Each plane draws a VirtualBatch's data at its own entry (concretize),
+# as the JAX package's jitted planes do; _round_xbar reads only
+# integer_slot, which a VirtualBatch holds, so it draws nothing.
 def lag_plane(batch, W, solver, wopts, windows):
-    return _lag_step(batch, W, solver, wopts, windows)
+    return _lag_step(concretize(batch), W, solver, wopts, windows)
 
 
 def _round_xbar(batch, xbar_nodes, mode="nearest"):
@@ -297,7 +302,8 @@ def _round_xbar(batch, xbar_nodes, mode="nearest"):
 
 
 def xhat_plane(batch, cand, solver, wopts, windows):
-    return _eval_step(batch, cand, solver, windows, wopts, tail=True)
+    return _eval_step(concretize(batch), cand, solver, windows, wopts,
+                      tail=True)
 
 
 class _PlaneBudget:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 
 Tensor = torch.Tensor
@@ -111,6 +111,7 @@ def ph_iter0(batch: ScenarioBatch, rho: Tensor, opts: PHOptions):
     """Iter0: plain scenario solves, xbar, W seed, trivial bound
     (ref:mpisppy/phbase.py:829-946).  Returns
     (state, trivial_bound, certified)."""
+    batch = concretize(batch)  # scengen: draw the scenario data here
     solver, trivial_bound, certified = iter0_solve_and_certify(
         batch, opts.iter0_windows, opts.pdhg)
     dt, dev = batch.qp.c.dtype, batch.device
@@ -132,6 +133,7 @@ def ph_iter0(batch: ScenarioBatch, rho: Tensor, opts: PHOptions):
 def ph_iterk(batch: ScenarioBatch, st: PHState, opts: PHOptions) -> PHState:
     """One PH iteration: solve with current (W, xbar), then refresh
     xbar/W/conv from the new iterates (ref:mpisppy/phbase.py:949-1061)."""
+    batch = concretize(batch)  # scengen: draw the scenario data here
     smooth_p = opts.smooth_p if opts.smoothed else 0.0
     qp_eff = _prox_qp(batch, st.W, st.xbar, st.z, st.rho, smooth_p)
     solver = pdhg.solve_fixed(qp_eff, opts.subproblem_windows, opts.pdhg,
@@ -146,6 +148,7 @@ def ph_iterk(batch: ScenarioBatch, st: PHState, opts: PHOptions) -> PHState:
 
 def ph_eobjective(batch: ScenarioBatch, st: PHState) -> Tensor:
     """E[f_s(x_s)] at current iterates (ref:mpisppy/spopt.py:344-376)."""
+    batch = concretize(batch)
     return batch.expectation(batch.objective(st.solver.x))
 
 

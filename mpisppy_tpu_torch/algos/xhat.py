@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 
 Tensor = torch.Tensor
@@ -86,6 +86,7 @@ def _evaluate_core(batch: ScenarioBatch, xhat: Tensor,
                    opts: pdhg.PDHGOptions, feas_tol: float) -> XhatResult:
     """E[f(xhat, xi_s)] from a cold solve with infeasibility detection
     (ref:mpisppy/utils/xhat_eval.py:254-340)."""
+    batch = concretize(batch)  # scengen: draw the scenario data here
     qp = batch.with_fixed_nonants(xhat)
     opts = dataclasses.replace(opts, detect_infeas=True)
     st = pdhg.solve(qp, opts, pdhg.init_state(qp, opts))
@@ -107,6 +108,7 @@ def evaluate_warm(batch: ScenarioBatch, xhat: Tensor,
     """Evaluation warm-started from `solver` (clipped into the fixed
     box), with the same rescue as evaluate().  Returns
     (XhatResult, new_solver_state) — the primary solve's state."""
+    batch = concretize(batch)  # scengen: draw the scenario data here
     qp = batch.with_fixed_nonants(xhat)
     wopts = dataclasses.replace(opts, detect_infeas=True)
     st = dataclasses.replace(solver, x=torch.clamp(solver.x, qp.l, qp.u))

@@ -168,13 +168,81 @@ class ScenarioBatch:
         return dataclasses.replace(self.qp, l=l_full, u=u_full)
 
 
+def concretize(batch):
+    """Realize a scengen VirtualBatch into a plain ScenarioBatch; a
+    ScenarioBatch passes through untouched.  Every step of the solver
+    stack that reads scenario data calls this at entry, so synthesized
+    data exists only while that step runs and is never cached."""
+    if getattr(batch, "is_virtual", False):
+        return batch.realize()
+    return batch
+
+
+def scale_field(name: str, val: Tensor, d_row: Tensor,
+                d_col: Tensor) -> Tensor:
+    """Apply a SHARED Ruiz scaling to one f32 qp field — the one
+    arithmetic that host materialization (from_specs with `scaling=`)
+    and device synthesis (VirtualBatch.realize) share, so the two are
+    bit-identical: the field is f32 first, then scaled elementwise in
+    this order (A: val * d_row[:, None] * d_col, left to right)."""
+    if name == "c":
+        return val * d_col
+    if name == "q":
+        return val * d_col * d_col
+    if name in ("l", "u"):
+        return val / d_col
+    if name in ("bl", "bu"):
+        return val * d_row
+    if name == "A":
+        return val * d_row[..., :, None] * d_col
+    raise ValueError(f"unknown qp field: {name}")
+
+
+def as_scaled_arrays(scaling, dtype=torch.float32, device=None):
+    """(d_row, d_col) of a boxqp.Scaling as working-dtype tensors — the
+    shared f64 -> f32 conversion point of the template-scaling path."""
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float64)).to(
+            dtype).to(device)
+    return t(scaling.d_row), t(scaling.d_col)
+
+
+def _scaled_qp(stack, A, specs, n: int, scaling, cones, dev) -> BoxQP:
+    """The template-scaling path of from_specs: every field f32 first,
+    then scale_field; c and q broadcast to (S, n) as stride-0 views."""
+    S = len(specs)
+    raw_q = [sp.q for sp in specs]
+    if all(r is None for r in raw_q):
+        q_arr = np.zeros(n)
+    else:
+        q_arr = np.stack([np.zeros(n) if r is None
+                          else np.asarray(r, np.float64) for r in raw_q])
+    d_row, d_col = as_scaled_arrays(scaling, device=dev)
+
+    def sf(name, arr):
+        v = torch.as_tensor(np.asarray(arr, np.float32)).to(dev)
+        return scale_field(name, v, d_row, d_col)
+
+    return BoxQP(c=sf("c", stack("c")).expand(S, n),
+                 q=sf("q", q_arr).expand(S, n),
+                 A=sf("A", A), bl=sf("bl", stack("bl")),
+                 bu=sf("bu", stack("bu")), l=sf("l", stack("l")),
+                 u=sf("u", stack("u")), cones=cones)
+
+
 def from_specs(specs: list[ScenarioSpec],
                tree: ScenarioTree | None = None,
-               scale: bool = True, device=None) -> ScenarioBatch:
+               scale: bool = True, device=None,
+               scaling=None) -> ScenarioBatch:
     """Stack scenario specs into a device batch (the scenario compiler).
     Runs on CUDA unless device="cpu" is given.  The problem is made in
     f32 and Ruiz-scaled in numpy f64 before the cast back, exactly as
-    the JAX package does, so the scaled arrays match it bit for bit."""
+    the JAX package does, so the scaled arrays match it bit for bit.
+
+    scaling: a precomputed SHARED boxqp.Scaling (the scengen template
+    path): Ruiz equilibration is skipped and (d_row, d_col) are applied
+    through scale_field's f32 arithmetic, bit-identical to what
+    scengen.VirtualBatch.realize synthesizes from the same program."""
     dev = resolve_device(device)
     if not specs:
         raise ValueError("need at least one scenario")
@@ -228,18 +296,22 @@ def from_specs(specs: list[ScenarioSpec],
                     "the batch, like the nonant layout)")
         cones = cones_mod.cone_spec(specs[0].A.shape[0], blocks0)
         cones_mod.validate_against_bounds(cones, stack("bl"), stack("bu"))
-    c = np.stack([np.asarray(sp.c, np.float64) for sp in specs])
-    q = np.stack([np.zeros(n) if sp.q is None
-                  else np.asarray(sp.q, np.float64) for sp in specs])
-    qp = BoxQP(c=f32(c), q=f32(q), A=f32(A),
-               bl=f32(stack("bl")), bu=f32(stack("bu")),
-               l=f32(stack("l")), u=f32(stack("u")), cones=cones)
-    if scale:
-        qp, scaling = ruiz_scale(qp)
+    if scaling is not None:
+        qp = _scaled_qp(stack, A, specs, n, scaling, cones, dev)
         d_col, d_row = scaling.d_col, scaling.d_row
     else:
-        d_col = np.ones(A.shape[:-2] + (n,))
-        d_row = np.ones(A.shape[:-1])
+        c = np.stack([np.asarray(sp.c, np.float64) for sp in specs])
+        q = np.stack([np.zeros(n) if sp.q is None
+                      else np.asarray(sp.q, np.float64) for sp in specs])
+        qp = BoxQP(c=f32(c), q=f32(q), A=f32(A),
+                   bl=f32(stack("bl")), bu=f32(stack("bu")),
+                   l=f32(stack("l")), u=f32(stack("u")), cones=cones)
+        if scale:
+            qp, scaling = ruiz_scale(qp)
+            d_col, d_row = scaling.d_col, scaling.d_row
+        else:
+            d_col = np.ones(A.shape[:-2] + (n,))
+            d_row = np.ones(A.shape[:-1])
     d_col_t = f32(d_col)
 
     integer = np.zeros(n, bool)

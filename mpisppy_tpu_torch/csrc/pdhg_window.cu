@@ -46,6 +46,31 @@
 // 0/1 membership-matrix dots were a way around Mosaic having no scatter
 // and are not carried over.
 //
+// In-kernel scenario synthesis (template flag SYNTH, box rows only;
+// "pdhg_window_synth" in ops/pdhg_window.py).  Replaces the Pallas
+// engine's TileSynth (mpisppy_tpu/ops/pdhg_pallas.py:279-314, called
+// in-kernel at :624-629) with the draws that
+// mpisppy_tpu/scengen/tiles.py:36-113 built from the model's sampler.
+// A CUDA kernel cannot run a Python sampler, so the program states its
+// rule as data (scengen.RowDraws) and only the load phase changes: for
+// scenario sc the block takes the program index idx = min(sc,
+// num_real - 1) + start and the key threefry2x32(base_key, (0, idx))
+// (jax.random.fold_in), and for every drawn row j of [row0, row0 + count)
+//     bits = y0 ^ y1 of threefry2x32(key, (0, j))
+//     u    = __uint_as_float((bits >> 9) | 0x3F800000) - 1      (uniform)
+//     v    = u < threshold ? below : above
+//     bl/bu[row0 + j] = clip(__fmul_rn(v, d_row[row0 + j]), +-1e30)
+// before sigma scales it, as for a loaded row.  Rows that are not drawn
+// read the shared scaled template (stride 0).  The bits are jax.random's
+// (partitionable threefry layout), and the product is one IEEE rounding
+// as in VirtualBatch.realize, so a synthesized window equals the box
+// kernel's window on the realized batch bit for bit.  The key comes from
+// the wrapper's arguments, never from a generator of the kernel's own.
+// What bounds it: the iterations, not the draws — one 40-iteration
+// window at sslp 15x45 does ~6.8 MFLOP of matvec per scenario against 46
+// threefry calls (~5k integer operations); what synthesis saves is the
+// (S, m) bl/bu reads, 2*m*4 bytes per scenario.
+//
 // Arithmetic modes (compile-time template):
 //   MODE_F32    IEEE f32 fused multiply-add;
 //   MODE_BF16   one product of bf16-rounded operands (hi*hi);
@@ -59,7 +84,9 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC -o libpdhg_window.so pdhg_window.cu
 // (no fast-math: sqrtf and the division stay IEEE).
-// Bound to Python with ctypes (ops/pdhg_window.py).
+// Bound to Python with ctypes (ops/pdhg_window.py) through one entry,
+// pdhg_window_launch, which picks the instantiation from its inputs: SOC
+// blocks when num_cones > 0, SYNTH when d_row is given, else box rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -90,7 +117,49 @@ struct Args {
   int num_cones, cone_nnz;
   const float* x; const float* y; const float* xs; const float* ys;
   float* xo; float* yo; float* xso; float* yso;
+  // SYNTH only: the program's base key, index window and row rule
+  unsigned key0, key1;
+  int start, num_real;
+  int draw_row0, draw_count;
+  float draw_thr, draw_below, draw_above;
+  int draw_bl, draw_bu;
+  const float* d_row;  // (m,) row scaling of the drawn values
 };
+
+__device__ __forceinline__ unsigned rotl32(unsigned v, int r) {
+  return (v << r) | (v >> (32 - r));
+}
+
+__device__ __forceinline__ void mix4(unsigned& x0, unsigned& x1, int r0,
+                                     int r1, int r2, int r3) {
+  x0 += x1; x1 = rotl32(x1, r0) ^ x0;
+  x0 += x1; x1 = rotl32(x1, r1) ^ x0;
+  x0 += x1; x1 = rotl32(x1, r2) ^ x0;
+  x0 += x1; x1 = rotl32(x1, r3) ^ x0;
+}
+
+// Threefry-2x32, 20 rounds (as jax.random): key (k0, k1), counter
+// (x0, x1) -> (x0, x1) in place.
+__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1,
+                                             unsigned& x0, unsigned& x1) {
+  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0; x1 += k1;
+  mix4(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
+  mix4(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
+  mix4(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
+  mix4(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
+  mix4(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
+}
+
+// The drawn value of row j of a scenario with key (k0, k1).
+__device__ __forceinline__ float draw_row(const Args& g, unsigned k0,
+                                          unsigned k1, int j) {
+  unsigned y0 = 0u, y1 = (unsigned)j;
+  threefry2x32(k0, k1, y0, y1);
+  const unsigned bits = y0 ^ y1;
+  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  return u < g.draw_thr ? g.draw_below : g.draw_above;
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -159,7 +228,7 @@ __device__ __forceinline__ void soc_block(const int* rows, int dim,
   }
 }
 
-template <int MODE, int SPB, bool CONES>
+template <int MODE, int SPB, bool CONES, bool SYNTH>
 __global__ void __launch_bounds__(kThreads)
 pdhg_window_kernel(Args g) {
   extern __shared__ float smem[];
@@ -177,6 +246,7 @@ pdhg_window_kernel(Args g) {
   float* yh_[SPB]; float* yl_[SPB]; float* w_[SPB];
   __shared__ float tau_s[SPB], sigma_s[SPB];
   __shared__ bool frozen_s[SPB];
+  __shared__ unsigned key_s[SPB][2];  // SYNTH: each scenario's key
 #pragma unroll
   for (int s = 0; s < SPB; ++s) {
     float* b = base + s * per;
@@ -205,6 +275,14 @@ pdhg_window_kernel(Args g) {
     tau_s[tid] = t;
     sigma_s[tid] = sg;
     frozen_s[tid] = live == 0.f;
+    if (SYNTH) {
+      // fold_in(base_key, idx): pad rows clone the last real scenario
+      unsigned k0 = 0u;
+      unsigned k1 = (unsigned)(min(sc, g.num_real - 1) + g.start);
+      threefry2x32(g.key0, g.key1, k0, k1);
+      key_s[tid][0] = k0;
+      key_s[tid][1] = k1;
+    }
   }
   if (CONES) {
     for (int k = tid; k <= g.num_cones; k += kThreads)
@@ -246,6 +324,13 @@ pdhg_window_kernel(Args g) {
         ysv = g.ys[(long long)sc * m + i];
         blv = clip(g.bl[sc * g.bl_stride + i], -kBig, kBig);
         buv = clip(g.bu[sc * g.bu_stride + i], -kBig, kBig);
+        const int j = i - g.draw_row0;
+        if (SYNTH && j >= 0 && j < g.draw_count) {
+          const float v = draw_row(g, key_s[s][0], key_s[s][1], j);
+          const float scaled = clip(__fmul_rn(v, g.d_row[i]), -kBig, kBig);
+          if (g.draw_bl) blv = scaled;
+          if (g.draw_bu) buv = scaled;
+        }
       }
       y_[s][i] = yv;
       ys_[s][i] = ysv;
@@ -379,15 +464,15 @@ size_t smem_bytes(const Args& g) {
          (CONES ? sizeof(int) * cone_ints(g) : 0);
 }
 
-template <int MODE, int SPB, bool CONES>
+template <int MODE, int SPB, bool CONES, bool SYNTH>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   const size_t bytes = smem_bytes<SPB, CONES>(g);
   cudaError_t err = cudaFuncSetAttribute(
-      pdhg_window_kernel<MODE, SPB, CONES>,
+      pdhg_window_kernel<MODE, SPB, CONES, SYNTH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (g.S + SPB - 1) / SPB;
-  pdhg_window_kernel<MODE, SPB, CONES>
+  pdhg_window_kernel<MODE, SPB, CONES, SYNTH>
       <<<blocks, kThreads, bytes, stream>>>(g);
   return cudaGetLastError();
 }
@@ -395,7 +480,7 @@ cudaError_t launch(const Args& g, cudaStream_t stream) {
 // Scenarios per block: several only pay once the batch fills the card;
 // a small batch (the 64-scenario straggler tail) keeps one per block so
 // it still spreads over the SMs.
-template <int MODE, bool CONES>
+template <int MODE, bool CONES, bool SYNTH>
 cudaError_t dispatch_spb(const Args& g, cudaStream_t stream) {
   int dev = 0, smem_max = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -404,20 +489,37 @@ cudaError_t dispatch_spb(const Args& g, cudaStream_t stream) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (g.S >= 8LL * sms &&
       smem_bytes<4, CONES>(g) <= (size_t)smem_max)
-    return launch<MODE, 4, CONES>(g, stream);
+    return launch<MODE, 4, CONES, SYNTH>(g, stream);
   if (smem_bytes<1, CONES>(g) <= (size_t)smem_max)
-    return launch<MODE, 1, CONES>(g, stream);
+    return launch<MODE, 1, CONES, SYNTH>(g, stream);
   return cudaErrorInvalidValue;  // one scenario's state does not fit
 }
 
+// box rows, SOC blocks, or box rows with in-kernel synthesis (the entry
+// rejects synthesis together with cones)
 template <int MODE>
-cudaError_t dispatch_cones(const Args& g, cudaStream_t stream) {
-  if (g.num_cones > 0) return dispatch_spb<MODE, true>(g, stream);
-  return dispatch_spb<MODE, false>(g, stream);
+cudaError_t dispatch_kind(const Args& g, cudaStream_t stream) {
+  if (g.d_row != nullptr) return dispatch_spb<MODE, false, true>(g, stream);
+  if (g.num_cones > 0) return dispatch_spb<MODE, true, false>(g, stream);
+  return dispatch_spb<MODE, false, false>(g, stream);
+}
+
+int dispatch_mode(const Args& g, int mode, cudaStream_t st) {
+  switch (mode) {
+    case MODE_F32: return (int)dispatch_kind<MODE_F32>(g, st);
+    case MODE_BF16: return (int)dispatch_kind<MODE_BF16>(g, st);
+    case MODE_BF16X3:
+      if (g.A_lo == nullptr) return (int)cudaErrorInvalidValue;
+      return (int)dispatch_kind<MODE_BF16X3>(g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// The synthesis arguments (key0 .. d_row, see SYNTH above) are read only
+// when d_row is not null; bl/bu then hold the shared scaled template that
+// rows outside the draw keep.
 extern "C" int pdhg_window_launch(
     const float* A, const float* A_lo, int m, int n, int S, int n_iters,
     int mode, const float* tau, const float* sigma, const float* done,
@@ -427,26 +529,24 @@ extern "C" int pdhg_window_launch(
     long long bu_stride, const int* cone_ptr, const int* cone_rows,
     int num_cones, int cone_nnz, const float* x, const float* y,
     const float* xs, const float* ys, float* xo, float* yo, float* xso,
-    float* yso, void* stream) {
+    float* yso, unsigned key0, unsigned key1, int start, int num_real,
+    int draw_row0, int draw_count, float draw_thr, float draw_below,
+    float draw_above, int draw_bl, int draw_bu, const float* d_row,
+    void* stream) {
   if (S <= 0) return 0;
   if (m <= 0 || n <= 0 || n_iters < 0) return (int)cudaErrorInvalidValue;
   if (num_cones < 0 || cone_nnz < 0 ||
       (num_cones > 0 && (cone_ptr == nullptr || cone_rows == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (d_row != nullptr &&
+      (num_cones > 0 || num_real <= 0 || start < 0 || draw_row0 < 0 ||
+       draw_count < 0 || draw_row0 + draw_count > m))
+    return (int)cudaErrorInvalidValue;
   Args g{A, A_lo, m, n, S, n_iters, tau, sigma, done,
          c, c_stride, q, q_stride, l, l_stride, u, u_stride,
          bl, bl_stride, bu, bu_stride, cone_ptr, cone_rows, num_cones,
-         cone_nnz, x, y, xs, ys, xo, yo, xso, yso};
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  switch (mode) {
-    case MODE_F32: err = dispatch_cones<MODE_F32>(g, st); break;
-    case MODE_BF16: err = dispatch_cones<MODE_BF16>(g, st); break;
-    case MODE_BF16X3:
-      if (A_lo == nullptr) return (int)cudaErrorInvalidValue;
-      err = dispatch_cones<MODE_BF16X3>(g, st);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)err;
+         cone_nnz, x, y, xs, ys, xo, yo, xso, yso,
+         key0, key1, start, num_real, draw_row0, draw_count,
+         draw_thr, draw_below, draw_above, draw_bl, draw_bu, d_row};
+  return dispatch_mode(g, mode, (cudaStream_t)stream);
 }

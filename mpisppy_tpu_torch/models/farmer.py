@@ -122,3 +122,86 @@ def scenario_names_creator(num_scens: int, start: int | None = None):
     """ref:examples/farmer/farmer.py:235-240."""
     start = 0 if start is None else start
     return [f"scen{i}" for i in range(start, start + num_scens)]
+
+
+# --------------------------------------------------------------------------
+# Seeded scenario synthesis (scengen branch; port of the JAX package's
+# models/farmer.py::scenario_program).
+#
+# Scenario s's yields are base[s % 3] plus U[0,1) noise per crop for
+# scenario groups > 0, drawn from threefry via
+# uniform(scen_key(base_key, s)) instead of RandomState(scennum +
+# seedoffset): the draws differ from scenario_creator's by construction,
+# and are identical to the JAX package's program.  Farmer's randomness
+# enters the CONSTRAINT MATRIX, so this is the per-scenario-A program.
+# --------------------------------------------------------------------------
+def scenario_program(num_scens: int, seed: int = 0, start: int = 0,
+                     crops_multiplier: int = 1,
+                     use_integer: bool = False):
+    """ScenarioProgram drawing farmer yields through scengen keys."""
+    import torch
+
+    from mpisppy_tpu_torch.scengen import random as rnd
+    from mpisppy_tpu_torch.scengen.program import ScenarioProgram, scen_key
+
+    k = int(crops_multiplier)
+    C = 3 * k
+    n = 4 * C
+    total_acreage = 500.0 * k
+    tile = lambda v: np.tile(v, k)  # noqa: E731
+
+    c = np.concatenate([
+        tile(_PLANTING_COST), -tile(_SUB_PRICE),
+        -tile(_SUPER_PRICE), tile(_PURCHASE_PRICE)])
+    m = 1 + 2 * C
+    # yield-free skeleton of the constraint matrix (scenario_creator's
+    # layout with the yield coefficients zeroed; the sampler scatters
+    # the drawn yields into rows [1, 1+C) and their negation into the
+    # limit rows)
+    A0 = np.zeros((m, n))
+    A0[0, :C] = 1.0
+    rows = 1 + np.arange(C)
+    A0[rows, 3 * C + np.arange(C)] = 1.0
+    A0[rows, C + np.arange(C)] = -1.0
+    A0[rows, 2 * C + np.arange(C)] = -1.0
+    rows2 = 1 + C + np.arange(C)
+    A0[rows2, C + np.arange(C)] = 1.0
+    A0[rows2, 2 * C + np.arange(C)] = 1.0
+    bl = np.full(m, -np.inf)
+    bu = np.full(m, np.inf)
+    bu[0] = total_acreage
+    bl[1:1 + C] = tile(_CATTLE_FEED)
+    bu[1 + C:1 + 2 * C] = 0.0
+    l = np.zeros(n)  # noqa: E741
+    u = np.concatenate([np.full(C, total_acreage), tile(_PRICE_QUOTA),
+                        np.full(C, np.inf), np.full(C, np.inf)])
+    integer = np.zeros(n, bool)
+    if use_integer:
+        integer[:C] = True
+
+    A0_f = torch.as_tensor(A0.astype(np.float32))
+    base_f = torch.as_tensor(_BASE_YIELD.astype(np.float32))
+    feed_rows = torch.as_tensor(rows)
+    limit_rows = torch.as_tensor(rows2)
+    acre_cols = torch.arange(C)
+
+    def sampler(base_key, idx):
+        dev = idx.device
+        K = idx.shape[0]
+        base = base_f.to(dev)[idx % 3].repeat(1, k)            # (K, C)
+        noise = rnd.uniform(scen_key(base_key, idx), (k, 3)).reshape(K, C)
+        y = base + torch.where((idx // 3 > 0)[:, None], noise,
+                               torch.zeros_like(noise))
+        A = A0_f.to(dev).expand(K, m, n).clone()
+        A[:, feed_rows.to(dev), acre_cols.to(dev)] = y
+        A[:, limit_rows.to(dev), acre_cols.to(dev)] = -y
+        return {"A": A}
+
+    return ScenarioProgram(
+        name="farmer", num_scenarios=int(num_scens),
+        base_seed=int(seed), start=int(start),
+        template={"c": c, "A": A0, "bl": bl, "bu": bu, "l": l, "u": u},
+        varying=("A",), sampler=sampler,
+        nonant_idx=np.arange(C, dtype=np.int32),
+        integer=integer if use_integer else None,
+    )

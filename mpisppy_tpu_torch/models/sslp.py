@@ -226,3 +226,51 @@ def scenario_names_creator(num_scens: int, start: int | None = None):
     """One-based names (ref:examples/sslp/sslp.py:55-60)."""
     start = 1 if start is None else start
     return [f"Scenario{i}" for i in range(start, start + num_scens)]
+
+
+# --------------------------------------------------------------------------
+# Seeded scenario synthesis (scengen branch; port of the JAX package's
+# models/sslp.py::scenario_program).
+#
+# sslp randomness is RHS-only (ClientPresent), so the program's varying
+# fields are just (bl, bu): the dense constraint matrix, costs and box
+# stay one shared template for any scenario count.  ClientPresent ~
+# Bernoulli(1/2) per client is drawn from threefry
+# (uniform(scen_key(base_key, s)) < 0.5) instead of the RandomState
+# stream of scenario_creator.  The rule is stated once, as RowDraws: the
+# sampler is built from it, and the window kernel draws it in-kernel
+# (scengen.window_inputs).
+# --------------------------------------------------------------------------
+def scenario_program(num_scens: int, seed: int = 0, start: int = 0,
+                     n_servers: int = 5, n_clients: int = 25,
+                     inst_seed: int = 0, lp_relax: bool = False,
+                     instance: dict | None = None):
+    """ScenarioProgram drawing ClientPresent through scengen keys."""
+    from mpisppy_tpu_torch.scengen.program import RowDraws, ScenarioProgram
+
+    inst = instance if instance is not None \
+        else synthetic_instance(n_servers, n_clients, inst_seed)
+    n = int(inst["NumServers"])
+    m = int(inst["NumClients"])
+    # populate the deterministic-structure cache and reuse its arrays
+    _build_spec(inst, np.zeros(m), "_scengen_template", None)
+    A, c, l, u, integer = inst["_spec_cache"]  # noqa: E741
+    nrows = A.shape[0]
+
+    bl0 = np.full(nrows, -np.inf)
+    bu0 = np.full(nrows, np.inf)
+    bu0[:n] = 0.0
+    # ClientPresent rows n..n+m: bl = bu = 1.0 if u < 0.5 else 0.0
+    draws = RowDraws(fields=("bl", "bu"), row0=n, count=m, threshold=0.5,
+                     below=1.0, above=0.0)
+
+    integer_eff = np.zeros_like(integer) if lp_relax else integer
+    return ScenarioProgram(
+        name="sslp", num_scenarios=int(num_scens),
+        base_seed=int(seed), start=int(start),
+        template={"c": c, "A": A, "bl": bl0, "bu": bu0, "l": l, "u": u},
+        varying=("bl", "bu"),
+        sampler=draws.as_sampler({"bl": bl0, "bu": bu0}),
+        nonant_idx=np.arange(n, dtype=np.int32),
+        integer=integer_eff, row_draws=draws,
+    )

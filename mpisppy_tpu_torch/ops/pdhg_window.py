@@ -7,9 +7,12 @@
 # kernel (_tile_math, run through either the single-buffer grid kernel or
 # the double-buffered pipeline; both compute the same function, so one
 # CUDA kernel ports both), box rows and the SOC dual prox
-# (_tile_math.soc_prox) alike.  The kernel has two instantiations,
-# counted apart in run_window.launches: "pdhg_window" (box rows only)
-# and "pdhg_window_soc" (a batch with second-order-cone blocks).
+# (_tile_math.soc_prox) alike.  The kernel has three instantiations,
+# counted apart in run_window.launches: "pdhg_window" (box rows only),
+# "pdhg_window_soc" (a batch with second-order-cone blocks) and
+# "pdhg_window_synth" (box rows whose drawn bound rows the kernel
+# synthesizes itself from threefry keys: run_window(synth=TileSynth),
+# the port of the Pallas engine's in-kernel tile synthesis).
 #
 # What bounds it on an H100: per iteration a scenario does 4*m*n flops
 # of matvec against A (2 reads of A) and O(n + m) elementwise work.  The
@@ -28,6 +31,7 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -52,6 +56,48 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSynth:
+    """In-kernel synthesis of a program's drawn bound rows (port of
+    pdhg_pallas.TileSynth; built by scengen.window_inputs).  Scenario row
+    s of the window draws program index min(s, num_real - 1) + start from
+    the key fold_in(base_key, index) by the rule `draws`
+    (scengen.program.RowDraws), scales the drawn values by d_row and
+    writes them over the shared template rows of draws.fields.  The
+    kernel takes the key from here, never from a generator of its own.
+
+    key: the program's base key as two ints (its threefry key words);
+    d_row: (m,) f32 row scaling; start, num_real: the program's index
+    window."""
+
+    key: tuple
+    d_row: Tensor
+    start: int
+    num_real: int
+    draws: object
+
+    def scenario_indices(self, S: int, device) -> Tensor:
+        i = torch.arange(S, device=device)
+        return torch.clamp(i, max=self.num_real - 1) + self.start
+
+    def synthesize(self, p: BoxQP, S: int) -> BoxQP:
+        """The plain version of the kernel's load phase: p with its drawn
+        fields realized as (S, m) rows for all S scenarios."""
+        rd = self.draws
+        dev = p.A.device
+        key = torch.tensor(self.key, dtype=torch.int64, device=dev)
+        vals = rd.draw(key, self.scenario_indices(S, dev))
+        rows = slice(rd.row0, rd.row0 + rd.count)
+        scaled = vals * self.d_row.to(dev)[rows]
+        out = {}
+        for name in rd.fields:
+            full = getattr(p, name)
+            full = full.expand(S, full.shape[-1]).clone()
+            full[:, rows] = scaled
+            out[name] = full
+        return dataclasses.replace(p, **out)
 
 
 def supported(p: BoxQP) -> bool:
@@ -85,11 +131,16 @@ def _matmul(mode: str, v: Tensor, M: Tensor, M_hi: Tensor, M_lo: Tensor):
 
 def run_window_reference(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
                          y_sum: Tensor, tau: Tensor, sigma: Tensor,
-                         done: Tensor, n_iters: int, precision=None):
+                         done: Tensor, n_iters: int, precision=None,
+                         synth: TileSynth | None = None):
     """The plain PyTorch version: the hoisted iteration of
     pdhg_pallas._tile_math written out (tc, pre, sbl, sbu).  On SOC rows
     y1 = Proj_polar(w - sigma*b), with b read from bl (bl == bu there).
-    Returns (x, y, x_sum, y_sum)."""
+    With `synth`, the drawn rows are first realized for every scenario
+    (TileSynth.synthesize).  Returns (x, y, x_sum, y_sum)."""
+    _check_synth(p, synth)
+    if synth is not None:
+        p = synth.synthesize(p, x.shape[0])
     mode = as_precision(precision) or "f32"
     live = 1.0 - done.to(x.dtype)
     t = (tau * live)[:, None]
@@ -138,8 +189,10 @@ def _library():
     lib = ctypes.CDLL(str(LIBRARY))
     fn = lib.pdhg_window_launch
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([P, P, I, I, I, I, I, P, P, P]
-                   + [P, L] * 6 + [P, P, I, I] + [P] * 9)
+    U, F = ctypes.c_uint, ctypes.c_float
+    fn.argtypes = ([P, P, I, I, I, I, I, P, P, P] + [P, L] * 6
+                   + [P, P, I, I] + [P] * 8
+                   + [U, U, I, I, I, I, F, F, F, I, I, P, P])
     fn.restype = I
     _lib = lib
     return lib
@@ -161,6 +214,19 @@ def build() -> str:
     return log
 
 
+def _check_synth(p: BoxQP, synth) -> None:
+    if synth is not None and p.cones is not None:
+        raise ValueError("TileSynth does not support conic batches")
+
+
+def _shared_row(t: Tensor) -> Tensor:
+    """A stride-0 (S, k) view (a shared row expanded over the batch, as
+    VirtualBatch.realize gives c and q) as the shared (k,) row itself."""
+    if t.ndim == 2 and t.shape[0] > 0 and t.stride(0) == 0:
+        return t[0]
+    return t
+
+
 def _stride(t: Tensor, S: int) -> int:
     """Scenario stride of a (S, k) or shared (k,) operand."""
     if t.ndim == 1:
@@ -172,17 +238,22 @@ def _stride(t: Tensor, S: int) -> int:
 
 def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
                y_sum: Tensor, tau: Tensor, sigma: Tensor, done: Tensor,
-               n_iters: int, precision=None):
+               n_iters: int, precision=None,
+               synth: TileSynth | None = None):
     """n_iters PDHG iterations over the whole scenario batch.  Returns
     (x, y, x_sum, y_sum).  Shapes: x,c,q (S, n); y (S, m); tau/sigma/done
-    (S,); A (m, n) shared; l/u/bl/bu shared or per-scenario.
+    (S,); A (m, n) shared; l/u/bl/bu shared or per-scenario (a stride-0
+    (S, k) view counts as shared).  `synth` (box rows only): the kernel
+    draws the TileSynth's rows itself (scengen.window_inputs builds
+    both p and synth from a VirtualBatch).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in run_window.launches under the instantiation's name) or
     raise."""
+    _check_synth(p, synth)
     if x.device.type == "cpu":
         return run_window_reference(p, x, y, x_sum, y_sum, tau, sigma,
-                                    done, n_iters, precision)
+                                    done, n_iters, precision, synth)
     if x.device.type != "cuda":
         raise ValueError(f"run_window: unsupported device {x.device}")
     if not supported(p):
@@ -192,6 +263,8 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     mode = as_precision(precision) or "f32"
     S, n = x.shape
     m = y.shape[-1]
+    p = dataclasses.replace(p, **{f: _shared_row(getattr(p, f))
+                                  for f in ("c", "q", "l", "u", "bl", "bu")})
     fields = (p.A, p.c, p.q, p.l, p.u, p.bl, p.bu, x, y, x_sum, y_sum,
               tau, sigma)
     for t in fields:
@@ -228,6 +301,23 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
             A_lo = None
     xo, yo = torch.empty_like(x), torch.empty_like(y)
     xso, yso = torch.empty_like(x_sum), torch.empty_like(y_sum)
+    if synth is not None:
+        kernel = "pdhg_window_synth"
+        rd = synth.draws
+        d_row = synth.d_row
+        if d_row.device != x.device or d_row.dtype != torch.float32 \
+                or d_row.shape != (m,) or not d_row.is_contiguous():
+            raise ValueError("run_window: synth.d_row must be a contiguous "
+                             "float32 (m,) tensor on the CUDA device")
+        if not (0 <= rd.row0 and rd.row0 + rd.count <= m):
+            raise ValueError("run_window: synth draws rows outside [0, m)")
+        draws = (*synth.key, int(synth.start), int(synth.num_real),
+                 int(rd.row0), int(rd.count), float(rd.threshold),
+                 float(rd.below), float(rd.above), int("bl" in rd.fields),
+                 int("bu" in rd.fields), d_row.data_ptr())
+    else:
+        # d_row = null: no synthesis
+        draws = (0, 0, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0, 0, None)
     lib = _library()
     ptr = ctypes.c_void_p
     rc = lib.pdhg_window_launch(
@@ -248,12 +338,13 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         ptr(x_sum.data_ptr()), ptr(y_sum.data_ptr()),
         ptr(xo.data_ptr()), ptr(yo.data_ptr()),
         ptr(xso.data_ptr()), ptr(yso.data_ptr()),
-        ptr(torch.cuda.current_stream(x.device).cuda_stream))
+        *draws, ptr(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"pdhg_window kernel launch failed: CUDA error "
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
                            f"{rc}")
     run_window.launches[kernel] += 1
     return xo, yo, xso, yso
 
 
-run_window.launches = {"pdhg_window": 0, "pdhg_window_soc": 0}
+run_window.launches = {"pdhg_window": 0, "pdhg_window_soc": 0,
+                       "pdhg_window_synth": 0}

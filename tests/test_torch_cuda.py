@@ -7,14 +7,17 @@
 # (--noconftest: tests/conftest.py configures JAX, which such a machine
 # does not have.)  The kernel is held to its plain version at a small
 # sslp shape and, for its SOC instantiation, on the ccopf --soc batch
-# and on ragged blocks in any row order; chip_smoke.py does the same at
-# the main path's shapes.
+# and on ragged blocks in any row order; its SYNTH instantiation must
+# equal the box instantiation on the realized batch bit for bit (the
+# device threefry is jax.random's).  chip_smoke.py does the same at the
+# main path's shapes.
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from mpisppy_tpu_torch import scengen
 from mpisppy_tpu_torch.core import batch as batch_mod
 from mpisppy_tpu_torch.models import ccopf, sslp
 from mpisppy_tpu_torch.ops import boxqp, cones, pdhg, pdhg_window
@@ -138,3 +141,57 @@ def test_entry_points_run_on_cuda_by_default(cuda):
              for nm in sslp.scenario_names_creator(2)]
     assert batch_mod.from_specs(specs).device.type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def _synth_args(device, S, pad_to=None):
+    """The sslp(5,15) program's VirtualBatch, window inputs on its
+    realized batch, and the kernel's synth inputs."""
+    prog = sslp.scenario_program(S, seed=3, n_servers=5, n_clients=15,
+                                 lp_relax=True)
+    vb = scengen.virtual_batch(prog, pad_to=pad_to, device=device)
+    args = _solver_args(vb.realize().qp)
+    qp_proxy, synth = scengen.window_inputs(vb)
+    return args, qp_proxy, synth
+
+
+# S=40 runs one scenario per block, S >= 8 x 132 SMs four; 1059 leaves a
+# ragged last block, and pad_to=6 (1062 rows) adds pad rows that clone
+# the last real scenario's draws
+@pytest.mark.parametrize("S,pad_to", [(40, None), (2000, None),
+                                      (1059, None), (1059, 6)])
+@pytest.mark.parametrize("precision", [None, "bf16", "bf16x3"])
+def test_synth_kernel_equals_box_kernel(cuda, S, pad_to, precision):
+    args, qp_proxy, synth = _synth_args(cuda, S, pad_to)
+    before = dict(pdhg_window.run_window.launches)
+    box = pdhg_window.run_window(*args, precision=precision)
+    syn = pdhg_window.run_window(qp_proxy, *args[1:], precision=precision,
+                                 synth=synth)
+    torch.cuda.synchronize()
+    assert dict(pdhg_window.run_window.launches) == {
+        **before, "pdhg_window": before["pdhg_window"] + 1,
+        "pdhg_window_synth": before["pdhg_window_synth"] + 1}
+    for a, b in zip(box, syn):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision,tol", [(None, 1e-4), ("bf16x3", 1e-3)])
+def test_synth_kernel_matches_plain_version(cuda, precision, tol):
+    args, qp_proxy, synth = _synth_args(cuda, 40)
+    k = pdhg_window.run_window(qp_proxy, *args[1:], precision=precision,
+                               synth=synth)
+    r = pdhg_window.run_window_reference(qp_proxy, *args[1:],
+                                         precision=precision, synth=synth)
+    for a, b in zip(k, r):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+    done = args[7]
+    assert torch.equal(k[0][done], args[1][done])
+    assert torch.equal(k[1][done], args[2][done])
+
+
+def test_device_threefry_draws_match_the_cpu(cuda):
+    prog = sslp.scenario_program(300, seed=9, lp_relax=True)
+    idx = torch.as_tensor(prog.indices())
+    cpu = scengen.sample_fields(prog, idx)
+    gpu = scengen.sample_fields(prog, idx.to(cuda))
+    for name in prog.varying:
+        assert torch.equal(cpu[name], gpu[name].cpu())

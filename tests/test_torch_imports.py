@@ -48,7 +48,12 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/algos/fused_wheel.py",
                  "mpisppy_tpu_torch/cylinders/hub.py",
                  "mpisppy_tpu_torch/spin_the_wheel.py",
-                 "mpisppy_tpu_torch/convert.py", "chip_smoke.py"):
+                 "mpisppy_tpu_torch/convert.py",
+                 "mpisppy_tpu_torch/scengen/__init__.py",
+                 "mpisppy_tpu_torch/scengen/random.py",
+                 "mpisppy_tpu_torch/scengen/program.py",
+                 "mpisppy_tpu_torch/scengen/virtual.py",
+                 "mpisppy_tpu_torch/scengen/tiles.py", "chip_smoke.py"):
         assert must in names
 
 
