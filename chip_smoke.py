@@ -2,13 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and
-drives its two main paths:
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, started together) and drives its main paths:
 
-* sslp — holds the box-row kernel against its plain PyTorch version at
-  the main path's shapes, runs a small wheel on the card and on the CPU
-  and compares their bounds, then drives the headline workload, the
-  sslp 15x45 fused PH wheel at 10,000 scenarios;
+* sslp — holds the box-row kernel in both designs (resident: A in shared
+  memory, bf16x3 on tensor cores; streamed: A from L2) against its plain
+  PyTorch version at the main path's shapes (S=10,000 and the
+  64-scenario, 160-iteration straggler tail), measures the tensor cores'
+  accumulation error, times both designs in turns, runs a small wheel on
+  the card and on the CPU and compares their bounds, profiles a capped
+  headline run, then drives the headline workload, the sslp 15x45 fused
+  PH wheel at 10,000 scenarios, and checks that every box window took
+  the design the shape rule gives;
 * ccopf --soc — the branch-flow SOCP relaxation of AC power flow on a
   3-stage tree: holds the kernel's SOC instantiation against its plain
   version (ccopf at 10,000 scenarios and the 33-bus feeder), runs the
@@ -27,7 +32,8 @@ counts set to 0 just before it and read just after, to show that it went
 through its kernel.  One line per phase; then one JSON line describing
 each kernel, then the last line {"ok": true, "device": {...}}.  Any
 failed check raises (exit code 1); without CUDA the script exits 2 and
-prints no result.
+prints no result.  `python3 chip_smoke.py --only headline_profile` runs
+the profile phase alone (to profile another tree's package with it).
 """
 import json
 import math
@@ -49,7 +55,10 @@ SSLP_SERVERS, SSLP_CLIENTS = 15, 45   # bench.py SSLP_SERVERS/CLIENTS
 HEADLINE_SCENS = 10_000               # bench.py SSLP_SCENS
 SWEEP_SCENS = (10_000, 100_000)       # bench.py SWEEP (full run)
 N_ITERS = 40                          # restart_period of the headline
+TAIL_SCENS, TAIL_ITERS = 64, 160      # the fused wheel's straggler tail
+DESIGNS = ("resident", "streamed")    # the window kernel's two designs
 HEADLINE_MAX_ITERS = 150              # cap: a few minutes on one H100
+PROFILE_HUB_ITERS = 6                 # [headline_profile]'s capped run
 # kernel vs plain version, max |k - r| <= ATOL + RTOL * |r| after one
 # window: f32 differs only in summation order (~1e-6 measured); bf16x3
 # splits a value whose last bits differ, so its terms move by ~2^-16
@@ -79,6 +88,8 @@ SCENGEN_SMALL_SCENS = 64
 # and an or) and xor, the key injections, and the bits-to-float and
 # compare — integer work counted at the f32 CUDA-core rate
 THREEFRY_OPS = 125
+# the kernels' MODE template argument
+MODE_NAMES = {"0": "f32", "1": "bf16", "3": "bf16x3"}
 
 
 def phase(name, **fields):
@@ -281,51 +292,69 @@ def wheel(batch, opts):
 
 
 def registers_by_instantiation(log):
-    """ptxas's register count of each kernel instantiation, keyed
-    mode/scenarios-per-block/kind (box, cones or synth), from the
-    build's -Xptxas -v output."""
-    modes = {"0": "f32", "1": "bf16", "3": "bf16x3"}
-    regs, name = {}, None
+    """ptxas's registers, spill bytes (stores+loads) and static shared
+    memory of each kernel instantiation, from the build's -Xptxas -v
+    output: streamed kernels keyed mode/scenarios-per-block/kind (box,
+    cones or synth), resident ones mode/resident/kind."""
+    out, name, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"pdhg_window_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
                       ln)
-        if m and "Compiling entry function" in ln:
-            kind = "cones" if m[3] == "1" else "synth" if m[4] == "1" \
-                else "box"
-            name = f"{modes[m[1]]}/{m[2]}/{kind}"
+        r = re.search(r"pdhg_window_residentILi(\d+)ELb(\d)E", ln)
+        if "Compiling entry function" in ln and (m or r):
+            if m:
+                kind = "cones" if m[3] == "1" else "synth" if m[4] == "1" \
+                    else "box"
+                name = f"{MODE_NAMES[m[1]]}/{m[2]}/{kind}"
+            else:
+                kind = "synth" if r[2] == "1" else "box"
+                name = f"{MODE_NAMES[r[1]]}/resident/{kind}"
+            spill = 0
+        elif name and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes spill", ln)
+            spill = sum(int(v) for v in nums)
         elif name and "Used " in ln and "registers" in ln:
-            regs[name] = int(ln.split("Used ")[1].split()[0])
+            regs = int(ln.split("Used ")[1].split()[0])
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name] = f"{regs}r/{spill}s/{sm[1] if sm else 0}smem"
             name = None
-    return ",".join(f"{k}:{v}" for k, v in sorted(regs.items()))
+    return ",".join(f"{k}:{v}" for k, v in sorted(out.items()))
 
 
 def reset_launches():
     from mpisppy_tpu_torch.ops import pdhg_window
     for name in pdhg_window.run_window.launches:
         pdhg_window.run_window.launches[name] = 0
+    pdhg_window.run_window.launches_by_design.clear()
 
 
-def kernel_entry(name, replaces, launches, err, timing):
+STREAMED_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window.cu"
+RESIDENT_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window_resident.cu"
+
+
+def kernel_entry(name, source, replaces, launches, err, timing):
     ms, plain, bound, by = timing
-    return {"name": name, "route": "cuda",
-            "source": "mpisppy_tpu_torch/csrc/pdhg_window.cu",
+    return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def parity(args, mode, label, S, synth=None, **extra):
+def parity(args, mode, label, S, synth=None, design=None, **extra):
     """Kernel against its plain version on the same inputs; done lanes
-    must come back bit-unchanged.  Returns (max_abs_err, kernel out)."""
+    must come back bit-unchanged.  `design` names the kernel's design
+    (None: the shape rule's).  Returns (max_abs_err, kernel out)."""
     from mpisppy_tpu_torch.ops import pdhg_window
-    k = pdhg_window.run_window(*args, precision=mode, synth=synth)
+    k = pdhg_window.run_window(*args, precision=mode, synth=synth,
+                               design=design)
     r = pdhg_window.run_window_reference(*args, precision=mode, synth=synth)
     torch.cuda.synchronize()
     err, ok = max_err(k, r, mode)
     done = args[7]
     frozen = torch.equal(k[0][done], args[1][done]) \
         and torch.equal(k[1][done], args[2][done])
-    phase(label, S=S, mode=mode, max_abs_err=err,
+    phase(label, S=S, mode=mode, n_iters=args[8],
+          design=design or "rule", max_abs_err=err,
           tol=f"{TOLS[mode][0]}+{TOLS[mode][1]}*|plain|", ok=ok,
           done_lanes_unchanged=frozen, **extra)
     if not (ok and frozen):
@@ -333,26 +362,79 @@ def parity(args, mode, label, S, synth=None, **extra):
     return err, k
 
 
-def window_times(args, label, scens, **extra):
-    """Kernel, plain and bound ms of one window at each S in `scens`
-    (the larger ones tiled from `args`), in f32 and bf16x3."""
+def time_designs(a, label, designs, reps=5, **extra):
+    """ms of one window in each design (timed in turns: d0 d1 d1 d0),
+    its plain version's ms and the bound, in f32 and bf16x3.  Returns
+    {(S, mode, design): (ms, plain, bound, by)}, ms the mean of the
+    design's two turns."""
     from mpisppy_tpu_torch.ops import pdhg_window
+    S = a[1].shape[0]
+    out = {}
+    for mode in ("f32", "bf16x3"):
+        ms = {d: [] for d in designs}
+        for d in list(designs) + list(reversed(designs)):
+            ms[d].append(time_ms(lambda: pdhg_window.run_window(
+                *a, precision=mode, design=d), reps=reps))
+        plain = time_ms(lambda: pdhg_window.run_window_reference(
+            *a, precision=mode), reps=2)
+        bound, by = window_bound_ms(a, mode)
+        for d in designs:
+            out[S, mode, d] = (sum(ms[d]) / len(ms[d]), plain, bound, by)
+        phase(label, S=S, mode=mode, n_iters=a[8],
+              **{f"{d}_ms": "/".join(f"{v:.4f}" for v in ms[d])
+                 for d in designs},
+              plain_ms=round(plain, 3), bound_ms=round(bound, 4),
+              bound_by=by, **extra)
+    return out
+
+
+def window_times(args, label, scens, designs, **extra):
+    """time_designs at each S in `scens` (the larger ones tiled from
+    `args`)."""
     S0 = args[1].shape[0]
     timing = {}
     for S in scens:
         a = args if S == S0 else tiled(args, S // S0)
-        for mode in ("f32", "bf16x3"):
-            ms = time_ms(lambda: pdhg_window.run_window(*a, precision=mode))
-            plain = time_ms(lambda: pdhg_window.run_window_reference(
-                *a, precision=mode), reps=2)
-            bound, by = window_bound_ms(a, mode)
-            timing[S, mode] = (ms, plain, bound, by)
-            phase(label, S=S, mode=mode, n_iters=N_ITERS,
-                  kernel_ms=round(ms, 3), plain_ms=round(plain, 3),
-                  bound_ms=round(bound, 4), bound_by=by, **extra)
+        timing.update(time_designs(a, label, designs, **extra))
         del a
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return timing
+
+
+def mma_accumulation(qp, S=1024, seed=4):
+    """The resident bf16x3 kernel's A'y against the exact sum of its
+    three bf16 products: one iteration from x = 0 with tau = 1, c = q = 0
+    and open bounds leaves x = -A'y as the kernel accumulated it.  The
+    plain version's f32 matmuls are measured the same way.  Errors are
+    relative to sum_i |A_ij| |y_i|, the scale of the rounding bound."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.ops import pdhg_window
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m, n = qp.A.shape
+    dev = qp.A.device
+    y = torch.randn(S, m, generator=g).to(dev)
+    zx, zy = torch.zeros(S, n, device=dev), torch.zeros(S, m, device=dev)
+    big = torch.full((n,), 1e30, device=dev)
+    p = dataclasses.replace(qp, c=zx, q=zx, l=-big, u=big,
+                            bl=qp.bl[:1].expand(S, m),
+                            bu=qp.bu[:1].expand(S, m))
+    one = torch.ones(S, device=dev)
+    args = (p, zx, y, zx, zy, one, one * 0, one < 0, 1)
+    k = -pdhg_window.run_window(*args, precision="bf16x3",
+                                design="resident")[0]
+    r = -pdhg_window.run_window_reference(*args, precision="bf16x3")[0]
+    yh, yl = pdhg_window._split_bf16(y)
+    Ah, Al = pdhg_window._split_bf16(qp.A)
+    exact = (yh.double() @ Ah.double() + yh.double() @ Al.double()
+             + yl.double() @ Ah.double())
+    scale = y.double().abs() @ qp.A.double().abs()
+    scale = torch.clamp(scale, min=1e-30)
+    kerr = float(((k.double() - exact).abs() / scale).max())
+    perr = float(((r.double() - exact).abs() / scale).max())
+    phase("mma_accumulation", S=S, m=m, n=n, resident_rel_err=kerr,
+          plain_f32_rel_err=perr, f32_eps=torch.finfo(torch.float32).eps)
+    return kerr
 
 
 def small_wheel(label, model, gpu_batch, cpu_batch, opts, **extra):
@@ -380,11 +462,14 @@ def small_wheel(label, model, gpu_batch, cpu_batch, opts, **extra):
 def main_wheel(label, kernel, batch, opts, slack=0.0, **fields):
     """Drive one main path with the launch counts set to 0 just before
     and read just after; its kernel must have launched, and its bounds
-    be finite and ordered (outer <= inner + slack * max(1, |inner|))."""
+    be finite and ordered (outer <= inner + slack * max(1, |inner|)).
+    Returns the spinner, the launches by instantiation and the launches
+    by instantiation/mode/design."""
     from mpisppy_tpu_torch.ops import pdhg_window
     reset_launches()
     ws, secs = wheel(batch, opts)
     launches = dict(pdhg_window.run_window.launches)
+    by_design = dict(pdhg_window.run_window.launches_by_design)
     outer, inner = ws.BestOuterBound, ws.BestInnerBound
     rel_gap = ws.spcomm.compute_gaps()[1]
     iters = ws.spcomm._iter
@@ -393,40 +478,161 @@ def main_wheel(label, kernel, batch, opts, slack=0.0, **fields):
           certified=rel_gap <= 0.01, seconds=round(secs, 2),
           kernel_launches=launches[kernel],
           launches_per_hub_iter=round(launches[kernel] / max(1, iters), 2),
-          all_launches=json.dumps(launches).replace(" ", ""))
+          all_launches=json.dumps(launches).replace(" ", ""),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
     if not (launches[kernel] > 0 and math.isfinite(outer)
             and math.isfinite(inner)
             and outer <= inner + slack * max(1.0, abs(inner))):
         raise AssertionError(f"{label}: no {kernel} launches, or bounds "
                              "not finite and ordered")
-    return ws, launches[kernel]
+    return ws, launches, by_design
+
+
+def check_designs(label, by_design, m, n, scens):
+    """Every box window of a sslp wheel took the design the shape rule
+    gives its mode at one of the wheel's batch sizes (`scens`: the batch
+    and its straggler tail), and both f32 and bf16x3 ran resident."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    limits = pdhg_window.card_limits(torch.cuda.current_device())
+    for key, count in by_design.items():
+        kernel, mode, design = key.split("/")
+        allowed = {pdhg_window.plan_window(mode, m, n, S, *limits).design
+                   for S in scens}
+        if kernel == "pdhg_window" and design not in allowed:
+            raise AssertionError(f"{label}: {count} {key} launches, the "
+                                 f"shape rule gives {sorted(allowed)}")
+    resident = {mode: by_design.get(f"pdhg_window/{mode}/resident", 0)
+                for mode in ("f32", "bf16x3")}
+    phase(label, resident_f32=resident["f32"],
+          resident_bf16x3=resident["bf16x3"], rule_followed=True)
+    if min(resident.values()) <= 0:
+        raise AssertionError(f"{label}: no resident launches in f32 or "
+                             "bf16x3")
+
+
+_KERNEL_NAME = re.compile(r"pdhg_window_(kernel|resident)<(\d+)")
+
+
+def window_kernel_key(name):
+    """mode/design of a window kernel from its demangled name
+    (pdhg_window_kernel<MODE, ...> is the streamed body,
+    pdhg_window_resident<MODE, ...> the resident one), else None."""
+    m = _KERNEL_NAME.search(name)
+    if m is None:
+        return None
+    design = "streamed" if m[1] == "kernel" else "resident"
+    return f"{MODE_NAMES[m[2]]}/{design}"
+
+
+def headline_profile(dev, batch=None):
+    """torch.profiler over a capped run of the headline (PROFILE_HUB_ITERS
+    hub iterations): the device busy share (union of device activity over
+    the run's wall time), the window kernel's share of device time by
+    mode and design, and the top five other kernels.  The same run
+    without the profiler goes first (it also warms up); its wall time
+    shows what the profiler adds on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if batch is None:
+        batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    _, plain_secs = wheel(batch, sslp_options("bf16x3", PROFILE_HUB_ITERS,
+                                              1e-6, 8))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ws, secs = wheel(batch, sslp_options("bf16x3", PROFILE_HUB_ITERS,
+                                             1e-6, 8))
+    spans, by_kernel = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+            (e.time_range.end - e.time_range.start)
+    device_us = sum(by_kernel.values())
+    if device_us <= 0.0:
+        # the profiler saw no device activity: time the same run with
+        # CUDA events instead (no busy share, no split by kernel)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        _, secs = wheel(batch, sslp_options("bf16x3", PROFILE_HUB_ITERS,
+                                            1e-6, 8))
+        t1.record()
+        torch.cuda.synchronize()
+        phase("headline_profile", profiler_device_time=0,
+              event_ms=round(t0.elapsed_time(t1), 3),
+              wall_s=round(secs, 3))
+        return
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window, other = {}, {}
+    for name, us in by_kernel.items():
+        key = window_kernel_key(name)
+        if key is None:
+            other[name] = us
+        else:
+            window[key] = window.get(key, 0.0) + us
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
+    shares = {k: v / device_us for k, v in window.items()}
+    phase("headline_profile", S=batch.num_scenarios,
+          hub_iters=ws.spcomm._iter, wall_s=round(secs, 3),
+          wall_unprofiled_s=round(plain_secs, 3),
+          device_ms=round(device_us / 1e3, 3),
+          device_busy_share=round(busy / (secs * 1e6), 4),
+          window_share=json.dumps({k: round(v, 4) for k, v in
+                                   sorted(shares.items())}).replace(" ", ""),
+          window_ms=json.dumps({k: round(v / 1e3, 3) for k, v in
+                                sorted(window.items())}).replace(" ", ""))
+    for name, us in top:
+        phase("headline_profile", other_kernel=f"'{name[:90]}'",
+              ms=round(us / 1e3, 3), share=round(us / device_us, 4))
 
 
 def sslp_path(dev):
-    """The sslp phases: box-row parity, window times, the S=64 wheel on
-    card and CPU, and the sslp 15x45 headline at S=10,000."""
+    """The sslp phases: the resident kernel against its plain version at
+    S=10,000 and at the straggler tail's shape, the streamed body at
+    S=10,000, the tensor-core accumulation error, window times of both
+    designs, the S=64 wheel on card and CPU, the profile of a capped
+    headline run, and the sslp 15x45 headline at S=10,000."""
     batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
     args = window_inputs(batch)
-    errs = {mode: parity(args, mode, "parity", HEADLINE_SCENS)[0]
-            for mode in ("f32", "bf16x3")}
-    tail = sslp_batch(64, SSLP_SERVERS, SSLP_CLIENTS, dev)
-    parity(window_inputs(tail, seed=1), "bf16x3", "parity", 64)
-    timing = window_times(args, "window_time", SWEEP_SCENS)
+    tail = sslp_batch(TAIL_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    tail_args = window_inputs(tail, seed=1)[:8] + (TAIL_ITERS,)
     del tail
+    errs = {}
+    for mode in ("f32", "bf16x3"):
+        errs[mode] = parity(args, mode, "parity", HEADLINE_SCENS,
+                            design="resident")[0]
+        parity(tail_args, mode, "parity", TAIL_SCENS, design="resident")
+        parity(args, mode, "parity", HEADLINE_SCENS, design="streamed")
+    mma_accumulation(batch.qp)
+    timing = window_times(args, "window_time", SWEEP_SCENS, DESIGNS)
+    timing.update(time_designs(tail_args, "window_time", DESIGNS, reps=20,
+                               shape="tail"))
 
     small_wheel("wheel_small", "sslp_5_15", sslp_batch(64, 5, 15, dev),
                 sslp_batch(64, 5, 15, "cpu"),
                 sslp_options(None, 200, 1e-7, 10))
 
+    headline_profile(dev, batch)
     # the headline: sslp 15x45, 10,000 scenarios, bench_sslp_gap's
-    # options, through the kernel
-    _, launches = main_wheel(
+    # options, through the kernels the shape rule picks
+    _, _, by_design = main_wheel(
         "headline", "pdhg_window", batch,
         sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8),
         model="sslp_15_45", iter_precision="bf16x3")
-    return kernel_entry("pdhg_window", "mpisppy_tpu/ops/pdhg_pallas.py:663",
-                        launches, errs["bf16x3"],
-                        timing[HEADLINE_SCENS, "bf16x3"])
+    check_designs("headline", by_design, batch.qp.m, batch.qp.n,
+                  (HEADLINE_SCENS, TAIL_SCENS))
+    return [kernel_entry(name, RESIDENT_SOURCE,
+                         f"mpisppy_tpu/ops/pdhg_pallas.py:{line}",
+                         by_design[f"pdhg_window/{mode}/resident"],
+                         errs[mode], timing[HEADLINE_SCENS, mode, "resident"])
+            for name, mode, line in (("pdhg_window", "bf16x3", 663),
+                                     ("pdhg_window_f32", "f32", 491))]
 
 
 def ccopf_path(dev):
@@ -461,13 +667,13 @@ def ccopf_path(dev):
            m=wide.qp.m, soc_blocks=wide.qp.cones.num_cones)
     del wide
     timing = window_times(args, "window_time_soc", SWEEP_SCENS,
-                          model="ccopf_soc")
+                          ("streamed",), model="ccopf_soc")
 
     small_wheel("wheel_soc_small", "ccopf_soc_3x3",
                 ccopf_batch(CCOPF_SMALL_BFS, dev),
                 ccopf_batch(CCOPF_SMALL_BFS, "cpu"), ccopf_options())
 
-    ws, launches = main_wheel(
+    ws, launches, _ = main_wheel(
         "ccopf_soc", "pdhg_window_soc", batch, ccopf_options(),
         slack=HUB_BOUND_SLACK, model="ccopf_soc",
         bfs="x".join(map(str, CCOPF_BFS)), iter_precision="f32")
@@ -480,9 +686,10 @@ def ccopf_path(dev):
     if nodes != batch.tree.num_nodes or rel > 1e-3:
         raise AssertionError("ccopf_soc: not one best_nonants row per tree "
                              "node, or bounds off the JAX reference")
-    return kernel_entry("pdhg_window_soc",
-                        "mpisppy_tpu/ops/pdhg_pallas.py:192", launches,
-                        errs["f32"], timing[S, "f32"])
+    return kernel_entry("pdhg_window_soc", STREAMED_SOURCE,
+                        "mpisppy_tpu/ops/pdhg_pallas.py:192",
+                        launches["pdhg_window_soc"], errs["f32"],
+                        timing[S, "f32", "streamed"])
 
 
 def sslp_program(S, n_servers=SSLP_SERVERS, n_clients=SSLP_CLIENTS):
@@ -525,21 +732,25 @@ def scengen_path(dev):
         proxy, synth = scengen.window_inputs(vb)
         syn_args = (proxy,) + state + (N_ITERS,)
         for mode in ("f32", "bf16x3"):
-            k = run(*syn_args, precision=mode, synth=synth)
-            b = run(*box_args, precision=mode)
+            k = run(*syn_args, precision=mode, synth=synth,
+                    design="resident")
+            b = run(*box_args, precision=mode, design="resident")
             torch.cuda.synchronize()
             same = all(torch.equal(u, v) for u, v in zip(k, b))
-            phase("parity_synth", S=S, mode=mode, equal_to_box=same)
+            phase("parity_synth", S=S, mode=mode, design="resident",
+                  equal_to_box=same)
             if not same:
                 raise AssertionError(f"synth kernel differs from the box "
                                      f"kernel on the realized batch ({mode})")
             del k, b
             if S == SCENGEN_SCENS[0]:
                 errs[mode] = parity(syn_args, mode, "parity_synth", S,
-                                    synth=synth, vs="plain")[0]
+                                    synth=synth, design="resident",
+                                    vs="plain")[0]
         torch.cuda.empty_cache()
         # counts from 0 just before and read just after: the synth path's
-        # launches are those of this timing phase
+        # launches are those of this timing phase (the shape rule's design;
+        # the streamed body is timed beside it at the smaller S)
         reset_launches()
         reps = 5 if S <= SCENGEN_SCENS[0] else 2
         for mode in ("f32", "bf16x3"):
@@ -547,19 +758,29 @@ def scengen_path(dev):
                                      synth=synth), reps=reps)
             box_ms = time_ms(lambda: run(*box_args, precision=mode),
                              reps=reps)
+            streamed = {}
+            if S == SCENGEN_SCENS[0]:
+                streamed["streamed_ms"] = round(time_ms(lambda: run(
+                    *syn_args, precision=mode, synth=synth,
+                    design="streamed"), reps=reps), 3)
             plain = time_ms(lambda: pdhg_window.run_window_reference(
                 *syn_args, precision=mode, synth=synth), reps=1)
             bound, by = window_bound_ms(syn_args, mode, synth)
             timing[S, mode] = (ms, plain, bound, by)
             phase("window_time_synth", S=S, mode=mode, n_iters=N_ITERS,
                   kernel_ms=round(ms, 3), box_kernel_ms=round(box_ms, 3),
-                  plain_ms=round(plain, 3), bound_ms=round(bound, 4),
-                  bound_by=by)
+                  **streamed, plain_ms=round(plain, 3),
+                  bound_ms=round(bound, 4), bound_by=by)
             torch.cuda.empty_cache()
         launches = pdhg_window.run_window.launches["pdhg_window_synth"]
-        phase("window_time_synth", S=S, synth_launches=launches)
-        if launches <= 0:
-            raise AssertionError("no pdhg_window_synth launches")
+        resident = sum(v for k, v in
+                       pdhg_window.run_window.launches_by_design.items()
+                       if k.startswith("pdhg_window_synth/")
+                       and k.endswith("/resident"))
+        phase("window_time_synth", S=S, synth_launches=launches,
+              resident=resident)
+        if launches <= 0 or resident <= 0:
+            raise AssertionError("no resident pdhg_window_synth launches")
         del vb, state, box_args, proxy, syn_args
         torch.cuda.empty_cache()
     del base
@@ -582,13 +803,15 @@ def scengen_path(dev):
     # the full-width path: the sslp 15x45 program's VirtualBatch through
     # the headline's wheel
     vb = scengen.virtual_batch(sslp_program(HEADLINE_SCENS), device=dev)
-    ws, _ = main_wheel(
+    ws, _, by_design = main_wheel(
         "scengen_wheel", "pdhg_window", vb,
         sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8),
         model="sslp_15_45_scengen", iter_precision="bf16x3")
     if not ws.spcomm.compute_gaps()[1] <= 0.01:
         raise AssertionError("scengen_wheel: no 1% certificate")
-    return kernel_entry("pdhg_window_synth",
+    check_designs("scengen_wheel", by_design, vb.qp.m, vb.qp.n,
+                  (HEADLINE_SCENS, TAIL_SCENS))
+    return kernel_entry("pdhg_window_synth", RESIDENT_SOURCE,
                         "mpisppy_tpu/ops/pdhg_pallas.py:624", launches,
                         errs["bf16x3"], timing[S_big, "bf16x3"])
 
@@ -611,11 +834,14 @@ def main() -> int:
     # build the kernel (every instantiation) from this checkout's sources
     t0 = time.perf_counter()
     log = pdhg_window.build()
-    phase("build", source="mpisppy_tpu_torch/csrc/pdhg_window.cu",
+    phase("build", sources=f"{STREAMED_SOURCE},{RESIDENT_SOURCE}",
           seconds=round(time.perf_counter() - t0, 2),
           ptxas_registers=registers_by_instantiation(log))
 
-    kernels = [sslp_path(dev)]
+    if sys.argv[1:] == ["--only", "headline_profile"]:
+        headline_profile(dev)
+        return 0
+    kernels = sslp_path(dev)
     torch.cuda.empty_cache()
     kernels.append(ccopf_path(dev))
     torch.cuda.empty_cache()

@@ -17,15 +17,14 @@
 // compute the same function; the double buffering was a TPU data-movement
 // device), including the SOC dual prox (_tile_math.soc_prox).
 //
-// What bounds it on an H100: each iteration reads all of A twice (A'y and
-// A v) for 4*m*n flops.  At the sslp 15x45 shape A is 60 x 705 f32
-// (165 KiB): it stays in L2, and the per-iteration solver state of a
-// scenario (~24 KB) lives in shared memory for the whole window, so
-// device memory sees each input once and each output once per window.
-// What is left is L2 and shared-memory traffic per multiply-add.  The
-// design cuts it by putting SPB scenarios in one block, so each element
-// of A read from L2 feeds SPB multiply-adds held in registers.  A
-// resident in shared memory and tensor-core products are later work.
+// This file holds the streamed design: A stays in L2 and is read twice
+// per iteration (A'y and A v, 4*m*n flops), and each block keeps SPB
+// scenarios' state (~24 KB each at the sslp 15x45 shape, A 60 x 705) in
+// shared memory for the whole window, so each element of A read from L2
+// feeds SPB multiply-adds.  It takes the batches the resident design
+// (pdhg_window_resident.cu: A in shared memory once per launch, products
+// on tensor cores) does not: SOC batches, and an A or tile too large for
+// that design's layout; ops/pdhg_window.py::plan_window decides.
 //
 // Second-order-cone rows (template flag CONES; the box-only
 // instantiation compiles to the code it had without them).  The blocks
@@ -81,93 +80,22 @@
 // warp per row with a fixed-order butterfly reduction, so the kernel is
 // deterministic.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -shared -Xcompiler -fPIC -o libpdhg_window.so pdhg_window.cu
-// (no fast-math: sqrtf and the division stay IEEE).
+// Build (ops/pdhg_window.py::build): each source compiled on its own,
+// all at once, with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
+// -O3 -Xcompiler -fPIC -c, then nvcc -shared links pdhg_window.o and
+// pdhg_window_resident.o into libpdhg_window.so (no fast-math: sqrtf
+// and the division stay IEEE).
 // Bound to Python with ctypes (ops/pdhg_window.py) through one entry,
-// pdhg_window_launch, which picks the instantiation from its inputs: SOC
-// blocks when num_cones > 0, SYNTH when d_row is given, else box rows.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// pdhg_window_launch: the caller names the design; the instantiation
+// follows from the inputs (SOC blocks when num_cones > 0, SYNTH when
+// d_row is given, else box rows).
+#include "pdhg_window_common.cuh"
 
+namespace pdhg {
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kBig = 1e30f;
-constexpr float kTiny = 1e-30f;
-
-enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_BF16X3 = 3 };
-
-struct Args {
-  const float* A;     // (m, n) row-major: A (f32) or its bf16 hi part
-  const float* A_lo;  // (m, n) bf16 lo part (MODE_BF16X3 only)
-  int m, n, S, n_iters;
-  const float* tau;   // (S,)
-  const float* sigma; // (S,)
-  const float* done;  // (S,) 1.0 = frozen
-  const float* c;  long long c_stride;   // scenario strides: 0 = shared
-  const float* q;  long long q_stride;
-  const float* l;  long long l_stride;
-  const float* u;  long long u_stride;
-  const float* bl; long long bl_stride;
-  const float* bu; long long bu_stride;
-  const int* cone_ptr;   // (num_cones + 1,) CSR offsets (CONES only)
-  const int* cone_rows;  // (cone_nnz,) block rows, head first
-  int num_cones, cone_nnz;
-  const float* x; const float* y; const float* xs; const float* ys;
-  float* xo; float* yo; float* xso; float* yso;
-  // SYNTH only: the program's base key, index window and row rule
-  unsigned key0, key1;
-  int start, num_real;
-  int draw_row0, draw_count;
-  float draw_thr, draw_below, draw_above;
-  int draw_bl, draw_bu;
-  const float* d_row;  // (m,) row scaling of the drawn values
-};
-
-__device__ __forceinline__ unsigned rotl32(unsigned v, int r) {
-  return (v << r) | (v >> (32 - r));
-}
-
-__device__ __forceinline__ void mix4(unsigned& x0, unsigned& x1, int r0,
-                                     int r1, int r2, int r3) {
-  x0 += x1; x1 = rotl32(x1, r0) ^ x0;
-  x0 += x1; x1 = rotl32(x1, r1) ^ x0;
-  x0 += x1; x1 = rotl32(x1, r2) ^ x0;
-  x0 += x1; x1 = rotl32(x1, r3) ^ x0;
-}
-
-// Threefry-2x32, 20 rounds (as jax.random): key (k0, k1), counter
-// (x0, x1) -> (x0, x1) in place.
-__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1,
-                                             unsigned& x0, unsigned& x1) {
-  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0; x1 += k1;
-  mix4(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
-  mix4(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
-  mix4(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
-  mix4(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
-  mix4(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
-}
-
-// The drawn value of row j of a scenario with key (k0, k1).
-__device__ __forceinline__ float draw_row(const Args& g, unsigned k0,
-                                          unsigned k1, int j) {
-  unsigned y0 = 0u, y1 = (unsigned)j;
-  threefry2x32(k0, k1, y0, y1);
-  const unsigned bits = y0 ^ y1;
-  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  return u < g.draw_thr ? g.draw_below : g.draw_above;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
 
 // shared-memory floats per scenario: eight n-vectors, six m-vectors, and
 // with cones a seventh m-vector holding w on SOC rows
@@ -275,14 +203,7 @@ pdhg_window_kernel(Args g) {
     tau_s[tid] = t;
     sigma_s[tid] = sg;
     frozen_s[tid] = live == 0.f;
-    if (SYNTH) {
-      // fold_in(base_key, idx): pad rows clone the last real scenario
-      unsigned k0 = 0u;
-      unsigned k1 = (unsigned)(min(sc, g.num_real - 1) + g.start);
-      threefry2x32(g.key0, g.key1, k0, k1);
-      key_s[tid][0] = k0;
-      key_s[tid][1] = k1;
-    }
+    if (SYNTH) scenario_key(g, sc, key_s[tid][0], key_s[tid][1]);
   }
   if (CONES) {
     for (int k = tid; k <= g.num_cones; k += kThreads)
@@ -322,15 +243,7 @@ pdhg_window_kernel(Args g) {
       if (valid) {
         yv = g.y[(long long)sc * m + i];
         ysv = g.ys[(long long)sc * m + i];
-        blv = clip(g.bl[sc * g.bl_stride + i], -kBig, kBig);
-        buv = clip(g.bu[sc * g.bu_stride + i], -kBig, kBig);
-        const int j = i - g.draw_row0;
-        if (SYNTH && j >= 0 && j < g.draw_count) {
-          const float v = draw_row(g, key_s[s][0], key_s[s][1], j);
-          const float scaled = clip(__fmul_rn(v, g.d_row[i]), -kBig, kBig);
-          if (g.draw_bl) blv = scaled;
-          if (g.draw_bu) buv = scaled;
-        }
+        row_bounds<SYNTH>(g, sc, i, key_s[s][0], key_s[s][1], blv, buv);
       }
       y_[s][i] = yv;
       ys_[s][i] = ysv;
@@ -477,50 +390,75 @@ cudaError_t launch(const Args& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Scenarios per block: several only pay once the batch fills the card;
-// a small batch (the 64-scenario straggler tail) keeps one per block so
-// it still spreads over the SMs.
+// Scenarios per block (the plan's tile): 4 once the batch fills the
+// card, else 1 so a small batch still spreads over the SMs.
 template <int MODE, bool CONES, bool SYNTH>
-cudaError_t dispatch_spb(const Args& g, cudaStream_t stream) {
-  int dev = 0, smem_max = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (g.S >= 8LL * sms &&
-      smem_bytes<4, CONES>(g) <= (size_t)smem_max)
-    return launch<MODE, 4, CONES, SYNTH>(g, stream);
-  if (smem_bytes<1, CONES>(g) <= (size_t)smem_max)
-    return launch<MODE, 1, CONES, SYNTH>(g, stream);
-  return cudaErrorInvalidValue;  // one scenario's state does not fit
+cudaError_t dispatch_spb(const Args& g, int tile, cudaStream_t stream) {
+  if (tile == 4) return launch<MODE, 4, CONES, SYNTH>(g, stream);
+  if (tile == 1) return launch<MODE, 1, CONES, SYNTH>(g, stream);
+  return cudaErrorInvalidValue;
 }
 
 // box rows, SOC blocks, or box rows with in-kernel synthesis (the entry
 // rejects synthesis together with cones)
 template <int MODE>
-cudaError_t dispatch_kind(const Args& g, cudaStream_t stream) {
-  if (g.d_row != nullptr) return dispatch_spb<MODE, false, true>(g, stream);
-  if (g.num_cones > 0) return dispatch_spb<MODE, true, false>(g, stream);
-  return dispatch_spb<MODE, false, false>(g, stream);
+cudaError_t dispatch_kind(const Args& g, int tile, cudaStream_t stream) {
+  if (g.d_row != nullptr)
+    return dispatch_spb<MODE, false, true>(g, tile, stream);
+  if (g.num_cones > 0) return dispatch_spb<MODE, true, false>(g, tile, stream);
+  return dispatch_spb<MODE, false, false>(g, tile, stream);
 }
 
-int dispatch_mode(const Args& g, int mode, cudaStream_t st) {
+cudaError_t dispatch_streamed(const Args& g, int mode, int tile,
+                              cudaStream_t st) {
   switch (mode) {
-    case MODE_F32: return (int)dispatch_kind<MODE_F32>(g, st);
-    case MODE_BF16: return (int)dispatch_kind<MODE_BF16>(g, st);
+    case MODE_F32: return dispatch_kind<MODE_F32>(g, tile, st);
+    case MODE_BF16: return dispatch_kind<MODE_BF16>(g, tile, st);
     case MODE_BF16X3:
-      if (g.A_lo == nullptr) return (int)cudaErrorInvalidValue;
-      return (int)dispatch_kind<MODE_BF16X3>(g, st);
-    default: return (int)cudaErrorInvalidValue;
+      if (g.A_lo == nullptr) return cudaErrorInvalidValue;
+      return dispatch_kind<MODE_BF16X3>(g, tile, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+}  // namespace pdhg
 
+// The card's limits that the shape rule reads: opt-in shared memory per
+// block and the SM count of the current device.
+extern "C" int pdhg_window_limits(int* smem_per_block, int* sm_count) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  return (int)err;
+}
+
+// The resident design's shared memory and packed-A bytes for a shape
+// (0 outside its layout): ops/pdhg_window.py checks its own layout
+// against these.
+extern "C" long long pdhg_window_resident_bytes(int mode, int m, int n,
+                                                int image) {
+  return (long long)(image ? pdhg::resident_image_bytes(mode, m, n)
+                           : pdhg::resident_smem_bytes(mode, m, n));
+}
+
+// design 0 runs the streamed kernel with `tile` (1 or 4) scenarios per
+// block from A (and, in bf16x3, A_lo); design 1 runs the resident kernel
+// (pdhg_window_resident.cu) in `blocks` persistent blocks from the packed
+// image a_img of a_img_bytes bytes (ops/pdhg_window.py::pack_resident).
+// ops/pdhg_window.py::plan_window chooses; a launch that the chosen
+// design cannot take returns an error and is never retried on the other.
 // The synthesis arguments (key0 .. d_row, see SYNTH above) are read only
 // when d_row is not null; bl/bu then hold the shared scaled template that
 // rows outside the draw keep.
 extern "C" int pdhg_window_launch(
+    int design, int tile, int blocks, const void* a_img,
+    long long a_img_bytes,
     const float* A, const float* A_lo, int m, int n, int S, int n_iters,
     int mode, const float* tau, const float* sigma, const float* done,
     const float* c, long long c_stride, const float* q, long long q_stride,
@@ -533,6 +471,7 @@ extern "C" int pdhg_window_launch(
     int draw_row0, int draw_count, float draw_thr, float draw_below,
     float draw_above, int draw_bl, int draw_bu, const float* d_row,
     void* stream) {
+  using pdhg::Args;
   if (S <= 0) return 0;
   if (m <= 0 || n <= 0 || n_iters < 0) return (int)cudaErrorInvalidValue;
   if (num_cones < 0 || cone_nnz < 0 ||
@@ -542,11 +481,16 @@ extern "C" int pdhg_window_launch(
       (num_cones > 0 || num_real <= 0 || start < 0 || draw_row0 < 0 ||
        draw_count < 0 || draw_row0 + draw_count > m))
     return (int)cudaErrorInvalidValue;
-  Args g{A, A_lo, m, n, S, n_iters, tau, sigma, done,
+  Args g{A, A_lo, a_img, m, n, S, n_iters, tau, sigma, done,
          c, c_stride, q, q_stride, l, l_stride, u, u_stride,
          bl, bl_stride, bu, bu_stride, cone_ptr, cone_rows, num_cones,
          cone_nnz, x, y, xs, ys, xo, yo, xso, yso,
          key0, key1, start, num_real, draw_row0, draw_count,
          draw_thr, draw_below, draw_above, draw_bl, draw_bu, d_row};
-  return dispatch_mode(g, mode, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (design == 0) return (int)pdhg::dispatch_streamed(g, mode, tile, st);
+  if (design != 1 || a_img == nullptr ||
+      a_img_bytes != (long long)pdhg::resident_image_bytes(mode, m, n))
+    return (int)cudaErrorInvalidValue;
+  return (int)pdhg::launch_resident(g, mode, blocks, st);
 }

@@ -1,0 +1,124 @@
+// What the two window kernels (pdhg_window.cu: the streamed body,
+// pdhg_window_resident.cu: A resident in shared memory) share: the
+// argument block, the arithmetic modes, the row-bound clip and the
+// in-kernel threefry draw of SYNTH.  See pdhg_window.cu for the
+// iteration both compute.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace pdhg {
+
+constexpr float kBig = 1e30f;
+constexpr float kTiny = 1e-30f;
+
+enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_BF16X3 = 3 };
+
+struct Args {
+  const float* A;     // (m, n) row-major: A (f32) or its bf16 hi part
+  const float* A_lo;  // (m, n) bf16 lo part (MODE_BF16X3 only)
+  const void* A_img;  // resident design: the packed shared-memory image
+  int m, n, S, n_iters;
+  const float* tau;   // (S,)
+  const float* sigma; // (S,)
+  const float* done;  // (S,) 1.0 = frozen
+  const float* c;  long long c_stride;   // scenario strides: 0 = shared
+  const float* q;  long long q_stride;
+  const float* l;  long long l_stride;
+  const float* u;  long long u_stride;
+  const float* bl; long long bl_stride;
+  const float* bu; long long bu_stride;
+  const int* cone_ptr;   // (num_cones + 1,) CSR offsets (CONES only)
+  const int* cone_rows;  // (cone_nnz,) block rows, head first
+  int num_cones, cone_nnz;
+  const float* x; const float* y; const float* xs; const float* ys;
+  float* xo; float* yo; float* xso; float* yso;
+  // SYNTH only: the program's base key, index window and row rule
+  unsigned key0, key1;
+  int start, num_real;
+  int draw_row0, draw_count;
+  float draw_thr, draw_below, draw_above;
+  int draw_bl, draw_bu;
+  const float* d_row;  // (m,) row scaling of the drawn values
+};
+
+__device__ __forceinline__ unsigned rotl32(unsigned v, int r) {
+  return (v << r) | (v >> (32 - r));
+}
+
+__device__ __forceinline__ void mix4(unsigned& x0, unsigned& x1, int r0,
+                                     int r1, int r2, int r3) {
+  x0 += x1; x1 = rotl32(x1, r0) ^ x0;
+  x0 += x1; x1 = rotl32(x1, r1) ^ x0;
+  x0 += x1; x1 = rotl32(x1, r2) ^ x0;
+  x0 += x1; x1 = rotl32(x1, r3) ^ x0;
+}
+
+// Threefry-2x32, 20 rounds (as jax.random): key (k0, k1), counter
+// (x0, x1) -> (x0, x1) in place.
+__device__ __forceinline__ void threefry2x32(unsigned k0, unsigned k1,
+                                             unsigned& x0, unsigned& x1) {
+  const unsigned k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0; x1 += k1;
+  mix4(x0, x1, 13, 15, 26, 6);  x0 += k1; x1 += k2 + 1u;
+  mix4(x0, x1, 17, 29, 16, 24); x0 += k2; x1 += k0 + 2u;
+  mix4(x0, x1, 13, 15, 26, 6);  x0 += k0; x1 += k1 + 3u;
+  mix4(x0, x1, 17, 29, 16, 24); x0 += k1; x1 += k2 + 4u;
+  mix4(x0, x1, 13, 15, 26, 6);  x0 += k2; x1 += k0 + 5u;
+}
+
+// The key of scenario sc: fold_in(base_key, idx), pad rows cloning the
+// last real scenario.
+__device__ __forceinline__ void scenario_key(const Args& g, int sc,
+                                             unsigned& k0, unsigned& k1) {
+  k0 = 0u;
+  k1 = (unsigned)(min(sc, g.num_real - 1) + g.start);
+  threefry2x32(g.key0, g.key1, k0, k1);
+}
+
+// The drawn value of row j of a scenario with key (k0, k1).
+__device__ __forceinline__ float draw_row(const Args& g, unsigned k0,
+                                          unsigned k1, int j) {
+  unsigned y0 = 0u, y1 = (unsigned)j;
+  threefry2x32(k0, k1, y0, y1);
+  const unsigned bits = y0 ^ y1;
+  const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  return u < g.draw_thr ? g.draw_below : g.draw_above;
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float clip(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// Row i's bounds of scenario sc (valid), +-inf clipped to +-1e30; with
+// SYNTH the drawn rows are threefry draws scaled by one __fmul_rn.
+template <bool SYNTH>
+__device__ __forceinline__ void row_bounds(const Args& g, int sc, int i,
+                                           unsigned k0, unsigned k1,
+                                           float& blv, float& buv) {
+  blv = clip(g.bl[sc * g.bl_stride + i], -kBig, kBig);
+  buv = clip(g.bu[sc * g.bu_stride + i], -kBig, kBig);
+  const int j = i - g.draw_row0;
+  if (SYNTH && j >= 0 && j < g.draw_count) {
+    const float v = draw_row(g, k0, k1, j);
+    const float scaled = clip(__fmul_rn(v, g.d_row[i]), -kBig, kBig);
+    if (g.draw_bl) blv = scaled;
+    if (g.draw_bu) buv = scaled;
+  }
+}
+
+// The resident design (pdhg_window_resident.cu): its shared-memory
+// footprint and the bytes of its packed A for (mode, m, n), 0 when the
+// shape is outside its layout, and its launch.
+// ops/pdhg_window.py::resident_layout computes the same numbers.
+size_t resident_smem_bytes(int mode, int m, int n);
+size_t resident_image_bytes(int mode, int m, int n);
+cudaError_t launch_resident(const Args& g, int mode, int blocks,
+                            cudaStream_t stream);
+
+}  // namespace pdhg

@@ -1,37 +1,44 @@
 ###############################################################################
 # The PDHG restart window: n_iters PDHG iterations per scenario against a
-# shared dense A, as one hand-written CUDA kernel (csrc/pdhg_window.cu)
-# with its plain PyTorch version beside it.
+# shared dense A, as hand-written CUDA kernels (csrc/) with their plain
+# PyTorch version beside them.
 #
 # Replaces mpisppy_tpu/ops/pdhg_pallas.py::run_window — the Pallas TPU
 # kernel (_tile_math, run through either the single-buffer grid kernel or
 # the double-buffered pipeline; both compute the same function, so one
 # CUDA kernel ports both), box rows and the SOC dual prox
-# (_tile_math.soc_prox) alike.  The kernel has three instantiations,
-# counted apart in run_window.launches: "pdhg_window" (box rows only),
-# "pdhg_window_soc" (a batch with second-order-cone blocks) and
-# "pdhg_window_synth" (box rows whose drawn bound rows the kernel
-# synthesizes itself from threefry keys: run_window(synth=TileSynth),
-# the port of the Pallas engine's in-kernel tile synthesis).
+# (_tile_math.soc_prox) alike.  Three instantiations, counted apart in
+# run_window.launches: "pdhg_window" (box rows only), "pdhg_window_soc"
+# (a batch with second-order-cone blocks) and "pdhg_window_synth" (box
+# rows whose drawn bound rows the kernel synthesizes itself from threefry
+# keys: run_window(synth=TileSynth), the port of the Pallas engine's
+# in-kernel tile synthesis).
 #
-# What bounds it on an H100: per iteration a scenario does 4*m*n flops
-# of matvec against A (2 reads of A) and O(n + m) elementwise work.  The
-# kernel keeps each scenario's state in shared memory for the whole
-# window, so device memory sees each input once and each output once;
-# A (165 KiB at sslp 15x45) stays in L2, and several scenarios share one
-# block so each A element read feeds several multiply-adds.  What is left
-# is L2 and shared-memory traffic per multiply-add; A resident in shared
-# memory and tensor-core products are later work (ROADMAP.md queue B).
+# Two designs compute the same function; plan_window, a pure function of
+# the mode, the shape and the card's limits, picks one per launch:
+# - resident (csrc/pdhg_window_resident.cu): one persistent block per SM
+#   copies A, packed by pack_resident, into shared memory once per launch
+#   and walks tiles of 8 scenarios whose state stays in registers; bf16
+#   and bf16x3 products run on tensor cores (mma.sync), f32 on CUDA cores
+#   from shared memory.  It takes box and synth batches whose A fits its
+#   layout (resident_layout).
+# - streamed (csrc/pdhg_window.cu): A read from L2 twice per iteration,
+#   one or four scenarios per block with their state in shared memory.
+#   It takes the SOC batches and any A too large for the resident layout.
+# run_window.launches_by_design counts each launch under
+# "<instantiation>/<mode>/<design>".
 #
 # Rule: run_window takes the plain version only for CPU tensors.  For
-# CUDA tensors it launches the kernel or raises — there is no fallback.
-# The kernel is compiled with nvcc for sm_90a at first use into
-# mpisppy_tpu_torch/_build/ and loaded with ctypes.
+# CUDA tensors it launches the planned design or raises — there is no
+# fallback and no retry on the other design.  The kernels are compiled
+# with nvcc for sm_90a at first use into mpisppy_tpu_torch/_build/ and
+# loaded with ctypes.
 ###############################################################################
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -48,12 +55,13 @@ _BIG = 1e30  # finite stand-in for +-inf row bounds (0 * inf would be NaN)
 _MODES = {"f32": 0, "bf16": 1, "bf16x3": 3}
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "pdhg_window.cu"
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "pdhg_window.cu", CSRC / "pdhg_window_resident.cu")
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libpdhg_window.so"
 BUILD_LOG = BUILD_DIR / "pdhg_window.log"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -177,41 +185,214 @@ def run_window_reference(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     return x, y, xs, ys
 
 
+def _build_inputs() -> list[Path]:
+    """Every file under csrc/ that goes into the library: the sources
+    and the headers they include."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _stale() -> bool:
+    """True when the library is missing or older than any build input."""
+    if not LIBRARY.exists():
+        return True
+    built = LIBRARY.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in _build_inputs())
+
+
 def _library():
-    """Build (at first use, when missing or older than the source) and
-    load the kernel's shared library."""
+    """Build (at first use, when missing or older than any file under
+    csrc/) and load the kernels' shared library."""
     global _lib
     if _lib is not None:
         return _lib
-    if (not LIBRARY.exists()
-            or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
+    if _stale():
         build()
     lib = ctypes.CDLL(str(LIBRARY))
     fn = lib.pdhg_window_launch
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     U, F = ctypes.c_uint, ctypes.c_float
-    fn.argtypes = ([P, P, I, I, I, I, I, P, P, P] + [P, L] * 6
+    fn.argtypes = ([I, I, I, P, L]
+                   + [P, P, I, I, I, I, I, P, P, P] + [P, L] * 6
                    + [P, P, I, I] + [P] * 8
                    + [U, U, I, I, I, I, F, F, F, I, I, P, P])
     fn.restype = I
+    lib.pdhg_window_limits.argtypes = [ctypes.POINTER(I)] * 2
+    lib.pdhg_window_limits.restype = I
+    lib.pdhg_window_resident_bytes.argtypes = [I, I, I, I]
+    lib.pdhg_window_resident_bytes.restype = L
     _lib = lib
     return lib
 
 
 def build() -> str:
-    """Compile csrc/pdhg_window.cu with nvcc for sm_90a into BUILD_DIR.
-    Returns the compiler's output (ptxas register/shared-memory lines)."""
+    """Compile the csrc/ sources with nvcc for sm_90a, one nvcc per
+    source, all started together, and link them into one library in
+    BUILD_DIR.  Returns the compiler's output (ptxas register, spill and
+    shared-memory lines of every kernel)."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libpdhg_window.{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + res.stdout + res.stderr
+    tag = os.getpid()
+    objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+             str(src)] for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log = ""
+    for cmd, proc in zip(cmds, procs):
+        log += " ".join(cmd) + "\n" + proc.communicate()[0]
+    failed = any(proc.returncode != 0 for proc in procs)
+    if not failed:
+        tmp = BUILD_DIR / f".libpdhg_window.{tag}.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + res.stdout + res.stderr
+        failed = res.returncode != 0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     BUILD_LOG.write_text(log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed building {CSRC}:\n{log}")
     os.replace(tmp, LIBRARY)
     return log
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device_index: int) -> tuple[int, int]:
+    """(opt-in shared memory per block in bytes, SM count) of the CUDA
+    device (the current one when the library asks), as the shape rule
+    reads them."""
+    I = ctypes.c_int
+    smem, sms = I(0), I(0)
+    rc = _library().pdhg_window_limits(ctypes.byref(smem), ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError(f"pdhg_window_limits failed: CUDA error {rc}")
+    return smem.value, sms.value
+
+
+# ---- the resident design's layout and the shape rule (pure) ----------------
+
+RESIDENT_TILE = 8          # scenarios per tile: the n8 of mma.m16n8k16
+RESIDENT_MAX_M = 64        # the dual step: 2 (row, scenario) pairs a thread
+RESIDENT_MAX_N = 768       # 8 warps x 6 column tiles of 16 = 256 threads x 3
+_PARTIAL_STRIDE = 68       # floats per scenario row of the A v partial sums
+_STATIC_SMEM = 1024        # headroom for the kernels' static shared memory
+
+
+def _round_up(v: int, k: int) -> int:
+    return -(-v // k) * k
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentLayout:
+    """Shared-memory layout of the resident design for one (mode, m, n);
+    csrc/pdhg_window_resident.cu::make_layout computes the same numbers.
+    f32: A as (m, a_stride) f32 with an odd row stride; bf16/bf16x3: A as
+    1 or 2 bf16 planes (hi, lo) of (m_pad, a_stride), m and n padded to
+    16 and the row stride n_pad + 8.  image_bytes is the packed A,
+    smem_bytes the whole dynamic shared memory of a block."""
+
+    mode: str
+    m: int
+    n: int
+    m_pad: int
+    n_pad: int
+    a_stride: int
+    planes: int
+    image_bytes: int
+    smem_bytes: int
+
+
+def resident_layout(mode: str, m: int, n: int) -> ResidentLayout | None:
+    """The resident layout of (mode, m, n), or None outside its limits
+    (m <= 64, n <= 768)."""
+    if not (0 < m <= RESIDENT_MAX_M and 0 < n <= RESIDENT_MAX_N):
+        return None
+    T = RESIDENT_TILE
+    if mode == "f32":
+        m_pad, n_pad, stride, planes = m, n, n | 1, 1
+        image = _round_up(m * stride * 4, 16)
+        v_bytes, y_bytes = n * T * 4, m * T * 4
+        kq = 8
+    else:
+        planes = 2 if mode == "bf16x3" else 1
+        m_pad, n_pad = _round_up(m, 16), _round_up(n, 16)
+        stride = n_pad + 8
+        image = planes * m_pad * stride * 2
+        v_bytes = planes * T * stride * 2
+        y_bytes = planes * T * (m_pad + 8) * 2
+        kq = 8 // (m_pad // 16)
+    smem = (image + _round_up(v_bytes, 16) + _round_up(y_bytes, 16)
+            + kq * T * _PARTIAL_STRIDE * 4)
+    return ResidentLayout(mode, m, n, m_pad, n_pad, stride, planes, image,
+                          smem)
+
+
+def pack_resident(A: Tensor, layout: ResidentLayout) -> Tensor:
+    """A (m, n) f32 as the resident kernel's shared-memory image, zero
+    padded: f32 rows of a_stride, or the bf16 hi (and lo) planes of
+    _split_bf16.  The kernel copies it byte for byte."""
+    L = layout
+    if L.mode == "f32":
+        img = torch.zeros(L.image_bytes // 4, dtype=torch.float32,
+                          device=A.device)
+        img[:L.m * L.a_stride].view(L.m, L.a_stride)[:, :L.n] = A
+        return img
+    img = torch.zeros((L.planes, L.m_pad, L.a_stride), dtype=torch.bfloat16,
+                      device=A.device)
+    hi, lo = _split_bf16(A)
+    img[0, :L.m, :L.n] = hi
+    if L.planes == 2:
+        img[1, :L.m, :L.n] = lo
+    return img
+
+
+def streamed_smem_bytes(m: int, n: int, spb: int, cone_ints: int = 0) -> int:
+    """Dynamic shared memory of a streamed block of spb scenarios (eight
+    n-vectors and six m-vectors each, a seventh with cones, plus the
+    cone layout's ints; csrc/pdhg_window.cu::smem_bytes)."""
+    per = 8 * n + (7 if cone_ints else 6) * m
+    return 4 * spb * per + 4 * cone_ints
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    design: str    # "resident" or "streamed"
+    tile: int      # scenarios per tile (resident) or per block (streamed)
+    blocks: int    # blocks launched
+
+
+def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
+                sm_count: int, cone_ints: int = 0,
+                design: str | None = None) -> WindowPlan:
+    """The shape rule: which design runs a window.  The resident design
+    takes every box or synth batch (cone_ints == 0) whose layout fits
+    the card's shared memory per block, at any S, in min(tiles, SMs)
+    persistent blocks: on an H100 it beat the streamed design at every
+    shape timed, down to the fused wheel's straggler tail (S=64, 160
+    iterations, 8 of 132 SMs busy; chip_smoke.py [window_time]).  The
+    streamed design takes the rest, four scenarios per block once
+    S >= 8 x SMs and four fit, else one.  `design` names the design
+    instead of the rule (to time both on one batch); naming "resident"
+    for a batch it cannot take raises."""
+    L = resident_layout(mode, m, n)
+    fits = (cone_ints == 0 and L is not None
+            and L.smem_bytes + _STATIC_SMEM <= smem_per_block)
+    if design is None:
+        design = "resident" if fits else "streamed"
+    if design == "resident":
+        if not fits:
+            raise ValueError(f"the resident design cannot take a {mode} "
+                             f"window of shape ({m}, {n}) with cones="
+                             f"{cone_ints > 0}")
+        tiles = -(-S // RESIDENT_TILE)
+        return WindowPlan("resident", RESIDENT_TILE,
+                          max(1, min(tiles, sm_count)))
+    if design != "streamed":
+        raise ValueError(f"unknown window design {design!r}")
+    spb = 4 if (S >= 8 * sm_count and streamed_smem_bytes(
+        m, n, 4, cone_ints) <= smem_per_block) else 1
+    return WindowPlan("streamed", spb, max(1, -(-S // spb)))
 
 
 def _check_synth(p: BoxQP, synth) -> None:
@@ -239,17 +420,19 @@ def _stride(t: Tensor, S: int) -> int:
 def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
                y_sum: Tensor, tau: Tensor, sigma: Tensor, done: Tensor,
                n_iters: int, precision=None,
-               synth: TileSynth | None = None):
+               synth: TileSynth | None = None, design: str | None = None):
     """n_iters PDHG iterations over the whole scenario batch.  Returns
     (x, y, x_sum, y_sum).  Shapes: x,c,q (S, n); y (S, m); tau/sigma/done
     (S,); A (m, n) shared; l/u/bl/bu shared or per-scenario (a stride-0
     (S, k) view counts as shared).  `synth` (box rows only): the kernel
     draws the TileSynth's rows itself (scengen.window_inputs builds
-    both p and synth from a VirtualBatch).
+    both p and synth from a VirtualBatch).  `design` ("resident" or
+    "streamed") overrides the shape rule, to time both designs on one
+    batch; None lets plan_window decide.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in run_window.launches under the instantiation's name) or
-    raise."""
+    CPU tensors take the plain version; CUDA tensors launch the planned
+    kernel (counted in run_window.launches under the instantiation's name
+    and in run_window.launches_by_design) or raise."""
     _check_synth(p, synth)
     if x.device.type == "cpu":
         return run_window_reference(p, x, y, x_sum, y_sum, tau, sigma,
@@ -288,17 +471,13 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
             raise ValueError("run_window: the cone spec must cover the m "
                              "rows and lie on the CUDA device")
         cone_ptr, cone_rows = spec.csr(x.device)
+        num_cones, cone_nnz = spec.num_cones, cone_rows.numel()
         kernel = "pdhg_window_soc"
     else:
         cone_ptr = cone_rows = None
+        num_cones = cone_nnz = 0
         kernel = "pdhg_window"
     done_f = done.to(torch.float32).contiguous()
-    if mode == "f32":
-        A_main, A_lo = p.A, None
-    else:
-        A_main, A_lo = _split_bf16(p.A)
-        if mode == "bf16":
-            A_lo = None
     xo, yo = torch.empty_like(x), torch.empty_like(y)
     xso, yso = torch.empty_like(x_sum), torch.empty_like(y_sum)
     if synth is not None:
@@ -319,32 +498,45 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         # d_row = null: no synthesis
         draws = (0, 0, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0, 0, None)
     lib = _library()
+    plan = plan_window(mode, m, n, S, *card_limits(x.device.index),
+                       cone_ints=(num_cones + 1 + cone_nnz + m
+                                  if num_cones else 0), design=design)
+    A_main = A_lo = img = None
+    if plan.design == "resident":
+        img = pack_resident(p.A, resident_layout(mode, m, n))
+    elif mode == "f32":
+        A_main = p.A
+    else:
+        A_main, A_lo = _split_bf16(p.A)
+        if mode == "bf16":
+            A_lo = None
     ptr = ctypes.c_void_p
+
+    def addr(t):
+        return ptr(0 if t is None else t.data_ptr())
+
     rc = lib.pdhg_window_launch(
-        ptr(A_main.data_ptr()), ptr(0 if A_lo is None else A_lo.data_ptr()),
-        m, n, S, int(n_iters), _MODES[mode],
-        ptr(tau.data_ptr()), ptr(sigma.data_ptr()), ptr(done_f.data_ptr()),
-        ptr(p.c.data_ptr()), _stride(p.c, S),
-        ptr(p.q.data_ptr()), _stride(p.q, S),
-        ptr(p.l.data_ptr()), _stride(p.l, S),
-        ptr(p.u.data_ptr()), _stride(p.u, S),
-        ptr(p.bl.data_ptr()), _stride(p.bl, S),
-        ptr(p.bu.data_ptr()), _stride(p.bu, S),
-        ptr(0 if cone_ptr is None else cone_ptr.data_ptr()),
-        ptr(0 if cone_rows is None else cone_rows.data_ptr()),
-        0 if cone_ptr is None else spec.num_cones,
-        0 if cone_rows is None else cone_rows.numel(),
-        ptr(x.data_ptr()), ptr(y.data_ptr()),
-        ptr(x_sum.data_ptr()), ptr(y_sum.data_ptr()),
-        ptr(xo.data_ptr()), ptr(yo.data_ptr()),
-        ptr(xso.data_ptr()), ptr(yso.data_ptr()),
+        int(plan.design == "resident"), plan.tile, plan.blocks, addr(img),
+        0 if img is None else img.numel() * img.element_size(),
+        addr(A_main), addr(A_lo), m, n, S, int(n_iters), _MODES[mode],
+        addr(tau), addr(sigma), addr(done_f),
+        addr(p.c), _stride(p.c, S), addr(p.q), _stride(p.q, S),
+        addr(p.l), _stride(p.l, S), addr(p.u), _stride(p.u, S),
+        addr(p.bl), _stride(p.bl, S), addr(p.bu), _stride(p.bu, S),
+        addr(cone_ptr), addr(cone_rows), num_cones, cone_nnz,
+        addr(x), addr(y), addr(x_sum), addr(y_sum),
+        addr(xo), addr(yo), addr(xso), addr(yso),
         *draws, ptr(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{kernel} kernel launch failed ({plan.design} "
+                           f"design): CUDA error {rc}")
     run_window.launches[kernel] += 1
+    key = f"{kernel}/{mode}/{plan.design}"
+    counts = run_window.launches_by_design
+    counts[key] = counts.get(key, 0) + 1
     return xo, yo, xso, yso
 
 
 run_window.launches = {"pdhg_window": 0, "pdhg_window_soc": 0,
                        "pdhg_window_synth": 0}
+run_window.launches_by_design = {}

@@ -9,8 +9,12 @@
 # sslp shape and, for its SOC instantiation, on the ccopf --soc batch
 # and on ragged blocks in any row order; its SYNTH instantiation must
 # equal the box instantiation on the realized batch bit for bit (the
-# device threefry is jax.random's).  chip_smoke.py does the same at the
-# main path's shapes.
+# device threefry is jax.random's).  The resident design (A in shared
+# memory, bf16 products on tensor cores) is held to the plain version in
+# f32, bf16 and bf16x3 on an odd shape with per-scenario l/u, shared c/q,
+# +-inf rows and done lanes, must repeat itself bit for bit, and must
+# report the shared-memory layout the shape rule assumes.  chip_smoke.py
+# does the same at the main path's shapes.
 import dataclasses
 
 import numpy as np
@@ -163,6 +167,7 @@ def _synth_args(device, S, pad_to=None):
 def test_synth_kernel_equals_box_kernel(cuda, S, pad_to, precision):
     args, qp_proxy, synth = _synth_args(cuda, S, pad_to)
     before = dict(pdhg_window.run_window.launches)
+    by_design = dict(pdhg_window.run_window.launches_by_design)
     box = pdhg_window.run_window(*args, precision=precision)
     syn = pdhg_window.run_window(qp_proxy, *args[1:], precision=precision,
                                  synth=synth)
@@ -170,6 +175,12 @@ def test_synth_kernel_equals_box_kernel(cuda, S, pad_to, precision):
     assert dict(pdhg_window.run_window.launches) == {
         **before, "pdhg_window": before["pdhg_window"] + 1,
         "pdhg_window_synth": before["pdhg_window_synth"] + 1}
+    # both on the resident design (sslp 5x15 fits it)
+    mode = boxqp.as_precision(precision) or "f32"
+    for kernel in ("pdhg_window", "pdhg_window_synth"):
+        key = f"{kernel}/{mode}/resident"
+        assert pdhg_window.run_window.launches_by_design[key] == \
+            by_design.get(key, 0) + 1
     for a, b in zip(box, syn):
         assert torch.equal(a, b)
 
@@ -195,3 +206,126 @@ def test_device_threefry_draws_match_the_cpu(cuda):
     gpu = scengen.sample_fields(prog, idx.to(cuda))
     for name in prog.varying:
         assert torch.equal(cpu[name], gpu[name].cpu())
+
+
+def _random_window(device, S, n_iters, m=13, n=77, seed=0):
+    """Window inputs of a random box LP of an odd shape: per-scenario l
+    and u, shared (stride-0) c and q, one row with bl = -inf and one with
+    bu = +inf, every third lane done."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n))
+    b = rng.uniform(0.2, 0.8, size=(S, n)) @ A.T
+    bl = b - rng.uniform(0.5, 1.5, size=(S, m))
+    bu = b + rng.uniform(0.5, 1.5, size=(S, m))
+    bl[:, 0] = -np.inf
+    bu[:, 1] = np.inf
+    lo = rng.uniform(-1.0, 0.0, size=(S, n))
+    hi = lo + rng.uniform(0.5, 2.0, size=(S, n))
+    c = np.repeat(rng.normal(size=(1, n)), S, axis=0)
+    q = np.repeat(rng.uniform(0.0, 1.0, size=(1, n)), S, axis=0)
+    qp = boxqp.make_boxqp(c, A, bl, bu, lo, hi, q=q, device=device)
+    qp = dataclasses.replace(qp, c=qp.c[0].expand(S, n),
+                             q=qp.q[0].expand(S, n))
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    L = np.linalg.norm(A, 2)
+    omega = rng.uniform(0.5, 2.0, S)
+    done = torch.as_tensor(np.arange(S) % 3 == 1, device=device)
+    return (qp, t(np.clip(rng.uniform(-1, 1, (S, n)), lo, hi)),
+            t(rng.normal(scale=0.1, size=(S, m))),
+            t(rng.normal(size=(S, n))), t(rng.normal(size=(S, m))),
+            t(0.9 * omega / L), t(0.9 / (omega * L)), done, n_iters)
+
+
+# kernel vs plain after one window: f32 differs in summation order,
+# bf16x3 in splits of values whose last bits differ and in the tensor
+# cores' accumulation, bf16 keeps 8 bits per operand; the window sums of
+# k > 40 iterations carry up to k/40 times that
+RESIDENT_TOLS = {"f32": 1e-4, "bf16": 2e-2, "bf16x3": 1e-3}
+
+
+@pytest.mark.parametrize("S", [1, 7, 64, 1059])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+def test_resident_kernel_matches_plain_version(cuda, S, mode):
+    run = pdhg_window.run_window
+    key = f"pdhg_window/{mode}/resident"
+    for n_iters in (0, 1, 40, 160):
+        args = _random_window(cuda, S, n_iters)
+        before = run.launches_by_design.get(key, 0)
+        k = run(*args, precision=mode)
+        r = pdhg_window.run_window_reference(*args, precision=mode)
+        torch.cuda.synchronize()
+        assert run.launches_by_design[key] == before + 1
+        done = args[7]
+        assert torch.equal(k[0][done], args[1][done])
+        assert torch.equal(k[1][done], args[2][done])
+        if n_iters == 0:
+            for a, b in zip(k, args[1:5]):
+                assert torch.equal(a, b)
+            continue
+        tol = RESIDENT_TOLS[mode]
+        for name, a, b in zip(("x", "y", "x_sum", "y_sum"), k, r):
+            assert torch.isfinite(a).all(), name
+            t = tol * max(1.0, n_iters / 40) if name.endswith("sum") else tol
+            torch.testing.assert_close(a, b, atol=t, rtol=t, msg=name)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16x3"])
+@pytest.mark.parametrize("m,n", [(60, 705), (64, 768)])
+def test_resident_kernel_at_the_layout_edges(cuda, mode, m, n):
+    """The sslp 15x45 shape and the largest the layout takes (every
+    column tile and row pair in use)."""
+    args = _random_window(cuda, 100, 40, m=m, n=n, seed=1)
+    k = pdhg_window.run_window(*args, precision=mode)
+    r = pdhg_window.run_window_reference(*args, precision=mode)
+    tol = RESIDENT_TOLS[mode]
+    for a, b in zip(k, r):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+def test_resident_kernel_is_deterministic(cuda, mode):
+    args = _random_window(cuda, 1059, 40)
+    a = pdhg_window.run_window(*args, precision=mode)
+    b = pdhg_window.run_window(*args, precision=mode)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16x3"])
+def test_streamed_and_resident_designs_agree(cuda, mode):
+    """The same window through both designs, named explicitly."""
+    args = _window_args(cuda, S=200)
+    r = pdhg_window.run_window(*args, precision=mode, design="resident")
+    s = pdhg_window.run_window(*args, precision=mode, design="streamed")
+    tol = RESIDENT_TOLS[mode]
+    for a, b in zip(r, s):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+def test_resident_layout_matches_the_kernel(cuda):
+    """The shape rule's layout (ops/pdhg_window.py) and the kernel's own
+    (csrc/pdhg_window_resident.cu) agree byte for byte."""
+    lib = pdhg_window._library()
+    codes = {"f32": 0, "bf16": 1, "bf16x3": 3}
+    for mode, code in codes.items():
+        for m, n in ((60, 705), (13, 77), (20, 85), (64, 768), (65, 10)):
+            L = pdhg_window.resident_layout(mode, m, n)
+            want = (0, 0) if L is None else (L.smem_bytes, L.image_bytes)
+            got = (lib.pdhg_window_resident_bytes(code, m, n, 0),
+                   lib.pdhg_window_resident_bytes(code, m, n, 1))
+            assert got == want, (mode, m, n)
+    smem, sms = pdhg_window.card_limits(torch.cuda.current_device())
+    assert smem > 0 and sms > 0
+
+
+def test_resident_refuses_what_it_cannot_take(cuda):
+    """Naming the resident design for a SOC batch raises before any
+    launch; it never falls back to the streamed body."""
+    args = _solver_args(_ccopf_soc_qp(cuda, bfs=(2, 2)))
+    before = dict(pdhg_window.run_window.launches_by_design)
+    with pytest.raises(ValueError):
+        pdhg_window.run_window(*args, design="resident")
+    assert dict(pdhg_window.run_window.launches_by_design) == before
