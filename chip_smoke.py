@@ -15,10 +15,14 @@ nvcc per source, started together) and drives its main paths:
   PH wheel at 10,000 scenarios, and checks that every box window took
   the design the shape rule gives;
 * ccopf --soc — the branch-flow SOCP relaxation of AC power flow on a
-  3-stage tree: holds the kernel's SOC instantiation against its plain
-  version (ccopf at 10,000 scenarios and the 33-bus feeder), runs the
-  (3,3) wheel on the card and on the CPU, then the (100,100) wheel at
-  10,000 scenarios;
+  3-stage tree: holds the SOC window (resident: A in shared memory,
+  tiles sized to the shape; streamed: A from L2) against its plain
+  version (ccopf at 10,000 scenarios and the 64-scenario, 160-iteration
+  tail in the design the shape rule gives, the 33-bus feeder on the
+  streamed design), times both designs in turns, runs the (3,3) wheel on
+  the card and on the CPU, profiles a capped (100,100) wheel, then drives
+  the (100,100) wheel at 10,000 scenarios and checks that every SOC
+  window took the resident design;
 * scengen — seeded scenario synthesis: builds the sslp 15x45 program's
   VirtualBatch at 1,000,000 scenarios, holds the kernel's SYNTH
   instantiation (draws its bound rows in-kernel) bit for bit against the
@@ -32,8 +36,9 @@ counts set to 0 just before it and read just after, to show that it went
 through its kernel.  One line per phase; then one JSON line describing
 each kernel, then the last line {"ok": true, "device": {...}}.  Any
 failed check raises (exit code 1); without CUDA the script exits 2 and
-prints no result.  `python3 chip_smoke.py --only headline_profile` runs
-the profile phase alone (to profile another tree's package with it).
+prints no result.  `python3 chip_smoke.py --only headline_profile` (or
+`--only ccopf_profile`) runs that profile phase alone (to profile another
+tree's package with it).
 """
 import json
 import math
@@ -67,6 +72,8 @@ TOLS = {"f32": (1e-4, 1e-4), "bf16x3": (1e-3, 1e-3)}
 CCOPF_BFS = (100, 100)                # 10,000 scenarios, 101 tree nodes
 CCOPF_SMALL_BFS = (3, 3)
 CCOPF_MAX_ITERS = 80
+CCOPF_PROFILE_HUB_ITERS = 3           # [ccopf_profile]'s capped run (the
+                                      # whole wheel takes 3)
 WIDE_FEEDER_BUSES, WIDE_SCENS = 33, 256   # the wider parity shape
 # The JAX package's fused wheel at CCOPF_BFS on the CPU, the same options
 # (tools/ccopf_soc_jax_reference.py 100 100): (outer, inner).  Its
@@ -258,13 +265,13 @@ def sslp_options(iter_precision, max_iterations, tol, subproblem_windows):
                               iter_precision=iter_precision))
 
 
-def ccopf_options():
+def ccopf_options(max_iterations=CCOPF_MAX_ITERS):
     """tests/test_cones.py's ccopf --soc options: rho 10, PDHG tol 1e-6,
     f32 iteration matvecs, capped at CCOPF_MAX_ITERS hub iterations."""
     from mpisppy_tpu_torch.algos import ph as ph_mod
     from mpisppy_tpu_torch.ops import pdhg
     return ph_mod.PHOptions(default_rho=10.0,
-                            max_iterations=CCOPF_MAX_ITERS, conv_thresh=0.0,
+                            max_iterations=max_iterations, conv_thresh=0.0,
                             pdhg=pdhg.PDHGOptions(tol=1e-6))
 
 
@@ -295,20 +302,24 @@ def registers_by_instantiation(log):
     """ptxas's registers, spill bytes (stores+loads) and static shared
     memory of each kernel instantiation, from the build's -Xptxas -v
     output: streamed kernels keyed mode/scenarios-per-block/kind (box,
-    cones or synth), resident ones mode/resident/kind."""
+    cones or synth), resident ones mode/resident/kind, resident cone
+    ones mode/resident_cones/scenarios-per-tile."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"pdhg_window_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
                       ln)
         r = re.search(r"pdhg_window_residentILi(\d+)ELb(\d)E", ln)
-        if "Compiling entry function" in ln and (m or r):
+        c = re.search(r"pdhg_window_conesILi(\d+)ELi(\d+)E", ln)
+        if "Compiling entry function" in ln and (m or r or c):
             if m:
                 kind = "cones" if m[3] == "1" else "synth" if m[4] == "1" \
                     else "box"
                 name = f"{MODE_NAMES[m[1]]}/{m[2]}/{kind}"
-            else:
+            elif r:
                 kind = "synth" if r[2] == "1" else "box"
                 name = f"{MODE_NAMES[r[1]]}/resident/{kind}"
+            else:
+                name = f"{MODE_NAMES[c[1]]}/resident_cones/{8 * int(c[2])}"
             spill = 0
         elif name and "spill stores" in ln:
             nums = re.findall(r"(\d+) bytes spill", ln)
@@ -330,6 +341,7 @@ def reset_launches():
 
 STREAMED_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window.cu"
 RESIDENT_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window_resident.cu"
+CONES_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window_cones.cu"
 
 
 def kernel_entry(name, source, replaces, launches, err, timing):
@@ -510,13 +522,14 @@ def check_designs(label, by_design, m, n, scens):
                              "bf16x3")
 
 
-_KERNEL_NAME = re.compile(r"pdhg_window_(kernel|resident)<(\d+)")
+_KERNEL_NAME = re.compile(r"pdhg_window_(kernel|resident|cones)<(\d+)")
 
 
 def window_kernel_key(name):
     """mode/design of a window kernel from its demangled name
     (pdhg_window_kernel<MODE, ...> is the streamed body,
-    pdhg_window_resident<MODE, ...> the resident one), else None."""
+    pdhg_window_resident<MODE, ...> and pdhg_window_cones<MODE, ...> the
+    resident ones), else None."""
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None
@@ -525,22 +538,35 @@ def window_kernel_key(name):
 
 
 def headline_profile(dev, batch=None):
-    """torch.profiler over a capped run of the headline (PROFILE_HUB_ITERS
-    hub iterations): the device busy share (union of device activity over
-    the run's wall time), the window kernel's share of device time by
-    mode and design, and the top five other kernels.  The same run
-    without the profiler goes first (it also warms up); its wall time
-    shows what the profiler adds on the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """profile_wheel over a capped run of the headline (PROFILE_HUB_ITERS
+    hub iterations)."""
     if batch is None:
         batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
-    _, plain_secs = wheel(batch, sslp_options("bf16x3", PROFILE_HUB_ITERS,
-                                              1e-6, 8))
+    profile_wheel("headline_profile", batch,
+                  lambda: sslp_options("bf16x3", PROFILE_HUB_ITERS, 1e-6, 8))
+
+
+def ccopf_profile(dev, batch=None):
+    """profile_wheel over a capped run of the ccopf (100,100) wheel
+    (CCOPF_PROFILE_HUB_ITERS hub iterations)."""
+    if batch is None:
+        batch = ccopf_batch(CCOPF_BFS, dev)
+    profile_wheel("ccopf_profile", batch,
+                  lambda: ccopf_options(CCOPF_PROFILE_HUB_ITERS))
+
+
+def profile_wheel(label, batch, options):
+    """torch.profiler over one wheel run with options(): the device busy
+    share (union of device activity over the run's wall time), the window
+    kernel's share of device time by mode and design, and the top five
+    other kernels.  The same run without the profiler goes first (it also
+    warms up); its wall time shows what the profiler adds on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, plain_secs = wheel(batch, options())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ws, secs = wheel(batch, sslp_options("bf16x3", PROFILE_HUB_ITERS,
-                                             1e-6, 8))
+        ws, secs = wheel(batch, options())
     spans, by_kernel = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -555,11 +581,10 @@ def headline_profile(dev, batch=None):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        _, secs = wheel(batch, sslp_options("bf16x3", PROFILE_HUB_ITERS,
-                                            1e-6, 8))
+        _, secs = wheel(batch, options())
         t1.record()
         torch.cuda.synchronize()
-        phase("headline_profile", profiler_device_time=0,
+        phase(label, profiler_device_time=0,
               event_ms=round(t0.elapsed_time(t1), 3),
               wall_s=round(secs, 3))
         return
@@ -578,7 +603,7 @@ def headline_profile(dev, batch=None):
             window[key] = window.get(key, 0.0) + us
     top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
     shares = {k: v / device_us for k, v in window.items()}
-    phase("headline_profile", S=batch.num_scenarios,
+    phase(label, S=batch.num_scenarios,
           hub_iters=ws.spcomm._iter, wall_s=round(secs, 3),
           wall_unprofiled_s=round(plain_secs, 3),
           device_ms=round(device_us / 1e3, 3),
@@ -588,7 +613,7 @@ def headline_profile(dev, batch=None):
           window_ms=json.dumps({k: round(v / 1e3, 3) for k, v in
                                 sorted(window.items())}).replace(" ", ""))
     for name, us in top:
-        phase("headline_profile", other_kernel=f"'{name[:90]}'",
+        phase(label, other_kernel=f"'{name[:90]}'",
               ms=round(us / 1e3, 3), share=round(us / device_us, 4))
 
 
@@ -635,11 +660,40 @@ def sslp_path(dev):
                                      ("pdhg_window_f32", "f32", 491))]
 
 
-def ccopf_path(dev):
-    """The ccopf --soc phases: SOC-kernel parity (ccopf at S=10,000 and
-    the 33-bus feeder), window times, the (3,3) wheel on card and CPU,
-    and the (100,100) wheel at S=10,000."""
+def soc_parity(args, mode, S, qp, design=None, **extra):
+    """parity() of a SOC window with its live duals in the polar cone
+    (frozen lanes keep the solver's polar-cone duals, so every lane is
+    checked).  Returns max_abs_err."""
     from mpisppy_tpu_torch.ops import cones
+    err, k = parity(args, mode, "parity_soc", S, design=design, **extra)
+    dcr = float(cones.dual_cone_residual_rows(qp.cones, k[1]).max())
+    phase("parity_soc", S=S, mode=mode, n_iters=args[8],
+          design=design or "rule", polar_cone_residual=dcr, tol=POLAR_TOL)
+    if not dcr <= POLAR_TOL:
+        raise AssertionError("SOC kernel: duals left the polar cone")
+    return err
+
+
+def check_soc_designs(label, by_design):
+    """Every SOC window of the ccopf wheel took the resident design (the
+    shape rule's at every batch size of the wheel), and f32 ran."""
+    streamed = {k: v for k, v in by_design.items()
+                if k.startswith("pdhg_window_soc/") and k.endswith("/streamed")}
+    resident = by_design.get("pdhg_window_soc/f32/resident", 0)
+    phase(label, soc_resident_f32=resident,
+          soc_streamed=json.dumps(streamed).replace(" ", ""))
+    if streamed or resident <= 0:
+        raise AssertionError(f"{label}: SOC windows on the streamed design, "
+                             "or no f32 resident SOC window")
+
+
+def ccopf_path(dev):
+    """The ccopf --soc phases: SOC-window parity (ccopf at S=10,000 and
+    the 64 x 160 tail in the shape rule's design, the 33-bus feeder on
+    the streamed design), window times of both designs, the (3,3) wheel
+    on card and CPU, the profile of a capped (100,100) wheel, and the
+    (100,100) wheel at S=10,000."""
+    from mpisppy_tpu_torch.ops import pdhg_window
     S = CCOPF_BFS[0] * CCOPF_BFS[1]
     t0 = time.perf_counter()
     batch = ccopf_batch(CCOPF_BFS, dev)
@@ -649,34 +703,44 @@ def ccopf_path(dev):
           tree_nodes=batch.tree.num_nodes,
           seconds=round(time.perf_counter() - t0, 2))
     args = window_inputs(batch)
+    # the fused wheel's straggler tail: 64 scenarios, 160 iterations
+    tail = ccopf_batch((8, 8), dev)
+    tail_args = window_inputs(tail, seed=1)[:8] + (TAIL_ITERS,)
+    limits = pdhg_window.card_limits(torch.cuda.current_device())
+    _, rows = batch.qp.cones.csr(dev)
+    cone_ints = batch.qp.cones.num_cones + 1 + rows.numel() + batch.qp.m
+    plans = {s_: pdhg_window.plan_window("f32", batch.qp.m, batch.qp.n, s_,
+                                         *limits, cone_ints=cone_ints)
+             for s_ in (S, TAIL_SCENS)}
+    phase("ccopf_plan", **{f"S{k}": f"{v.design}/T{v.tile}/blocks{v.blocks}"
+                           for k, v in plans.items()})
     errs = {}
     for mode in ("f32", "bf16x3"):
-        # the iterates lie in the polar cone (frozen lanes keep the
-        # solver's polar-cone duals)
-        err, k = parity(args, mode, "parity_soc", S, model="ccopf_soc")
-        dcr = float(cones.dual_cone_residual_rows(batch.qp.cones,
-                                                  k[1]).max())
-        phase("parity_soc", S=S, mode=mode, polar_cone_residual=dcr,
-              tol=POLAR_TOL)
-        if not dcr <= POLAR_TOL:
-            raise AssertionError("SOC kernel: duals left the polar cone")
-        errs[mode] = err
+        errs[mode] = soc_parity(args, mode, S, batch.qp, model="ccopf_soc")
+        soc_parity(tail_args, mode, TAIL_SCENS, tail.qp, model="ccopf_soc")
+        soc_parity(args, mode, S, batch.qp, design="streamed",
+                   model="ccopf_soc")
     wide = ccopf_batch((WIDE_SCENS, 1), dev, n_buses=WIDE_FEEDER_BUSES)
-    parity(window_inputs(wide, seed=2), "f32", "parity_soc", WIDE_SCENS,
-           model=f"ccopf_soc_{WIDE_FEEDER_BUSES}bus", n=wide.qp.n,
-           m=wide.qp.m, soc_blocks=wide.qp.cones.num_cones)
+    soc_parity(window_inputs(wide, seed=2), "f32", WIDE_SCENS, wide.qp,
+               design="streamed", model=f"ccopf_soc_{WIDE_FEEDER_BUSES}bus",
+               n=wide.qp.n, m=wide.qp.m, soc_blocks=wide.qp.cones.num_cones)
     del wide
-    timing = window_times(args, "window_time_soc", SWEEP_SCENS,
-                          ("streamed",), model="ccopf_soc")
+    timing = window_times(args, "window_time_soc", SWEEP_SCENS, DESIGNS,
+                          model="ccopf_soc")
+    timing.update(time_designs(tail_args, "window_time_soc", DESIGNS,
+                               reps=20, model="ccopf_soc", shape="tail"))
+    del tail, tail_args
 
     small_wheel("wheel_soc_small", "ccopf_soc_3x3",
                 ccopf_batch(CCOPF_SMALL_BFS, dev),
                 ccopf_batch(CCOPF_SMALL_BFS, "cpu"), ccopf_options())
 
-    ws, launches, _ = main_wheel(
+    ccopf_profile(dev, batch)
+    ws, _, by_design = main_wheel(
         "ccopf_soc", "pdhg_window_soc", batch, ccopf_options(),
         slack=HUB_BOUND_SLACK, model="ccopf_soc",
         bfs="x".join(map(str, CCOPF_BFS)), iter_precision="f32")
+    check_soc_designs("ccopf_soc", by_design)
     nodes = ws.spcomm.best_nonants().shape[0]
     rel = max(abs(a - b) / abs(b) for a, b in zip(
         (ws.BestOuterBound, ws.BestInnerBound), CCOPF_JAX_BOUNDS))
@@ -686,10 +750,10 @@ def ccopf_path(dev):
     if nodes != batch.tree.num_nodes or rel > 1e-3:
         raise AssertionError("ccopf_soc: not one best_nonants row per tree "
                              "node, or bounds off the JAX reference")
-    return kernel_entry("pdhg_window_soc", STREAMED_SOURCE,
+    return kernel_entry("pdhg_window_soc", CONES_SOURCE,
                         "mpisppy_tpu/ops/pdhg_pallas.py:192",
-                        launches["pdhg_window_soc"], errs["f32"],
-                        timing[S, "f32", "streamed"])
+                        by_design["pdhg_window_soc/f32/resident"],
+                        errs["f32"], timing[S, "f32", "resident"])
 
 
 def sslp_program(S, n_servers=SSLP_SERVERS, n_clients=SSLP_CLIENTS):
@@ -834,12 +898,16 @@ def main() -> int:
     # build the kernel (every instantiation) from this checkout's sources
     t0 = time.perf_counter()
     log = pdhg_window.build()
-    phase("build", sources=f"{STREAMED_SOURCE},{RESIDENT_SOURCE}",
+    phase("build", sources=",".join(
+              str(p.relative_to(pdhg_window.CSRC.parents[1]))
+              for p in pdhg_window.SOURCES),
           seconds=round(time.perf_counter() - t0, 2),
           ptxas_registers=registers_by_instantiation(log))
 
-    if sys.argv[1:] == ["--only", "headline_profile"]:
-        headline_profile(dev)
+    only = {"headline_profile": headline_profile,
+            "ccopf_profile": ccopf_profile}
+    if sys.argv[1:2] == ["--only"]:
+        only[sys.argv[2]](dev)
         return 0
     kernels = sslp_path(dev)
     torch.cuda.empty_cache()

@@ -21,10 +21,11 @@
 // per iteration (A'y and A v, 4*m*n flops), and each block keeps SPB
 // scenarios' state (~24 KB each at the sslp 15x45 shape, A 60 x 705) in
 // shared memory for the whole window, so each element of A read from L2
-// feeds SPB multiply-adds.  It takes the batches the resident design
-// (pdhg_window_resident.cu: A in shared memory once per launch, products
-// on tensor cores) does not: SOC batches, and an A or tile too large for
-// that design's layout; ops/pdhg_window.py::plan_window decides.
+// feeds SPB multiply-adds.  It takes the batches the resident designs
+// (A in shared memory once per launch: pdhg_window_resident.cu for box
+// rows, products on tensor cores; pdhg_window_cones.cu for SOC blocks)
+// do not: an A or tile too large for their layouts, such as the 33-bus
+// feeder's; ops/pdhg_window.py::plan_window decides.
 //
 // Second-order-cone rows (template flag CONES; the box-only
 // instantiation compiles to the code it had without them).  The blocks
@@ -32,7 +33,8 @@
 // order), staged once per thread block in shared memory.  The dual step
 // leaves w on SOC rows in shared memory; after a barrier one thread per
 // (scenario, block) forms wsh = w - sigma*b, the head t and ||z|| (sum of
-// squares, then sqrtf), and writes the polar projection back:
+// squares, then sqrtf), and writes the polar projection back
+// (soc_block, pdhg_window_common.cuh, shared with the resident design):
 //     ||z|| <= t   -> y1 = 0
 //     ||z|| <= -t  -> y1 = wsh
 //     otherwise    -> alpha = (t + ||z||)/2,  y1 = wsh - (alpha,
@@ -82,9 +84,9 @@
 //
 // Build (ops/pdhg_window.py::build): each source compiled on its own,
 // all at once, with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
-// -O3 -Xcompiler -fPIC -c, then nvcc -shared links pdhg_window.o and
-// pdhg_window_resident.o into libpdhg_window.so (no fast-math: sqrtf
-// and the division stay IEEE).
+// -O3 -Xcompiler -fPIC -c, then nvcc -shared links pdhg_window.o,
+// pdhg_window_resident.o and pdhg_window_cones.o into libpdhg_window.so
+// (no fast-math: sqrtf and the division stay IEEE).
 // Bound to Python with ctypes (ops/pdhg_window.py) through one entry,
 // pdhg_window_launch: the caller names the design; the instantiation
 // follows from the inputs (SOC blocks when num_cones > 0, SYNTH when
@@ -107,53 +109,6 @@ __host__ __device__ inline long long smem_floats(int m, int n, bool cones) {
 // per-row SOC flag
 __host__ __device__ inline long long cone_ints(const Args& g) {
   return (long long)g.num_cones + 1 + g.cone_nnz + g.m;
-}
-
-template <int MODE>
-__device__ __forceinline__ float mac(float acc, float a, float a_lo,
-                                     float v_hi, float v_lo) {
-  if (MODE == MODE_F32) return fmaf(a, v_hi, acc);
-  if (MODE == MODE_BF16) return fmaf(a, v_hi, acc);
-  acc = fmaf(a, v_hi, acc);
-  acc = fmaf(a, v_lo, acc);
-  return fmaf(a_lo, v_hi, acc);
-}
-
-// The SOC dual prox of one block of one scenario: y1 = Proj_polar(wsh)
-// with wsh = w - sigma*b (sbl holds sigma*b on SOC rows).  rows[0] is
-// the head.  Frozen lanes keep y and only accumulate it.
-__device__ __forceinline__ void soc_block(const int* rows, int dim,
-                                          bool frozen, const float* w,
-                                          const float* sbl, float* y,
-                                          float* ys) {
-  if (frozen) {
-    for (int r = 0; r < dim; ++r) ys[rows[r]] += y[rows[r]];
-    return;
-  }
-  const int head = rows[0];
-  const float t = w[head] - sbl[head];
-  float zsq = 0.f;
-  for (int r = 1; r < dim; ++r) {
-    const float v = w[rows[r]] - sbl[rows[r]];
-    zsq = __fadd_rn(zsq, __fmul_rn(v, v));
-  }
-  const float znorm = sqrtf(zsq);
-  const bool inside = znorm <= t;
-  const bool polar = znorm <= -t;
-  const float alpha = 0.5f * (t + znorm);
-  const float scale =
-      inside ? 1.f : (polar ? 0.f : alpha / fmaxf(znorm, kTiny));
-  const float tnew = inside ? t : (polar ? 0.f : alpha);
-  const float yh = t - tnew;
-  y[head] = yh;
-  ys[head] += yh;
-  for (int r = 1; r < dim; ++r) {
-    const int row = rows[r];
-    const float v = w[row] - sbl[row];
-    const float y1 = v - __fmul_rn(v, scale);
-    y[row] = y1;
-    ys[row] += y1;
-  }
 }
 
 template <int MODE, int SPB, bool CONES, bool SYNTH>
@@ -348,7 +303,7 @@ pdhg_window_kernel(Args g) {
       for (int task = tid; task < SPB * g.num_cones; task += kThreads) {
         const int s = task / g.num_cones, k = task - s * g.num_cones;
         float* r = base + s * per + 8 * n;
-        soc_block(crows + cptr[k], cptr[k + 1] - cptr[k], frozen_s[s],
+        soc_block(crows + cptr[k], cptr[k + 1] - cptr[k], 1, frozen_s[s],
                   r + 6 * m, r + 2 * m, r, r + m);
       }
       __syncthreads();
@@ -448,9 +403,11 @@ extern "C" long long pdhg_window_resident_bytes(int mode, int m, int n,
 }
 
 // design 0 runs the streamed kernel with `tile` (1 or 4) scenarios per
-// block from A (and, in bf16x3, A_lo); design 1 runs the resident kernel
-// (pdhg_window_resident.cu) in `blocks` persistent blocks from the packed
-// image a_img of a_img_bytes bytes (ops/pdhg_window.py::pack_resident).
+// block from A (and, in bf16x3, A_lo); design 1 runs a resident kernel in
+// `blocks` persistent blocks from the packed image a_img of a_img_bytes
+// bytes: for box rows pdhg_window_resident.cu (ops/pdhg_window.py::
+// pack_resident), for SOC blocks pdhg_window_cones.cu with `tile` (8, 16
+// or 24) scenarios per tile (ops/pdhg_window.py::pack_cones).
 // ops/pdhg_window.py::plan_window chooses; a launch that the chosen
 // design cannot take returns an error and is never retried on the other.
 // The synthesis arguments (key0 .. d_row, see SYNTH above) are read only
@@ -489,8 +446,13 @@ extern "C" int pdhg_window_launch(
          draw_thr, draw_below, draw_above, draw_bl, draw_bu, d_row};
   const cudaStream_t st = (cudaStream_t)stream;
   if (design == 0) return (int)pdhg::dispatch_streamed(g, mode, tile, st);
-  if (design != 1 || a_img == nullptr ||
-      a_img_bytes != (long long)pdhg::resident_image_bytes(mode, m, n))
+  if (design != 1 || a_img == nullptr) return (int)cudaErrorInvalidValue;
+  if (num_cones > 0) {
+    if (a_img_bytes != (long long)pdhg::cones_image_bytes(mode, m, n))
+      return (int)cudaErrorInvalidValue;
+    return (int)pdhg::launch_cones(g, mode, tile, blocks, st);
+  }
+  if (a_img_bytes != (long long)pdhg::resident_image_bytes(mode, m, n))
     return (int)cudaErrorInvalidValue;
   return (int)pdhg::launch_resident(g, mode, blocks, st);
 }

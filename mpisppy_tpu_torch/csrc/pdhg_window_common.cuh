@@ -1,8 +1,10 @@
-// What the two window kernels (pdhg_window.cu: the streamed body,
-// pdhg_window_resident.cu: A resident in shared memory) share: the
-// argument block, the arithmetic modes, the row-bound clip and the
-// in-kernel threefry draw of SYNTH.  See pdhg_window.cu for the
-// iteration both compute.
+// What the window kernels (pdhg_window.cu: the streamed body;
+// pdhg_window_resident.cu: box rows with A resident in shared memory;
+// pdhg_window_cones.cu: SOC blocks with A resident in shared memory)
+// share: the argument block, the arithmetic modes and their
+// multiply-add, the row-bound clip, the SOC dual prox and the in-kernel
+// threefry draw of SYNTH.  See pdhg_window.cu for the iteration all of
+// them compute.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -95,6 +97,60 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// acc + a*v in the kernel's arithmetic on CUDA cores: f32 and bf16 one
+// fmaf (bf16 operands already rounded), bf16x3 the three products
+// hi*hi + hi*lo + lo*hi (a = A's hi part, a_lo its lo part)
+template <int MODE>
+__device__ __forceinline__ float mac(float acc, float a, float a_lo,
+                                     float v_hi, float v_lo) {
+  if (MODE == MODE_F32) return fmaf(a, v_hi, acc);
+  if (MODE == MODE_BF16) return fmaf(a, v_hi, acc);
+  acc = fmaf(a, v_hi, acc);
+  acc = fmaf(a, v_lo, acc);
+  return fmaf(a_lo, v_hi, acc);
+}
+
+// The SOC dual prox of one block of one scenario: y1 = Proj_polar(wsh)
+// with wsh = w - sigma*b (sbl holds sigma*b on SOC rows).  rows[0] is
+// the head; row r of the scenario lies at element r * stride of each
+// vector (1 in the streamed layout, the tile's scenario count in the
+// resident one).  Frozen lanes keep y and only accumulate it.  IEEE f32
+// in every mode: __fmul_rn / __fadd_rn keep FMA contraction from
+// changing the rounding.
+__device__ __forceinline__ void soc_block(const int* rows, int dim,
+                                          int stride, bool frozen,
+                                          const float* w, const float* sbl,
+                                          float* y, float* ys) {
+  if (frozen) {
+    for (int r = 0; r < dim; ++r) ys[rows[r] * stride] += y[rows[r] * stride];
+    return;
+  }
+  const int head = rows[0] * stride;
+  const float t = w[head] - sbl[head];
+  float zsq = 0.f;
+  for (int r = 1; r < dim; ++r) {
+    const float v = w[rows[r] * stride] - sbl[rows[r] * stride];
+    zsq = __fadd_rn(zsq, __fmul_rn(v, v));
+  }
+  const float znorm = sqrtf(zsq);
+  const bool inside = znorm <= t;
+  const bool polar = znorm <= -t;
+  const float alpha = 0.5f * (t + znorm);
+  const float scale =
+      inside ? 1.f : (polar ? 0.f : alpha / fmaxf(znorm, kTiny));
+  const float tnew = inside ? t : (polar ? 0.f : alpha);
+  const float yh = t - tnew;
+  y[head] = yh;
+  ys[head] += yh;
+  for (int r = 1; r < dim; ++r) {
+    const int row = rows[r] * stride;
+    const float v = w[row] - sbl[row];
+    const float y1 = v - __fmul_rn(v, scale);
+    y[row] = y1;
+    ys[row] += y1;
+  }
+}
+
 // Row i's bounds of scenario sc (valid), +-inf clipped to +-1e30; with
 // SYNTH the drawn rows are threefry draws scaled by one __fmul_rn.
 template <bool SYNTH>
@@ -120,5 +176,14 @@ size_t resident_smem_bytes(int mode, int m, int n);
 size_t resident_image_bytes(int mode, int m, int n);
 cudaError_t launch_resident(const Args& g, int mode, int blocks,
                             cudaStream_t stream);
+
+// The resident design for SOC batches (pdhg_window_cones.cu): the same
+// numbers for (mode, m, n, scenarios per tile, the cone layout's ints),
+// 0 outside its layout, and its launch in `blocks` persistent blocks;
+// ops/pdhg_window.py::cone_layout computes the same numbers.
+size_t cones_smem_bytes(int mode, int m, int n, int tile, int cone_ints);
+size_t cones_image_bytes(int mode, int m, int n);
+cudaError_t launch_cones(const Args& g, int mode, int tile, int blocks,
+                         cudaStream_t stream);
 
 }  // namespace pdhg

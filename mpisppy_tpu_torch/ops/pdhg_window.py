@@ -16,15 +16,17 @@
 #
 # Two designs compute the same function; plan_window, a pure function of
 # the mode, the shape and the card's limits, picks one per launch:
-# - resident (csrc/pdhg_window_resident.cu): one persistent block per SM
-#   copies A, packed by pack_resident, into shared memory once per launch
-#   and walks tiles of 8 scenarios whose state stays in registers; bf16
-#   and bf16x3 products run on tensor cores (mma.sync), f32 on CUDA cores
-#   from shared memory.  It takes box and synth batches whose A fits its
-#   layout (resident_layout).
+# - resident: persistent blocks copy A into shared memory once per launch
+#   and walk tiles of scenarios.  Box and synth batches whose A fits
+#   resident_layout run csrc/pdhg_window_resident.cu (A packed by
+#   pack_resident, tiles of 8 scenarios whose state stays in registers;
+#   bf16 and bf16x3 products on tensor cores, f32 on CUDA cores); SOC
+#   batches whose layout fits cone_layout run csrc/pdhg_window_cones.cu
+#   (A packed by pack_cones, tiles of 8, 16 or 24 scenarios whose state
+#   stays in shared memory, every product on CUDA cores).
 # - streamed (csrc/pdhg_window.cu): A read from L2 twice per iteration,
 #   one or four scenarios per block with their state in shared memory.
-#   It takes the SOC batches and any A too large for the resident layout.
+#   It takes any A too large for the resident layouts.
 # run_window.launches_by_design counts each launch under
 # "<instantiation>/<mode>/<design>".
 #
@@ -56,7 +58,8 @@ _MODES = {"f32": 0, "bf16": 1, "bf16x3": 3}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "pdhg_window.cu", CSRC / "pdhg_window_resident.cu")
+SOURCES = (CSRC / "pdhg_window.cu", CSRC / "pdhg_window_resident.cu",
+           CSRC / "pdhg_window_cones.cu")
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libpdhg_window.so"
 BUILD_LOG = BUILD_DIR / "pdhg_window.log"
@@ -220,6 +223,8 @@ def _library():
     lib.pdhg_window_limits.restype = I
     lib.pdhg_window_resident_bytes.argtypes = [I, I, I, I]
     lib.pdhg_window_resident_bytes.restype = L
+    lib.pdhg_window_cones_bytes.argtypes = [I, I, I, I, I, I]
+    lib.pdhg_window_cones_bytes.restype = L
     _lib = lib
     return lib
 
@@ -277,6 +282,11 @@ RESIDENT_MAX_M = 64        # the dual step: 2 (row, scenario) pairs a thread
 RESIDENT_MAX_N = 768       # 8 warps x 6 column tiles of 16 = 256 threads x 3
 _PARTIAL_STRIDE = 68       # floats per scenario row of the A v partial sums
 _STATIC_SMEM = 1024        # headroom for the kernels' static shared memory
+CONE_TILES = (8, 16, 24)   # cone design: 1-3 groups of 8 scenarios a task
+CONE_PARTS = 3             # its dots split in 3 at tile 8
+_CONE_BLOCKS_PER_SM = 2    # its __launch_bounds__(256, 2)
+_SMEM_RESERVED = 1024      # shared memory the card keeps per block: an
+                           # SM's is the opt-in per-block limit + this
 
 
 def _round_up(v: int, k: int) -> int:
@@ -347,6 +357,89 @@ def pack_resident(A: Tensor, layout: ResidentLayout) -> Tensor:
     return img
 
 
+@dataclasses.dataclass(frozen=True)
+class ConeLayout:
+    """Shared-memory layout of the resident design for SOC batches at
+    (mode, m, n, tile, cone_ints); csrc/pdhg_window_cones.cu::make_layout
+    computes the same numbers.  A as 1 plane (f32 values of A, or of its
+    bf16 hi part) or 2 (bf16x3: hi and lo) of (m, a_stride = n | 1) f32,
+    then n_vecs n-vectors and m_vecs m-vectors per scenario of the tile,
+    then the partial sums of the dots split in CONE_PARTS (tile 8 only),
+    then the cone layout's ints.  image_bytes is the packed A, smem_bytes
+    the whole dynamic shared memory of a block."""
+
+    mode: str
+    m: int
+    n: int
+    tile: int
+    a_stride: int
+    planes: int
+    n_vecs: int
+    m_vecs: int
+    image_bytes: int
+    smem_bytes: int
+
+
+def cone_layout(mode: str, m: int, n: int, tile: int,
+                cone_ints: int) -> ConeLayout | None:
+    """The cone layout of (mode, m, n) at `tile` scenarios per tile
+    (CONE_TILES), or None outside it.  n-vectors: x, its window sum,
+    tau*c, 1/(1 + tau*q), l, u, v (v's lo too in bf16x3); m-vectors: y,
+    its window sum, sigma*bl, sigma*bu, w (y's bf16 hi, and lo in bf16x3,
+    in the bf16 modes)."""
+    if tile not in CONE_TILES or m <= 0 or n <= 0 or cone_ints <= 0:
+        return None
+    planes = 2 if mode == "bf16x3" else 1
+    stride = n | 1
+    image = 4 * _round_up(planes * m * stride, 4)
+    n_vecs = 6 + planes
+    m_vecs = 5 + {"f32": 0, "bf16": 1, "bf16x3": 2}[mode]
+    parts = CONE_PARTS * tile * max(m, n) if tile == 8 else 0
+    smem = (image + 4 * tile * (n_vecs * n + m_vecs * m) + 4 * parts
+            + 4 * cone_ints)
+    return ConeLayout(mode, m, n, tile, stride, planes, n_vecs, m_vecs,
+                      image, smem)
+
+
+def pack_cones(A: Tensor, layout: ConeLayout) -> Tensor:
+    """A (m, n) f32 as the cone kernel's shared-memory image, zero padded:
+    rows of a_stride f32 values of A (f32), of its bf16 hi part (bf16),
+    or the hi plane then the lo plane (bf16x3)."""
+    L = layout
+    img = torch.zeros(L.image_bytes // 4, dtype=torch.float32,
+                      device=A.device)
+    planes = (A,) if L.mode == "f32" else _split_bf16(A)[:L.planes]
+    size = L.m * L.a_stride
+    for k, plane in enumerate(planes):
+        img[k * size:(k + 1) * size].view(L.m, L.a_stride)[:, :L.n] = plane
+    return img
+
+
+def _plan_cones(mode: str, m: int, n: int, S: int, smem_per_block: int,
+                sm_count: int, cone_ints: int) -> "WindowPlan | None":
+    """The cone design's tile and grid, or None when no tile's layout
+    fits the card: the fewest rounds of tiles over the card's block slots
+    (blocks an SM holds, by shared memory and the kernel's launch bounds,
+    times the SMs), then the smallest tile, whose dots are split over
+    more threads.  At ccopf's shape: 24 at S=10,000, 8 at S=64, the
+    fastest tile in f32 at both on an H100 (tools/soc_tile_sweep.py)."""
+    best = None
+    for tile in CONE_TILES:
+        L = cone_layout(mode, m, n, tile, cone_ints)
+        if L is None or L.smem_bytes + _STATIC_SMEM > smem_per_block:
+            continue
+        per_sm = min(_CONE_BLOCKS_PER_SM,
+                     (smem_per_block + _SMEM_RESERVED)
+                     // (L.smem_bytes + _STATIC_SMEM + _SMEM_RESERVED))
+        slots = per_sm * sm_count
+        tiles = -(-S // tile)
+        rounds = -(-tiles // slots)
+        if best is None or rounds < best[0]:
+            best = (rounds, WindowPlan("resident", tile,
+                                       max(1, min(tiles, slots))))
+    return None if best is None else best[1]
+
+
 def streamed_smem_bytes(m: int, n: int, spb: int, cone_ints: int = 0) -> int:
     """Dynamic shared memory of a streamed block of spb scenarios (eight
     n-vectors and six m-vectors each, a seventh with cones, plus the
@@ -370,14 +463,20 @@ def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
     the card's shared memory per block, at any S, in min(tiles, SMs)
     persistent blocks: on an H100 it beat the streamed design at every
     shape timed, down to the fused wheel's straggler tail (S=64, 160
-    iterations, 8 of 132 SMs busy; chip_smoke.py [window_time]).  The
-    streamed design takes the rest, four scenarios per block once
-    S >= 8 x SMs and four fit, else one.  `design` names the design
-    instead of the rule (to time both on one batch); naming "resident"
-    for a batch it cannot take raises."""
-    L = resident_layout(mode, m, n)
-    fits = (cone_ints == 0 and L is not None
-            and L.smem_bytes + _STATIC_SMEM <= smem_per_block)
+    iterations, 8 of 132 SMs busy; chip_smoke.py [window_time]).  It
+    takes every SOC batch (cone_ints > 0: the CSR offsets, rows and a
+    flag per row) whose cone layout fits at some tile, with the tile and
+    grid of _plan_cones.  The streamed design takes the rest, four
+    scenarios per block once S >= 8 x SMs and four fit, else one.
+    `design` names the design instead of the rule (to time both on one
+    batch); naming "resident" for a batch it cannot take raises."""
+    if cone_ints:
+        cone_plan = _plan_cones(mode, m, n, S, smem_per_block, sm_count,
+                                cone_ints)
+        fits = cone_plan is not None
+    else:
+        L = resident_layout(mode, m, n)
+        fits = L is not None and L.smem_bytes + _STATIC_SMEM <= smem_per_block
     if design is None:
         design = "resident" if fits else "streamed"
     if design == "resident":
@@ -385,6 +484,8 @@ def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
             raise ValueError(f"the resident design cannot take a {mode} "
                              f"window of shape ({m}, {n}) with cones="
                              f"{cone_ints > 0}")
+        if cone_ints:
+            return cone_plan
         tiles = -(-S // RESIDENT_TILE)
         return WindowPlan("resident", RESIDENT_TILE,
                           max(1, min(tiles, sm_count)))
@@ -498,11 +599,13 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         # d_row = null: no synthesis
         draws = (0, 0, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0, 0, None)
     lib = _library()
+    cone_ints = num_cones + 1 + cone_nnz + m if num_cones else 0
     plan = plan_window(mode, m, n, S, *card_limits(x.device.index),
-                       cone_ints=(num_cones + 1 + cone_nnz + m
-                                  if num_cones else 0), design=design)
+                       cone_ints=cone_ints, design=design)
     A_main = A_lo = img = None
-    if plan.design == "resident":
+    if plan.design == "resident" and num_cones:
+        img = pack_cones(p.A, cone_layout(mode, m, n, plan.tile, cone_ints))
+    elif plan.design == "resident":
         img = pack_resident(p.A, resident_layout(mode, m, n))
     elif mode == "f32":
         A_main = p.A

@@ -13,8 +13,10 @@
 # memory, bf16 products on tensor cores) is held to the plain version in
 # f32, bf16 and bf16x3 on an odd shape with per-scenario l/u, shared c/q,
 # +-inf rows and done lanes, must repeat itself bit for bit, and must
-# report the shared-memory layout the shape rule assumes.  chip_smoke.py
-# does the same at the main path's shapes.
+# report the shared-memory layout the shape rule assumes.  So is its
+# design for SOC batches (A in shared memory, tiles of 8-24 scenarios),
+# on the ccopf --soc batch and on ragged blocks out of row order.
+# chip_smoke.py does the same at the main path's shapes.
 import dataclasses
 
 import numpy as np
@@ -322,10 +324,130 @@ def test_resident_layout_matches_the_kernel(cuda):
 
 
 def test_resident_refuses_what_it_cannot_take(cuda):
-    """Naming the resident design for a SOC batch raises before any
-    launch; it never falls back to the streamed body."""
-    args = _solver_args(_ccopf_soc_qp(cuda, bfs=(2, 2)))
+    """Naming the resident design for a SOC batch beyond its layout (the
+    33-bus feeder's 2.1 MB A) raises before any launch; it never falls
+    back to the streamed body."""
+    inst = ccopf.feeder_instance(n_buses=33)
+    specs = [ccopf.scenario_creator(nm, instance=inst,
+                                    branching_factors=(2, 1), soc=True)
+             for nm in ccopf.scenario_names_creator(2)]
+    qp = batch_mod.from_specs(specs, tree=ccopf.make_tree((2, 1), inst),
+                              device=cuda).qp
+    args = _solver_args(qp)
     before = dict(pdhg_window.run_window.launches_by_design)
     with pytest.raises(ValueError):
         pdhg_window.run_window(*args, design="resident")
     assert dict(pdhg_window.run_window.launches_by_design) == before
+
+
+def _soc_batch(problem, device, S):
+    """The ccopf (10,10) or ragged SOC batch with its per-scenario rows
+    cycled to S scenarios."""
+    qp = _ccopf_soc_qp(device) if problem == "ccopf" else \
+        _ragged_soc_qp(device)
+    S0 = qp.c.shape[0]
+    idx = torch.arange(S, device=device) % S0
+    return dataclasses.replace(qp, **{
+        f: getattr(qp, f)[idx].contiguous()
+        for f in ("c", "q", "l", "u", "bl", "bu")
+        if getattr(qp, f).ndim == 2 and getattr(qp, f).shape[0] == S0})
+
+
+def _assert_soc_close(got, want, args, mode, n_iters):
+    """got against the plain version's window `want` in `mode`.  f32 and
+    bf16x3 at RESIDENT_TOLS (the window sums of k > 40 iterations at
+    k/40 times that).  bf16 keeps 8 bits per operand: on the conic
+    problems an operand on a bf16 rounding boundary rounds one way in
+    one summation order and the other way in another, and the iteration
+    carries that step on (the streamed design shows the same), so bf16
+    is held to twice the mode's own error: the plain bf16 window against
+    the plain f32 one, per output."""
+    tol = RESIDENT_TOLS[mode]
+    exact = pdhg_window.run_window_reference(*args, precision="f32") \
+        if mode == "bf16" else want
+    for name, a, b, e in zip(("x", "y", "x_sum", "y_sum"), got, want, exact):
+        assert torch.isfinite(a).all(), name
+        t = tol * max(1.0, n_iters / 40) if name.endswith("sum") else tol
+        if mode == "bf16":
+            budget = max(t, 2.0 * float((b - e).abs().max()))
+            assert float((a - b).abs().max()) <= budget, name
+        else:
+            torch.testing.assert_close(a, b, atol=t, rtol=t, msg=name)
+
+
+@pytest.mark.parametrize("S", [1, 7, 64, 1059])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("problem", ["ccopf", "ragged"])
+def test_resident_soc_kernel_matches_plain_version(cuda, problem, mode, S):
+    """The resident SOC design (the shape rule's at these shapes) against
+    the plain version at n_iters 0, 1, 40 and 160: done lanes
+    bit-unchanged, live duals in the polar cone up to f32 rounding of
+    their size."""
+    run = pdhg_window.run_window
+    key = f"pdhg_window_soc/{mode}/resident"
+    qp = _soc_batch(problem, cuda, S)
+    base = _solver_args(qp)
+    for n_iters in (0, 1, 40, 160):
+        args = base[:8] + (n_iters,)
+        before = run.launches_by_design.get(key, 0)
+        k = run(*args, precision=mode)
+        r = pdhg_window.run_window_reference(*args, precision=mode)
+        torch.cuda.synchronize()
+        assert run.launches_by_design[key] == before + 1
+        done = args[7]
+        assert torch.equal(k[0][done], args[1][done])
+        assert torch.equal(k[1][done], args[2][done])
+        if n_iters == 0:
+            for a, b in zip(k, args[1:5]):
+                assert torch.equal(a, b)
+            continue
+        _assert_soc_close(k, r, args, mode, n_iters)
+        live = k[1][~done]
+        if live.numel():
+            dcr = cones.dual_cone_residual_rows(qp.cones, live)
+            assert float(dcr.max()) <= 1e-6 * max(1.0,
+                                                  float(live.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("problem", ["ccopf", "ragged"])
+def test_resident_soc_kernel_is_deterministic(cuda, problem, mode):
+    args = _solver_args(_soc_batch(problem, cuda, 1059))
+    a = pdhg_window.run_window(*args, precision=mode)
+    b = pdhg_window.run_window(*args, precision=mode)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("problem", ["ccopf", "ragged"])
+def test_streamed_and_resident_soc_designs_agree(cuda, problem, mode):
+    """The same SOC window through both designs, named explicitly, at
+    S=5,000 (24-scenario tiles in f32 and bf16x3, 16 in bf16), held to
+    each other as each is held to the plain version."""
+    args = _solver_args(_soc_batch(problem, cuda, 5000))
+    by_design = dict(pdhg_window.run_window.launches_by_design)
+    r = pdhg_window.run_window(*args, precision=mode, design="resident")
+    s = pdhg_window.run_window(*args, precision=mode, design="streamed")
+    for d in ("resident", "streamed"):
+        key = f"pdhg_window_soc/{mode}/{d}"
+        assert pdhg_window.run_window.launches_by_design[key] == \
+            by_design.get(key, 0) + 1
+    _assert_soc_close(r, s, args, mode, args[8])
+
+
+def test_cone_layout_matches_the_kernel(cuda):
+    """The shape rule's cone layout (ops/pdhg_window.py) and the kernel's
+    own (csrc/pdhg_window_cones.cu) agree byte for byte."""
+    lib = pdhg_window._library()
+    codes = {"f32": 0, "bf16": 1, "bf16x3": 3}
+    for mode, code in codes.items():
+        for m, n, ci in ((69, 81, 115), (14, 9, 30), (678, 777, 1159),
+                         (1, 1, 3)):
+            for tile in (8, 12, 16, 24):
+                L = pdhg_window.cone_layout(mode, m, n, tile, ci)
+                want = (0, 0) if L is None else (L.smem_bytes, L.image_bytes)
+                got = (lib.pdhg_window_cones_bytes(code, m, n, tile, ci, 0),
+                       lib.pdhg_window_cones_bytes(code, m, n, tile, ci, 1)
+                       if L is not None else 0)
+                assert got == want, (mode, m, n, tile)

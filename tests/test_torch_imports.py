@@ -1,6 +1,7 @@
 # Import guard for the PyTorch / CUDA port: no module under
-# mpisppy_tpu_torch/, and not chip_smoke.py, imports JAX or anything of
-# the JAX package (mpisppy_tpu), not even its numpy-only modules.
+# mpisppy_tpu_torch/, and not chip_smoke.py or the port's measuring tools
+# (PORT_TOOLS), imports JAX or anything of the JAX package (mpisppy_tpu),
+# not even its numpy-only modules.
 # Checked with an AST scan of every import statement, relative imports
 # resolved against the module's package.
 import ast
@@ -11,13 +12,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mpisppy_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "mpisppy_tpu")
+PORT_TOOLS = ("chip_smoke.py", "tools/soc_tile_sweep.py")
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
-    smoke = ROOT / "chip_smoke.py"
-    if smoke.exists():
-        files.append(smoke)
+    files += [ROOT / t for t in PORT_TOOLS if (ROOT / t).exists()]
     return files
 
 
@@ -53,7 +53,7 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/scengen/random.py",
                  "mpisppy_tpu_torch/scengen/program.py",
                  "mpisppy_tpu_torch/scengen/virtual.py",
-                 "mpisppy_tpu_torch/scengen/tiles.py", "chip_smoke.py"):
+                 "mpisppy_tpu_torch/scengen/tiles.py", *PORT_TOOLS):
         assert must in names
 
 

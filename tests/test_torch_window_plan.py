@@ -1,8 +1,8 @@
-# The window kernels' shape rule and the resident design's packed A, on
+# The window kernels' shape rule and the resident designs' packed A, on
 # the CPU.  plan_window is a pure function of the mode, the shape and the
 # card's limits (here an H100's: 232,448 bytes of shared memory per
-# block, 132 SMs); pack_resident lays A out as the resident kernel copies
-# it into shared memory.  The kernels themselves run only on the card
+# block, 132 SMs); pack_resident and pack_cones lay A out as the resident
+# kernels copy it into shared memory.  The kernels themselves run only on the card
 # (tests/test_torch_cuda.py).
 import numpy as np
 import pytest
@@ -57,17 +57,131 @@ def test_resident_layout_at_sslp_15_45():
     assert pw.resident_layout("bf16", 60, 705).image_bytes == 93_184
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_ccopf_cones_take_the_streamed_design(mode):
-    specs = [ccopf.scenario_creator(nm, branching_factors=(3, 3), soc=True)
-             for nm in ccopf.scenario_names_creator(9)]
-    qp = batch_mod.from_specs(specs, tree=ccopf.make_tree((3, 3)),
+def _ccopf_shape(n_buses=4):
+    """(m, n, cone_ints) of the ccopf --soc batch on a feeder of n_buses:
+    the cone layout's ints are the CSR offsets, the CSR rows and a flag
+    per row."""
+    inst = ccopf.feeder_instance(n_buses=n_buses)
+    specs = [ccopf.scenario_creator(nm, instance=inst,
+                                    branching_factors=(2, 1), soc=True)
+             for nm in ccopf.scenario_names_creator(2)]
+    qp = batch_mod.from_specs(specs, tree=ccopf.make_tree((2, 1), inst),
                               device="cpu").qp
     _, rows = qp.cones.csr("cpu")
-    cone_ints = qp.cones.num_cones + 1 + rows.numel() + qp.m
-    for S, spb in ((10_000, 4), (64, 1)):
-        plan = pw.plan_window(mode, qp.m, qp.n, S, *H100, cone_ints=cone_ints)
-        assert plan == pw.WindowPlan("streamed", spb, -(-S // spb))
+    return qp.m, qp.n, qp.cones.num_cones + 1 + rows.numel() + qp.m
+
+
+# the cone design's tile and blocks at ccopf's S=10,000: f32 fits two
+# 24-scenario blocks an SM (417 tiles in 2 rounds over 264 slots); bf16
+# fits one 24-scenario block an SM but two 16-scenario ones (3 rounds
+# against 4); bf16x3 one 24-scenario block an SM
+CCOPF_S10K = {"f32": (24, 264), "bf16": (16, 264), "bf16x3": (24, 132)}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ccopf_cones_take_the_resident_design(mode):
+    m, n, cone_ints = _ccopf_shape()
+    assert (m, n, cone_ints) == (69, 81, 115)
+    tile, blocks = CCOPF_S10K[mode]
+    for S, want in ((10_000, pw.WindowPlan("resident", tile, blocks)),
+                    (64, pw.WindowPlan("resident", 8, 8))):
+        plan = pw.plan_window(mode, m, n, S, *H100, cone_ints=cone_ints)
+        assert plan == want, (S, plan)
+    # naming the streamed design still runs it, four scenarios a block
+    plan = pw.plan_window(mode, m, n, 10_000, *H100, cone_ints=cone_ints,
+                          design="streamed")
+    assert plan == pw.WindowPlan("streamed", 4, 2500)
+
+
+@pytest.mark.parametrize("S,tile,blocks", [(1, 8, 1), (7, 8, 1),
+                                           (1059, 8, 133), (2000, 8, 250),
+                                           (5000, 24, 209),
+                                           (100_000, 24, 264)])
+def test_cone_tile_takes_the_fewest_rounds_then_the_smallest(S, tile,
+                                                             blocks):
+    """f32 at ccopf's shape: a batch that fits the card's 264 block slots
+    in one round at every tile gets the smallest; S=5,000 is one round
+    at 24 but two at 16 and three at 8."""
+    plan = pw.plan_window("f32", 69, 81, S, *H100, cone_ints=115)
+    assert plan == pw.WindowPlan("resident", tile, blocks)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_33_bus_feeder_cones_stay_streamed(mode):
+    """The 33-bus feeder's A (678 x 777, 2.1 MB in f32) fits no tile of
+    the cone layout; naming the resident design for it raises."""
+    m, n, cone_ints = _ccopf_shape(33)
+    assert (m, n) == (678, 777)
+    L = pw.cone_layout(mode, m, n, 8, cone_ints)
+    assert L.smem_bytes > H100[0]
+    for S, spb in ((256, 1), (10_000, 4)):
+        plan = pw.plan_window(mode, m, n, S, *H100, cone_ints=cone_ints)
+        assert plan.design == "streamed" and plan.tile == spb
+    with pytest.raises(ValueError):
+        pw.plan_window(mode, m, n, 256, *H100, cone_ints=cone_ints,
+                       design="resident")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cone_layout_beyond_the_cards_shared_memory_is_streamed(mode):
+    """A cone shape whose smallest tile's shared memory the card does not
+    have goes to the streamed design; a little more takes it resident."""
+    L = pw.cone_layout(mode, 69, 81, 8, 115)
+    small_card = (L.smem_bytes, 132)
+    assert pw.plan_window(mode, 69, 81, 10_000, *small_card,
+                          cone_ints=115).design == "streamed"
+    big_card = (L.smem_bytes + 4096, 132)
+    assert pw.plan_window(mode, 69, 81, 10_000, *big_card,
+                          cone_ints=115) == pw.WindowPlan("resident", 8, 132)
+
+
+def test_cone_layout_at_ccopf():
+    """The budget the kernel's note states: A unpadded with an odd row
+    stride (81), one f32 plane (two in bf16x3), ~3.6 KB of state a
+    scenario in f32, so two 24-scenario blocks share an SM."""
+    f32 = pw.cone_layout("f32", 69, 81, 24, 115)
+    assert (f32.a_stride, f32.planes, f32.n_vecs, f32.m_vecs) == (81, 1, 7, 5)
+    assert f32.image_bytes == 4 * 5592 == 22_368
+    assert f32.smem_bytes == 22_368 + 4 * 24 * (7 * 81 + 5 * 69) + 4 * 115
+    assert f32.smem_bytes == 110_380
+    assert 2 * (f32.smem_bytes + 2048) <= H100[0] + 1024
+    # at tile 8 the dots are split in 3: partial sums for 3 x 8 x 81
+    assert pw.cone_layout("f32", 69, 81, 8, 115).smem_bytes == \
+        22_368 + 4 * 8 * 912 + 4 * 3 * 8 * 81 + 4 * 115 == 59_788
+    b3 = pw.cone_layout("bf16x3", 69, 81, 24, 115)
+    assert (b3.planes, b3.n_vecs, b3.m_vecs) == (2, 8, 7)
+    assert (b3.image_bytes, b3.smem_bytes) == (44_720, 153_756)
+    assert pw.cone_layout("bf16", 69, 81, 16, 115).smem_bytes == 85_612
+    assert pw.cone_layout("f32", 69, 81, 12, 115) is None
+
+
+@pytest.mark.parametrize("m,n", [(69, 81), (14, 9), (20, 85)])
+@pytest.mark.parametrize("mode", MODES)
+def test_packed_cones_a(mode, m, n):
+    """Zero padding, the planes equal to A or its bf16 split, and the
+    kernel's products over the packed rows equal to _matmul."""
+    rng = np.random.default_rng(m * n)
+    A = torch.as_tensor(rng.normal(size=(m, n)), dtype=torch.float32)
+    L = pw.cone_layout(mode, m, n, 8, 1)
+    img = pw.pack_cones(A, L)
+    assert img.dtype == torch.float32
+    assert img.numel() * 4 == L.image_bytes
+    size = m * L.a_stride
+    planes = [img[k * size:(k + 1) * size].view(m, L.a_stride)
+              for k in range(L.planes)]
+    assert not img[L.planes * size:].any()
+    hi, lo = pw._split_bf16(A)
+    want = {"f32": [A], "bf16": [hi], "bf16x3": [hi, lo]}[mode]
+    for P, W in zip(planes, want):
+        assert torch.equal(P[:, :n], W) and not P[:, n:].any()
+    S = 8
+    y = torch.as_tensor(rng.normal(size=(S, m)), dtype=torch.float32)
+    P_hi = planes[0][:, :n]
+    P_lo = planes[1][:, :n] if L.planes == 2 else None
+    got = pw._matmul(mode, y, P_hi, P_hi, P_lo)
+    ref_hi, ref_lo = (hi, lo) if mode != "f32" else (None, None)
+    torch.testing.assert_close(got, pw._matmul(mode, y, A, ref_hi, ref_lo),
+                               atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("m,n", [(65, 705), (60, 769), (200, 3000)])
@@ -145,7 +259,7 @@ def test_build_inputs_cover_every_csrc_file():
     header under csrc/, not one file."""
     names = {p.name for p in pw._build_inputs()}
     assert {"pdhg_window.cu", "pdhg_window_resident.cu",
-            "pdhg_window_common.cuh"} <= names
+            "pdhg_window_cones.cu", "pdhg_window_common.cuh"} <= names
     assert {p.name for p in pw.SOURCES} <= names
 
 
