@@ -30,6 +30,17 @@ nvcc per source, started together) and drives its main paths:
   against its plain version, times both, runs an S=64 VirtualBatch wheel
   on the card, over the materialized batch and on the CPU, then drives
   the sslp 15x45 VirtualBatch wheel at 10,000 scenarios;
+* farmer — per-scenario A (yields enter A), so every window runs the
+  plain batched iteration and no kernel: the fused wheel with all four
+  fusable spokes at 3 scenarios on the card and on the CPU (bounds
+  agree, inner bound at the EF value), then the farmer program's
+  VirtualBatch wheel at 10,000 scenarios to a 1% certificate;
+* the CLI — generic_cylinders.main in this process, as
+  `python -m mpisppy_tpu_torch` runs it: the README's sslp command
+  (without --presolve, cut to 10 hub iterations) against the JAX
+  package's bounds for it, and the sslp 15x45 headline at 10,000
+  scenarios with all four fusable spokes in bf16x3 to a 1% certificate,
+  its box windows in the design the shape rule gives;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -37,8 +48,9 @@ through its kernel.  One line per phase; then one JSON line describing
 each kernel, then the last line {"ok": true, "device": {...}}.  Any
 failed check raises (exit code 1); without CUDA the script exits 2 and
 prints no result.  `python3 chip_smoke.py --only headline_profile` (or
-`--only ccopf_profile`) runs that profile phase alone (to profile another
-tree's package with it).
+`--only ccopf_profile`, or `--only farmer_profile`: the farmer program's
+wheel at 10,000 scenarios capped at 3 hub iterations) runs that profile
+phase alone (to profile another tree's package with it).
 """
 import json
 import math
@@ -97,6 +109,35 @@ SCENGEN_SMALL_SCENS = 64
 THREEFRY_OPS = 125
 # the kernels' MODE template argument
 MODE_NAMES = {"0": "f32", "1": "bf16", "3": "bf16x3"}
+# farmer (per-scenario A: every window runs the plain batched iteration,
+# no kernel) with tests/test_fused_wheel.py's four-spoke wheel options
+FARMER_EF_OBJ = -108390.0             # the 3-scenario EF value
+FARMER_SMALL_SCENS = 3
+FARMER_SCENS = 10_000                 # the scengen program's VirtualBatch
+FARMER_MAX_ITERS = 150
+FARMER_PROFILE_HUB_ITERS = 3          # [farmer_profile]'s capped run
+# the CLI, run in-process: the README's sslp command without --presolve,
+# and the sslp headline at full width with all four fusable spokes
+CLI_README = ["--module-name", "mpisppy_tpu_torch.models.sslp",
+              "--num-scens", "100", "--lagrangian", "--xhatshuffle",
+              "--rel-gap", "0.01",
+              # cut: its 100 hub iterations take ~550 s on an H100 (a
+              # to-tolerance solve per spoke and sync) and, in the JAX
+              # package too, end at rel_gap 0.416 (rho 1)
+              "--max-iterations", "10"]
+# the JAX package's CLI on the CPU, the same command (python -m
+# mpisppy_tpu --module-name mpisppy_tpu.models.sslp ... --max-iterations
+# 10): (outer, inner); the port's must agree to 1e-3 relative
+CLI_README_JAX_BOUNDS = (-216.44847106933594, -149.89996337890625)
+CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
+                "--n-servers", str(SSLP_SERVERS), "--n-clients",
+                str(SSLP_CLIENTS), "--num-scens", str(HEADLINE_SCENS),
+                "--fused-wheel", "--lagrangian", "--xhatxbar",
+                "--xhatshuffle", "--slammin", "--iter-precision", "bf16x3",
+                "--rel-gap", "0.01",
+                # the headline's own configuration (bench_sslp_gap)
+                "--default-rho", "20", "--sslp-lp-relax",
+                "--max-iterations", str(HEADLINE_MAX_ITERS)]
 
 
 def phase(name, **fields):
@@ -542,8 +583,8 @@ def headline_profile(dev, batch=None):
     hub iterations)."""
     if batch is None:
         batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
-    profile_wheel("headline_profile", batch,
-                  lambda: sslp_options("bf16x3", PROFILE_HUB_ITERS, 1e-6, 8))
+    profile_wheel("headline_profile", batch, lambda: wheel(
+        batch, sslp_options("bf16x3", PROFILE_HUB_ITERS, 1e-6, 8)))
 
 
 def ccopf_profile(dev, batch=None):
@@ -551,22 +592,23 @@ def ccopf_profile(dev, batch=None):
     (CCOPF_PROFILE_HUB_ITERS hub iterations)."""
     if batch is None:
         batch = ccopf_batch(CCOPF_BFS, dev)
-    profile_wheel("ccopf_profile", batch,
-                  lambda: ccopf_options(CCOPF_PROFILE_HUB_ITERS))
+    profile_wheel("ccopf_profile", batch, lambda: wheel(
+        batch, ccopf_options(CCOPF_PROFILE_HUB_ITERS)))
 
 
-def profile_wheel(label, batch, options):
-    """torch.profiler over one wheel run with options(): the device busy
-    share (union of device activity over the run's wall time), the window
-    kernel's share of device time by mode and design, and the top five
-    other kernels.  The same run without the profiler goes first (it also
-    warms up); its wall time shows what the profiler adds on the host."""
+def profile_wheel(label, batch, run):
+    """torch.profiler over one wheel run (run() returns the spinner and
+    its wall seconds): the device busy share (union of device activity
+    over the run's wall time), the window kernel's share of device time
+    by mode and design, and the top five other kernels.  The same run
+    without the profiler goes first (it also warms up); its wall time
+    shows what the profiler adds on the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _, plain_secs = wheel(batch, options())
+    _, plain_secs = run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        ws, secs = wheel(batch, options())
+        ws, secs = run()
     spans, by_kernel = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -581,7 +623,7 @@ def profile_wheel(label, batch, options):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        _, secs = wheel(batch, options())
+        _, secs = run()
         t1.record()
         torch.cuda.synchronize()
         phase(label, profiler_device_time=0,
@@ -756,6 +798,199 @@ def ccopf_path(dev):
                         errs["f32"], timing[S, "f32", "resident"])
 
 
+def counting_plain_windows(fn):
+    """Run fn() counting the restart windows that took the plain batched
+    iteration (pdhg.window_engine == "plain").  Returns (fn's result,
+    the count)."""
+    from mpisppy_tpu_torch.ops import pdhg
+    real, count = pdhg._window, [0]
+
+    def counted(p, st, opts):
+        if pdhg.window_engine(p, st.x.device.type) == "plain":
+            count[0] += 1
+        return real(p, st, opts)
+    pdhg._window = counted
+    try:
+        return fn(), count[0]
+    finally:
+        pdhg._window = real
+
+
+def farmer_wheel(batch, rel_gap, max_iterations=FARMER_MAX_ITERS):
+    """tests/test_fused_wheel.py's farmer wheel: the PH hub with all four
+    fused spokes (Lagrangian, x̂-x̄, shuffle, slam to the scenario min),
+    rho 1, PDHG tol 1e-7.  Returns the spinner, its wall seconds and its
+    plain-iteration windows."""
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.ops import pdhg
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    opts = ph_mod.PHOptions(default_rho=1.0, max_iterations=max_iterations,
+                            conv_thresh=0.0, subproblem_windows=10,
+                            pdhg=pdhg.PDHGOptions(tol=1e-7))
+    wopts = fw.FusedWheelOptions(
+        slam_windows=2, shuffle_windows=4, slam_sense_max=False,
+        lag_pdhg=pdhg.PDHGOptions(tol=1e-7),
+        xhat_pdhg=pdhg.PDHGOptions(tol=1e-7, omega0=0.1, restart_period=80))
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": rel_gap}},
+           "opt_class": fw.FusedPH,
+           "opt_kwargs": {"options": opts, "batch": batch,
+                          "wheel_options": wopts}}
+    spokes = [{"spoke_class": c, "opt_kwargs": {"options": {}}} for c in (
+        spoke.FusedLagrangianOuterBound, spoke.FusedXhatXbarInnerBound,
+        spoke.FusedXhatShuffleInnerBound, spoke.FusedSlamHeuristic)]
+
+    def run():
+        t0 = time.perf_counter()
+        ws = WheelSpinner(hub, spokes).spin()
+        if batch.device.type == "cuda":
+            torch.cuda.synchronize()
+        return ws, time.perf_counter() - t0
+    (ws, secs), plain = counting_plain_windows(run)
+    return ws, secs, plain
+
+
+def farmer_program_batch(dev):
+    """The farmer scengen program (seed 0) as a VirtualBatch at
+    FARMER_SCENS scenarios: yields drawn at every step entry."""
+    from mpisppy_tpu_torch import scengen
+    from mpisppy_tpu_torch.models import farmer
+    return scengen.virtual_batch(
+        farmer.scenario_program(FARMER_SCENS, seed=0), device=dev)
+
+
+def farmer_profile(dev):
+    """profile_wheel over a capped run of the farmer program's wheel
+    (FARMER_PROFILE_HUB_ITERS hub iterations).  Not in the default run:
+    the profiler's event list of its ~10^5 small launches takes minutes
+    to read back."""
+    vb = farmer_program_batch(dev)
+    profile_wheel("farmer_profile", vb, lambda: farmer_wheel(
+        vb, 0.01, FARMER_PROFILE_HUB_ITERS)[:2])
+
+
+def check_no_kernel(label):
+    """A per-scenario-A path launches no window kernel, by rule."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    launches = sum(pdhg_window.run_window.launches.values())
+    if launches:
+        raise AssertionError(f"{label}: {launches} window-kernel launches "
+                             "on a per-scenario-A batch")
+
+
+def farmer_path(dev):
+    """The farmer phases: the four-spoke fused wheel at S=3 on the card
+    and on the CPU (bounds agree to 1e-3, inner within 5e-3 of the EF
+    value), then the farmer scengen program's VirtualBatch wheel at
+    S=10,000 on the card to a 1% certificate.  Every window runs the
+    plain batched iteration; the window kernel must not launch."""
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import farmer
+    specs = [farmer.scenario_creator(nm, num_scens=FARMER_SMALL_SCENS)
+             for nm in farmer.scenario_names_creator(FARMER_SMALL_SCENS)]
+    reset_launches()
+    g, g_s, g_plain = farmer_wheel(batch_mod.from_specs(specs, device=dev),
+                                   5e-3)
+    check_no_kernel("farmer_wheel")
+    c, c_s, _ = farmer_wheel(batch_mod.from_specs(specs, device="cpu"), 5e-3)
+    rel = max(abs(a - b) / abs(b) for a, b in (
+        (g.BestOuterBound, c.BestOuterBound),
+        (g.BestInnerBound, c.BestInnerBound)))
+    inner_vs_ef = abs(g.BestInnerBound - FARMER_EF_OBJ) / abs(FARMER_EF_OBJ)
+    phase("farmer_wheel", S=FARMER_SMALL_SCENS, model="farmer",
+          hub_iters=g.spcomm._iter, cpu_hub_iters=c.spcomm._iter,
+          outer=g.BestOuterBound, inner=g.BestInnerBound,
+          rel_gap=g.spcomm.compute_gaps()[1], cpu_outer=c.BestOuterBound,
+          cpu_inner=c.BestInnerBound, max_rel_diff=rel,
+          inner_vs_ef=inner_vs_ef, wall_s=round(g_s, 3),
+          cpu_wall_s=round(c_s, 3), plain_windows=g_plain,
+          plain_windows_per_hub_iter=round(g_plain / g.spcomm._iter, 2),
+          kernel_launches=0)
+    if not (rel <= 1e-3 and inner_vs_ef <= 5e-3
+            and g.spcomm.compute_gaps()[1] <= 5e-3):
+        raise AssertionError("farmer_wheel: card and CPU bounds disagree, "
+                             "or no 0.5% certificate near the EF value")
+
+    vb = farmer_program_batch(dev)
+    reset_launches()
+    ws, secs, plain = farmer_wheel(vb, 0.01)
+    check_no_kernel("farmer_wheel")
+    outer, inner = ws.BestOuterBound, ws.BestInnerBound
+    rel_gap = ws.spcomm.compute_gaps()[1]
+    phase("farmer_wheel", S=FARMER_SCENS, model="farmer_scengen",
+          hub_iters=ws.spcomm._iter, outer=outer, inner=inner,
+          rel_gap=rel_gap, certified=rel_gap <= 0.01, wall_s=round(secs, 3),
+          s_per_hub_iter=round(secs / ws.spcomm._iter, 4),
+          plain_windows=plain,
+          plain_windows_per_hub_iter=round(plain / ws.spcomm._iter, 2),
+          kernel_launches=0)
+    if not (math.isfinite(outer) and math.isfinite(inner)
+            and outer <= inner and rel_gap <= 0.01):
+        raise AssertionError("farmer_wheel: no 1% certificate at S=10,000")
+
+
+def cli_run(label, args):
+    """generic_cylinders.main(args) in this process, on the card, with
+    the launch counts set to 0 just before and read just after.  The
+    CLI's own JSON result line is captured and printed as fields of this
+    phase's line.  Returns (its JSON result, launches by instantiation,
+    launches by design, the spinner)."""
+    import contextlib
+    import io
+
+    from mpisppy_tpu_torch import generic_cylinders
+    from mpisppy_tpu_torch.ops import pdhg_window
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ws = generic_cylinders.main(list(args))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(pdhg_window.run_window.launches)
+    by_design = dict(pdhg_window.run_window.launches_by_design)
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    phase(label, S=ws.opt.batch.num_scenarios,
+          device=ws.opt.batch.device.type, hub_iters=result["iterations"],
+          outer=result["outer_bound"], inner=result["inner_bound"],
+          rel_gap=result["rel_gap"], wall_s=round(secs, 3),
+          kernel_launches=launches["pdhg_window"],
+          all_launches=json.dumps(launches).replace(" ", ""),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    outer, inner = result["outer_bound"], result["inner_bound"]
+    if ws.opt.batch.device.type != "cuda" or outer is None or inner is None \
+            or outer > inner or launches["pdhg_window"] <= 0:
+        raise AssertionError(f"{label}: not on the card, bounds missing or "
+                             "crossed, or no box-kernel launches")
+    return result, launches, by_design, ws
+
+
+def cli_path():
+    """The CLI phases: the README's sslp command (without --presolve:
+    classic Lagrangian and shuffle spokes, S=100, sslp 5x25 with integer
+    first stage; cut to 10 hub iterations) against the JAX package's
+    bounds for the same command, then the sslp 15x45 headline at
+    S=10,000 through the CLI with all four fusable spokes in bf16x3 to
+    a 1% certificate, every box window in the design the shape rule
+    gives."""
+    result, _, _, _ = cli_run("cli_readme", CLI_README)
+    rel = max(abs(result[k] - j) / abs(j) for k, j in zip(
+        ("outer_bound", "inner_bound"), CLI_README_JAX_BOUNDS))
+    phase("cli_readme", jax_outer=CLI_README_JAX_BOUNDS[0],
+          jax_inner=CLI_README_JAX_BOUNDS[1], max_rel_diff_vs_jax=rel)
+    if rel > 1e-3:
+        raise AssertionError("cli_readme: bounds off the JAX reference")
+    result, _, by_design, ws = cli_run("cli_headline", CLI_HEADLINE)
+    if not result["rel_gap"] <= 0.01:
+        raise AssertionError("cli_headline: no 1% certificate")
+    qp = ws.opt.batch.qp
+    check_designs("cli_headline", by_design, qp.m, qp.n,
+                  (HEADLINE_SCENS, TAIL_SCENS))
+
+
 def sslp_program(S, n_servers=SSLP_SERVERS, n_clients=SSLP_CLIENTS):
     """The sslp program (LP relaxation), seed 0: ClientPresent drawn
     from threefry keys instead of scenario_creator's RandomState."""
@@ -905,7 +1140,8 @@ def main() -> int:
           ptxas_registers=registers_by_instantiation(log))
 
     only = {"headline_profile": headline_profile,
-            "ccopf_profile": ccopf_profile}
+            "ccopf_profile": ccopf_profile,
+            "farmer_profile": farmer_profile}
     if sys.argv[1:2] == ["--only"]:
         only[sys.argv[2]](dev)
         return 0
@@ -914,6 +1150,10 @@ def main() -> int:
     kernels.append(ccopf_path(dev))
     torch.cuda.empty_cache()
     kernels.append(scengen_path(dev))
+    torch.cuda.empty_cache()
+    farmer_path(dev)
+    torch.cuda.empty_cache()
+    cli_path()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@
 # On one device every cylinder shares one queue, so the spokes' bound
 # work rides inside the hub's iteration instead of running beside it:
 # the Lagrangian bound is the SAME subproblem solver with W frozen and no
-# prox, and the x̂ recourse evaluation is the SAME solver with the nonant
-# box collapsed — each a fixed small budget of restart windows with WARM
-# state carried across iterations.  Bounds are gated by the same
+# prox, and each x̂ recourse evaluation (round(x̄), the slammed
+# candidate, one shuffled scenario's own nonants) is the SAME solver with
+# the nonant box collapsed — each a fixed small budget of restart windows
+# with WARM state carried across iterations.  Bounds are gated by the same
 # certificates as standalone spokes (dual residual for the Lagrangian,
 # primal-residual feasibility plus compensation tightness for x̂).
 #
@@ -15,8 +16,7 @@
 # one host read of `needed` per exchange; the packed scalars are copied
 # to pinned host memory as soon as they are computed, so the pipelined
 # read of the previous iteration's scalars never waits for the current
-# step.  The slam and shuffle planes are not ported yet: a budget > 0
-# for either raises NotImplementedError.
+# step.
 ###############################################################################
 from __future__ import annotations
 
@@ -43,10 +43,9 @@ class FusedWheelOptions:
 
     lag_windows: int = 8
     xhat_windows: int = 4
-    # the slam and shuffle planes are not ported yet: 0 is the only
-    # accepted budget
-    slam_windows: int = 0
-    shuffle_windows: int = 0
+    slam_windows: int = 0        # 0 = slam plane disabled
+    slam_sense_max: bool = True  # slam to the scenario max (else min)
+    shuffle_windows: int = 0     # 0 = shuffle plane disabled
     # run the spoke planes only every spoke_period-th iteration
     spoke_period: int = 1
     # dispatch each plane as its own step instead of one fused program;
@@ -58,6 +57,8 @@ class FusedWheelOptions:
     adapt_lag_budget: bool = False
     lean_lag_windows: int = 2
     lean_xhat_windows: int = 1
+    lean_slam_windows: int = 1
+    lean_shuffle_windows: int = 1
     adapt_stall: int = 3
     # the x̄ plane's candidate stays frozen until it lands, is certified
     # dead, or xhat_give_up exchanges pass (split mode)
@@ -76,13 +77,6 @@ class FusedWheelOptions:
     xhat_comp_tol: float = 2e-3
 
 
-def _require_ported_planes(wopts: FusedWheelOptions) -> None:
-    if wopts.slam_windows > 0 or wopts.shuffle_windows > 0:
-        raise NotImplementedError(
-            "the slam and shuffle planes are not ported yet; set "
-            "slam_windows = shuffle_windows = 0")
-
-
 @dataclasses.dataclass(frozen=True)
 class FusedWheelState:
     ph: ph_mod.PHState
@@ -95,7 +89,15 @@ class FusedWheelState:
     xhat_feasible: Tensor        # () bool
     xhat_dead: Tensor            # () bool: some scenario CERTIFIED
     #                              infeasible/unbounded at this candidate
-    # (6,) f32, layout SCALAR_KEYS: every per-iteration host decision
+    slam_solver: pdhg.PDHGState  # warm iterates for the slam candidate
+    slam_cand: Tensor            # (N,) slammed candidate
+    slam_value: Tensor           # ()
+    slam_feasible: Tensor        # () bool
+    shuf_solver: pdhg.PDHGState  # warm iterates for the shuffle candidate
+    shuf_cand: Tensor            # (N,) candidate (one scenario's nonants)
+    shuf_value: Tensor           # ()
+    shuf_feasible: Tensor        # () bool
+    # (10,) f32, layout SCALAR_KEYS: every per-iteration host decision
     # packed into one tensor, so the hub pays one transfer per iteration
     scalars: Tensor
 
@@ -240,13 +242,22 @@ def fused_iter0(batch: ScenarioBatch, rho: Tensor, opts: ph_mod.PHOptions,
         xhat_value=scalar(float("inf")),
         xhat_feasible=scalar(False, torch.bool),
         xhat_dead=scalar(False, torch.bool),
+        slam_solver=xhat_solver,
+        slam_cand=torch.zeros((batch.num_nonants,), dtype=dt, device=dev),
+        slam_value=scalar(float("inf")),
+        slam_feasible=scalar(False, torch.bool),
+        shuf_solver=xhat_solver,
+        shuf_cand=torch.zeros((batch.num_nonants,), dtype=dt, device=dev),
+        shuf_value=scalar(float("inf")),
+        shuf_feasible=scalar(False, torch.bool),
         scalars=torch.zeros((len(SCALAR_KEYS),), dtype=dt, device=dev),
     )
     return dataclasses.replace(st, scalars=_pack_scalars(st)), tb, cert
 
 
 SCALAR_KEYS = ("conv", "lag_bound", "lag_certified", "xhat_value",
-               "xhat_feasible", "xhat_dead")
+               "xhat_feasible", "xhat_dead", "slam_value",
+               "slam_feasible", "shuf_value", "shuf_feasible")
 
 # How many exchanges the pipelined scalar cache lags the dispatched
 # iterate (FusedPH._cache_scalars reads the PREVIOUS iteration's packed
@@ -263,12 +274,12 @@ def _pack_scalars(st: FusedWheelState) -> Tensor:
 
 
 def fused_iterk(batch: ScenarioBatch, st: FusedWheelState,
-                opts: ph_mod.PHOptions,
-                wopts: FusedWheelOptions) -> FusedWheelState:
+                opts: ph_mod.PHOptions, wopts: FusedWheelOptions,
+                shuf_id: int = 0) -> FusedWheelState:
     """One wheel iteration as one step: hub PH step, then the Lagrangian
-    bound at the fresh W and the recourse value at round(x̄), each a
-    fixed warm budget."""
-    _require_ported_planes(wopts)
+    bound at the fresh W and the recourse values at the fresh candidates
+    (round(x̄), slam, the shuffled scenario `shuf_id`'s own nonants),
+    each a fixed warm budget."""
     batch = concretize(batch)  # scengen: draw the scenario data here
     phst = ph_mod.ph_iterk(batch, st.ph, opts)
     out = dataclasses.replace(st, ph=phst)
@@ -286,7 +297,37 @@ def fused_iterk(batch: ScenarioBatch, st: FusedWheelState,
         out = dataclasses.replace(out, xhat_solver=xs, xhat_cand=cand,
                                   xhat_value=value, xhat_feasible=feas,
                                   xhat_dead=dead)
+    if wopts.slam_windows > 0:
+        ss, scand, svalue, sfeas = _slam_step(
+            batch, phst.solver.x, st.slam_solver, wopts,
+            wopts.slam_windows, wopts.slam_sense_max)
+        out = dataclasses.replace(out, slam_solver=ss, slam_cand=scand,
+                                  slam_value=svalue, slam_feasible=sfeas)
+    if wopts.shuffle_windows > 0:
+        # one rotating candidate per iteration (the host supplies the
+        # scenario from its seed-42 order)
+        fs, fcand, fvalue, ffeas = _shuf_step(
+            batch, phst.solver.x, st.shuf_solver, shuf_id, wopts,
+            wopts.shuffle_windows)
+        out = dataclasses.replace(out, shuf_solver=fs, shuf_cand=fcand,
+                                  shuf_value=fvalue, shuf_feasible=ffeas)
     return dataclasses.replace(out, scalars=_pack_scalars(out))
+
+
+def _slam_step(batch, x, solver, wopts, windows, sense_max):
+    """Slam every nonant to its across-scenario max (min) and advance
+    that candidate's recourse evaluation a fixed warm budget."""
+    scand = xhat_mod.slam_candidate(batch, batch.nonants(x), sense_max)
+    st, value, feas, _ = _eval_step(batch, scand, solver, windows, wopts)
+    return st, scand, value, feas
+
+
+def _shuf_step(batch, x, solver, sid, wopts, windows):
+    """Scenario `sid`'s own nonants (integers rounded) as the candidate,
+    its recourse evaluation advanced a fixed warm budget."""
+    fcand = xhat_mod.round_integers(batch, batch.nonants(x)[sid])
+    st, value, feas, _ = _eval_step(batch, fcand, solver, windows, wopts)
+    return st, fcand, value, feas
 
 
 # --- split-dispatch planes: each plane as its own step ------------------
@@ -304,6 +345,15 @@ def _round_xbar(batch, xbar_nodes, mode="nearest"):
 def xhat_plane(batch, cand, solver, wopts, windows):
     return _eval_step(concretize(batch), cand, solver, windows, wopts,
                       tail=True)
+
+
+def slam_plane(batch, x, solver, wopts, windows, sense_max):
+    return _slam_step(concretize(batch), x, solver, wopts, windows,
+                      sense_max)
+
+
+def shuf_plane(batch, x, solver, sid, wopts, windows):
+    return _shuf_step(concretize(batch), x, solver, sid, wopts, windows)
 
 
 class _PlaneBudget:
@@ -343,7 +393,8 @@ class _ScalarCopy:
             self.event.record()
         else:
             self.host, self.event = s, None
-        self.cands = {"xhat": wstate.xhat_cand}
+        self.cands = {"xhat": wstate.xhat_cand, "slam": wstate.slam_cand,
+                      "shuf": wstate.shuf_cand}
 
     def values(self) -> np.ndarray:
         if self.event is not None:
@@ -359,7 +410,6 @@ class FusedPH(ph_mod.PH):
     def __init__(self, options, batch, wheel_options=None, **kw):
         super().__init__(options, batch, **kw)
         self.wheel_options = wheel_options or FusedWheelOptions()
-        _require_ported_planes(self.wheel_options)
         self.wstate: FusedWheelState | None = None
         self.scalar_cache: dict | None = None
         self.cand_cache: dict | None = None
@@ -378,6 +428,10 @@ class FusedPH(ph_mod.PH):
                                 lag_stall),
             "xhat": _PlaneBudget(w.xhat_windows, w.lean_xhat_windows,
                                  stall),
+            "slam": _PlaneBudget(w.slam_windows, w.lean_slam_windows,
+                                 stall),
+            "shuf": _PlaneBudget(w.shuffle_windows,
+                                 w.lean_shuffle_windows, stall),
         }
 
     def _cache_scalars(self, pipelined: bool = False):
@@ -411,34 +465,35 @@ class FusedPH(ph_mod.PH):
         self._cache_scalars()
         return self.wstate.ph, tb, cert
 
-    def _draw_spoke_cycle(self) -> bool:
-        """Advance the shuffle cursor one draw (the seed-42 order of
-        ref:xhatshufflelooper_bounder.py:74, kept in step with the JAX
-        package for the shuffle plane to come) and evaluate the spoke
-        cadence for this iteration."""
+    def _draw_spoke_cycle(self) -> tuple[int, bool]:
+        """Draw the shuffle plane's scenario (the seed-42 order of
+        ref:xhatshufflelooper_bounder.py:74), advance the cursor, and
+        evaluate the spoke cadence for this iteration."""
+        sid = int(self._shuf_order[self._shuf_cursor])
         self._shuf_cursor = (self._shuf_cursor + 1) % len(self._shuf_order)
         p = max(1, int(self.wheel_options.spoke_period))
-        return p <= 1 or (self._iter % p) == 0
+        return sid, p <= 1 or (self._iter % p) == 0
 
     def _iterk_impl(self):
-        spoke_iter = self._draw_spoke_cycle()
+        sid, spoke_iter = self._draw_spoke_cycle()
         wopts = self.wheel_options
         split = wopts.split_dispatch
         if split is None:
             split = self.batch.num_real >= 512
         if split:
-            self.wstate = self._iterk_split(spoke_iter)
+            self.wstate = self._iterk_split(sid, spoke_iter)
         else:
             w = wopts
             if not spoke_iter:
                 # hub-only variant: spoke planes skipped, their state and
                 # bounds carried untouched
-                w = dataclasses.replace(w, lag_windows=0, xhat_windows=0)
+                w = dataclasses.replace(w, lag_windows=0, xhat_windows=0,
+                                        slam_windows=0, shuffle_windows=0)
             # self.state may have been rebound by extensions — fold it
             # back into the wheel state
             self.wstate = fused_iterk(
                 self.batch, dataclasses.replace(self.wstate, ph=self.state),
-                self.options, w)
+                self.options, w, sid)
         self._cache_scalars(pipelined=True)
         if spoke_iter:
             self._observe_progress()
@@ -473,18 +528,19 @@ class FusedPH(ph_mod.PH):
             self._xhat_frozen_for += 1
         return cand
 
-    def _iterk_split(self, spoke_iter: bool) -> FusedWheelState:
+    def _iterk_split(self, sid: int, spoke_iter: bool) -> FusedWheelState:
         """One wheel iteration as a pipeline of steps: the hub PH step,
         then each enabled plane, then the scalar pack.  Nothing here
         waits on the device except the tail's `needed` read."""
         phst = ph_mod.ph_iterk(self.batch, self.state, self.options)
         out = dataclasses.replace(self.wstate, ph=phst)
         if spoke_iter:
-            out = self._dispatch_spoke_planes(out, phst.W, phst.xbar_nodes)
+            out = self._dispatch_spoke_planes(out, phst.W, phst.xbar_nodes,
+                                              phst.solver.x, sid)
         return dataclasses.replace(out, scalars=_pack_scalars(out))
 
-    def _dispatch_spoke_planes(self, out, W, xbar_nodes):
-        """The spoke-plane steps against one (W, x̄-nodes) view."""
+    def _dispatch_spoke_planes(self, out, W, xbar_nodes, x, sid):
+        """The spoke-plane steps against one (W, x̄-nodes, x) view."""
         wopts = self.wheel_options
         batch = self.batch
         b = self._budgets
@@ -500,6 +556,19 @@ class FusedPH(ph_mod.PH):
             out = dataclasses.replace(
                 out, xhat_solver=xs, xhat_cand=cand, xhat_value=xv,
                 xhat_feasible=xf, xhat_dead=xd)
+        if b["slam"].windows() > 0:
+            ss, scand, sv, sf = slam_plane(batch, x, out.slam_solver, wopts,
+                                           b["slam"].windows(),
+                                           wopts.slam_sense_max)
+            out = dataclasses.replace(
+                out, slam_solver=ss, slam_cand=scand, slam_value=sv,
+                slam_feasible=sf)
+        if b["shuf"].windows() > 0:
+            fs, fcand, fv, ff = shuf_plane(batch, x, out.shuf_solver, sid,
+                                           wopts, b["shuf"].windows())
+            out = dataclasses.replace(
+                out, shuf_solver=fs, shuf_cand=fcand, shuf_value=fv,
+                shuf_feasible=ff)
         return out
 
     def _observe_progress(self):
@@ -510,3 +579,5 @@ class FusedPH(ph_mod.PH):
             return
         self._budgets["lag"].observe(bool(sc["lag_certified"]))
         self._budgets["xhat"].observe(bool(sc["xhat_feasible"]))
+        self._budgets["slam"].observe(bool(sc["slam_feasible"]))
+        self._budgets["shuf"].observe(bool(sc["shuf_feasible"]))

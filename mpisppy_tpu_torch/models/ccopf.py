@@ -1,8 +1,7 @@
 ###############################################################################
 # ccopf: multistage (chance-constrained-style) optimal power flow on a
-# scenario tree (port of mpisppy_tpu/models/ccopf.py; numpy only; the
-# CLI hooks inparser_adder/kw_creator come with the CLI) — the acopf3
-# family (ref:examples/acopf3/ccopf_multistage.py + ACtree.py +
+# scenario tree (port of mpisppy_tpu/models/ccopf.py; numpy only) — the
+# acopf3 family (ref:examples/acopf3/ccopf_multistage.py + ACtree.py +
 # fourstage.py), in TWO fidelities:
 #
 # DC mode (default) — the LINEARIZED B-theta power-flow model, the
@@ -333,3 +332,31 @@ def make_tree(branching_factors=(3, 3),
 def scenario_names_creator(num_scens: int, start: int | None = None):
     start = 0 if start is None else start
     return [f"scen{i}" for i in range(start, start + num_scens)]
+
+
+def inparser_adder(cfg):
+    cfg.num_scens_required()
+    cfg.add_to_config("branching_factors",
+                      description="two branching factors, e.g. 3 3",
+                      domain=list, default=[3, 3])
+    cfg.add_to_config("soc",
+                      description="solve the branch-flow second-order-"
+                      "cone (conic AC relaxation) workload instead of "
+                      "the DC approximation",
+                      domain=bool, default=False)
+    cfg.add_to_config("ccopf_mpc_step",
+                      description="rolling-horizon window index: >= 0 "
+                      "re-keys multipliers and drifts the load per step; "
+                      "-1 = not a rolling window",
+                      domain=int, default=-1)
+
+
+def kw_creator(cfg):
+    return {"branching_factors":
+            tuple(cfg.get("branching_factors", (3, 3))),
+            "soc": bool(cfg.get("soc", False)),
+            "mpc_step": int(cfg.get("ccopf_mpc_step", -1))}
+
+
+def scenario_denouement(rank, scenario_name, spec, x=None):
+    pass

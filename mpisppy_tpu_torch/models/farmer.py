@@ -205,3 +205,28 @@ def scenario_program(num_scens: int, seed: int = 0, start: int = 0,
         nonant_idx=np.arange(C, dtype=np.int32),
         integer=integer if use_integer else None,
     )
+
+
+# --------------------------------------------------------------------------
+# CLI hooks (the generic driver's model API, generic_cylinders.py)
+# --------------------------------------------------------------------------
+def inparser_adder(cfg):
+    cfg.num_scens_required()
+    cfg.add_to_config("crops_multiplier",
+                      description="number of crops will be three times this",
+                      domain=int, default=1)
+    cfg.add_to_config("farmer_with_integers",
+                      description="integer acreage variant",
+                      domain=bool, default=False)
+
+
+def kw_creator(cfg):
+    return {
+        "use_integer": cfg.get("farmer_with_integers", False),
+        "crops_multiplier": cfg.get("crops_multiplier", 1),
+        "num_scens": cfg.get("num_scens", None),
+    }
+
+
+def scenario_denouement(rank, scenario_name, spec, x=None):
+    pass

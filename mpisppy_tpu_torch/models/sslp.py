@@ -228,6 +228,44 @@ def scenario_names_creator(num_scens: int, start: int | None = None):
     return [f"Scenario{i}" for i in range(start, start + num_scens)]
 
 
+def inparser_adder(cfg):
+    cfg.add_to_config("instance_name",
+                      description="sslp instance name (e.g., sslp_15_45_10)",
+                      domain=str, default=None)
+    cfg.add_to_config("sslp_data_path",
+                      description="path to sslp data (e.g., ./data)",
+                      domain=str, default=None)
+    cfg.add_to_config("n_servers", description="synthetic servers",
+                      domain=int, default=5)
+    cfg.add_to_config("n_clients", description="synthetic clients",
+                      domain=int, default=25)
+    cfg.add_to_config("sslp_lp_relax",
+                      description="drop the integrality mask (the "
+                      "'sslp LP-relaxed' configuration)",
+                      domain=bool, default=False)
+
+
+def kw_creator(cfg):
+    lp_relax = bool(cfg.get("sslp_lp_relax", False))
+    inst = cfg.get("instance_name")
+    if inst is not None and cfg.get("sslp_data_path") is not None:
+        ns = int(inst.split("_")[-1])
+        data_dir = os.path.join(cfg["sslp_data_path"], inst, "scenariodata")
+        return {"data_dir": data_dir, "num_scens": ns,
+                "lp_relax": lp_relax}
+    # build the synthetic instance ONCE and share it across every
+    # scenario_creator call: from_specs then finds one constraint matrix
+    # (its identity fast path) and the batch takes the window kernel
+    return {"instance": synthetic_instance(cfg.get("n_servers", 5),
+                                           cfg.get("n_clients", 25)),
+            "num_scens": cfg.get("num_scens"),
+            "lp_relax": lp_relax}
+
+
+def scenario_denouement(rank, scenario_name, spec, x=None):
+    pass
+
+
 # --------------------------------------------------------------------------
 # Seeded scenario synthesis (scengen branch; port of the JAX package's
 # models/sslp.py::scenario_program).

@@ -10,11 +10,13 @@
 # primal weight omega updated at restarts.
 #
 # Per-problem termination is a `done` mask, so the batch stays
-# rectangular.  Each restart window is `restart_period` iterations: on
-# CUDA every dense shared-A batch runs them in the hand-written window
-# kernel (ops/pdhg_window.py); on the CPU the same call takes the
-# kernel's plain version, and problems outside the kernel's scope run
-# the plain iteration below (_pdhg_iter).
+# rectangular.  Each restart window is `restart_period` iterations, on
+# the engine window_engine names: every batch with one dense shared A
+# runs them in the hand-written window kernel on CUDA
+# (ops/pdhg_window.py; its plain version on the CPU), and every other
+# dense problem (per-scenario A, as farmer's) runs the plain batched
+# iteration below (_pdhg_iter) on whatever device it is on, as the JAX
+# package runs it under XLA.
 #
 # The JAX package's while_loop over windows becomes a host loop here:
 # solve() reads `all(done)` once per restart window (one device sync per
@@ -130,16 +132,19 @@ def estimate_norm(p: BoxQP, iters: int = 30,
 
 def init_state(p: BoxQP, opts: PDHGOptions = PDHGOptions(),
                x0: Tensor | None = None,
-               y0: Tensor | None = None) -> PDHGState:
-    """Cold state: x clipped zero, y zero, ||A|| by power iteration."""
+               y0: Tensor | None = None,
+               Lnorm: Tensor | None = None) -> PDHGState:
+    """Cold state: x clipped zero, y zero, ||A|| by power iteration
+    unless the caller gives its estimate (`Lnorm`)."""
     bs = _bshape(p)
     dt, dev = p.c.dtype, p.device
     if x0 is None:
         x0 = torch.clamp(torch.zeros_like(p.c), p.l, p.u)
     if y0 is None:
         y0 = torch.zeros(bs + (p.m,), dtype=dt, device=dev)
-    L = torch.broadcast_to(estimate_norm(p, opts.power_iters).to(dt),
-                           bs).clone()
+    if Lnorm is None:
+        Lnorm = estimate_norm(p, opts.power_iters)
+    L = torch.broadcast_to(Lnorm.to(dt), bs).clone()
 
     def full(v, dtype=dt):
         return torch.full(bs, v, dtype=dtype, device=dev)
@@ -287,23 +292,40 @@ def _lane_guard(p: BoxQP, st: PDHGState, opts: PDHGOptions) -> PDHGState:
     )
 
 
+def window_engine(p: BoxQP, device_type: str) -> str:
+    """Which engine runs a restart window of `p` (the JAX package's
+    rule: only a batch with one dense shared A reaches the Pallas
+    window; everything else runs the plain iteration under XLA).
+
+    "kernel": a (S,)-batched problem with one dense shared (m, n) A —
+    the window kernel on CUDA tensors, its plain version on CPU ones.
+    "plain": any other dense A (per-scenario (S, m, n), or an unbatched
+    problem) — the plain batched iteration (_pdhg_iter) on whatever
+    device the tensors are on.  A structural rule, fixed before any
+    launch: a kernel batch whose launch fails raises, it never takes
+    the plain path.  A matrix that is not a dense tensor (ELL) raises."""
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"window_engine: unsupported device {device_type!r}")
+    if not isinstance(p.A, torch.Tensor):
+        raise NotImplementedError(
+            f"PDHG windows over a {type(p.A).__name__} constraint matrix "
+            "(ELL, ops/sparse.py) are not ported yet (ROADMAP queue A, "
+            "item 5)")
+    return "kernel" if pdhg_window.supported(p) else "plain"
+
+
 def _window(p: BoxQP, st: PDHGState, opts: PDHGOptions) -> PDHGState:
     """One restart window: restart_period iterations, then _restart
-    (and the lane guard when enabled).  On CUDA every dense shared-A
-    batch goes through the window kernel at any S; anything else
-    raises there.  On the CPU the same batches take the kernel's plain
-    version and the rest the plain iteration."""
+    (and the lane guard when enabled), on the engine window_engine
+    names.  The plain iteration runs its matvecs in f32 (iter_precision
+    selects the kernel's arithmetic only)."""
     tau = opts.step_margin * st.omega / st.Lnorm
     sigma = opts.step_margin / (st.omega * st.Lnorm)
-    if pdhg_window.supported(p):
+    if window_engine(p, st.x.device.type) == "kernel":
         x, y, xs, ys = pdhg_window.run_window(
             p, st.x, st.y, st.x_sum, st.y_sum, tau, sigma, st.done,
             opts.restart_period, precision=opts.iter_precision)
         st = dataclasses.replace(st, x=x, y=y, x_sum=xs, y_sum=ys)
-    elif st.x.device.type == "cuda":
-        raise NotImplementedError(
-            "CUDA PDHG windows cover batched problems with one dense "
-            "shared A; per-scenario A and ELL are not ported yet")
     else:
         as_precision(opts.iter_precision)  # validate the alias
         for _ in range(opts.restart_period):

@@ -543,7 +543,8 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     if not supported(p):
         raise NotImplementedError(
             "the CUDA window kernel takes a batched problem with one dense "
-            "shared A; per-scenario A and ELL are not ported yet")
+            "shared A (pdhg.window_engine sends other problems to the "
+            "plain iteration)")
     mode = as_precision(precision) or "f32"
     S, n = x.shape
     m = y.shape[-1]

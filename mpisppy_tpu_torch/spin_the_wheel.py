@@ -14,6 +14,8 @@
 ###############################################################################
 from __future__ import annotations
 
+import numpy as np
+
 from mpisppy_tpu_torch import global_toc
 
 
@@ -64,3 +66,12 @@ class WheelSpinner:
     @property
     def BestOuterBound(self):
         return self.spcomm.BestOuterBound
+
+    def write_first_stage_solution(self, solution_file_name: str):
+        """The incumbent's first-stage (ROOT) values, one "x<i>,<value>"
+        line each (ref:spin_the_wheel.py:171-195)."""
+        root = self.spcomm.best_nonants()[0]
+        stage1 = root[np.nonzero(self.opt.batch.tree.slot_stage == 1)[0]]
+        with open(solution_file_name, "w") as f:
+            for i, v in enumerate(stage1):
+                f.write(f"x{i},{v}\n")

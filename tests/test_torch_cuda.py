@@ -16,6 +16,10 @@
 # report the shared-memory layout the shape rule assumes.  So is its
 # design for SOC batches (A in shared memory, tiles of 8-24 scenarios),
 # on the ccopf --soc batch and on ragged blocks out of row order.
+# A per-scenario A (farmer) runs the plain batched iteration on the card
+# and must equal its CPU run to f32 noise without a kernel launch; the
+# k shuffle candidates, one (k·S)-scenario batch over the shared sslp A,
+# take one box-kernel launch per window.
 # chip_smoke.py does the same at the main path's shapes.
 import dataclasses
 
@@ -24,8 +28,9 @@ import pytest
 import torch
 
 from mpisppy_tpu_torch import scengen
+from mpisppy_tpu_torch.algos import xhat
 from mpisppy_tpu_torch.core import batch as batch_mod
-from mpisppy_tpu_torch.models import ccopf, sslp
+from mpisppy_tpu_torch.models import ccopf, farmer, sslp
 from mpisppy_tpu_torch.ops import boxqp, cones, pdhg, pdhg_window
 
 pytestmark = pytest.mark.cuda
@@ -451,3 +456,63 @@ def test_cone_layout_matches_the_kernel(cuda):
                        lib.pdhg_window_cones_bytes(code, m, n, tile, ci, 1)
                        if L is not None else 0)
                 assert got == want, (mode, m, n, tile)
+
+
+def test_per_scenario_a_window_runs_plain_on_the_card(cuda):
+    """farmer's (S, m, n) A: three windows on the card from the CPU's
+    initial state equal the CPU's to 2e-6 of the iterate scale (f32
+    summation order), and no window kernel launches."""
+    specs = [farmer.scenario_creator(nm, num_scens=3)
+             for nm in farmer.scenario_names_creator(3)]
+    cpu = batch_mod.from_specs(specs, device="cpu")
+    gpu = batch_mod.from_specs(specs, device=cuda)
+    assert pdhg.window_engine(gpu.qp, "cuda") == "plain"
+    opts = pdhg.PDHGOptions(tol=0.0)
+    st0 = pdhg.init_state(cpu.qp, opts)
+    st0_gpu = dataclasses.replace(st0, **{
+        f.name: getattr(st0, f.name).to(cuda)
+        for f in dataclasses.fields(st0)
+        if isinstance(getattr(st0, f.name), torch.Tensor)})
+    before = dict(pdhg_window.run_window.launches)
+    want = pdhg.solve_fixed(cpu.qp, 3, opts, st0)
+    got = pdhg.solve_fixed(gpu.qp, 3, opts, st0_gpu)
+    torch.cuda.synchronize()
+    assert dict(pdhg_window.run_window.launches) == before
+    for w, g in ((want.x, got.x), (want.y, got.y)):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 2e-6 * scale
+
+
+def test_flattened_shuffle_takes_one_launch_per_window(cuda, monkeypatch):
+    """xhat_shuffle's k candidates over the sslp(5,15) S=16 batch run as
+    one 4x16-scenario solve on the shared A: one box-kernel launch per
+    restart window, and the values equal the CPU's to 1e-4."""
+    inst = sslp.synthetic_instance(5, 15, seed=0)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=16,
+                                   lp_relax=True)
+             for nm in sslp.scenario_names_creator(16)]
+    gpu = batch_mod.from_specs(specs, device=cuda)
+    cpu = batch_mod.from_specs(specs, device="cpu")
+    opts = pdhg.PDHGOptions()
+    st = pdhg.solve(cpu.qp, opts, pdhg.init_state(cpu.qp, opts))
+    x_non = cpu.nonants(st.x)
+    windows = []
+    real_window = pdhg._window
+
+    def counting(p, s, o):
+        windows.append(p.c.shape[0])
+        return real_window(p, s, o)
+    monkeypatch.setattr(pdhg, "_window", counting)
+    for name in pdhg_window.run_window.launches:
+        pdhg_window.run_window.launches[name] = 0
+    vals, feas, _, _ = xhat.xhat_shuffle(gpu, x_non.to(cuda), [5, 11, 0, 7],
+                                         4)
+    torch.cuda.synchronize()
+    assert windows and set(windows) == {64}
+    assert pdhg_window.run_window.launches["pdhg_window"] == len(windows)
+    monkeypatch.setattr(pdhg, "_window", real_window)
+    cvals, cfeas, _, _ = xhat.xhat_shuffle(cpu, x_non, [5, 11, 0, 7], 4)
+    assert torch.equal(feas.cpu(), cfeas)
+    ok = cfeas.numpy()
+    np.testing.assert_allclose(vals.cpu().numpy()[ok], cvals.numpy()[ok],
+                               rtol=1e-4)

@@ -53,7 +53,11 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/scengen/random.py",
                  "mpisppy_tpu_torch/scengen/program.py",
                  "mpisppy_tpu_torch/scengen/virtual.py",
-                 "mpisppy_tpu_torch/scengen/tiles.py", *PORT_TOOLS):
+                 "mpisppy_tpu_torch/scengen/tiles.py",
+                 "mpisppy_tpu_torch/generic_cylinders.py",
+                 "mpisppy_tpu_torch/__main__.py",
+                 "mpisppy_tpu_torch/utils/config.py",
+                 "mpisppy_tpu_torch/utils/cfg_vanilla.py", *PORT_TOOLS):
         assert must in names
 
 

@@ -194,3 +194,60 @@ def test_lane_guard_quarantines_a_poisoned_lane():
                                   np.asarray(jst.guard_resets))
     assert int(tst.guard_resets[2]) >= 1 and np.isfinite(tst.x.numpy()).all()
     np.testing.assert_allclose(tst.x.numpy(), np.asarray(jst.x), atol=1e-4)
+
+
+class _Ell:
+    """Stand-in for an ELL constraint matrix (vals, cols), the JAX
+    package's ops/sparse.py layout the port does not have yet."""
+
+    def __init__(self):
+        self.vals = torch.ones((3, 2))
+        self.cols = torch.zeros((3, 2), dtype=torch.int64)
+
+
+def _engine_cases():
+    shared = convert.boxqp_from_arrays(convert.arrays_of(_shared_a_batch()),
+                                       "cpu")
+    per_scen = dataclasses.replace(
+        shared, A=shared.A.expand(shared.c.shape[0], -1, -1).contiguous())
+    return {"shared": shared, "per_scenario": per_scen,
+            "ell": dataclasses.replace(shared, A=_Ell())}
+
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("structure,engine", [
+    ("shared", "kernel"), ("per_scenario", "plain"), ("ell", None)])
+def test_window_engine_rule(structure, engine, device_type):
+    """The JAX package's engine rule, on the batch's structure alone:
+    one dense shared A takes the window kernel (its plain version on the
+    CPU), a per-scenario dense A the plain batched iteration, on either
+    device; ELL is not ported and raises naming its queue item."""
+    p = _engine_cases()[structure]
+    if engine is None:
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tpdhg.window_engine(p, device_type)
+    else:
+        assert tpdhg.window_engine(p, device_type) == engine
+
+
+def test_farmer_per_scenario_window_matches_jax():
+    """farmer's yields enter A, so its batch carries an (S, m, n) A and
+    runs the plain batched iteration; three windows from the JAX initial
+    state land within 2e-6 of the iterate scale of the JAX _window (its
+    XLA fori_loop): f32 rounding in another summation order, ~5e-8 of
+    the scale per iteration."""
+    from mpisppy_tpu.core import batch as jbatch
+    from mpisppy_tpu.models import farmer as jfarmer
+    specs = [jfarmer.scenario_creator(nm, num_scens=3)
+             for nm in jfarmer.scenario_names_creator(3)]
+    jb = jbatch.from_specs(specs)
+    tb = convert.batch_from_arrays(convert.arrays_of(jb), "cpu")
+    assert tb.qp.A.ndim == 3
+    assert tpdhg.window_engine(tb.qp, "cpu") == "plain"
+    jst, tst = _solve_both(jb.qp, dict(tol=0.0), fixed_windows=3)
+    for j, t in ((jst.x, tst.x), (jst.y, tst.y)):
+        scale = float(np.abs(np.asarray(j)).max())
+        np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                   atol=2e-6 * scale)
+    np.testing.assert_allclose(tst.score.numpy(), np.asarray(jst.score),
+                               rtol=1e-3)
