@@ -35,12 +35,27 @@ nvcc per source, started together) and drives its main paths:
   fusable spokes at 3 scenarios on the card and on the CPU (bounds
   agree, inner bound at the EF value), then the farmer program's
   VirtualBatch wheel at 10,000 scenarios to a 1% certificate;
+* normal — the power iteration's start vector: the XLA-exact normal
+  drawn on the card against the same draw on the CPU (in ulps), and the
+  farmer S=3 norm estimate on the card against the CPU's and the JAX
+  package's;
+* uc — unit commitment, a sparse (ELL) constraint matrix that runs the
+  plain batched iteration and no kernel: ELL products and one window on
+  the card against the CPU, window times at 100, 1,000 and 10,000
+  scenarios and PyTorch launches per iteration, bench.py's
+  bench_uc_fwph wheel (PH hub with SepRho, an FWPH spoke, the fused
+  Lagrangian, x̂-x̄ and slam planes) at 100 scenarios capped at 25 hub
+  iterations, its FWPH-driven loop (bench_uc_fwph_hub) capped at 5,
+  and the uc program's VirtualBatch at 10,000 scenarios for 3 hub
+  iterations with a short profile;
 * the CLI — generic_cylinders.main in this process, as
   `python -m mpisppy_tpu_torch` runs it: the README's sslp command
-  (without --presolve, cut to 10 hub iterations) against the JAX
-  package's bounds for it, and the sslp 15x45 headline at 10,000
-  scenarios with all four fusable spokes in bf16x3 to a 1% certificate,
-  its box windows in the design the shape rule gives;
+  without --presolve (cut to 3 hub iterations) and with it (cut to 10)
+  against the JAX package's bounds for each, the box kernel against its plain
+  version on the presolved batch's per-scenario bounds, the sslp 15x45
+  headline at 10,000 scenarios with all four fusable spokes in bf16x3
+  to a 1% certificate, its box windows in the design the shape rule
+  gives, and the uc model with --fwph for 5 hub iterations;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -50,7 +65,9 @@ failed check raises (exit code 1); without CUDA the script exits 2 and
 prints no result.  `python3 chip_smoke.py --only headline_profile` (or
 `--only ccopf_profile`, or `--only farmer_profile`: the farmer program's
 wheel at 10,000 scenarios capped at 3 hub iterations) runs that profile
-phase alone (to profile another tree's package with it).
+phase alone (to profile another tree's package with it); `--only
+uc_wheel_full` runs the uc wheel to its 1% certificate (at most 600 hub
+iterations).
 """
 import json
 import math
@@ -118,17 +135,52 @@ FARMER_MAX_ITERS = 150
 FARMER_PROFILE_HUB_ITERS = 3          # [farmer_profile]'s capped run
 # the CLI, run in-process: the README's sslp command without --presolve,
 # and the sslp headline at full width with all four fusable spokes
-CLI_README = ["--module-name", "mpisppy_tpu_torch.models.sslp",
-              "--num-scens", "100", "--lagrangian", "--xhatshuffle",
-              "--rel-gap", "0.01",
-              # cut: its 100 hub iterations take ~550 s on an H100 (a
-              # to-tolerance solve per spoke and sync) and, in the JAX
-              # package too, end at rel_gap 0.416 (rho 1)
-              "--max-iterations", "10"]
+README_SSLP = ["--module-name", "mpisppy_tpu_torch.models.sslp",
+               "--num-scens", "100", "--lagrangian", "--xhatshuffle",
+               "--rel-gap", "0.01"]
+# cut: the README command's 100 hub iterations take ~550 s on an H100 (a
+# to-tolerance solve per spoke and sync) and, in the JAX package too,
+# end at rel_gap 0.416 (rho 1).  Without --presolve it runs 3 hub
+# iterations (the same command with --presolve runs 10 below)
+CLI_README = README_SSLP + ["--max-iterations", "3"]
 # the JAX package's CLI on the CPU, the same command (python -m
 # mpisppy_tpu --module-name mpisppy_tpu.models.sslp ... --max-iterations
-# 10): (outer, inner); the port's must agree to 1e-3 relative
-CLI_README_JAX_BOUNDS = (-216.44847106933594, -149.89996337890625)
+# 3): (outer, inner); the port's must agree to 1e-3 relative
+CLI_README_JAX_BOUNDS = (-216.85543823242188, -149.89996337890625)
+# the README command as it is (with --presolve: FBBT) cut to 10 hub
+# iterations: the JAX package's CLI on the CPU, the same command, gives
+# (outer, inner); the port's must agree to 1e-4 relative
+CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "10"]
+CLI_README_PRESOLVE_JAX_BOUNDS = (-216.44839477539062, -149.89996337890625)
+# the power iteration's ||A|| estimate of farmer S=3 (Ruiz-scaled), the
+# JAX package's (mpisppy_tpu.ops.pdhg.estimate_norm on the CPU, from
+# jax.random.normal(PRNGKey(7))); the port's must agree to 1e-5 relative
+FARMER_JAX_NORM = (2.7102075, 2.7094343, 2.7089956)
+NORMAL_DRAWS = 1_000_000
+# uc: bench.py's instance (10 units x 24 hours: m=1708, n=1008, k=11)
+# and bench_uc_fwph's wheel at UC_SCENS (bench.py UC_SCENS)
+UC_GENS, UC_HOURS = 10, 24
+UC_SCENS = 100
+ELL_SCENS = (100, 1_000, 10_000)
+# batch sizes at which the two forms of the ELL products are timed
+ELL_PRODUCT_SCENS = (100, 300, 1_000, 3_000, 10_000)
+UC_WHEEL_HUB_ITERS = 25
+UC_FULL_MAX_ITERS = 600
+UC_FWPH_OUTER_ITERS = 5
+UC_PROGRAM_SCENS = 10_000
+UC_PROGRAM_HUB_ITERS = 3
+# the JAX package on the CPU (tools/uc_jax_reference.py 100 25 5): the
+# outer bound of [uc_wheel] (its inner bound has not landed by then, in
+# either package) and the certified outer bound of [uc_fwph_hub]; the
+# port's must agree to 1e-3 relative
+UC_WHEEL_JAX_OUTER = 589529.1875
+UC_FWPH_HUB_JAX_OUTER = 589618.25
+# the uc model through the CLI with flags the JAX CLI takes for the same
+# run (python -m mpisppy_tpu --module-name mpisppy_tpu.models.uc ...)
+CLI_UC = ["--module-name", "mpisppy_tpu_torch.models.uc",
+          "--num-scens", str(UC_SCENS), "--fused-wheel", "--lagrangian",
+          "--xhatxbar", "--slammax", "--fwph", "--rel-gap", "0.01",
+          "--max-iterations", "5"]
 CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
                 "--n-servers", str(SSLP_SERVERS), "--n-clients",
                 str(SSLP_CLIENTS), "--num-scens", str(HEADLINE_SCENS),
@@ -596,18 +648,29 @@ def ccopf_profile(dev, batch=None):
         batch, ccopf_options(CCOPF_PROFILE_HUB_ITERS)))
 
 
+def union_us(spans):
+    """Length of the union of (start, end) device-activity spans."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_wheel(label, batch, run):
     """torch.profiler over one wheel run (run() returns the spinner and
     its wall seconds): the device busy share (union of device activity
     over the run's wall time), the window kernel's share of device time
     by mode and design, and the top five other kernels.  The same run
     without the profiler goes first (it also warms up); its wall time
-    shows what the profiler adds on the host."""
+    shows what the profiler adds on the host.  Only device activity is
+    traced: the host events of a wheel's ~10^5 launches took over a
+    minute per profile to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _, plain_secs = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ws, secs = run()
     spans, by_kernel = [], {}
     for e in prof.events():
@@ -630,12 +693,7 @@ def profile_wheel(label, batch, run):
               event_ms=round(t0.elapsed_time(t1), 3),
               wall_s=round(secs, 3))
         return
-    spans.sort()
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = union_us(spans)
     window, other = {}, {}
     for name, us in by_kernel.items():
         key = window_kernel_key(name)
@@ -932,12 +990,13 @@ def farmer_path(dev):
         raise AssertionError("farmer_wheel: no 1% certificate at S=10,000")
 
 
-def cli_run(label, args):
+def cli_run(label, args, box_kernel=True):
     """generic_cylinders.main(args) in this process, on the card, with
-    the launch counts set to 0 just before and read just after.  The
-    CLI's own JSON result line is captured and printed as fields of this
-    phase's line.  Returns (its JSON result, launches by instantiation,
-    launches by design, the spinner)."""
+    the launch counts set to 0 just before and read just after: the box
+    kernel must have launched (box_kernel), or no window kernel at all
+    (an ELL batch).  The CLI's own JSON result line is captured and
+    printed as fields of this phase's line.  Returns (its JSON result,
+    launches by instantiation, launches by design, the spinner)."""
     import contextlib
     import io
 
@@ -961,34 +1020,429 @@ def cli_run(label, args):
           all_launches=json.dumps(launches).replace(" ", ""),
           by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
     outer, inner = result["outer_bound"], result["inner_bound"]
-    if ws.opt.batch.device.type != "cuda" or outer is None or inner is None \
-            or outer > inner or launches["pdhg_window"] <= 0:
-        raise AssertionError(f"{label}: not on the card, bounds missing or "
-                             "crossed, or no box-kernel launches")
+    launched = launches["pdhg_window"] > 0 if box_kernel \
+        else sum(launches.values()) == 0
+    # a short run may end before an inner bound lands (null in the JSON)
+    if ws.opt.batch.device.type != "cuda" or outer is None \
+            or (inner is not None and outer > inner) or not launched:
+        raise AssertionError(f"{label}: not on the card, no outer bound, "
+                             "bounds crossed, or the window kernel "
+                             "launched against its route")
     return result, launches, by_design, ws
 
 
-def cli_path():
-    """The CLI phases: the README's sslp command (without --presolve:
-    classic Lagrangian and shuffle spokes, S=100, sslp 5x25 with integer
-    first stage; cut to 10 hub iterations) against the JAX package's
-    bounds for the same command, then the sslp 15x45 headline at
-    S=10,000 through the CLI with all four fusable spokes in bf16x3 to
-    a 1% certificate, every box window in the design the shape rule
-    gives."""
-    result, _, _, _ = cli_run("cli_readme", CLI_README)
+def vs_jax(label, result, jax_bounds, rtol):
+    """The CLI result's bounds against the JAX CLI's for the command."""
+    if result["outer_bound"] is None or result["inner_bound"] is None:
+        raise AssertionError(f"{label}: a bound is missing")
     rel = max(abs(result[k] - j) / abs(j) for k, j in zip(
-        ("outer_bound", "inner_bound"), CLI_README_JAX_BOUNDS))
-    phase("cli_readme", jax_outer=CLI_README_JAX_BOUNDS[0],
-          jax_inner=CLI_README_JAX_BOUNDS[1], max_rel_diff_vs_jax=rel)
-    if rel > 1e-3:
-        raise AssertionError("cli_readme: bounds off the JAX reference")
+        ("outer_bound", "inner_bound"), jax_bounds))
+    phase(label, jax_outer=jax_bounds[0], jax_inner=jax_bounds[1],
+          max_rel_diff_vs_jax=rel, tol=rtol)
+    if rel > rtol:
+        raise AssertionError(f"{label}: bounds off the JAX reference")
+
+
+def cli_path():
+    """The CLI phases: the README's sslp command (classic Lagrangian and
+    shuffle spokes, S=100, sslp 5x25 with integer first stage) without
+    --presolve (cut to 3 hub iterations) and with it (cut to 10), each
+    against the JAX
+    package's bounds for the same command, and the box kernel against
+    its plain version on the presolved batch (per-scenario l/u); the
+    sslp 15x45 headline at S=10,000 through the CLI with all four
+    fusable spokes in bf16x3 to a 1% certificate, every box window in
+    the design the shape rule gives; the uc model with --fwph for 5 hub
+    iterations (ELL: no window kernel)."""
+    result, _, _, _ = cli_run("cli_readme", CLI_README)
+    vs_jax("cli_readme", result, CLI_README_JAX_BOUNDS, 1e-3)
+    result, _, _, ws = cli_run("cli_readme_presolve", CLI_README_PRESOLVE)
+    vs_jax("cli_readme_presolve", result, CLI_README_PRESOLVE_JAX_BOUNDS,
+           1e-4)
+    pre = ws.opt.batch
+    if pre.qp.l.ndim != 2 or pre.qp.u.ndim != 2:
+        raise AssertionError("cli_readme_presolve: FBBT left the box shared")
+    args = window_inputs(pre)
+    for mode in ("f32", "bf16x3"):
+        parity(args, mode, "parity_presolved", pre.num_scenarios,
+               bounds="per_scenario_l_u")
+    del ws, pre, args
     result, _, by_design, ws = cli_run("cli_headline", CLI_HEADLINE)
     if not result["rel_gap"] <= 0.01:
         raise AssertionError("cli_headline: no 1% certificate")
     qp = ws.opt.batch.qp
     check_designs("cli_headline", by_design, qp.m, qp.n,
                   (HEADLINE_SCENS, TAIL_SCENS))
+    del ws, qp
+    torch.cuda.empty_cache()
+    _, _, _, ws = cli_run("cli_uc", CLI_UC, box_kernel=False)
+    names = [type(sp).__name__ for sp in ws.spcomm.spokes]
+    phase("cli_uc", spokes=",".join(names))
+    if "FWPHOuterBound" not in names:
+        raise AssertionError("cli_uc: --fwph built no FWPH spoke")
+
+
+def ulps(a, b):
+    """Largest distance between two f32 tensors in units in the last
+    place."""
+    def ordered(v):
+        i = v.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def normal_path(dev):
+    """The power iteration's start vector and its norm estimate: the
+    XLA-exact normal (PRNGKey(7), and per-scenario scen_key draws as the
+    uc sampler's) on the card against the CPU, and the farmer S=3 norm
+    estimate on the card against the CPU's and the JAX package's."""
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import farmer
+    from mpisppy_tpu_torch.ops import pdhg
+    from mpisppy_tpu_torch.scengen import random as rnd
+    from mpisppy_tpu_torch.scengen.program import scen_key
+    draws = {}
+    for name, key, shape in (
+            ("key7", lambda d: rnd.prng_key(7, d), (NORMAL_DRAWS,)),
+            ("scen_key", lambda d: scen_key(
+                rnd.prng_key(0, d), torch.arange(40_000, device=d)), (25,))):
+        cpu = rnd.normal(key("cpu"), shape)
+        card = rnd.normal(key(dev), shape)
+        torch.cuda.synchronize()
+        draws[name] = ulps(card.cpu(), cpu)
+    specs = [farmer.scenario_creator(nm, num_scens=3)
+             for nm in farmer.scenario_names_creator(3)]
+    card = pdhg.estimate_norm(batch_mod.from_specs(specs, device=dev).qp)
+    cpu = pdhg.estimate_norm(batch_mod.from_specs(specs, device="cpu").qp)
+    jax_norm = torch.tensor(FARMER_JAX_NORM)
+    vs_cpu = float(((card.cpu() - cpu).abs() / cpu).max())
+    vs_jax_rel = float(((card.cpu() - jax_norm).abs() / jax_norm).max())
+    phase("normal", draws=NORMAL_DRAWS,
+          max_ulp_card_vs_cpu=json.dumps(draws).replace(" ", ""),
+          farmer_norm=json.dumps([round(float(v), 7) for v in card]),
+          norm_rel_vs_cpu=vs_cpu, norm_rel_vs_jax=vs_jax_rel, tol=1e-5)
+    if max(draws.values()) > 2 or vs_jax_rel > 1e-5 or vs_cpu > 1e-5:
+        raise AssertionError("normal: the card's draws or norm estimate "
+                             "off the CPU's or the JAX package's")
+
+
+def uc_batch(S, device):
+    """bench.py's uc instance (seed 0) at S scenarios: one shared ELL A."""
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import uc
+    inst = uc.synthetic_instance(UC_GENS, UC_HOURS, seed=0)
+    specs = [uc.scenario_creator(nm, instance=inst, num_scens=S)
+             for nm in uc.scenario_names_creator(S)]
+    return batch_mod.from_specs(specs, device=device)
+
+
+def uc_wheel(batch, max_iterations):
+    """bench.py's bench_uc_fwph wheel: PH hub (rho 1 with
+    SepRho(multiplier=2), 10 subproblem windows, tol 1e-6, restart period
+    40, bf16x3 iteration precision: ignored by the ELL products), the
+    FWPH spoke (rho 200, its PDHG at tol 1e-6 and 4,000 iterations), the
+    fused Lagrangian, x̂-x̄ and slam planes (slam_windows 2) and
+    spoke_sync_period 5.  Returns the spinner, its wall seconds and its
+    plain-iteration windows."""
+    import functools
+
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.extensions.rho_setters import SepRho
+    from mpisppy_tpu_torch.ops import pdhg
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    opts = ph_mod.PHOptions(
+        default_rho=1.0, max_iterations=max_iterations, conv_thresh=0.0,
+        subproblem_windows=10,
+        pdhg=pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS,
+                              iter_precision="bf16x3"))
+    spoke_pdhg = pdhg.PDHGOptions(tol=1e-6, max_iters=4_000)
+    spokes = [{"spoke_class": spoke.FWPHOuterBound,
+               "opt_kwargs": {"options": {"rho": 200.0,
+                                          "pdhg_opts": spoke_pdhg}}}]
+    spokes += [{"spoke_class": c, "opt_kwargs": {"options": {}}} for c in (
+        spoke.FusedLagrangianOuterBound, spoke.FusedXhatXbarInnerBound,
+        spoke.FusedSlamHeuristic)]
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": 0.01,
+                                      "spoke_sync_period": 5}},
+           "opt_class": fw.FusedPH,
+           "opt_kwargs": {"options": opts, "batch": batch,
+                          "wheel_options": fw.FusedWheelOptions(
+                              slam_windows=2),
+                          "extensions": functools.partial(
+                              SepRho, multiplier=2.0)}}
+
+    def run():
+        t0 = time.perf_counter()
+        ws = WheelSpinner(hub, spokes).spin()
+        torch.cuda.synchronize()
+        return ws, time.perf_counter() - t0
+    (ws, secs), plain = counting_plain_windows(run)
+    return ws, secs, plain
+
+
+def uc_wheel_phase(label, batch, max_iterations, model="uc_10g24h",
+                   jax_outer=None):
+    """uc_wheel with the launch counts set to 0 just before and read just
+    after (an ELL batch launches no window kernel); its outer bound must
+    be finite, below any inner bound and, given `jax_outer`, within 1e-3
+    of the JAX package's."""
+    reset_launches()
+    ws, secs, plain = uc_wheel(batch, max_iterations)
+    check_no_kernel(label)
+    iters = ws.spcomm._iter
+    outer, inner = ws.BestOuterBound, ws.BestInnerBound
+    fwph = [sp for sp in ws.spcomm.spokes
+            if type(sp).__name__ == "FWPHOuterBound"][0]
+    rel_gap = ws.spcomm.compute_gaps()[1]
+    phase(label, S=batch.num_scenarios, model=model, hub_iters=iters,
+          outer=outer, inner=inner, rel_gap=rel_gap,
+          certified=rel_gap <= 0.01, fwph_bound=fwph.bound,
+          ob_char=ws.spcomm.latest_ob_char, ib_char=ws.spcomm.latest_ib_char,
+          wall_s=round(secs, 3), s_per_hub_iter=round(secs / iters, 4),
+          plain_windows=plain,
+          # with the 400 cold windows each of PH's iter0 and FWPH's init
+          windows_per_hub_iter=round(plain / iters, 2), kernel_launches=0)
+    if not (math.isfinite(outer) and outer <= inner):
+        raise AssertionError(f"{label}: no finite outer bound, or bounds "
+                             "crossed")
+    if jax_outer is not None:
+        rel = abs(outer - jax_outer) / abs(jax_outer)
+        phase(label, jax_outer=jax_outer, outer_rel_diff_vs_jax=rel,
+              tol=1e-3)
+        if rel > 1e-3:
+            raise AssertionError(f"{label}: outer bound off the JAX "
+                                 "reference")
+    return ws, secs
+
+
+def count_launches(fn, reps):
+    """Device kernels per call of fn (torch.profiler over `reps` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / reps
+
+
+def busy_share(fn):
+    """Device busy share of one call of fn: the union of device activity
+    over the call's wall time (torch.profiler), and the device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(b - a for a, b in spans)
+    return union_us(spans) / (wall * 1e6), total / 1e3, wall
+
+
+def ell_path(dev):
+    """[ell_parity]: uc's ELL A at S=100, card against CPU (products and
+    one plain window from each device's own cold state), then window
+    times (40 iterations, and with their restart) at S=100, 1,000 and
+    10,000, and the PyTorch launches of one iteration and one restart."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.ops import pdhg
+    cpu, card = uc_batch(UC_SCENS, "cpu"), uc_batch(UC_SCENS, dev)
+    A = card.qp.A
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(UC_SCENS, card.qp.n, generator=g)
+    y = torch.randn(UC_SCENS, card.qp.m, generator=g)
+    errs = {}
+    for name, cf, gf, v in (("matvec", cpu.qp.matvec, card.qp.matvec, x),
+                            ("rmatvec", cpu.qp.rmatvec, card.qp.rmatvec,
+                             y)):
+        want, got = cf(v), gf(v.to(dev)).cpu()
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+    opts = pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS)
+    want = pdhg.solve_fixed(cpu.qp, 1, opts, pdhg.init_state(cpu.qp, opts))
+    got = pdhg.solve_fixed(card.qp, 1, opts, pdhg.init_state(card.qp, opts))
+    torch.cuda.synchronize()
+    for name, w, k in (("window_x", want.x, got.x), ("window_y", want.y,
+                                                      got.y)):
+        errs[name] = float((k.cpu() - w).abs().max() / w.abs().max())
+    phase("ell_parity", S=UC_SCENS, model="uc_10g24h", m=card.qp.m,
+          n=card.qp.n, k=A.k, kt=A.t_slots.shape[1],
+          rel_err=json.dumps({k: f"{v:.3g}" for k, v in errs.items()})
+          .replace(" ", ""), tol=1e-5)
+    if max(errs.values()) > 1e-5:
+        raise AssertionError("ell_parity: the card's ELL products or window "
+                             "off the CPU's")
+
+    ell_product_forms(A, dev)
+    st0 = pdhg.solve_fixed(card.qp, 2, opts, pdhg.init_state(card.qp, opts))
+    tau = opts.step_margin * st0.omega / st0.Lnorm
+    sigma = opts.step_margin / (st0.omega * st0.Lnorm)
+    reset_launches()
+    for S in ELL_SCENS:
+        reps = S // UC_SCENS
+        qp = dataclasses.replace(card.qp, **{
+            f: repeat_rows(getattr(card.qp, f), reps)
+            for f in ("c", "q", "bl", "bu")})
+        st = dataclasses.replace(st0, **{
+            f.name: repeat_rows(getattr(st0, f.name), reps)
+            for f in dataclasses.fields(st0)
+            if isinstance(getattr(st0, f.name), torch.Tensor)
+            and getattr(st0, f.name).ndim >= 1})
+        t, sg = repeat_rows(tau, reps), repeat_rows(sigma, reps)
+
+        def iters():
+            s_ = st
+            for _ in range(N_ITERS):
+                s_ = pdhg._pdhg_iter(qp, s_, t, sg)
+            return s_
+        it_ms = time_ms(iters, reps=3)
+        win_ms = time_ms(lambda: pdhg._window(qp, st, opts), reps=3)
+        fields = {}
+        if S == ELL_SCENS[0]:
+            fields["launches_per_iter"] = count_launches(
+                lambda: pdhg._pdhg_iter(qp, st, t, sg), 10)
+            fields["launches_per_restart"] = count_launches(
+                lambda: pdhg._restart(qp, st, opts), 5)
+        phase("ell_parity", S=S, n_iters=N_ITERS, iters_ms=round(it_ms, 3),
+              window_ms=round(win_ms, 3), **fields)
+        del qp, st
+        torch.cuda.empty_cache()
+    check_no_kernel("ell_parity")
+
+
+def ell_product_forms(A, dev):
+    """ms of A x plus A'y over uc's shared ELL A in both forms, timed in
+    turns (gather, bag, bag, gather) at each of ELL_PRODUCT_SCENS, and
+    the form the size rule picks (sparse.BAG_MIN_ELEMENTS)."""
+    from mpisppy_tpu_torch.ops import sparse
+    g = torch.Generator().manual_seed(1)
+    for S in ELL_PRODUCT_SCENS:
+        x = torch.randn(S, A.n, generator=g).to(dev)
+        y = torch.randn(S, A.m, generator=g).to(dev)
+        tv = A._t_vals()
+        forms = {
+            "gather": lambda: (
+                sparse._gather_product(A.cols, A.vals, x),
+                sparse._gather_product(A.t_rows, tv, y)),
+            "bag": lambda: (sparse._bag_product(A.cols, A.vals, x),
+                            sparse._bag_product(A.t_rows, tv, y))}
+        ms = {k: [] for k in forms}
+        for k in ("gather", "bag", "bag", "gather"):
+            ms[k].append(time_ms(forms[k], reps=10))
+        rule = ["bag" if S * idx.numel() >= sparse.BAG_MIN_ELEMENTS
+                else "gather" for idx in (A.cols, A.t_rows)]
+        phase("ell_products", S=S, **{f"{k}_ms": "/".join(
+              f"{v:.4f}" for v in ms[k]) for k in ms},
+              rule_Ax=rule[0], rule_ATy=rule[1])
+        del x, y
+    torch.cuda.empty_cache()
+
+
+def uc_fwph_hub(dev):
+    """[uc_fwph_hub]: bench.py's bench_uc_fwph_hub loop, FWPH driving (2
+    inner iterations, 16 columns, rho 200, 10 oracle windows, f32), the
+    incumbent from x̄ rounded to nearest and up, each gated by comp_tight,
+    capped at UC_FWPH_OUTER_ITERS outer iterations (x̂ every 5th)."""
+    from mpisppy_tpu_torch.algos import fwph
+    from mpisppy_tpu_torch.algos import xhat
+    from mpisppy_tpu_torch.ops import pdhg
+    batch = uc_batch(UC_SCENS, dev)
+    opts = fwph.FWPHOptions(
+        fw_iter_limit=2, max_columns=16,
+        max_iterations=UC_FWPH_OUTER_ITERS, conv_thresh=0.0,
+        default_rho=200.0, oracle_windows=10,
+        pdhg=pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS))
+    xhat_opts = pdhg.PDHGOptions(tol=1e-6, max_iters=4_000)
+    reset_launches()
+    t0 = time.perf_counter()
+    drv = fwph.FWPH(opts, batch)
+    drv.fw_prep()
+    best_outer, best_inner = drv.best_bound, math.inf
+    for itr in range(1, opts.max_iterations + 1):
+        drv.state = fwph.fwph_iter(batch, drv.state, opts)
+        best_outer = max(best_outer, float(drv.state.best_bound))
+        if itr % 5 == 0:
+            for mode in ("nearest", "ceil"):
+                cand = xhat.round_integers(batch, drv.state.xbar_nodes, mode)
+                res = xhat.evaluate(batch, cand, xhat_opts)
+                if bool(res.feasible) and xhat.comp_tight(batch, res):
+                    best_inner = min(best_inner, float(res.value))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_no_kernel("uc_fwph_hub")
+    rel_gap = (best_inner - best_outer) / max(abs(best_inner),
+                                              abs(best_outer), 1e-12)
+    rel = abs(best_outer - UC_FWPH_HUB_JAX_OUTER) / UC_FWPH_HUB_JAX_OUTER
+    phase("uc_fwph_hub", S=UC_SCENS, outer_iters=opts.max_iterations,
+          certified_outer=best_outer, inner=best_inner, rel_gap=rel_gap,
+          jax_outer=UC_FWPH_HUB_JAX_OUTER, outer_rel_diff_vs_jax=rel,
+          last_bound=float(drv.state.bound),
+          certified=bool(drv.state.certified), wall_s=round(secs, 3),
+          s_per_outer_iter=round(secs / opts.max_iterations, 4))
+    if not (math.isfinite(best_outer) and best_outer <= best_inner
+            and rel <= 1e-3):
+        raise AssertionError("uc_fwph_hub: no certified FWPH bound, above "
+                             "the incumbent or off the JAX reference")
+
+
+def uc_program(dev):
+    """[uc_program]: the uc program's VirtualBatch at 10,000 scenarios
+    (demand drawn at every step entry; the ELL template shared): its
+    resident bytes, UC_PROGRAM_HUB_ITERS hub iterations of the uc wheel,
+    and the device busy share of two of the hub's subproblem windows."""
+    from mpisppy_tpu_torch import scengen
+    from mpisppy_tpu_torch.core.batch import concretize
+    from mpisppy_tpu_torch.models import uc
+    from mpisppy_tpu_torch.ops import pdhg
+    vb = scengen.virtual_batch(uc.scenario_program(
+        UC_PROGRAM_SCENS, seed=0, n_gens=UC_GENS, n_hours=UC_HOURS),
+        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    phase("uc_program", S=UC_PROGRAM_SCENS,
+          persistent_bytes=vb.persistent_bytes(),
+          materialized_bytes=vb.materialized_bytes())
+    ws, _ = uc_wheel_phase("uc_program", vb, UC_PROGRAM_HUB_ITERS,
+                           model="uc_10g24h_scengen")
+    qp = concretize(vb).qp
+    st = ws.opt.state.solver
+    opts = ws.opt.options.pdhg
+    share, device_ms, wall = busy_share(
+        lambda: pdhg.solve_fixed(qp, 2, opts, st))
+    phase("uc_program", profile="2 hub subproblem windows",
+          device_busy_share=round(share, 4), device_ms=round(device_ms, 3),
+          wall_s=round(wall, 4),
+          peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def uc_path(dev):
+    """The uc phases (an ELL A: the plain batched iteration, no kernel)."""
+    ell_path(dev)
+    torch.cuda.empty_cache()
+    uc_wheel_phase("uc_wheel", uc_batch(UC_SCENS, dev), UC_WHEEL_HUB_ITERS,
+                   jax_outer=UC_WHEEL_JAX_OUTER)
+    torch.cuda.empty_cache()
+    uc_fwph_hub(dev)
+    torch.cuda.empty_cache()
+    uc_program(dev)
+
+
+def uc_wheel_full(dev):
+    """The uc wheel at 100 scenarios to its 1% certificate (at most
+    UC_FULL_MAX_ITERS hub iterations); not in the default run."""
+    uc_wheel_phase("uc_wheel_full", uc_batch(UC_SCENS, dev),
+                   UC_FULL_MAX_ITERS)
 
 
 def sslp_program(S, n_servers=SSLP_SERVERS, n_clients=SSLP_CLIENTS):
@@ -1141,10 +1595,12 @@ def main() -> int:
 
     only = {"headline_profile": headline_profile,
             "ccopf_profile": ccopf_profile,
-            "farmer_profile": farmer_profile}
+            "farmer_profile": farmer_profile,
+            "uc_wheel_full": uc_wheel_full}
     if sys.argv[1:2] == ["--only"]:
         only[sys.argv[2]](dev)
         return 0
+    normal_path(dev)
     kernels = sslp_path(dev)
     torch.cuda.empty_cache()
     kernels.append(ccopf_path(dev))
@@ -1152,6 +1608,8 @@ def main() -> int:
     kernels.append(scengen_path(dev))
     torch.cuda.empty_cache()
     farmer_path(dev)
+    torch.cuda.empty_cache()
+    uc_path(dev)
     torch.cuda.empty_cache()
     cli_path()
 

@@ -31,6 +31,7 @@ from mpisppy_tpu_torch.algos import xhat as xhat_mod
 from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.dispatch.buckets import default_ladder
 from mpisppy_tpu_torch.ops import boxqp, pdhg
+from mpisppy_tpu_torch.ops import sparse as sparse_mod
 
 Tensor = torch.Tensor
 
@@ -131,11 +132,18 @@ def _gather_scen(st: pdhg.PDHGState, idx: Tensor, S: int) -> pdhg.PDHGState:
 
 def _gather_qp(qp: boxqp.BoxQP, idx: Tensor) -> boxqp.BoxQP:
     """Scenario-gather a BoxQP by FIELD LAYOUT, not dim-size guessing: a
-    shared (m, n) A with m == S must never be gathered by scenario."""
+    shared (m, n) A with m == S must never be gathered by scenario.  In
+    an EllMatrix only a batched vals (S, m, k) is gathered; cols is an
+    (m, k) pattern, never scenario-indexed."""
     def vec(a):       # c/q/l/u/bl/bu: (S, k) batched or (k,) shared
         return a[idx] if a.ndim == 2 else a
 
-    A = qp.A[idx] if qp.A.ndim == 3 else qp.A
+    A = qp.A
+    if isinstance(A, sparse_mod.EllMatrix):
+        if A.vals.ndim == 3:
+            A = A.with_vals(A.vals[idx])
+    elif A.ndim == 3:
+        A = A[idx]
     return dataclasses.replace(
         qp, c=vec(qp.c), q=vec(qp.q), l=vec(qp.l), u=vec(qp.u),
         bl=vec(qp.bl), bu=vec(qp.bu), A=A)

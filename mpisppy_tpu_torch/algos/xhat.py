@@ -26,6 +26,7 @@ import torch
 
 from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.ops import boxqp, pdhg
+from mpisppy_tpu_torch.ops import sparse as sparse_mod
 
 Tensor = torch.Tensor
 
@@ -226,7 +227,12 @@ def fixed_stack(batch: ScenarioBatch, cands: Tensor) -> boxqp.BoxQP:
     def rep(a):       # c/q/bl/bu: (S, k) batched or (k,) shared
         return a.repeat(k, 1) if a.ndim == 2 else a
 
-    A = qp.A.repeat(k, 1, 1) if qp.A.ndim == 3 else qp.A
+    A = qp.A
+    if isinstance(A, sparse_mod.EllMatrix):
+        if A.vals.ndim == 3:
+            A = A.with_vals(A.vals.repeat(k, 1, 1))
+    elif A.ndim == 3:
+        A = A.repeat(k, 1, 1)
     return dataclasses.replace(
         qp, c=rep(qp.c), q=rep(qp.q), bl=rep(qp.bl), bu=rep(qp.bu), A=A,
         l=torch.cat([f.l for f in fixed]), u=torch.cat([f.u for f in fixed]))

@@ -2,12 +2,11 @@
 # Carrying state across from the JAX package, with numpy in and out.
 #
 # arrays_of() turns any dataclass of arrays — this package's BoxQP,
-# ConeSpec, PDHGState or ScenarioBatch, or their JAX counterparts — into
-# nested dicts of numpy arrays without importing JAX (it only calls
-# np.asarray).  The *_from_arrays() builders turn such dicts into this
-# package's objects on a device.  Tests use the pair to feed both
-# packages identical data, including the power-iteration norm estimate
-# (Lnorm) that the two random generators would otherwise make differ.
+# ConeSpec, EllMatrix, PDHGState, FWPHState or ScenarioBatch, or their
+# JAX counterparts — into nested dicts of numpy arrays without importing
+# JAX (it only calls np.asarray).  The *_from_arrays() builders turn such
+# dicts into this package's objects on a device.  Tests use the pair to
+# feed both packages identical data.
 ###############################################################################
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from mpisppy_tpu_torch.core.tree import ScenarioTree
 from mpisppy_tpu_torch.ops.boxqp import BoxQP
 from mpisppy_tpu_torch.ops.cones import ConeSpec
 from mpisppy_tpu_torch.ops.pdhg import PDHGState
+from mpisppy_tpu_torch.ops.sparse import EllMatrix
 
 
 def _to_numpy(v):
@@ -61,13 +61,26 @@ def cone_spec_from_arrays(d: dict | None, device=None) -> ConeSpec | None:
                     head_rows=tuple(int(h) for h in d["head_rows"]))
 
 
+def ell_from_arrays(d: dict, device=None) -> EllMatrix:
+    """An EllMatrix from a dict with the fields vals, cols and n (its
+    transposed pattern is derived from cols)."""
+    dev = resolve_device(device)
+    return EllMatrix(vals=_tensor(d["vals"], dev, torch.float32),
+                     cols=_tensor(d["cols"], dev, torch.int64),
+                     n=int(d["n"]))
+
+
 def boxqp_from_arrays(d: dict, device=None) -> BoxQP:
     """A BoxQP from a dict with the fields c, q, A, bl, bu, l, u and,
-    where present, cones (a ConeSpec's fields, or None)."""
+    where present, cones (a ConeSpec's fields, or None); an A given as a
+    dict is an EllMatrix's fields."""
     dev = resolve_device(device)
+    A = d["A"]
+    A = ell_from_arrays(A, dev) if isinstance(A, dict) \
+        else _tensor(A, dev, torch.float32)
     return BoxQP(**{k: _tensor(d[k], dev, torch.float32)
-                    for k in ("c", "q", "A", "bl", "bu", "l", "u")},
-                 cones=cone_spec_from_arrays(d.get("cones"), dev))
+                    for k in ("c", "q", "bl", "bu", "l", "u")},
+                 A=A, cones=cone_spec_from_arrays(d.get("cones"), dev))
 
 
 def pdhg_state_from_arrays(d: dict, device=None) -> PDHGState:
@@ -84,6 +97,23 @@ def pdhg_state_from_arrays(d: dict, device=None) -> PDHGState:
         else:
             kw[f.name] = _tensor(v, dev)
     return PDHGState(**kw)
+
+
+def fwph_state_from_arrays(d: dict, device=None):
+    """An FWPHState from a dict of its fields (the oracle as a
+    PDHGState's dict; next_slot as a 0-d array or int)."""
+    from mpisppy_tpu_torch.algos.fwph import FWPHState
+    dev = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(FWPHState):
+        v = d[f.name]
+        if f.name == "next_slot":
+            kw[f.name] = int(np.asarray(v))
+        elif f.name == "oracle":
+            kw[f.name] = pdhg_state_from_arrays(v, dev)
+        else:
+            kw[f.name] = _tensor(v, dev)
+    return FWPHState(**kw)
 
 
 def batch_from_arrays(d: dict, device=None) -> ScenarioBatch:

@@ -1,6 +1,7 @@
 ###############################################################################
-# Scenario batch: the data plane (port of mpisppy_tpu/core/batch.py,
-# dense constraint matrices, box rows and second-order-cone blocks).
+# Scenario batch: the data plane (port of mpisppy_tpu/core/batch.py:
+# dense or ELL constraint matrices, box rows and second-order-cone
+# blocks).
 #
 #   specs (host, numpy)  --from_specs-->  ScenarioBatch (device tensors)
 #
@@ -18,6 +19,7 @@ import torch
 from mpisppy_tpu_torch import resolve_device
 from mpisppy_tpu_torch.core.tree import ScenarioTree, two_stage_tree
 from mpisppy_tpu_torch.ops import cones as cones_mod
+from mpisppy_tpu_torch.ops import sparse as sparse_mod
 from mpisppy_tpu_torch.ops.boxqp import BoxQP, ruiz_scale
 
 Tensor = torch.Tensor
@@ -194,6 +196,9 @@ def scale_field(name: str, val: Tensor, d_row: Tensor,
     if name in ("bl", "bu"):
         return val * d_row
     if name == "A":
+        if isinstance(val, sparse_mod.EllMatrix):
+            return val.with_vals(val.vals * d_row[..., :, None]
+                                 * d_col[..., val.cols])
         return val * d_row[..., :, None] * d_col
     raise ValueError(f"unknown qp field: {name}")
 
@@ -220,6 +225,8 @@ def _scaled_qp(stack, A, specs, n: int, scaling, cones, dev) -> BoxQP:
     d_row, d_col = as_scaled_arrays(scaling, device=dev)
 
     def sf(name, arr):
+        if isinstance(arr, sparse_mod.EllMatrix):
+            return scale_field(name, arr.to(dev), d_row, d_col)
         v = torch.as_tensor(np.asarray(arr, np.float32)).to(dev)
         return scale_field(name, v, d_row, d_col)
 
@@ -280,7 +287,19 @@ def from_specs(specs: list[ScenarioSpec],
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32))
 
-    A = stack("A")
+    def stack_A():
+        """Dense specs stack like any field; scipy-sparse specs become
+        one EllMatrix, shared when the matrices are one object or equal
+        in value, with batched values otherwise."""
+        import scipy.sparse as sps
+        raw = [sp.A for sp in specs]
+        if not any(sps.issparse(a) for a in raw):
+            return f32(stack("A"))
+        if all(a is raw[0] for a in raw[1:]):
+            return sparse_mod.ell_from_scipy(raw[0])
+        return sparse_mod.ell_from_scipy_batch(raw)
+
+    A = stack_A()
     cones = None
     if any(sp.soc_blocks for sp in specs):
         blocks0 = [np.asarray(b, np.int64)
@@ -303,7 +322,7 @@ def from_specs(specs: list[ScenarioSpec],
         c = np.stack([np.asarray(sp.c, np.float64) for sp in specs])
         q = np.stack([np.zeros(n) if sp.q is None
                       else np.asarray(sp.q, np.float64) for sp in specs])
-        qp = BoxQP(c=f32(c), q=f32(q), A=f32(A),
+        qp = BoxQP(c=f32(c), q=f32(q), A=A,
                    bl=f32(stack("bl")), bu=f32(stack("bu")),
                    l=f32(stack("l")), u=f32(stack("u")), cones=cones)
         if scale:
@@ -362,7 +381,10 @@ def pad_to_multiple(batch: ScenarioBatch, multiple: int) -> ScenarioBatch:
 
     def pad_leading(x, batched_ndim):
         """Pad only fields that carry the scenario axis (identified by
-        ndim, not shape[0], so m == S or n == S cannot misfire)."""
+        ndim, not shape[0], so m == S or n == S cannot misfire).  An ELL
+        A pads its values; the pattern is shared."""
+        if isinstance(x, sparse_mod.EllMatrix):
+            return x.with_vals(pad_leading(x.vals, batched_ndim))
         if x.ndim != batched_ndim:
             return x
         return torch.cat([x, x[-1:].repeat_interleave(pad, dim=0)], dim=0)

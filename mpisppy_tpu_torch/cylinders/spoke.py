@@ -16,6 +16,8 @@
 #   xhatxbar_bounder.py:37       -> XhatXbarInnerBound
 #   xhatshufflelooper_bounder.py -> XhatShuffleInnerBound
 #   slam_heuristic.py:25-129     -> SlamMaxHeuristic/SlamMinHeuristic
+#   fwph_spoke.py:11-39          -> FWPHOuterBound (one FWPH iteration
+#                                   per sync)
 ###############################################################################
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ import enum
 import math
 
 import numpy as np
+import torch
 
+from mpisppy_tpu_torch.algos import fwph as fwph_mod
 from mpisppy_tpu_torch.algos import lagrangian as lag_mod
 from mpisppy_tpu_torch.algos import xhat as xhat_mod
 from mpisppy_tpu_torch.cylinders.spcommunicator import SPCommunicator
@@ -126,6 +130,35 @@ class InnerBoundSpoke(Spoke):
         if bool(res.feasible) and xhat_mod.comp_tight(self.batch, res,
                                                       self.comp_tol):
             self._offer(float(res.value), xhat)
+        return self.bound
+
+
+class FWPHOuterBound(OuterBoundSpoke):
+    """FWPH as an outer-bound spoke (ref:cylinders/fwph_spoke.py:11-39):
+    self-contained, it advances one FWPH outer iteration per hub sync
+    and publishes FWPH's best certified dual bound.  Options: `fw_opts`
+    (an FWPHOptions) and `rho`."""
+
+    converger_spoke_char = "F"
+
+    def __init__(self, opt, options=None):
+        super().__init__(opt, options)
+        self.fw_opts = self.options.get("fw_opts", fwph_mod.FWPHOptions())
+        rho = torch.full((self.batch.num_nonants,),
+                         float(self.options.get("rho",
+                                                self.fw_opts.default_rho)),
+                         dtype=self.batch.qp.c.dtype,
+                         device=self.batch.device)
+        self._st, _, _ = fwph_mod.fwph_init(self.batch, rho, self.fw_opts)
+
+    def update(self, hub_payload):
+        self._st = fwph_mod.fwph_iter(self.batch, self._st, self.fw_opts)
+        self._pending = self._st
+
+    def harvest(self):
+        if self._pending is None:
+            return None
+        self._offer_outer(float(self._pending.best_bound))
         return self.bound
 
 

@@ -5,7 +5,7 @@
 #
 #   python -m mpisppy_tpu_torch --module-name mpisppy_tpu_torch.models.farmer \
 #          --num-scens 3 --lagrangian --xhatxbar --rel-gap 0.01 \
-#          [--fused-wheel --slammin] [--device cpu]
+#          [--fused-wheel --slammin] [--fwph] [--presolve] [--device cpu]
 #
 # The model module supplies the reference's 5-function API:
 # scenario_creator, scenario_names_creator, inparser_adder, kw_creator,
@@ -41,15 +41,14 @@ _OPS = _queue_item(5, "the rest of ops/ and dispatch/")
 _EXT = _queue_item(8, "extensions, convergers and utils")
 _TELEMETRY = _queue_item(10, "telemetry")
 _RESILIENCE = _queue_item(11, "resilience and checkpoints")
+_SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 
 # The JAX package's CLI flags (its argument groups) that the port does
 # not implement, each with the queue item that ports it.
 UNPORTED_FLAGS = {
     **dict.fromkeys((
         "EF", "aph_hub", "aph_gamma", "aph_nu", "aph_dispatch_frac",
-        "aph_use_dynamic_gamma", "aph_frac_needed", "fwph",
-        "fwph_iter_limit", "fwph_max_columns", "fwph_weight",
-        "fwph_conv_thresh", "lagranger",
+        "aph_use_dynamic_gamma", "aph_frac_needed", "lagranger",
         "lagranger_rho_rescale_factors_json", "subgradient",
         "subgradient_rho", "async_staleness", "async_exchange_deadline_s",
         "reduced_costs", "rc_bound_tol", "rc_zero_rc_tol",
@@ -59,7 +58,7 @@ UNPORTED_FLAGS = {
         "cross_scenario_max_rounds", "lshaped_hub", "lshaped_max_iter",
         "lshaped_multicut", "xhatlshaped"), _ALGOS),
     **dict.fromkeys((
-        "presolve", "presolve_sweeps", "dispatch_coalesce",
+        "dispatch_coalesce",
         "dispatch_max_batch", "dispatch_max_wait_ms",
         "dispatch_max_inflight", "dispatch_pad", "dispatch_bucket_growth",
         "dispatch_compile_guard", "dispatch_timeout_s",
@@ -85,6 +84,7 @@ UNPORTED_FLAGS = {
         "bound_evict_contras", "lane_guard", "guard_max_resets",
         "watchdog_budget_s", "watchdog_action", "watchdog_interval_s"),
         _RESILIENCE),
+    **dict.fromkeys(("uc_mpc_step", "uc_mpc_stride"), _SERVING),
     "pallas_pipeline": "no port: it double-buffers the TPU kernel's tile "
                        "DMA; on the card ops/pdhg_window.plan_window picks "
                        "the design",
@@ -123,6 +123,8 @@ def _parse_args(module, args=None):
     cfg.fused_wheel_args()
     cfg.xhatshuffle_args()
     cfg.slama_args()
+    cfg.fwph_args()
+    cfg.presolve_args()
     cfg.multistage()
     cfg.device_args()
     cfg.parse_command_line("mpisppy_tpu_torch.generic_cylinders", args)
@@ -151,18 +153,34 @@ def _model_plumbing(cfg, module):
     return names, kwargs, tree
 
 
+def _presolve_maybe(cfg, batch):
+    """--presolve: FBBT on the batch (ops/fbbt.presolve_batch)."""
+    if not cfg.get("presolve"):
+        return batch
+    from mpisppy_tpu_torch.ops.fbbt import presolve_batch
+    try:
+        batch, info = presolve_batch(
+            batch, n_sweeps=cfg.get("presolve_sweeps", 3))
+    except ValueError as e:
+        raise SystemExit(f"presolve: {e}")
+    global_toc(f"presolve: tightened {info['tightened_bounds']} bounds",
+               cfg.get("display_progress", False))
+    return batch
+
+
 def _build_batch(cfg, module):
     names, kwargs, tree = _model_plumbing(cfg, module)
     specs = [module.scenario_creator(nm, **kwargs) for nm in names]
-    batch = batch_mod.from_specs(specs, tree=tree,
-                                 device=cfg.get("device", "cuda"))
+    batch = _presolve_maybe(cfg, batch_mod.from_specs(
+        specs, tree=tree, device=cfg.get("device", "cuda")))
     return batch, names, specs
 
 
 def _fuse_wheel(cfg, hub, spokes, tree=None):
     """Swap the PH hub's driver for FusedPH and the fusable bound spokes
     (lagrangian / xhatxbar / slam / xhatshuffle) for their fused
-    classes.  On a tree deeper than two stages the reference maps the x̄
+    classes; the others (FWPH) stay classic spokes on the hub's sync
+    period.  On a tree deeper than two stages the reference maps the x̄
     spoke to EFXhatInnerBound, which is not ported: refused."""
     from mpisppy_tpu_torch.algos import fused_wheel as fw
     from mpisppy_tpu_torch.cylinders import spoke as spoke_mod
@@ -183,7 +201,8 @@ def _fuse_wheel(cfg, hub, spokes, tree=None):
             "EFXhatInnerBound, which is not ported to mpisppy_tpu_torch: "
             + _ALGOS)
     out_spokes = [{"spoke_class": fusable[sd["spoke_class"]],
-                   "opt_kwargs": {"options": {}}} for sd in spokes]
+                   "opt_kwargs": {"options": {}}}
+                  if sd["spoke_class"] in fusable else sd for sd in spokes]
     wopts = fw.FusedWheelOptions(
         lag_windows=8 if spoke_mod.LagrangianOuterBound in present else 0,
         xhat_windows=4 if spoke_mod.XhatXbarInnerBound in present else 0,
@@ -207,6 +226,8 @@ def build_wheel(cfg, module):
     batch, names, specs = _build_batch(cfg, module)
     hub = vanilla.ph_hub(cfg, batch, scenario_names=names)
     spokes = []
+    if cfg.get("fwph"):
+        spokes.append(vanilla.fwph_spoke(cfg))
     if cfg.get("lagrangian"):
         spokes.append(vanilla.lagrangian_spoke(cfg))
     if cfg.get("xhatxbar"):

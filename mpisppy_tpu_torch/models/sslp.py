@@ -15,7 +15,7 @@
 # deterministic and shared across the batch: one (m, n) A for any
 # scenario count.  Data comes from SIPLIB ScenarioK.dat files
 # (`data_dir`) or from a seeded synthetic instance (Ntaimo & Sen ranges).
-# The y_ij <= x_j strengthening (sparse rows) waits for the ELL slice.
+# `strengthen` adds the y_ij <= x_j rows and ships A sparse (ELL).
 ###############################################################################
 from __future__ import annotations
 
@@ -126,16 +126,18 @@ def synthetic_client_present(n_clients: int, scennum: int,
 #   [n:n+m)      client rows:    sum_j y_ij == h_i
 # --------------------------------------------------------------------------
 def _build_spec(inst: dict, client_present: np.ndarray,
-                name: str, probability: float | None) -> ScenarioSpec:
+                name: str, probability: float | None,
+                strengthen: bool = False) -> ScenarioSpec:
     n = int(inst["NumServers"])
     m = int(inst["NumClients"])
+    cache_key = "_spec_cache_vub" if strengthen else "_spec_cache"
 
     # The deterministic data (A, c, box, integrality) is identical for
     # every scenario of an instance — build it once and share the SAME
     # numpy objects across specs, so a 100k-scenario build costs O(m*n)
     # host memory, not O(S*m*n), and the batch compiler's shared-A
     # detection hits the identity fast path.
-    cache = inst.get("_spec_cache")
+    cache = inst.get(cache_key)
     if cache is None:
         cap = float(inst["Capacity"])
         penalty = float(inst.get("Penalty", DEFAULT_PENALTY))
@@ -167,7 +169,18 @@ def _build_spec(inst: dict, client_present: np.ndarray,
 
         integer = np.zeros(ncols, bool)
         integer[:n + m * n] = True
-        cache = inst["_spec_cache"] = (A, c, l, u, integer)
+        if strengthen:
+            # variable-upper-bound rows y_ij <= x_j: valid for every
+            # integer point, they cut fractional LP points where a barely
+            # open server serves clients.  Two nonzeros a row, so the
+            # strengthened matrix goes out sparse (ELL).
+            import scipy.sparse as sps
+            V = np.zeros((m * n, ncols))
+            rows = np.arange(m * n)
+            V[rows, n + rows] = 1.0                  # +y_ij
+            V[rows, np.tile(np.arange(n), m)] = -1.0  # -x_j (i-major y)
+            A = sps.csr_matrix(np.vstack([A, V]))
+        cache = inst[cache_key] = (A, c, l, u, integer)
     A, c, l, u, integer = cache
 
     nrows = A.shape[0]
@@ -176,6 +189,8 @@ def _build_spec(inst: dict, client_present: np.ndarray,
     bu[:n] = 0.0
     bl[n:n + m] = client_present
     bu[n:n + m] = client_present
+    if strengthen:
+        bu[n + m:] = 0.0  # y_ij - x_j <= 0
 
     return ScenarioSpec(
         name=name, c=c, A=A, bl=bl, bu=bu, l=l, u=u,
@@ -189,11 +204,13 @@ def scenario_creator(scenario_name: str, data_dir: str | None = None,
                      n_servers: int = 5, n_clients: int = 25,
                      num_scens: int | None = None,
                      seedoffset: int = 0, inst_seed: int = 0,
-                     lp_relax: bool = False) -> ScenarioSpec:
+                     lp_relax: bool = False,
+                     strengthen: bool = False) -> ScenarioSpec:
     """ref:examples/sslp/sslp.py:27-45 semantics: one spec per scenario;
     `data_dir` points at SIPLIB scenariodata; otherwise synthetic.
     `lp_relax` drops the integrality mask (the BASELINE 'sslp LP-relaxed'
-    configs), so xhat heuristics do not round."""
+    configs), so xhat heuristics do not round.  `strengthen` adds the
+    y_ij <= x_j variable-upper-bound rows (a sparse A)."""
     if data_dir is not None:
         data = parse_dat(os.path.join(data_dir, scenario_name + ".dat"))
         h = np.zeros(int(data["NumClients"]))
@@ -216,7 +233,7 @@ def scenario_creator(scenario_name: str, data_dir: str | None = None,
                                      extract_num(scenario_name), seedoffset)
     prob = None if num_scens is None else 1.0 / num_scens
     spec = _build_spec(inst if data_dir is not None else instance, h,
-                       scenario_name, prob)
+                       scenario_name, prob, strengthen=strengthen)
     if lp_relax:
         spec.integer = np.zeros_like(spec.integer)  # shared: don't mutate
     return spec

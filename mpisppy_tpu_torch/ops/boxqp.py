@@ -1,6 +1,5 @@
 ###############################################################################
-# BoxQP: the canonical subproblem form (port of mpisppy_tpu/ops/boxqp.py,
-# dense constraint matrices).
+# BoxQP: the canonical subproblem form (port of mpisppy_tpu/ops/boxqp.py).
 #
 #     min   c'x + 1/2 x' diag(q) x
 #     s.t.  bl <= A x <= bu          (two-sided row constraints)
@@ -11,6 +10,9 @@
 # cones, (A x - b)_block in K_soc, with the shift b stored in bl and bu.
 # A batch of S scenarios adds a leading S axis to every field; a
 # deterministic constraint matrix (sslp, ccopf) stays one shared (m, n) A.
+# A sparse one (uc) is an ops.sparse.EllMatrix, shared or with batched
+# values; its products are gathers in f32 and ignore the precision
+# aliases, as in the reference.
 #
 # Precision: every matvec here is IEEE f32 (TF32 is off, see the package
 # __init__).  The iteration-precision aliases only select the arithmetic
@@ -27,6 +29,7 @@ import torch
 from mpisppy_tpu_torch import resolve_device
 from mpisppy_tpu_torch.ops import cones as cones_mod
 from mpisppy_tpu_torch.ops.cones import ConeSpec
+from mpisppy_tpu_torch.ops.sparse import EllMatrix, ruiz_scale_ell
 
 Tensor = torch.Tensor
 
@@ -77,7 +80,7 @@ class BoxQP:
 
     c: Tensor
     q: Tensor
-    A: Tensor
+    A: Tensor | EllMatrix
     bl: Tensor
     bu: Tensor
     l: Tensor  # noqa: E741
@@ -98,12 +101,16 @@ class BoxQP:
 
     def matvec(self, x: Tensor) -> Tensor:
         """A @ x, batch-aware (A may be shared across the batch)."""
+        if isinstance(self.A, EllMatrix):
+            return self.A.matvec(x)
         if self.A.ndim == x.ndim + 1:
             return (self.A @ x.unsqueeze(-1)).squeeze(-1)
         return x @ self.A.T
 
     def rmatvec(self, y: Tensor) -> Tensor:
         """A.T @ y, batch-aware."""
+        if isinstance(self.A, EllMatrix):
+            return self.A.rmatvec(y)
         if self.A.ndim == y.ndim + 1:
             return (y.unsqueeze(-2) @ self.A).squeeze(-2)
         return y @ self.A
@@ -285,12 +292,20 @@ def group_row_scales(rmax: np.ndarray, cones: ConeSpec | None):
 
 
 def ruiz_scale(p: BoxQP, iters: int = 10) -> tuple[BoxQP, Scaling]:
-    """Iterative row/col inf-norm equilibration of a dense A, applied to
-    the whole problem.  Batched A gets per-batch scalings; SOC blocks get
-    block-uniform row scales (group_row_scales)."""
+    """Iterative row/col inf-norm equilibration of A, applied to the
+    whole problem.  Batched A gets per-batch scalings; SOC blocks get
+    block-uniform row scales (group_row_scales); an EllMatrix takes the
+    ELL form of the loop (ops.sparse.ruiz_scale_ell)."""
     def f64(t):
         return t.detach().cpu().numpy().astype(np.float64)
 
+    def t(v):
+        return torch.as_tensor(v.astype(np.float32), device=p.device)
+
+    if isinstance(p.A, EllMatrix):
+        vals, dr, dc = ruiz_scale_ell(f64(p.A.vals), p.A.cols.cpu().numpy(),
+                                      p.A.n, iters, cones=p.cones)
+        return _scaled(p, p.A.with_vals(t(vals)), dr, dc, t, f64)
     A = f64(p.A)
     dr = np.ones(A.shape[:-1], A.dtype)
     dc = np.ones(A.shape[:-2] + (A.shape[-1],), A.dtype)
@@ -306,12 +321,12 @@ def ruiz_scale(p: BoxQP, iters: int = 10) -> tuple[BoxQP, Scaling]:
         cmax = np.where(cmax <= 0.0, 1.0, cmax)
         A = A / np.sqrt(cmax)[..., None, :]
         dc = dc / np.sqrt(cmax)
+    return _scaled(p, t(A), dr, dc, t, f64)
 
-    def t(v):
-        return torch.as_tensor(v.astype(np.float32), device=p.device)
 
+def _scaled(p: BoxQP, A, dr, dc, t, f64) -> tuple[BoxQP, Scaling]:
     scaled = BoxQP(
-        c=t(f64(p.c) * dc), q=t(f64(p.q) * dc * dc), A=t(A),
+        c=t(f64(p.c) * dc), q=t(f64(p.q) * dc * dc), A=A,
         bl=t(f64(p.bl) * dr), bu=t(f64(p.bu) * dr),
         l=t(f64(p.l) / dc), u=t(f64(p.u) / dc), cones=p.cones)
     return scaled, Scaling(d_row=dr, d_col=dc)

@@ -14,9 +14,9 @@
 # the engine window_engine names: every batch with one dense shared A
 # runs them in the hand-written window kernel on CUDA
 # (ops/pdhg_window.py; its plain version on the CPU), and every other
-# dense problem (per-scenario A, as farmer's) runs the plain batched
-# iteration below (_pdhg_iter) on whatever device it is on, as the JAX
-# package runs it under XLA.
+# problem (a per-scenario dense A, as farmer's, or an ELL matrix, as
+# uc's) runs the plain batched iteration below (_pdhg_iter) on whatever
+# device it is on, as the JAX package runs it under XLA.
 #
 # The JAX package's while_loop over windows becomes a host loop here:
 # solve() reads `all(done)` once per restart window (one device sync per
@@ -25,6 +25,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -34,6 +35,8 @@ from mpisppy_tpu_torch.ops.boxqp import (
     BoxQP, as_precision, infeasibility_certificate, kkt_residuals,
     unboundedness_certificate,
 )
+from mpisppy_tpu_torch.ops.sparse import EllMatrix
+from mpisppy_tpu_torch.scengen.random import normal, prng_key
 
 Tensor = torch.Tensor
 
@@ -43,8 +46,8 @@ OPTIMAL = 1
 INFEASIBLE = 2    # certified by a Farkas ray
 UNBOUNDED = 3     # certified by a recession direction with c'd < 0
 
-# seed of the power iteration's start vector (the JAX package uses
-# PRNGKey(7); the two generators give different numbers)
+# the power iteration's start vector is normal(prng_key(POWER_SEED)),
+# the JAX package's jax.random.normal(PRNGKey(7)) bit for bit
 POWER_SEED = 7
 
 
@@ -105,27 +108,44 @@ def _bshape(p: BoxQP):
     return tuple(p.c.shape[:-1])
 
 
-def estimate_norm(p: BoxQP, iters: int = 30,
-                  generator: torch.Generator | None = None) -> Tensor:
-    """Power iteration for ||A||_2, batch-aware, from a random start
-    vector (an all-ones start lies in null(A'A) for difference rows).
-    Floored by the max row/column 2-norms, both lower bounds on ||A||_2.
-    `generator` seeds the start vector (default: a CPU generator seeded
-    with POWER_SEED)."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(POWER_SEED)
-    v = torch.randn(p.c.shape, generator=generator,
-                    device=generator.device, dtype=p.c.dtype).to(p.device)
+@functools.lru_cache(maxsize=8)
+def _start_vector(shape: tuple) -> Tensor:
+    """The power iteration's start vector on the CPU (cached by shape:
+    the f32-exact draw costs ~0.5 s per million entries, and a wheel
+    starts many solves of a few shapes)."""
+    return normal(prng_key(POWER_SEED), shape)
+
+
+def estimate_norm(p: BoxQP, iters: int = 30) -> Tensor:
+    """Power iteration for ||A||_2, batch-aware, from the JAX package's
+    random start vector (an all-ones start lies in null(A'A) for
+    difference rows), drawn on the CPU and moved, so the card and the
+    CPU start from the same vector.  Floored by the max row/column
+    2-norms, both lower bounds on ||A||_2."""
+    v = _start_vector(tuple(p.c.shape)).to(dtype=p.c.dtype, device=p.device)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     lam = torch.ones(_bshape(p), dtype=p.c.dtype, device=p.device)
+    if isinstance(p.A, Tensor) and p.A.ndim == 3:
+        # a per-scenario A as products and sums: they add in the order of
+        # the JAX package's XLA dot on the CPU, so farmer's estimate is
+        # its bit for bit (a batched matmul differs by an ulp)
+        def AtA(u):
+            return (p.A * (p.A * u[..., None, :]).sum(-1)[..., None]).sum(-2)
+    else:
+        def AtA(u):
+            return p.rmatvec(p.matvec(u))
     for _ in range(iters):
-        w = p.rmatvec(p.matvec(v))
+        w = AtA(v)
         nrm = torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True),
                           min=1e-30)
         v, lam = w / nrm, nrm[..., 0]
-    AA = p.A * p.A
-    row_lb = torch.sqrt(AA.sum(dim=-1).amax(dim=-1))
-    col_lb = torch.sqrt(AA.sum(dim=-2).amax(dim=-1))
+    if isinstance(p.A, EllMatrix):
+        row_lb = torch.sqrt(p.A.row_sqnorms().amax(dim=-1))
+        col_lb = torch.sqrt(p.A.col_sqnorms().amax(dim=-1))
+    else:
+        AA = p.A * p.A
+        row_lb = torch.sqrt(AA.sum(dim=-1).amax(dim=-1))
+        col_lb = torch.sqrt(AA.sum(dim=-2).amax(dim=-1))
     lb = torch.clamp(torch.maximum(row_lb, col_lb), min=1e-12)
     return torch.maximum(torch.sqrt(lam), lb)
 
@@ -299,18 +319,13 @@ def window_engine(p: BoxQP, device_type: str) -> str:
 
     "kernel": a (S,)-batched problem with one dense shared (m, n) A —
     the window kernel on CUDA tensors, its plain version on CPU ones.
-    "plain": any other dense A (per-scenario (S, m, n), or an unbatched
-    problem) — the plain batched iteration (_pdhg_iter) on whatever
-    device the tensors are on.  A structural rule, fixed before any
-    launch: a kernel batch whose launch fails raises, it never takes
-    the plain path.  A matrix that is not a dense tensor (ELL) raises."""
+    "plain": any other A (a per-scenario dense (S, m, n), an ELL matrix,
+    or an unbatched problem) — the plain batched iteration (_pdhg_iter)
+    on whatever device the tensors are on.  A structural rule, fixed
+    before any launch: a kernel batch whose launch fails raises, it
+    never takes the plain path."""
     if device_type not in ("cuda", "cpu"):
         raise ValueError(f"window_engine: unsupported device {device_type!r}")
-    if not isinstance(p.A, torch.Tensor):
-        raise NotImplementedError(
-            f"PDHG windows over a {type(p.A).__name__} constraint matrix "
-            "(ELL, ops/sparse.py) are not ported yet (ROADMAP queue A, "
-            "item 5)")
     return "kernel" if pdhg_window.supported(p) else "plain"
 
 

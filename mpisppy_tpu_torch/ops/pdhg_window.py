@@ -114,8 +114,9 @@ class TileSynth:
 def supported(p: BoxQP) -> bool:
     """The kernel's scope: a (S,)-batched problem with one dense shared
     (m, n) constraint matrix, box rows and any second-order-cone
-    blocks."""
-    return p.A.ndim == 2 and p.c.ndim == 2
+    blocks.  An ELL matrix is never in it, shared or not."""
+    return isinstance(p.A, torch.Tensor) and p.A.ndim == 2 \
+        and p.c.ndim == 2
 
 
 def _split_bf16(v: Tensor) -> tuple[Tensor, Tensor]:

@@ -132,9 +132,6 @@ class ScenarioProgram:
         unknown = set(self.varying) - set(FIELDS)
         if unknown:
             raise ValueError(f"unknown varying fields: {sorted(unknown)}")
-        if hasattr(self.template["A"], "tocsr"):
-            raise NotImplementedError(
-                "a sparse template A needs the ELL slice, not ported yet")
         if self.tree is None:
             object.__setattr__(self, "tree", two_stage_tree(
                 self.num_scenarios, len(self.nonant_idx)))
@@ -185,7 +182,8 @@ class ScenarioProgram:
 
             def f64(v):
                 return torch.as_tensor(np.asarray(v, np.float64))
-            qp = BoxQP(c=f64(sp.c), q=f64(np.zeros_like(sp.c)), A=f64(sp.A),
+            qp = BoxQP(c=f64(sp.c), q=f64(np.zeros_like(sp.c)),
+                       A=as_ell_or_dense(sp.A, torch.float64),
                        bl=f64(sp.bl), bu=f64(sp.bu), l=f64(sp.l),
                        u=f64(sp.u))
             _, sc = ruiz_scale(qp)
@@ -231,6 +229,17 @@ class ScenarioProgram:
             for row, i in enumerate(idx)]
 
 
+def as_ell_or_dense(A, dense_dtype=torch.float32):
+    """A template A as the batch holds it: a scipy-sparse matrix becomes
+    an f32 EllMatrix (the JAX package's cast), a dense one a tensor of
+    `dense_dtype`."""
+    import scipy.sparse as sps
+    if sps.issparse(A):
+        from mpisppy_tpu_torch.ops import sparse as sparse_mod
+        return sparse_mod.ell_from_scipy(A)
+    return torch.as_tensor(np.asarray(A, np.float64)).to(dense_dtype)
+
+
 def sample_fields(program: ScenarioProgram, idx: Tensor,
                   base_key: Tensor | None = None) -> dict:
     """The varying fields for an index vector (k,) — the synthesis
@@ -262,9 +271,15 @@ def estimate_materialized_bytes(program: ScenarioProgram,
     shared fields once).  Analytic, never allocates."""
     S = program.num_scenarios
     n = int(np.asarray(program.template["c"]).shape[-1])
-    m = int(program.template["A"].shape[0])
+    A = program.template["A"]
+    m = int(A.shape[0])
     total = 2 * S * n * itemsize                      # c, q per scenario
     for f, width in (("l", n), ("u", n), ("bl", m), ("bu", m)):
         total += (S if f in program.varying else 1) * width * itemsize
-    total += (S if "A" in program.varying else 1) * m * n * itemsize
+    if hasattr(A, "tocsr"):
+        k = max(int(np.diff(A.tocsr().indptr).max()), 1)
+        a_elems = m * k * 2                           # vals + cols
+    else:
+        a_elems = m * n
+    total += (S if "A" in program.varying else 1) * a_elems * itemsize
     return total

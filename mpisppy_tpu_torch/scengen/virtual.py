@@ -29,8 +29,10 @@ from mpisppy_tpu_torch.core.batch import (
     ScenarioBatch, as_scaled_arrays, scale_field,
 )
 from mpisppy_tpu_torch.ops.boxqp import BoxQP
+from mpisppy_tpu_torch.ops.sparse import EllMatrix
 from mpisppy_tpu_torch.scengen.program import (
-    FIELDS, ScenarioProgram, estimate_materialized_bytes, sample_fields,
+    FIELDS, ScenarioProgram, as_ell_or_dense, estimate_materialized_bytes,
+    sample_fields,
 )
 
 Tensor = torch.Tensor
@@ -177,8 +179,13 @@ class VirtualBatch:
                   self.d_non, self.nonant_idx, self.node_of_slot,
                   self.integer_slot, self.integer_full,
                   *self.shared.values()]
-        return sum(t.numel() * t.element_size() for t in leaves
-                   if t is not None)
+        tensors = []
+        for t in leaves:
+            if isinstance(t, EllMatrix):
+                tensors += [t.vals, t.cols, t.t_slots, t.t_rows]
+            elif t is not None:
+                tensors.append(t)
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def materialized_bytes(self) -> int:
         """What the host-materialized equivalent would keep resident."""
@@ -210,7 +217,10 @@ def virtual_batch(program: ScenarioProgram, pad_to: int | None = None,
         tpl = prog.template.get(name)
         if name == "q" and tpl is None:
             tpl = np.zeros_like(np.asarray(prog.template["c"]))
-        tpl = torch.as_tensor(np.asarray(tpl, np.float32)).to(dev)
+        if name == "A":
+            tpl = as_ell_or_dense(tpl).to(dev)
+        else:
+            tpl = torch.as_tensor(np.asarray(tpl, np.float32)).to(dev)
         shared[name] = scale_field(name, tpl, d_row, d_col)
 
     probs = np.zeros(S_p, np.float64)

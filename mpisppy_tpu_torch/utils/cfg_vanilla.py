@@ -1,7 +1,7 @@
 ###############################################################################
 # Vanilla hub/spoke dict factories keyed off a Config (port of
 # mpisppy_tpu/utils/cfg_vanilla.py; ref:mpisppy/utils/cfg_vanilla.py:
-# ph_hub:93, lagrangian_spoke:436, xhatxbar_spoke:589,
+# ph_hub:93, fwph_spoke:328, lagrangian_spoke:436, xhatxbar_spoke:589,
 # xhatshuffle_spoke:622, slammax/min_spoke:701/722).
 #
 # The reference factories package (opt_class, comm_class, options) per
@@ -11,6 +11,7 @@
 ###############################################################################
 from __future__ import annotations
 
+from mpisppy_tpu_torch.algos import fwph as fwph_mod
 from mpisppy_tpu_torch.algos import ph as ph_mod
 from mpisppy_tpu_torch.cylinders import spoke as spoke_mod
 from mpisppy_tpu_torch.cylinders.hub import PHHub
@@ -71,6 +72,21 @@ def ph_hub(cfg, batch, scenario_names=None, rho_setter=None,
 
 def _spoke(cls, options=None) -> dict:
     return {"spoke_class": cls, "opt_kwargs": {"options": options or {}}}
+
+
+def fwph_spoke(cfg) -> dict:
+    """ref:cfg_vanilla.py:328-435."""
+    fw_opts = fwph_mod.FWPHOptions(
+        fw_iter_limit=cfg.get("fwph_iter_limit", 2),
+        fw_weight=cfg.get("fwph_weight", 0.0),
+        fw_conv_thresh=cfg.get("fwph_conv_thresh", 1e-4),
+        max_columns=cfg.get("fwph_max_columns", 16),
+        default_rho=cfg.get("default_rho", 1.0),
+        pdhg=_pdhg_opts(cfg),
+    )
+    return _spoke(spoke_mod.FWPHOuterBound,
+                  {"pdhg_opts": _pdhg_opts(cfg), "fw_opts": fw_opts,
+                   "rho": cfg.get("default_rho", 1.0)})
 
 
 def lagrangian_spoke(cfg) -> dict:

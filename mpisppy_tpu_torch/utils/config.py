@@ -127,6 +127,27 @@ class Config:
         self.add_to_config("defaultPHp", "smoothing p coefficient", float,
                            0.0)
 
+    def presolve_args(self):
+        """Batched FBBT presolve (ref:mpisppy/opt/presolve.py via the
+        reference's 'presolve' option; here ops/fbbt.py)."""
+        self.add_to_config("presolve",
+                           "run FBBT bound tightening on the batch",
+                           bool, False)
+        self.add_to_config("presolve_sweeps",
+                           "FBBT interval-tightening sweeps", int, 3)
+
+    def fwph_args(self):
+        """ref:config.py:487-520."""
+        self.add_to_config("fwph", "use an FWPH outer-bound spoke", bool,
+                           False)
+        self.add_to_config("fwph_iter_limit", "FWPH inner iterations", int,
+                           2)
+        self.add_to_config("fwph_max_columns", "FWPH column-buffer size",
+                           int, 16)
+        self.add_to_config("fwph_weight", "FWPH weight", float, 0.0)
+        self.add_to_config("fwph_conv_thresh", "FWPH convergence", float,
+                           1e-4)
+
     def lagrangian_args(self):
         """ref:config.py:521-538."""
         self.add_to_config("lagrangian", "use a Lagrangian bound spoke",

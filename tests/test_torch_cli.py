@@ -7,6 +7,7 @@
 # not implement exits non-zero naming its ROADMAP.md queue item, and the
 # default device is CUDA, which raises without a card.
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,7 +46,7 @@ def test_cli_end_to_end(extra):
 
 @pytest.mark.parametrize("flag,item", [
     (["--EF"], 6), (["--async-staleness", "1"], 6), (["--aph-hub"], 6),
-    (["--presolve"], 5), (["--dispatch-max-batch=8"], 5),
+    (["--dispatch-coalesce"], 5), (["--dispatch-max-batch=8"], 5),
     (["--grad-rho"], 8), (["--scenarios-per-bundle", "2"], 8),
     (["--trace-jsonl", "t.jsonl"], 10), (["--kernel-counters"], 10),
     (["--checkpoint-path", "ck"], 11), (["--lane-guard"], 11)])
@@ -55,6 +56,32 @@ def test_unported_flags_are_refused(flag, item):
         gc.main(FARMER + ["--device", "cpu"] + flag)
     msg = str(exc.value.code)
     assert name in msg and f"queue A, item {item}" in msg
+
+
+def test_fwph_and_presolve_are_accepted():
+    """--presolve (FBBT on the batch) and --fwph (a classic FWPH spoke
+    beside the fused planes) run: farmer certifies 1% with both."""
+    ws = gc.main(FARMER + ["--device", "cpu", "--fused-wheel", "--presolve",
+                           "--fwph", "--fwph-iter-limit", "1"])
+    names = [type(sp).__name__ for sp in ws.spcomm.spokes]
+    assert "FWPHOuterBound" in names
+    assert ws.spcomm.compute_gaps()[1] <= 0.01
+    assert ws.BestInnerBound == pytest.approx(-108390.0, rel=5e-3)
+
+
+def test_uc_module_runs_with_fwph():
+    """`--module-name mpisppy_tpu_torch.models.uc` with the JAX CLI's uc
+    flags: an ELL batch through the fused wheel and the FWPH spoke; the
+    rolling-horizon flag stays refused with its item."""
+    uc = ["--module-name", "mpisppy_tpu_torch.models.uc", "--num-scens", "3",
+          "--uc-n-gens", "3", "--uc-n-hours", "6", "--device", "cpu",
+          "--fused-wheel", "--lagrangian", "--xhatxbar", "--slammax",
+          "--fwph", "--max-iterations", "3"]
+    ws = gc.main(uc)
+    assert type(ws.opt.batch.qp.A).__name__ == "EllMatrix"
+    assert math.isfinite(ws.BestOuterBound)
+    with pytest.raises(SystemExit, match="queue A, item 13"):
+        gc.main(uc + ["--uc-mpc-step", "1"])
 
 
 def test_unported_flag_exits_nonzero():

@@ -19,7 +19,10 @@
 # A per-scenario A (farmer) runs the plain batched iteration on the card
 # and must equal its CPU run to f32 noise without a kernel launch; the
 # k shuffle candidates, one (k·S)-scenario batch over the shared sslp A,
-# take one box-kernel launch per window.
+# take one box-kernel launch per window.  uc's ELL A runs the plain
+# iteration too (no launch, CPU-equal to f32 noise); the XLA-exact normal
+# draws the same numbers on the card; the box kernel takes FBBT's
+# per-scenario l/u.
 # chip_smoke.py does the same at the main path's shapes.
 import dataclasses
 
@@ -516,3 +519,70 @@ def test_flattened_shuffle_takes_one_launch_per_window(cuda, monkeypatch):
     ok = cfeas.numpy()
     np.testing.assert_allclose(vals.cpu().numpy()[ok], cvals.numpy()[ok],
                                rtol=1e-4)
+
+
+def _uc_batch(device, S=8):
+    from mpisppy_tpu_torch.models import uc
+    inst = uc.synthetic_instance(10, 24)
+    specs = [uc.scenario_creator(nm, instance=inst, num_scens=S)
+             for nm in uc.scenario_names_creator(S)]
+    return batch_mod.from_specs(specs, device=device)
+
+
+def test_ell_route_on_the_card_matches_the_cpu(cuda):
+    """uc's shared ELL A (m=1708, n=1008, k=11): products equal the
+    CPU's to f32 noise, and three plain windows (each device from its
+    own norm estimate, the same start vector) equal the CPU's to 1e-5 of
+    the iterate scale (chip_smoke.py [ell_parity]'s tolerance), with no
+    window kernel launch."""
+    from mpisppy_tpu_torch.ops.sparse import EllMatrix
+    cpu, gpu = _uc_batch("cpu"), _uc_batch(cuda)
+    assert isinstance(gpu.qp.A, EllMatrix) and not pdhg_window.supported(
+        gpu.qp)
+    assert pdhg.window_engine(gpu.qp, "cuda") == "plain"
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, gpu.qp.n, generator=g)
+    y = torch.randn(8, gpu.qp.m, generator=g)
+    for gf, cf, v in ((gpu.qp.matvec, cpu.qp.matvec, x),
+                      (gpu.qp.rmatvec, cpu.qp.rmatvec, y)):
+        want, got = cf(v), gf(v.to(cuda)).cpu()
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    opts = pdhg.PDHGOptions(tol=0.0)
+    before = dict(pdhg_window.run_window.launches)
+    want = pdhg.solve_fixed(cpu.qp, 3, opts, pdhg.init_state(cpu.qp, opts))
+    got = pdhg.solve_fixed(gpu.qp, 3, opts, pdhg.init_state(gpu.qp, opts))
+    torch.cuda.synchronize()
+    assert dict(pdhg_window.run_window.launches) == before
+    for w, k in ((want.x, got.x), (want.y, got.y)):
+        assert float((k.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+def test_normal_on_the_card_equals_the_cpu(cuda):
+    """The XLA-exact normal draws the same numbers on the card (IEEE f32
+    and f64 elementwise ops on both sides)."""
+    from mpisppy_tpu_torch.scengen import random as rnd
+    want = rnd.normal(rnd.prng_key(7), (4096,))
+    got = rnd.normal(rnd.prng_key(7, cuda), (4096,)).cpu()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision,tol", [(None, 1e-4), ("bf16x3", 1e-3)])
+def test_kernel_matches_plain_with_presolved_bounds(cuda, precision, tol):
+    """FBBT gives each scenario its own l/u: the box kernel on the
+    presolved sslp batch (per-scenario l/u rows) against its plain
+    version."""
+    from mpisppy_tpu_torch.ops import fbbt
+    inst = sslp.synthetic_instance(5, 25, seed=0)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=24)
+             for nm in sslp.scenario_names_creator(24)]
+    batch, info = fbbt.presolve_batch(
+        batch_mod.from_specs(specs, device=cuda))
+    assert info["tightened_bounds"] > 0 and batch.qp.l.ndim == 2
+    args = _solver_args(batch.qp)
+    k = pdhg_window.run_window(*args, precision=precision)
+    r = pdhg_window.run_window_reference(*args, precision=precision)
+    torch.cuda.synchronize()
+    for a, b in zip(k, r):
+        assert bool(torch.all((a - b).abs() <= tol + tol * b.abs()))

@@ -30,7 +30,6 @@ from mpisppy_tpu.cylinders import spoke as jspoke
 from mpisppy_tpu.cylinders.hub import PHHub as JPHHub
 from mpisppy_tpu.models import farmer as jfarmer
 from mpisppy_tpu.models import sslp as jsslp
-from mpisppy_tpu.ops import boxqp as jboxqp
 from mpisppy_tpu.ops import pdhg as jpdhg
 from mpisppy_tpu.ops import pdhg_pallas
 from mpisppy_tpu.spin_the_wheel import WheelSpinner as JWheelSpinner
@@ -354,14 +353,6 @@ def test_virtual_wheel_steps_publish_the_materialized_scalars():
         tph.ph_eobjective(bm, sm.ph))
 
 
-def jax_norm_estimate(p, iters=30, generator=None):
-    """The JAX package's ||A|| estimate of a port BoxQP."""
-    arrs = convert.arrays_of(p)
-    jp = jboxqp.BoxQP(**{k: jnp.asarray(arrs[k])
-                         for k in ("c", "q", "A", "bl", "bu", "l", "u")})
-    return torch.as_tensor(np.array(jpdhg.estimate_norm(jp, iters)))
-
-
 def _wheel(ph_mod, pdhg_mod, fw_mod, spoke_mod, hub_cls, spinner, batch,
            split):
     """The farmer fused wheel to a 0.1% gap: at the tighter target both
@@ -392,9 +383,7 @@ def jax_farmer_wheel():
 
 
 @pytest.mark.parametrize("split", [False, True])
-def test_virtual_wheel_matches_jax_and_materialized(split, jax_farmer_wheel,
-                                                    monkeypatch):
-    monkeypatch.setattr(tpdhg, "estimate_norm", jax_norm_estimate)
+def test_virtual_wheel_matches_jax_and_materialized(split, jax_farmer_wheel):
     prog = tfarmer.scenario_program(12, seed=7)
     tws = _wheel(tph, tpdhg, tfw, tspoke, TPHHub, TWheelSpinner,
                  scengen.virtual_batch(prog, device="cpu"), split)

@@ -1,7 +1,7 @@
 # Port parity: the inner-bound heuristics of algos/xhat.py and the
 # classic spokes built on them.  The same batch (carried across with
-# mpisppy_tpu_torch.convert), the same per-scenario nonants and the JAX
-# norm estimate go through the JAX functions and the port on the CPU, on
+# mpisppy_tpu_torch.convert) and the same per-scenario nonants go
+# through the JAX functions and the port on the CPU, on
 # farmer (per-scenario A, S=3) and on the sslp(5,15) LP relaxation
 # (shared A, S=16).  Tolerances:
 #   * slam candidates: equal (a max/min and a ceil/floor);
@@ -23,7 +23,6 @@ from mpisppy_tpu.algos import xhat as jxhat
 from mpisppy_tpu.core import batch as jbatch
 from mpisppy_tpu.models import farmer as jfarmer
 from mpisppy_tpu.models import sslp as jsslp
-from mpisppy_tpu.ops import boxqp as jboxqp
 from mpisppy_tpu.ops import pdhg as jpdhg
 from mpisppy_tpu_torch import convert
 from mpisppy_tpu_torch.algos import xhat as txhat
@@ -33,13 +32,6 @@ from mpisppy_tpu_torch.ops import pdhg as tpdhg
 torch.set_num_threads(1)
 
 VALUE_RTOL = 1e-4
-
-
-def jax_norm_estimate(p, iters=30, generator=None):
-    arrs = convert.arrays_of(p)
-    jp = jboxqp.BoxQP(**{k: jnp.asarray(arrs[k])
-                         for k in ("c", "q", "A", "bl", "bu", "l", "u")})
-    return torch.as_tensor(np.array(jpdhg.estimate_norm(jp, iters)))
 
 
 def _farmer():
@@ -65,10 +57,6 @@ def model(request):
     st = jpdhg.solve(jb.qp, o, jpdhg.init_state(jb.qp, o))
     return jb, tb, np.array(jb.nonants(st.x))
 
-
-@pytest.fixture(autouse=True)
-def _jax_norm(monkeypatch):
-    monkeypatch.setattr(tpdhg, "estimate_norm", jax_norm_estimate)
 
 
 @pytest.mark.parametrize("sense_max", [True, False])
