@@ -44,7 +44,7 @@ nvcc per source, started together) and drives its main paths:
   the card against the CPU, window times at 100, 1,000 and 10,000
   scenarios and PyTorch launches per iteration, bench.py's
   bench_uc_fwph wheel (PH hub with SepRho, an FWPH spoke, the fused
-  Lagrangian, x̂-x̄ and slam planes) at 100 scenarios capped at 25 hub
+  Lagrangian, x̂-x̄ and slam planes) at 100 scenarios capped at 10 hub
   iterations, its FWPH-driven loop (bench_uc_fwph_hub) capped at 5,
   and the uc program's VirtualBatch at 10,000 scenarios for 3 hub
   iterations with a short profile;
@@ -56,6 +56,16 @@ nvcc per source, started together) and drives its main paths:
   headline at 10,000 scenarios with all four fusable spokes in bf16x3
   to a 1% certificate, its box windows in the design the shape rule
   gives, and the uc model with --fwph for 5 hub iterations;
+* the exact-MIP plane — sslp 15x45 with its integer recourse (a dense
+  shared A: every node LP's windows in the box kernel): the kernel in
+  f32 and bf16x3 against its plain version on branch-and-bound node
+  operands (fixed and emptied boxes, done lanes, warm state) at 1,000
+  scenarios, lagrangian_mip_bound at 1,000 scenarios with a profile of
+  five bare rounds, certified_mip_gap at 10 scenarios against the JAX
+  package's bracket, solve_mip, ef_mip and certified_mip_gap at small
+  shapes against scipy's MILP, the dispatch scheduler (a padded solve
+  against the direct one, decomposition_bnb's node fan-out, the CLI's
+  --dispatch-* flags), and the CLI's --EF against the JAX CLI;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -67,7 +77,8 @@ prints no result.  `python3 chip_smoke.py --only headline_profile` (or
 wheel at 10,000 scenarios capped at 3 hub iterations) runs that profile
 phase alone (to profile another tree's package with it); `--only
 uc_wheel_full` runs the uc wheel to its 1% certificate (at most 600 hub
-iterations).
+iterations); `--only mip` runs the exact-MIP phases and `--only mip_gap`
+the [mip_gap] phase alone.
 """
 import json
 import math
@@ -164,12 +175,15 @@ UC_SCENS = 100
 ELL_SCENS = (100, 1_000, 10_000)
 # batch sizes at which the two forms of the ELL products are timed
 ELL_PRODUCT_SCENS = (100, 300, 1_000, 3_000, 10_000)
-UC_WHEEL_HUB_ITERS = 25
+# cut from 25 (PR 7) to 10 hub iterations to make room for the MIP
+# phases: the FWPH outer bound has landed by then in both packages
+UC_WHEEL_HUB_ITERS = 10
 UC_FULL_MAX_ITERS = 600
 UC_FWPH_OUTER_ITERS = 5
 UC_PROGRAM_SCENS = 10_000
 UC_PROGRAM_HUB_ITERS = 3
-# the JAX package on the CPU (tools/uc_jax_reference.py 100 25 5): the
+# the JAX package on the CPU (tools/uc_jax_reference.py 100 10 5; with
+# 25 hub iterations the same outer bound): the
 # outer bound of [uc_wheel] (its inner bound has not landed by then, in
 # either package) and the certified outer bound of [uc_fwph_hub]; the
 # port's must agree to 1e-3 relative
@@ -190,6 +204,50 @@ CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
                 # the headline's own configuration (bench_sslp_gap)
                 "--default-rho", "20", "--sslp-lp-relax",
                 "--max-iterations", str(HEADLINE_MAX_ITERS)]
+
+# the exact-MIP plane (ops/bnb.py, algos/mip.py, dispatch/): sslp 15x45
+# with its integer recourse (n=705, m=60, 690 integer columns), a dense
+# shared A, so every node LP's windows run in the box kernel
+MIP_SCENS = 1_000                     # [bnb_operands], [mip_lagrangian]
+MIP_RHO = 10.0                        # tests/test_mip_bnb.py's PH rho
+MIP_LAG_PH_ITERS = 20                 # the short LP PH run giving W
+MIP_LAG_MAX_ROUNDS = 60               # the capped B&B of [mip_lagrangian]
+MIP_LAG_PUMP_ROUNDS = 5
+MIP_PROFILE_ROUNDS = 5                # B&B rounds under the profiler
+# every node LP of the capped MIP phases stops at 2,000 iterations (50
+# windows) instead of BnBOptions' 8,000: on the card a window with its
+# restart costs ~5 ms of host launches, and the slowest lane of a round
+# reached the cap in every round of the first run (200 windows, ~1 s a
+# round at S=1,000).  Bounds stay certified at any iterate.
+MIP_NODE_MAX_ITERS = 2_000
+# the certified_mip_gap runs cap their node LPs at 800 iterations (20
+# windows): at 2,000 [mip_gap] took 277 s on the card (12 solve_mip
+# dispatches, 38,540 windows at ~7 ms)
+MIP_GAP_NODE_MAX_ITERS = 800
+# the MIP Lagrangian bound may lie below the LP Lagrangian bound at the
+# same W by at most this much relative: both are inexact f32 solves (the
+# node LPs stop at KKT 1e-5, the LP bound at 1e-6)
+MIP_LP_SLACK = 1e-3
+# [mip_gap]: certified_mip_gap at SIPLIB sslp_15_45_10's dimensions
+# (synthetic data, instance seed 0) with these budgets, and the JAX
+# package's bracket for the same run on the CPU
+# (tools/mip_jax_reference.py 10): (inner, outer)
+MIP_GAP_SCENS = 10
+MIP_GAP_PH_ITERS = 30
+MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 10, 32, 4
+MIP_GAP_DIVE_TAIL, MIP_GAP_PUMP_ROUNDS = 16, 2
+MIP_GAP_JAX = (4826.35498046875, -310.1488952636719)
+# the CLI's --EF on farmer, and the JAX CLI's EF objective for the same
+# command on the CPU (tools/mip_jax_reference.py)
+CLI_EF = ["--module-name", "mpisppy_tpu_torch.models.farmer",
+          "--num-scens", "3", "--EF"]
+CLI_EF_JAX_OBJ = -108390.09433410698
+# the CLI with the --dispatch-* group (farmer's fused wheel: no MIP
+# solve, so the scheduler's counters stay 0 and come from it)
+CLI_DISPATCH = ["--module-name", "mpisppy_tpu_torch.models.farmer",
+                "--num-scens", "3", "--fused-wheel", "--lagrangian",
+                "--xhatxbar", "--rel-gap", "0.01", "--max-iterations", "10",
+                "--dispatch-max-batch", "64", "--dispatch-timeout-s", "600"]
 
 
 def phase(name, **fields):
@@ -1569,6 +1627,484 @@ def scengen_path(dev):
                         errs["bf16x3"], timing[S_big, "bf16x3"])
 
 
+def mip_node_lp(max_iters=MIP_NODE_MAX_ITERS):
+    from mpisppy_tpu_torch.ops import pdhg
+    return pdhg.PDHGOptions(tol=1e-5, max_iters=max_iters)
+
+
+def mip_gap_options():
+    """[mip_gap]'s BnBOptions (tools/mip_jax_reference.py uses the same)."""
+    from mpisppy_tpu_torch.ops import bnb
+    return bnb.BnBOptions(max_rounds=MIP_GAP_MAX_ROUNDS,
+                          pool_size=MIP_GAP_POOL,
+                          dive_tail=MIP_GAP_DIVE_TAIL,
+                          pump_rounds=MIP_GAP_PUMP_ROUNDS,
+                          lp=mip_node_lp(MIP_GAP_NODE_MAX_ITERS))
+
+
+# tests/test_torch_mip_gap.py's lean budgets for the small sslp runs
+MIP_LEAN = dict(gap_tol=1e-3, pool_size=16, max_rounds=60, dive_tail=16,
+                pump_rounds=0)
+
+
+def sslp_mip_batch(S, n_servers, n_clients, device, seed=0):
+    """Synthetic sslp with its integer recourse (not LP-relaxed): the
+    exact-MIP plane's problem, one dense shared (m, n) A."""
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import sslp
+    inst = sslp.synthetic_instance(n_servers, n_clients, seed=seed)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=S)
+             for nm in sslp.scenario_names_creator(S)]
+    return batch_mod.from_specs(specs, device=device), specs
+
+
+class MipCounts:
+    """Counts, while active, the restart windows (pdhg._window), the B&B
+    rounds (bnb.bnb_round) with their windows and seconds, and the box
+    kernel's launches by instantiation/mode/design (reset on entry)."""
+
+    def __init__(self):
+        self.windows = 0
+        self.rounds = 0
+        self.round_windows = 0
+        self.round_s = 0.0
+
+    def __enter__(self):
+        from mpisppy_tpu_torch.ops import bnb, pdhg
+        self._real = (pdhg._window, bnb.bnb_round)
+        real_window, real_round = self._real
+
+        def window(p, st, opts):
+            self.windows += 1
+            return real_window(p, st, opts)
+
+        def bnb_round(*a, **k):
+            w0 = self.windows
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_round(*a, **k)
+            torch.cuda.synchronize()
+            self.round_s += time.perf_counter() - t0
+            self.rounds += 1
+            self.round_windows += self.windows - w0
+            return out
+
+        pdhg._window, bnb.bnb_round = window, bnb_round
+        reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        from mpisppy_tpu_torch.ops import bnb, pdhg, pdhg_window
+        pdhg._window, bnb.bnb_round = self._real
+        self.by_design = dict(pdhg_window.run_window.launches_by_design)
+        self.launches = dict(pdhg_window.run_window.launches)
+        return False
+
+    def fields(self):
+        box = self.launches.get("pdhg_window", 0)
+        return dict(rounds=self.rounds, windows=self.windows,
+                    windows_per_round=round(self.round_windows
+                                            / max(1, self.rounds), 2),
+                    s_per_round=round(self.round_s / max(1, self.rounds), 4),
+                    box_kernel_launches=box,
+                    by_design=json.dumps(self.by_design, sort_keys=True)
+                    .replace(" ", ""))
+
+
+def add_launches(total, counts):
+    for k, v in counts.by_design.items():
+        total[k] = total.get(k, 0) + v
+
+
+def bnb_node_args(batch, seed=0):
+    """B&B node operands at the batch's shapes: the integer root box,
+    lane s's first (s mod 97) integer columns fixed (l == u at 0 or 1),
+    lane 3's first integer column emptied (l > u), a window input two
+    windows into the solve (warm state) with every 7th lane done.
+    Returns (window args, node qp, the emptied column)."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.ops import bnb
+    qp, dev = batch.qp, batch.device
+    ic = torch.nonzero(batch.integer_full)[:, 0]
+    lo, hi = (torch.as_tensor(v, device=dev) for v in
+              bnb._root_bounds(qp, batch.d_col, ic.cpu().numpy()))
+    S = qp.c.shape[0]
+    k = torch.arange(S, device=dev) % 97
+    fixed = torch.arange(ic.numel(), device=dev)[None, :] < k[:, None]
+    val = (torch.arange(S, device=dev) % 2).to(lo.dtype)[:, None]
+    lo = torch.where(fixed, val.expand_as(lo), lo)
+    hi = torch.where(fixed, val.expand_as(hi), hi)
+    lo[3, 0], hi[3, 0] = 1.0, 0.0
+    node = bnb._node_qp(qp, batch.d_col, ic, lo, hi)
+    nb = dataclasses.replace(batch, qp=node)
+    return window_inputs(nb, seed=seed), node, int(ic[0])
+
+
+def bnb_operands(dev, S):
+    """[bnb_operands]: the box kernel (K1 f32, K2 bf16x3, the design the
+    shape rule gives) against its plain version on B&B node operands at
+    sslp 15x45, S scenarios, and one window's times.  Returns
+    ({mode: max_abs_err}, {mode: timing})."""
+    batch, _ = sslp_mip_batch(S, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    args, node, col = bnb_node_args(batch)
+    errs, timing = {}, {}
+    for mode in ("f32", "bf16x3"):
+        err, k = parity(args, mode, "bnb_operands", S,
+                        bounds="node_boxes_fixed_and_emptied")
+        clipped = float(k[0][3, col]) == float(node.u[3, col])
+        phase("bnb_operands", mode=mode, emptied_box_lane=3,
+              x_at_emptied_column_equals_u=clipped)
+        if not clipped:
+            raise AssertionError("bnb_operands: an emptied box did not "
+                                 "clip to its upper bound")
+        errs[mode] = err
+    t = time_designs(args, "window_time_bnb", ("resident",), reps=10,
+                     shape="bnb_node")
+    for mode in ("f32", "bf16x3"):
+        timing[mode] = t[S, mode, "resident"]
+    return errs, timing
+
+
+def mip_lagrangian(dev, S, ph_iters=MIP_LAG_PH_ITERS,
+                   max_rounds=MIP_LAG_MAX_ROUNDS,
+                   profile_rounds=MIP_PROFILE_ROUNDS):
+    """[mip_lagrangian]: lagrangian_mip_bound at sslp 15x45, S scenarios,
+    W from a short LP PH run, capped B&B rounds: rounds, nodes, windows,
+    box-kernel launches, seconds, the bound — certified (every real
+    scenario's outer finite) and not below the LP Lagrangian bound at the
+    same W by more than MIP_LP_SLACK.  Then the device busy share of
+    `profile_rounds` bare B&B rounds from the root (torch.profiler).
+    Returns the counts."""
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.algos import lagrangian, mip
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.ops import bnb
+    batch, _ = sslp_mip_batch(S, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    drv = ph_mod.PH(ph_mod.PHOptions(max_iterations=ph_iters,
+                                     default_rho=MIP_RHO, conv_thresh=0.0),
+                    batch)
+    drv.ph_main()
+    W = drv.state.W
+    lp = lagrangian.lagrangian_bound(batch, W)
+    lp_bound = float(lp.bound)
+    opts = bnb.BnBOptions(max_rounds=max_rounds,
+                          pump_rounds=MIP_LAG_PUMP_ROUNDS, lp=mip_node_lp())
+    dispatch.configure()
+    with MipCounts() as c:
+        t0 = time.perf_counter()
+        lag = mip.lagrangian_mip_bound(batch, W, opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    res = lag["result"]
+    nodes = int(res.nodes_solved.sum())
+    certified = bool(torch.isfinite(res.outer).all())
+    slack = MIP_LP_SLACK * max(1.0, abs(lp_bound))
+    phase("mip_lagrangian", S=S, model="sslp_15_45_integer",
+          ph_iters=ph_iters, max_rounds=max_rounds, seconds=round(secs, 3),
+          nodes_solved=nodes, bound=lag["bound"], certified=certified,
+          lp_lagrangian_bound=lp_bound,
+          lp_bound_certified=bool(lp.certified),
+          mip_minus_lp=lag["bound"] - lp_bound, slack=slack,
+          scen_closed=int(lag["solved"].sum()), **c.fields())
+    if not (certified and c.launches.get("pdhg_window", 0) > 0
+            and lag["bound"] >= lp_bound - slack):
+        raise AssertionError("mip_lagrangian: bound not certified, below "
+                             "the LP Lagrangian bound, or no box-kernel "
+                             "launches")
+    mip_round_profile(dev, batch, W, opts, profile_rounds)
+    return c
+
+
+def mip_round_profile(dev, batch, W, opts, rounds):
+    """Device busy share of `rounds` B&B rounds from the root state
+    (cold warm start) under torch.profiler (device activity only), with
+    the windows and launches per round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpisppy_tpu_torch.algos import mip
+    from mpisppy_tpu_torch.ops import bnb
+    qp = batch.with_nonant_linear_quad(W, torch.zeros_like(W))
+    ic = mip._int_cols(batch)
+    st = bnb.root_state(qp, batch.d_col, ic, opts)
+    st = bnb.bnb_round(qp, batch.d_col, ic, st, opts)      # warm-up
+    torch.cuda.synchronize()
+    with MipCounts() as c:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                st = bnb.bnb_round(qp, batch.d_col, ic, st, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = union_us(spans) / (wall * 1e6) if spans else None
+    phase("mip_round_profile", S=batch.num_scenarios,
+          wall_s=round(wall, 3), device_busy_share=None if busy is None
+          else round(busy, 4), device_kernels=len(spans),
+          kernels_per_window=round(len(spans) / max(1, c.windows), 1),
+          **c.fields())
+
+
+def mip_gap(dev):
+    """[mip_gap]: certified_mip_gap on sslp 15x45 at MIP_GAP_SCENS
+    scenarios (SIPLIB sslp_15_45_10's dimensions, synthetic data) with
+    tools/mip_jax_reference.py's budgets; its bracket must overlap the
+    JAX package's (both certified).  Returns the counts."""
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.algos import mip
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.ops import bnb
+    batch, _ = sslp_mip_batch(MIP_GAP_SCENS, SSLP_SERVERS, SSLP_CLIENTS,
+                              dev)
+    dispatch.configure()
+    with MipCounts() as c:
+        t0 = time.perf_counter()
+        res = mip.certified_mip_gap(
+            batch, ph_mod.PHOptions(max_iterations=MIP_GAP_PH_ITERS,
+                                    default_rho=MIP_RHO),
+            mip_gap_options(), dd_nodes=MIP_GAP_DD_NODES)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    j_inner, j_outer = MIP_GAP_JAX
+    j_gap = (j_inner - j_outer) / max(1.0, abs(j_inner))
+    tol = 1e-6 * max(1.0, abs(j_inner))
+    overlap = res.outer <= j_inner + tol and j_outer <= res.inner + tol
+    phase("mip_gap", S=MIP_GAP_SCENS, model="sslp_15_45_integer",
+          inner=res.inner, outer=res.outer, gap=res.gap,
+          seconds=round(secs, 3), jax_inner=j_inner, jax_outer=j_outer,
+          jax_gap=j_gap, overlaps_jax=overlap,
+          dispatch=json.dumps({k: v for k, v in dispatch.scheduler_stats()
+                               .items() if k in ("batches", "lanes",
+                                                 "pad_lanes", "buckets")})
+          .replace(" ", ""), **c.fields())
+    if not (math.isfinite(res.inner) and math.isfinite(res.outer)
+            and overlap and c.launches.get("pdhg_window", 0) > 0):
+        raise AssertionError("mip_gap: bracket not finite, no overlap "
+                             "with the JAX package's, or no launches")
+    return c
+
+
+def random_mips(S=4, n=8, m=5, seed=3):
+    """tests/test_mip_bnb.py's random feasible bounded MIPs (per-scenario
+    A) as arrays, with their scipy HiGHS MILP optima."""
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, milp
+    rng = np.random.RandomState(seed)
+    c = rng.randn(S, n)
+    A = rng.randn(S, m, n) * (rng.rand(S, m, n) < 0.6)
+    x0 = rng.randint(0, 3, size=(S, n)).astype(float)
+    bu = np.einsum("smn,sn->sm", A, x0) + rng.rand(S, m) * 2.0
+    bl = np.full((S, m), -np.inf)
+    lo, up = np.zeros((S, n)), np.full((S, n), 4.0)
+    ref = np.array([milp(c[s], constraints=LinearConstraint(A[s], bl[s],
+                                                            bu[s]),
+                         bounds=Bounds(lo[s], up[s]),
+                         integrality=np.ones(n)).fun for s in range(S)])
+    return (c, A, bl, bu, lo, up), ref
+
+
+def ef_oracle(specs):
+    """The scipy HiGHS MILP optimum of the unscaled dense extensive form
+    (tests/test_mip_bnb.py::_sslp_ef_oracle)."""
+    import numpy as np
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    from mpisppy_tpu_torch.algos import ef as ef_mod
+    efp = ef_mod.build_ef(specs, scale=False, sparse=False, device="cpu")
+    n = efp.n_per_scen
+    integer = np.zeros(efp.qp.n, bool)
+    for s, sp in enumerate(specs):
+        integer[s * n:(s + 1) * n] = sp.integer
+    q = efp.qp
+    r = milp(q.c.double().numpy(), constraints=LinearConstraint(
+        q.A.double().numpy(), q.bl.double().numpy(), q.bu.double().numpy()),
+        bounds=Bounds(q.l.double().numpy(), q.u.double().numpy()),
+        integrality=integer.astype(int))
+    if not r.success:
+        raise AssertionError("ef_oracle: scipy milp failed")
+    return float(r.fun)
+
+
+def in_bracket(label, inner, outer, ref, rtol=2e-3):
+    """The certified bracket [outer, inner] contains the oracle `ref` to
+    rtol * (1 + |ref|)."""
+    import numpy as np
+    inner, outer, ref = (np.atleast_1d(np.asarray(v, float))
+                         for v in (inner, outer, ref))
+    tol = rtol * (1.0 + np.abs(ref))
+    ok = bool(np.all(outer <= ref + tol) and np.all(inner >= ref - tol))
+    phase(label, oracle=json.dumps([float(v) for v in ref]),
+          inner=json.dumps([float(v) for v in inner]),
+          outer=json.dumps([float(v) for v in outer]),
+          tol=f"{rtol}*(1+|oracle|)", contains_oracle=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the bracket misses the oracle")
+
+
+def mip_small(dev):
+    """[mip_small]: solve_mip on tests/test_mip_bnb.py's random MIPs (a
+    per-scenario A: the plain batched iteration), then ef_mip (a batch
+    of one with a dense shared A: the box kernel) and certified_mip_gap
+    on sslp 4x8 at S=4 — every bracket must contain the scipy MILP
+    optimum.  Returns the counts."""
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.algos import ef as ef_mod
+    from mpisppy_tpu_torch.algos import mip
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.ops import bnb, boxqp
+    dispatch.configure()
+    with MipCounts() as c:
+        arrays, ref = random_mips()
+        qp = boxqp.make_boxqp(*arrays, device=dev)
+        t0 = time.perf_counter()
+        res = dispatch.solve_mip(qp, torch.ones(qp.n, device=dev),
+                                 list(range(qp.n)),
+                                 bnb.BnBOptions(pool_size=32,
+                                                max_rounds=300))
+        torch.cuda.synchronize()
+        phase("mip_small", problem="random_mips_4x8x5",
+              seconds=round(time.perf_counter() - t0, 3))
+        in_bracket("mip_small", res.inner.cpu(), res.outer.cpu(), ref,
+                   rtol=1e-3)
+        inst_batch, specs = sslp_mip_batch(4, 4, 8, dev, seed=2)
+        ref = ef_oracle(specs)
+        opts = bnb.BnBOptions(**MIP_LEAN)
+        t0 = time.perf_counter()
+        r = mip.ef_mip(ef_mod.build_ef(specs, device=dev), specs, opts)
+        phase("mip_small", problem="ef_mip_sslp_4_8_S4", nodes=r["nodes"],
+              seconds=round(time.perf_counter() - t0, 3))
+        in_bracket("mip_small", r["inner"], r["outer"], ref)
+        t0 = time.perf_counter()
+        g = mip.certified_mip_gap(
+            inst_batch, ph_mod.PHOptions(max_iterations=20,
+                                         default_rho=10.0),
+            bnb.BnBOptions(**MIP_LEAN,
+                           lp=mip_node_lp(MIP_GAP_NODE_MAX_ITERS)),
+            dd_nodes=2)
+        phase("mip_small", problem="certified_mip_gap_sslp_4_8_S4",
+              gap=g.gap, seconds=round(time.perf_counter() - t0, 3))
+        in_bracket("mip_small", g.inner, g.outer, ref)
+    phase("mip_small", **c.fields())
+    if c.launches.get("pdhg_window", 0) <= 0:
+        raise AssertionError("mip_small: the EF's node LPs launched no box "
+                             "kernel")
+    return c
+
+
+def dispatch_phase(dev):
+    """[dispatch]: a padded solve_mip (5 lanes padded to 8) against the
+    direct one on the card (lane equality, or the measured band within
+    gap_tol), decomposition_bnb's node fan-out coalesced into megabatches
+    with the scheduler's stats, and the CLI with --dispatch-max-batch and
+    --dispatch-timeout-s.  Returns the counts of the solves."""
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.algos import mip
+    from mpisppy_tpu_torch.ops import bnb
+    lean = bnb.BnBOptions(pool_size=8, max_rounds=20, dive_rounds=4,
+                          dive_tail=8, pump_rounds=0)
+    with MipCounts() as c:
+        batch, _ = sslp_mip_batch(5, 5, 15, dev, seed=3)
+        W = torch.zeros((5, batch.num_nonants), device=dev)
+        qp = batch.with_nonant_linear_quad(W, torch.zeros_like(W))
+        ic = mip._int_cols(batch)
+        direct = bnb.solve_mip(qp, batch.d_col, ic, lean)
+        sched = dispatch.SolveScheduler()
+        via = sched.solve_mip(qp, batch.d_col, ic, lean)
+        diffs = {f: float(torch.nan_to_num(
+            (getattr(direct, f) - getattr(via, f)).abs(), nan=0.0,
+            posinf=0.0).max()) for f in ("inner", "outer")}
+        equal = all(torch.equal(getattr(direct, f), getattr(via, f))
+                    for f in ("inner", "outer", "x", "feasible"))
+        band = lean.gap_tol * (1.0 + float(direct.inner[
+            torch.isfinite(direct.inner)].abs().max()))
+        st = sched.stats()
+        phase("dispatch", check="padded_vs_direct", lanes=st["lanes"],
+              pad_lanes=st["pad_lanes"], lanes_bit_equal=equal,
+              max_abs_diff=json.dumps(diffs).replace(" ", ""), band=band)
+        if not (torch.equal(direct.feasible, via.feasible)
+                and max(diffs.values()) <= band):
+            raise AssertionError("dispatch: padded solve off the direct "
+                                 "one beyond gap_tol")
+        dispatch.configure()
+        fan, _ = sslp_mip_batch(3, 3, 6, dev, seed=4)
+        t0 = time.perf_counter()
+        dd = mip.decomposition_bnb(
+            fan, torch.zeros((3, fan.num_nonants), device=dev), lean,
+            max_nodes=6, node_fanout=3)
+        st = dispatch.scheduler_stats()
+        phase("dispatch", check="decomposition_fanout", nodes=dd["nodes"],
+              inner=dd["inner"], outer=dd["outer"],
+              seconds=round(time.perf_counter() - t0, 3),
+              batches=st["batches"], lanes=st["lanes"],
+              pad_lanes=st["pad_lanes"],
+              coalesced_lanes=st["coalesced_lanes"],
+              occupancy=round(st["occupancy"], 4), signatures=st["buckets"],
+              by_cause=json.dumps(st["by_cause"]).replace(" ", ""))
+        if not (st["coalesced_lanes"] > 0
+                and dd["outer"] <= dd["inner"] + 1e-6):
+            raise AssertionError("dispatch: the node fan-out did not "
+                                 "coalesce, or its bracket crossed")
+    result, _, _, _ = cli_run("dispatch", CLI_DISPATCH, box_kernel=False)
+    o = dispatch.get_scheduler().options
+    phase("dispatch", check="cli", max_batch=o.max_batch,
+          dispatch_timeout_s=o.dispatch_timeout_s,
+          dispatch_retries=result["dispatch_retries"],
+          dispatch_quarantined_lanes=result["dispatch_quarantined_lanes"])
+    if (o.max_batch, o.dispatch_timeout_s) != (64, 600.0) \
+            or "dispatch_retries" not in result:
+        raise AssertionError("dispatch: the CLI's --dispatch-* flags did "
+                             "not configure the scheduler")
+    dispatch.configure()
+    return c
+
+
+def cli_ef():
+    """[cli_ef]: python -m mpisppy_tpu_torch ... --EF on farmer (3
+    scenarios) in this process, on the card: its EF_objective against
+    the JAX CLI's."""
+    import contextlib
+    import io
+
+    from mpisppy_tpu_torch import generic_cylinders
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ef = generic_cylinders.main(list(CLI_EF))
+    torch.cuda.synchronize()
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    rel = abs(result["EF_objective"] - CLI_EF_JAX_OBJ) / abs(CLI_EF_JAX_OBJ)
+    phase("cli_ef", device=ef.ef.qp.device.type,
+          EF_objective=result["EF_objective"],
+          converged=result["converged"], jax_EF_objective=CLI_EF_JAX_OBJ,
+          rel_diff_vs_jax=rel, tol=1e-4,
+          wall_s=round(time.perf_counter() - t0, 3))
+    if ef.ef.qp.device.type != "cuda" or not result["converged"] \
+            or rel > 1e-4:
+        raise AssertionError("cli_ef: not on the card, not converged, or "
+                             "off the JAX CLI's EF objective")
+
+
+def mip_path(dev):
+    """The exact-MIP phases.  Returns ([bnb_operands] errors and timings,
+    the box kernel's launches by design over the MIP phases)."""
+    errs, timing = bnb_operands(dev, MIP_SCENS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    total = {}
+    for run in (lambda: mip_lagrangian(dev, MIP_SCENS), lambda: mip_gap(dev),
+                lambda: mip_small(dev), lambda: dispatch_phase(dev)):
+        add_launches(total, run())
+        torch.cuda.empty_cache()
+    cli_ef()
+    phase("mip_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return errs, timing, total
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1596,7 +2132,9 @@ def main() -> int:
     only = {"headline_profile": headline_profile,
             "ccopf_profile": ccopf_profile,
             "farmer_profile": farmer_profile,
-            "uc_wheel_full": uc_wheel_full}
+            "uc_wheel_full": uc_wheel_full,
+            "mip": mip_path,
+            "mip_gap": mip_gap}
     if sys.argv[1:2] == ["--only"]:
         only[sys.argv[2]](dev)
         return 0
@@ -1612,6 +2150,12 @@ def main() -> int:
     uc_path(dev)
     torch.cuda.empty_cache()
     cli_path()
+    torch.cuda.empty_cache()
+    _, _, mip_launches = mip_path(dev)
+    # the MIP phases' node LPs ran in K1 (f32); K2 only if bf16x3 was asked
+    for entry, mode in zip(kernels[:2], ("bf16x3", "f32")):
+        entry["launches"] += sum(v for k, v in mip_launches.items()
+                                 if k.startswith(f"pdhg_window/{mode}/"))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch.algos import lagrangian as lag_mod
 from mpisppy_tpu_torch.algos import ph as ph_mod
 from mpisppy_tpu_torch.algos import xhat as xhat_mod
 from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
-from mpisppy_tpu_torch.dispatch.buckets import default_ladder
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 from mpisppy_tpu_torch.ops import sparse as sparse_mod
 
@@ -163,13 +163,18 @@ def _tail_rescue(qp: boxqp.BoxQP, st: pdhg.PDHGState, rp: Tensor,
     """In-loop straggler sub-solve: the top-k worst-residual scenarios
     get xhat_tail_windows extra windows at the tier-2 rescue profile on
     a gathered sub-batch, state scattered back.  k is capped at S/8 and
-    quantized down the bucket ladder.  The sub-solve runs only while
+    quantized down the bucket ladder: the configured dispatch
+    scheduler's when one exists (--dispatch-bucket-growth governs both
+    the MIP megabatches and these gathers), else the default.  The sub-solve runs only while
     some real scenario misses the publication gate: `needed` is read on
     the host, one device sync per exchange."""
     S = st.omega.shape[0]
     k = min(wopts.xhat_tail_k, max(8, S // 8), S)
     if k > 0:
-        k = min(default_ladder().bucket_floor(k), S)
+        sched = _dispatch.get_scheduler(create=False)
+        ladder = sched.ladder if sched is not None \
+            else _dispatch.default_ladder()
+        k = min(ladder.bucket_floor(k), S)
     if k <= 0 or wopts.xhat_tail_windows <= 0:
         return st
     if not bool(torch.any(torch.where(real, rp > feas_tol, False))):

@@ -2,8 +2,8 @@
 # Carrying state across from the JAX package, with numpy in and out.
 #
 # arrays_of() turns any dataclass of arrays — this package's BoxQP,
-# ConeSpec, EllMatrix, PDHGState, FWPHState or ScenarioBatch, or their
-# JAX counterparts — into nested dicts of numpy arrays without importing
+# ConeSpec, EllMatrix, PDHGState, FWPHState, ScenarioBatch, BnBState or
+# EFProblem, or their JAX counterparts — into nested dicts of numpy arrays without importing
 # JAX (it only calls np.asarray).  The *_from_arrays() builders turn such
 # dicts into this package's objects on a device.  Tests use the pair to
 # feed both packages identical data.
@@ -18,7 +18,7 @@ import torch
 from mpisppy_tpu_torch import resolve_device
 from mpisppy_tpu_torch.core.batch import ScenarioBatch
 from mpisppy_tpu_torch.core.tree import ScenarioTree
-from mpisppy_tpu_torch.ops.boxqp import BoxQP
+from mpisppy_tpu_torch.ops.boxqp import BoxQP, Scaling
 from mpisppy_tpu_torch.ops.cones import ConeSpec
 from mpisppy_tpu_torch.ops.pdhg import PDHGState
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
@@ -116,14 +116,46 @@ def fwph_state_from_arrays(d: dict, device=None):
     return FWPHState(**kw)
 
 
+def tree_from_arrays(tree) -> ScenarioTree:
+    """A ScenarioTree from a dict of its fields (or a tree)."""
+    if isinstance(tree, dict):
+        tree = ScenarioTree(tuple(tree["branching_factors"]),
+                            tuple(tree["nonants_per_stage"]))
+    return tree
+
+
+def bnb_state_from_arrays(d: dict, device=None):
+    """A BnBState (ops/bnb.py) from a dict of its fields: int32 depths
+    and node counts, bool masks, f32 everything else."""
+    from mpisppy_tpu_torch.ops.bnb import BnBState
+    dev = resolve_device(device)
+    kinds = {"pool_active": torch.bool, "done": torch.bool,
+             "pool_depth": torch.int32, "nodes_solved": torch.int32}
+    return BnBState(**{f.name: _tensor(d[f.name], dev,
+                                       kinds.get(f.name, torch.float32))
+                       for f in dataclasses.fields(BnBState)})
+
+
+def ef_problem_from_arrays(d: dict, device=None):
+    """An EFProblem (algos/ef.py) from a dict of its fields (qp, scaling
+    and tree as nested dicts)."""
+    from mpisppy_tpu_torch.algos.ef import EFProblem
+    dev = resolve_device(device)
+    sc = d["scaling"]
+    return EFProblem(
+        qp=boxqp_from_arrays(d["qp"], dev),
+        scaling=Scaling(d_row=np.asarray(sc["d_row"]),
+                        d_col=np.asarray(sc["d_col"])),
+        n_per_scen=int(d["n_per_scen"]), probs=np.asarray(d["probs"]),
+        nonant_idx=np.asarray(d["nonant_idx"]),
+        tree=tree_from_arrays(d["tree"]))
+
+
 def batch_from_arrays(d: dict, device=None) -> ScenarioBatch:
     """A ScenarioBatch from a dict of its fields (qp and tree as nested
     dicts, as arrays_of() makes them)."""
     dev = resolve_device(device)
-    tree = d["tree"]
-    if isinstance(tree, dict):
-        tree = ScenarioTree(tuple(tree["branching_factors"]),
-                            tuple(tree["nonants_per_stage"]))
+    tree = tree_from_arrays(d["tree"])
     f32, i64 = torch.float32, torch.int64
     vp = d.get("var_prob")
     return ScenarioBatch(

@@ -134,6 +134,16 @@ class ScenarioBatch:
         avg_scen = torch.gather(avg_nodes, 0, self.node_of_slot)
         return avg_scen, avg_nodes
 
+    def nonant_box(self) -> "tuple[np.ndarray, np.ndarray]":
+        """(lb, ub) of the nonant slots in ORIGINAL space: the tightest
+        intersection across scenarios (host arrays; static per batch)."""
+        idx = self.nonant_idx.cpu().numpy()
+        S, n = self.num_scenarios, self.qp.n
+        d = np.broadcast_to(self.d_non.cpu().numpy(), (S, len(idx)))
+        l_s = np.broadcast_to(self.qp.l.cpu().numpy(), (S, n))[:, idx] * d
+        u_s = np.broadcast_to(self.qp.u.cpu().numpy(), (S, n))[:, idx] * d
+        return l_s.max(0), u_s.min(0)
+
     def expectation(self, vals: Tensor) -> Tensor:
         """E[vals] over scenarios (ref:mpisppy/spopt.py:344-436)."""
         return torch.sum(self.p * vals)

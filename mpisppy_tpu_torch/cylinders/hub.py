@@ -9,9 +9,12 @@
 #   * abs_gap  <= options['abs_gap']
 #   * inner bounds stalled for 'max_stalled_iters' hub iterations
 #
-# Not ported yet: the telemetry event stream (here the per-iteration
-# trace rows are appended directly), checkpoints and preemption, the
-# watchdog, fault plans and the dispatch-scheduler plumbing.
+# The hub stamps its iteration (and, for a session with a run_id, a
+# thread-local session token) onto the dispatch scheduler at every sync,
+# and appends a dispatch_trace row whenever MIP solves were dispatched
+# since the last one.  Not ported yet: the telemetry event stream (here
+# the per-iteration trace rows are appended directly), checkpoints and
+# preemption, the watchdog and fault plans.
 ###############################################################################
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import time
 
 import numpy as np
 
+from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
 from mpisppy_tpu_torch.cylinders.spcommunicator import SPCommunicator
 from mpisppy_tpu_torch.cylinders.spoke import ConvergerSpokeType
@@ -43,6 +47,18 @@ class Hub(SPCommunicator):
         # sense-contradiction bookkeeping: the DISTINCT spokes whose
         # bounds contradicted the CURRENT incumbent of each side
         self._contra: dict[str, list] = {"outer": [], "inner": []}
+        # dispatch scheduler: a session hub (options["run_id"]) names the
+        # scheduler's run when it has none and stamps its driver thread
+        # (pre-wheel work included) with its own token
+        self.run_id = str(self.options.get("run_id") or "")
+        sched = _dispatch.get_scheduler(create=False)
+        if sched is not None and self.run_id and not sched.run:
+            sched.run = self.run_id
+        if self.run_id:
+            _dispatch.set_session_context(self.run_id, -1)
+        # one row of scheduler stats per hub iteration that dispatched
+        self.dispatch_trace: list[dict] = []
+        self._last_dispatch_batches = 0
 
     # -- bound bookkeeping (ref:hub.py:207-243) ---------------------------
     # Non-finite values never enter: a NaN outer bound would poison every
@@ -83,6 +99,22 @@ class Hub(SPCommunicator):
         return None
 
     # -- gaps + termination (ref:hub.py:82-166) ---------------------------
+    def _stamp_dispatch(self):
+        """The current hub iteration onto the dispatch scheduler's
+        stamps (the session token too, for a session hub)."""
+        if self.run_id:
+            _dispatch.set_session_context(self.run_id, self._iter)
+        _dispatch.set_hub_iter(self._iter)
+
+    def _harvest_dispatch_stats(self):
+        """One dispatch_trace row of the scheduler's stats, only when MIP
+        solves were dispatched since the last one."""
+        stats = _dispatch.scheduler_stats()
+        if not stats or stats["batches"] == self._last_dispatch_batches:
+            return
+        self._last_dispatch_batches = stats["batches"]
+        self.dispatch_trace.append({"iter": self._iter, **stats})
+
     def compute_gaps(self) -> tuple[float, float]:
         abs_gap = self.BestInnerBound - self.BestOuterBound
         nano = 1e-10
@@ -266,6 +298,7 @@ class PHHub(Hub):
         then launch the classic spokes' next round on a fresh snapshot,
         then record the iteration's trace row."""
         self._iter += 1
+        self._stamp_dispatch()
         period = max(1, int(self.options.get("spoke_sync_period", 1)))
         do_spokes = (self._iter <= 2) or (self._iter % period == 0)
         fused = [sp for sp in self.spokes if getattr(sp, "fused", False)]
@@ -284,6 +317,7 @@ class PHHub(Hub):
                 for sp in classic:
                     if not getattr(sp, "disabled", False):
                         sp.update(payload)
+        self._harvest_dispatch_stats()
         abs_gap, rel_gap = self.compute_gaps()
         conv = self.opt._read_conv()
         self.trace.append({

@@ -6,14 +6,17 @@
 #   python -m mpisppy_tpu_torch --module-name mpisppy_tpu_torch.models.farmer \
 #          --num-scens 3 --lagrangian --xhatxbar --rel-gap 0.01 \
 #          [--fused-wheel --slammin] [--fwph] [--presolve] [--device cpu]
+#   python -m mpisppy_tpu_torch --module-name ... --num-scens 3 --EF
 #
 # The model module supplies the reference's 5-function API:
 # scenario_creator, scenario_names_creator, inparser_adder, kw_creator,
 # scenario_denouement — returning ScenarioSpec; multistage modules also
 # provide make_tree(branching_factors).  The run's tensors live on
 # --device (default cuda; without CUDA the run raises).  The last line
-# of stdout is one JSON object with the bounds, the gaps and the
-# iteration count.
+# of stdout is one JSON object with the bounds, the gaps, the iteration
+# count and the dispatch scheduler's fault-domain counters (--EF: the EF
+# objective and whether its solve converged).  The --dispatch-* group
+# configures the process-default scheduler every MIP solve goes through.
 #
 # A flag of the JAX package's CLI that the port does not implement is
 # refused by name (UNPORTED_FLAGS), never ignored.
@@ -25,6 +28,7 @@ import json
 import math
 import sys
 
+from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
 from mpisppy_tpu_torch.core import batch as batch_mod
 from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
@@ -37,7 +41,6 @@ def _queue_item(item: int, what: str) -> str:
 
 
 _ALGOS = _queue_item(6, "the remaining algorithms and cylinders")
-_OPS = _queue_item(5, "the rest of ops/ and dispatch/")
 _EXT = _queue_item(8, "extensions, convergers and utils")
 _TELEMETRY = _queue_item(10, "telemetry")
 _RESILIENCE = _queue_item(11, "resilience and checkpoints")
@@ -47,7 +50,7 @@ _SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 # not implement, each with the queue item that ports it.
 UNPORTED_FLAGS = {
     **dict.fromkeys((
-        "EF", "aph_hub", "aph_gamma", "aph_nu", "aph_dispatch_frac",
+        "aph_hub", "aph_gamma", "aph_nu", "aph_dispatch_frac",
         "aph_use_dynamic_gamma", "aph_frac_needed", "lagranger",
         "lagranger_rho_rescale_factors_json", "subgradient",
         "subgradient_rho", "async_staleness", "async_exchange_deadline_s",
@@ -57,13 +60,6 @@ UNPORTED_FLAGS = {
         "cross_scenario_cuts", "cross_scenario_iter_cnt",
         "cross_scenario_max_rounds", "lshaped_hub", "lshaped_max_iter",
         "lshaped_multicut", "xhatlshaped"), _ALGOS),
-    **dict.fromkeys((
-        "dispatch_coalesce",
-        "dispatch_max_batch", "dispatch_max_wait_ms",
-        "dispatch_max_inflight", "dispatch_pad", "dispatch_bucket_growth",
-        "dispatch_compile_guard", "dispatch_timeout_s",
-        "dispatch_retry_max", "dispatch_retry_backoff_s",
-        "dispatch_deadline_s"), _OPS),
     **dict.fromkeys((
         "grad_rho", "grad_order_stat", "grad_rho_update_interval",
         "grad_rho_relative_bound", "grad_rho_indep_denom", "rho_file_in",
@@ -108,6 +104,8 @@ def _parse_args(module, args=None):
     refuse_unported(sys.argv[1:] if args is None else args)
     cfg = Config()
     cfg.add_to_config("module_name", "model module to import", str, None)
+    cfg.add_to_config("EF", "solve the extensive form directly", bool,
+                      False)
     cfg.add_to_config("solution_base_name",
                       "write the first-stage solution to <name>.csv",
                       str, None)
@@ -125,6 +123,7 @@ def _parse_args(module, args=None):
     cfg.slama_args()
     cfg.fwph_args()
     cfg.presolve_args()
+    cfg.dispatch_args()
     cfg.multistage()
     cfg.device_args()
     cfg.parse_command_line("mpisppy_tpu_torch.generic_cylinders", args)
@@ -257,23 +256,46 @@ def _spin_and_report(cfg, module, hub, spokes, names, specs):
         wheel.write_first_stage_solution(cfg["solution_base_name"] + ".csv")
     for rank0, nm in enumerate(names):
         module.scenario_denouement(0, nm, specs[rank0])
-    # the reference's fault-domain counters: no dispatch scheduler or
-    # watchdog is ported, so they are 0
+    # the fault-domain counters: the scheduler's retries and quarantined
+    # lanes (no watchdog is ported: 0 trips)
+    dstats = _dispatch.scheduler_stats() or {}
     print(json.dumps({
         "outer_bound": _finite(wheel.BestOuterBound),
         "inner_bound": _finite(wheel.BestInnerBound),
         "abs_gap": _finite(abs_gap), "rel_gap": _finite(rel_gap),
         "iterations": wheel.spcomm._iter,
-        "dispatch_retries": 0,
-        "dispatch_quarantined_lanes": 0,
+        "dispatch_retries": dstats.get("retries_total", 0),
+        "dispatch_quarantined_lanes": dstats.get("quarantined_lanes", 0),
         "watchdog_trips": 0,
     }), flush=True)
     return wheel
 
 
+def _do_EF(cfg, module):
+    """--EF: the extensive form solved directly as one LP
+    (ref:generic_cylinders.py:396-457); prints {"EF_objective": ...,
+    "converged": ...} as the last line."""
+    from mpisppy_tpu_torch.algos import ef as ef_mod
+    names, kwargs, tree = _model_plumbing(cfg, module)
+    ef = ef_mod.ExtensiveForm({"tol": cfg.get("pdhg_tol", 1e-6)}, names,
+                              module.scenario_creator, kwargs, tree=tree,
+                              device=cfg.get("device", "cuda"))
+    st = ef.solve_extensive_form()
+    obj = ef.get_objective_value()
+    converged = bool(st.done.all())
+    global_toc(f"EF objective: {obj:.6g} (converged={converged})", True)
+    if cfg.get("solution_base_name"):
+        import numpy as np
+        np.save(cfg["solution_base_name"] + ".npy",
+                np.asarray(list(ef.get_root_solution().values())))
+    print(json.dumps({"EF_objective": obj, "converged": converged}),
+          flush=True)
+    return ef
+
+
 def main(args=None):
     """Run the CLI on `args` (default: sys.argv[1:]); returns the
-    spun WheelSpinner."""
+    spun WheelSpinner (the ExtensiveForm under --EF)."""
     argv = list(sys.argv[1:] if args is None else args)
     module_name = None
     for i, a in enumerate(argv):
@@ -288,6 +310,9 @@ def main(args=None):
         sys.path.insert(0, ".")
     module = importlib.import_module(module_name)
     cfg = _parse_args(module, argv)
+    if cfg.get("EF"):
+        return _do_EF(cfg, module)
+    _dispatch.from_cfg(cfg)
     hub, spokes, names, specs, _ = build_wheel(cfg, module)
     return _spin_and_report(cfg, module, hub, spokes, names, specs)
 

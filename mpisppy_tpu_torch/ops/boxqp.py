@@ -154,6 +154,35 @@ def dual_objective(p: BoxQP, x: Tensor, y: Tensor) -> Tensor:
     return -quad - torch.sum(ycontrib, dim=-1) + torch.sum(rccontrib, dim=-1)
 
 
+def certified_dual_bound(p: BoxQP, x: Tensor, y: Tensor) -> Tensor:
+    """A VALID lower bound on the optimal value from ANY iterates (x, y)
+    — the bound branch-and-bound pruning relies on (ops/bnb.py).
+
+    Unlike dual_objective (PDLP accounting: adverse pairings with an
+    infinite bound are zeroed and charged to the dual residual):
+
+      * y is first PROJECTED onto the dual-sign cone of one-sided rows
+        (y_i >= 0 where bl_i = -inf, y_i <= 0 where bu_i = +inf; SOC
+        blocks onto the polar cone) — any y there gives a valid bound;
+      * a reduced cost pairing adversely with an infinite box bound
+        sends the bound to -inf, the honest value of the inner inf.
+
+    For convex QPs this is the gradient-linearization dual
+        f(z) >= -1/2 x'Qx - g*(y) + inf_{l<=z<=u} (c + Qx + A'y)'z ."""
+    if p.cones is not None:
+        y = cones_mod.project_polar_rows(p.cones, y)
+    zero = torch.zeros_like(y)
+    yp = torch.where(torch.isfinite(p.bu), y, torch.minimum(y, zero))
+    yp = torch.where(torch.isfinite(p.bl), yp, torch.maximum(yp, zero))
+    gstar = torch.where(yp > 0.0, p.bu * yp, p.bl * yp)
+    gstar = torch.where(yp == 0.0, zero, gstar)  # guard 0 * inf
+    rc = p.c + p.q * x + p.rmatvec(yp)
+    inf_j = torch.where(rc > 0.0, p.l * rc, p.u * rc)
+    inf_j = torch.where(rc == 0.0, torch.zeros_like(inf_j), inf_j)
+    quad = 0.5 * torch.sum(p.q * x * x, dim=-1)
+    return -quad - torch.sum(gstar, dim=-1) + torch.sum(inf_j, dim=-1)
+
+
 def primal_residual(p: BoxQP, x: Tensor) -> Tensor:
     """Per-row distance of Ax from the row set: [bl, bu] on box rows,
     the shifted cone b + K on SOC blocks (rowwise |ax - Proj(ax)|);

@@ -44,10 +44,12 @@ import functools
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
 
+from mpisppy_tpu_torch.dispatch import compilewatch
 from mpisppy_tpu_torch.ops import cones as cones_mod
 from mpisppy_tpu_torch.ops.boxqp import BoxQP, as_precision
 
@@ -209,9 +211,12 @@ def _library():
     global _lib
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
     if _stale():
         build()
     lib = ctypes.CDLL(str(LIBRARY))
+    # the first build/load is this process's "compile" of the kernels
+    compilewatch.record(time.perf_counter() - t0)
     fn = lib.pdhg_window_launch
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     U, F = ctypes.c_uint, ctypes.c_float

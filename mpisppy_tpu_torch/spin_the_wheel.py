@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
 
 
@@ -51,7 +52,12 @@ class WheelSpinner:
         finalize (ref:spin_the_wheel.py:43-149 run())."""
         self.build()
         global_toc("Starting wheel spin", False)
-        self.spcomm.main()
+        try:
+            self.spcomm.main()
+        finally:
+            # the run is over: a later wheel (or bare scheduler use) on
+            # this thread must not inherit its dispatch session token
+            _dispatch.clear_session_context()
         self.spcomm.send_terminate()
         self.spcomm.finalize()
         self.spcomm.hub_finalize()

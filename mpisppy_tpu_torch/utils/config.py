@@ -193,6 +193,51 @@ class Config:
                            "torch device of the run: cuda (the default; "
                            "raises without CUDA) or cpu", str, "cuda")
 
+    def dispatch_args(self):
+        """Dispatch-scheduler knobs (dispatch/scheduler.py): the
+        coalescing queue, the bounded in-flight pipeline, the
+        shape-bucket discipline and the fault domain every MIP solve
+        rides through."""
+        self.add_to_config("dispatch_coalesce",
+                           "aggregate concurrent same-shape solves "
+                           "into megabatch dispatches", bool, True)
+        self.add_to_config("dispatch_max_batch",
+                           "lane cap per coalesced megabatch dispatch",
+                           int, 4096)
+        self.add_to_config("dispatch_max_wait_ms",
+                           "admission window (ms) a queued solve may "
+                           "wait for coalescence", float, 2.0)
+        self.add_to_config("dispatch_max_inflight",
+                           "outstanding device dispatches before "
+                           "submitters block (2 = double buffer)",
+                           int, 2)
+        self.add_to_config("dispatch_pad",
+                           "pad megabatches up the geometric bucket "
+                           "ladder", bool, True)
+        self.add_to_config("dispatch_bucket_growth",
+                           "geometric growth factor of the batch "
+                           "bucket ladder", float, 2.0)
+        self.add_to_config("dispatch_compile_guard",
+                           "raise on a compile event against an "
+                           "already-warm shape signature", bool, False)
+        self.add_to_config("dispatch_timeout_s",
+                           "per-attempt megabatch dispatch timeout: a "
+                           "hung dispatch is abandoned and retried "
+                           "after this many seconds (off when unset)",
+                           float, None)
+        self.add_to_config("dispatch_retry_max",
+                           "retries (with exponential backoff) before "
+                           "a failing megabatch is bisected to isolate "
+                           "and quarantine the poison request(s)",
+                           int, 2)
+        self.add_to_config("dispatch_retry_backoff_s",
+                           "base retry backoff, doubled per retry",
+                           float, 0.05)
+        self.add_to_config("dispatch_deadline_s",
+                           "default per-ticket deadline: result() can "
+                           "never block longer; expiry raises a typed "
+                           "SolveFailed (off when unset)", float, None)
+
     def checker(self):
         """Cross-option validation (ref:config.py:143-157)."""
         if self.get("smoothed") and self.get("defaultPHp", 0.0) < 0:

@@ -3,9 +3,12 @@
 # tests/test_config_cli.py::test_cli_end_to_end run on the CPU
 # (`--device cpu`) in a subprocess, with the same asserts on the last
 # JSON line (rel_gap <= 0.01, the inner bound within 5e-3 of the farmer
-# EF value -108390).  A flag of the JAX package's CLI that the port does
-# not implement exits non-zero naming its ROADMAP.md queue item, and the
-# default device is CUDA, which raises without a card.
+# EF value -108390).  --EF prints the JAX CLI's EF objective (to 1e-4);
+# the --dispatch-* group configures the scheduler as the JAX CLI's does,
+# and the final line's dispatch counters are the scheduler's.  A flag of
+# the JAX package's CLI that the port does not implement exits non-zero
+# naming its ROADMAP.md queue item, and the default device is CUDA,
+# which raises without a card.
 import json
 import math
 import os
@@ -45,8 +48,8 @@ def test_cli_end_to_end(extra):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--EF"], 6), (["--async-staleness", "1"], 6), (["--aph-hub"], 6),
-    (["--dispatch-coalesce"], 5), (["--dispatch-max-batch=8"], 5),
+    (["--subgradient"], 6), (["--async-staleness", "1"], 6), (["--aph-hub"], 6),
+    (["--lshaped-hub"], 6), (["--rho-file-in=r.csv"], 8),
     (["--grad-rho"], 8), (["--scenarios-per-bundle", "2"], 8),
     (["--trace-jsonl", "t.jsonl"], 10), (["--kernel-counters"], 10),
     (["--checkpoint-path", "ck"], 11), (["--lane-guard"], 11)])
@@ -85,9 +88,9 @@ def test_uc_module_runs_with_fwph():
 
 
 def test_unported_flag_exits_nonzero():
-    out = _run_cli(FARMER + ["--device", "cpu", "--EF"], timeout=120)
+    out = _run_cli(FARMER + ["--device", "cpu", "--aph-hub"], timeout=120)
     assert out.returncode != 0
-    assert "--EF" in out.stderr and "queue A, item 6" in out.stderr
+    assert "--aph-hub" in out.stderr and "queue A, item 6" in out.stderr
     assert out.stdout.strip() == ""
 
 
@@ -138,3 +141,55 @@ def test_solution_base_name_writes_the_first_stage(tmp_path):
     assert [ln.split(",")[0] for ln in lines] == ["x0", "x1", "x2"]
     acres = [float(ln.split(",")[1]) for ln in lines]
     assert sum(acres) == pytest.approx(500.0, rel=1e-3)
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_ef_flag_matches_the_jax_cli(capsys):
+    """--EF solves the extensive form as one LP and prints
+    {"EF_objective", "converged"}, as the JAX CLI does."""
+    from mpisppy_tpu import generic_cylinders as jgc
+    ef_args = ["--num-scens", "3", "--EF"]
+    jgc.main(["--module-name", "mpisppy_tpu.models.farmer"] + ef_args)
+    jax_out = _last_json(capsys)
+    gc.main(["--module-name", "mpisppy_tpu_torch.models.farmer",
+             "--device", "cpu"] + ef_args)
+    out = _last_json(capsys)
+    assert set(out) == set(jax_out) == {"EF_objective", "converged"}
+    assert out["converged"] and jax_out["converged"]
+    assert out["EF_objective"] == pytest.approx(jax_out["EF_objective"],
+                                                rel=1e-4)
+    assert out["EF_objective"] == pytest.approx(-108390.0, rel=1e-4)
+
+
+def test_dispatch_flags_configure_the_scheduler(capsys, monkeypatch):
+    """The --dispatch-* group builds the scheduler the JAX CLI builds from
+    the same flags, and the final line's counters come from it."""
+    import dataclasses
+
+    from mpisppy_tpu import dispatch as jdispatch
+    from mpisppy_tpu.utils.config import Config as JConfig
+    from mpisppy_tpu_torch import dispatch
+    flags = ["--dispatch-max-batch", "64", "--dispatch-timeout-s", "30",
+             "--dispatch-coalesce", "false", "--dispatch-retry-max", "3",
+             "--dispatch-bucket-growth", "1.5"]
+    jcfg = JConfig()
+    jcfg.dispatch_args()
+    jcfg.parse_command_line("t", flags)
+    try:
+        jopts = dataclasses.asdict(jdispatch.from_cfg(jcfg).options)
+    finally:
+        jdispatch.configure()
+    monkeypatch.setattr(dispatch, "scheduler_stats", lambda: {
+        "batches": 0, "retries_total": 5, "quarantined_lanes": 7})
+    try:
+        gc.main(FARMER + ["--device", "cpu", "--fused-wheel"] + flags)
+        assert dataclasses.asdict(dispatch.get_scheduler().options) == jopts
+    finally:
+        dispatch.configure()
+    out = _last_json(capsys)
+    assert out["dispatch_retries"] == 5
+    assert out["dispatch_quarantined_lanes"] == 7
+    assert out["rel_gap"] <= 0.01

@@ -586,3 +586,69 @@ def test_kernel_matches_plain_with_presolved_bounds(cuda, precision, tol):
     torch.cuda.synchronize()
     for a, b in zip(k, r):
         assert bool(torch.all((a - b).abs() <= tol + tol * b.abs()))
+
+
+def _bnb_node_qp(device, S=24):
+    """Branch-and-bound node operands on the sslp 5x15 integer batch:
+    every lane's root integer box, with lane s's first s integer columns
+    fixed at 0 or 1 (l == u) and lane 1's first column emptied (l > u,
+    a node whose branch emptied a box: the kernel's clip gives u there,
+    as jnp.clip does)."""
+    from mpisppy_tpu_torch.ops import bnb
+    inst = sslp.synthetic_instance(5, 15, seed=0)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=S)
+             for nm in sslp.scenario_names_creator(S)]
+    batch = batch_mod.from_specs(specs, device=device)
+    ic = torch.nonzero(batch.integer_full)[:, 0]
+    lo, hi = (torch.as_tensor(v, device=device) for v in
+              bnb._root_bounds(batch.qp, batch.d_col, ic.cpu().numpy()))
+    for s in range(S):
+        lo[s, :s] = hi[s, :s] = float(s % 2)
+    lo[1, 0], hi[1, 0] = 1.0, 0.0
+    return bnb._node_qp(batch.qp, batch.d_col, ic, lo, hi), ic
+
+
+@pytest.mark.parametrize("precision,tol", [(None, 1e-4), ("bf16x3", 1e-3)])
+def test_kernel_matches_plain_on_bnb_node_operands(cuda, precision, tol):
+    """The box kernel on B&B node operands (per-lane fixed columns, an
+    emptied box, done lanes, warm state) against its plain version."""
+    qp, ic = _bnb_node_qp(cuda)
+    args = _solver_args(qp)
+    k = pdhg_window.run_window(*args, precision=precision)
+    r = pdhg_window.run_window_reference(*args, precision=precision)
+    torch.cuda.synchronize()
+    for a, b in zip(k, r):
+        assert bool(torch.all((a - b).abs() <= tol + tol * b.abs()))
+    done = args[7]
+    assert torch.equal(k[0][done], args[1][done])
+    col = int(ic[0])
+    assert float(k[0][1, col]) == float(qp.u[1, col])      # clip gives u
+
+
+def test_solve_mip_on_the_card_matches_the_cpu(cuda):
+    """The Lagrangian sslp MIPs through the scheduler on the card: node
+    LPs launch the box kernel, and the certified brackets overlap the
+    CPU run's."""
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.algos import mip
+    from mpisppy_tpu_torch.ops.bnb import BnBOptions
+    opts = BnBOptions(pool_size=8, max_rounds=20, dive_rounds=4,
+                      dive_tail=8, pump_rounds=0)
+    inst = sslp.synthetic_instance(3, 6, seed=4)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=3)
+             for nm in sslp.scenario_names_creator(3)]
+    out = {}
+    for dev in (cuda, "cpu"):
+        batch = batch_mod.from_specs(specs, device=dev)
+        before = pdhg_window.run_window.launches["pdhg_window"]
+        W = torch.zeros((3, batch.num_nonants), device=dev)
+        out[str(dev)] = (mip.lagrangian_mip_bound(batch, W, opts)["result"],
+                         pdhg_window.run_window.launches["pdhg_window"]
+                         - before)
+    dispatch.configure()
+    (g, g_launch), (c, c_launch) = out["cuda"], out["cpu"]
+    assert g_launch > 0 and c_launch == 0
+    assert torch.equal(g.feasible.cpu(), c.feasible)
+    scale = 1.0 + c.inner.abs()
+    assert bool(torch.all(g.outer.cpu() <= c.inner + 1e-3 * scale))
+    assert bool(torch.all(c.outer <= g.inner.cpu() + 1e-3 * scale))

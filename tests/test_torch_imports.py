@@ -63,7 +63,14 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/ops/fbbt.py",
                  "mpisppy_tpu_torch/algos/fwph.py",
                  "mpisppy_tpu_torch/models/uc.py",
-                 "mpisppy_tpu_torch/extensions/rho_setters.py", *PORT_TOOLS):
+                 "mpisppy_tpu_torch/extensions/rho_setters.py",
+                 "mpisppy_tpu_torch/ops/bnb.py",
+                 "mpisppy_tpu_torch/algos/mip.py",
+                 "mpisppy_tpu_torch/algos/ef.py",
+                 "mpisppy_tpu_torch/dispatch/__init__.py",
+                 "mpisppy_tpu_torch/dispatch/buckets.py",
+                 "mpisppy_tpu_torch/dispatch/compilewatch.py",
+                 "mpisppy_tpu_torch/dispatch/scheduler.py", *PORT_TOOLS):
         assert must in names
 
 
