@@ -50,7 +50,7 @@ nvcc per source, started together) and drives its main paths:
   iterations with a short profile;
 * the CLI — generic_cylinders.main in this process, as
   `python -m mpisppy_tpu_torch` runs it: the README's sslp command
-  without --presolve (cut to 3 hub iterations) and with it (cut to 10)
+  without --presolve (cut to 3 hub iterations) and with it (cut to 5)
   against the JAX package's bounds for each, the box kernel against its plain
   version on the presolved batch's per-scenario bounds, the sslp 15x45
   headline at 10,000 scenarios with all four fusable spokes in bf16x3
@@ -66,6 +66,21 @@ nvcc per source, started together) and drives its main paths:
   shapes against scipy's MILP, the dispatch scheduler (a padded solve
   against the direct one, decomposition_bnb's node fan-out, the CLI's
   --dispatch-* flags), and the CLI's --EF against the JAX CLI;
+* the decomposition hubs and bound spokes — one window of each new batch
+  shape against its plain version with its route (L-shaped's
+  fixed-nonant subproblems, the single- and multi-cut L-shaped masters
+  as one problem on the streamed design from a mid-solve state that the
+  window moves, APH's prox batch, all at 1,000 scenarios, and the
+  cross-scenario PH and EF views with a round of cuts installed), then
+  through the CLI at sslp 15x45: the L-shaped hub with the x̂-L-shaped
+  spoke and its windows per Benders iteration at 1,000 scenarios, the
+  APH hub in bf16x3 with half the scenarios dispatched at 10,000 and at
+  100, a PH hub with the subgradient, Lagranger, PH-OB and reduced-costs
+  outer bounds at 1,000, cross-scenario cuts on sslp 5x15 with the
+  augmented batch's route, each against the JAX CLI, ccopf (3,3)
+  --fused-wheel --xhatxbar with the root-fixed EF on the SOC kernel
+  (its window then held against its plain version), and the
+  Schur-complement interior point in f64 against HiGHS;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -78,7 +93,11 @@ wheel at 10,000 scenarios capped at 3 hub iterations) runs that profile
 phase alone (to profile another tree's package with it); `--only
 uc_wheel_full` runs the uc wheel to its 1% certificate (at most 600 hub
 iterations); `--only mip` runs the exact-MIP phases and `--only mip_gap`
-the [mip_gap] phase alone.
+the [mip_gap] phase alone; `--only slice9_profile` profiles the L-shaped
+and APH hubs, and `--only lshaped_hub` (or aph_hub, bound_spokes,
+cross_scen, cli_ccopf_fused, sc, slice9_windows, or several of these
+names joined by commas) runs those phases, with `--full` at the depths
+PERF.md reports (~24 min for the four hub phases).
 """
 import json
 import math
@@ -152,17 +171,18 @@ README_SSLP = ["--module-name", "mpisppy_tpu_torch.models.sslp",
 # cut: the README command's 100 hub iterations take ~550 s on an H100 (a
 # to-tolerance solve per spoke and sync) and, in the JAX package too,
 # end at rel_gap 0.416 (rho 1).  Without --presolve it runs 3 hub
-# iterations (the same command with --presolve runs 10 below)
+# iterations (the same command with --presolve runs 5 below)
 CLI_README = README_SSLP + ["--max-iterations", "3"]
 # the JAX package's CLI on the CPU, the same command (python -m
 # mpisppy_tpu --module-name mpisppy_tpu.models.sslp ... --max-iterations
 # 3): (outer, inner); the port's must agree to 1e-3 relative
 CLI_README_JAX_BOUNDS = (-216.85543823242188, -149.89996337890625)
-# the README command as it is (with --presolve: FBBT) cut to 10 hub
-# iterations: the JAX package's CLI on the CPU, the same command, gives
-# (outer, inner); the port's must agree to 1e-4 relative
-CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "10"]
-CLI_README_PRESOLVE_JAX_BOUNDS = (-216.44839477539062, -149.89996337890625)
+# the README command as it is (with --presolve: FBBT) cut to 5 hub
+# iterations (at 10 the JAX CLI gives -216.44839/-149.89996): the JAX
+# package's CLI on the CPU, the same command, gives (outer, inner); the
+# port's must agree to 1e-4 relative
+CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "5"]
+CLI_README_PRESOLVE_JAX_BOUNDS = (-216.73626708984375, -149.89996337890625)
 # the power iteration's ||A|| estimate of farmer S=3 (Ruiz-scaled), the
 # JAX package's (mpisppy_tpu.ops.pdhg.estimate_norm on the CPU, from
 # jax.random.normal(PRNGKey(7))); the port's must agree to 1e-5 relative
@@ -175,26 +195,27 @@ UC_SCENS = 100
 ELL_SCENS = (100, 1_000, 10_000)
 # batch sizes at which the two forms of the ELL products are timed
 ELL_PRODUCT_SCENS = (100, 300, 1_000, 3_000, 10_000)
-# cut from 25 (PR 7) to 10 hub iterations to make room for the MIP
-# phases: the FWPH outer bound has landed by then in both packages
-UC_WHEEL_HUB_ITERS = 10
+# cut from 25 to 10 hub iterations for the MIP phases and to 5 for the
+# decomposition hubs': the FWPH outer bound has landed by then in both
+# packages
+UC_WHEEL_HUB_ITERS = 5
 UC_FULL_MAX_ITERS = 600
-UC_FWPH_OUTER_ITERS = 5
+UC_FWPH_OUTER_ITERS = 3                 # cut from 5 like the wheel
 UC_PROGRAM_SCENS = 10_000
 UC_PROGRAM_HUB_ITERS = 3
-# the JAX package on the CPU (tools/uc_jax_reference.py 100 10 5; with
-# 25 hub iterations the same outer bound): the
+# the JAX package on the CPU (tools/uc_jax_reference.py 100 5 3; with
+# 10 and 25 hub iterations the same outer bound): the
 # outer bound of [uc_wheel] (its inner bound has not landed by then, in
 # either package) and the certified outer bound of [uc_fwph_hub]; the
 # port's must agree to 1e-3 relative
 UC_WHEEL_JAX_OUTER = 589529.1875
-UC_FWPH_HUB_JAX_OUTER = 589618.25
+UC_FWPH_HUB_JAX_OUTER = 589529.4375     # 589618.25 at 5
 # the uc model through the CLI with flags the JAX CLI takes for the same
 # run (python -m mpisppy_tpu --module-name mpisppy_tpu.models.uc ...)
 CLI_UC = ["--module-name", "mpisppy_tpu_torch.models.uc",
           "--num-scens", str(UC_SCENS), "--fused-wheel", "--lagrangian",
           "--xhatxbar", "--slammax", "--fwph", "--rel-gap", "0.01",
-          "--max-iterations", "5"]
+          "--max-iterations", "3"]             # cut from 5
 CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
                 "--n-servers", str(SSLP_SERVERS), "--n-clients",
                 str(SSLP_CLIENTS), "--num-scens", str(HEADLINE_SCENS),
@@ -211,7 +232,8 @@ CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
 MIP_SCENS = 1_000                     # [bnb_operands], [mip_lagrangian]
 MIP_RHO = 10.0                        # tests/test_mip_bnb.py's PH rho
 MIP_LAG_PH_ITERS = 20                 # the short LP PH run giving W
-MIP_LAG_MAX_ROUNDS = 60               # the capped B&B of [mip_lagrangian]
+MIP_LAG_MAX_ROUNDS = 20               # the capped B&B of [mip_lagrangian]
+#                                       (cut from 60)
 MIP_LAG_PUMP_ROUNDS = 5
 MIP_PROFILE_ROUNDS = 5                # B&B rounds under the profiler
 # every node LP of the capped MIP phases stops at 2,000 iterations (50
@@ -231,12 +253,15 @@ MIP_LP_SLACK = 1e-3
 # [mip_gap]: certified_mip_gap at SIPLIB sslp_15_45_10's dimensions
 # (synthetic data, instance seed 0) with these budgets, and the JAX
 # package's bracket for the same run on the CPU
-# (tools/mip_jax_reference.py 10): (inner, outer)
+# (tools/mip_jax_reference.py 10 3): (inner, outer).  Cut from 10 B&B
+# rounds to 3 and from 30 PH iterations to 10 to make room for the
+# decomposition hubs' phases (before, the JAX bracket was
+# 4826.35/-310.15)
 MIP_GAP_SCENS = 10
-MIP_GAP_PH_ITERS = 30
-MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 10, 32, 4
+MIP_GAP_PH_ITERS = 10
+MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 3, 32, 4
 MIP_GAP_DIVE_TAIL, MIP_GAP_PUMP_ROUNDS = 16, 2
-MIP_GAP_JAX = (4826.35498046875, -310.1488952636719)
+MIP_GAP_JAX = (4826.34375, -322.95477294921875)
 # the CLI's --EF on farmer, and the JAX CLI's EF objective for the same
 # command on the CPU (tools/mip_jax_reference.py)
 CLI_EF = ["--module-name", "mpisppy_tpu_torch.models.farmer",
@@ -249,6 +274,106 @@ CLI_DISPATCH = ["--module-name", "mpisppy_tpu_torch.models.farmer",
                 "--xhatxbar", "--rel-gap", "0.01", "--max-iterations", "10",
                 "--dispatch-max-batch", "64", "--dispatch-timeout-s", "600"]
 
+
+# slice 9: the decomposition hubs and bound spokes, each through the CLI
+# in this process: sslp 15x45 (the headline's width) LP relaxation
+# unless stated, each held to the JAX package's CLI on the CPU with the
+# same flags (1e-3 relative), where the JAX CLI runs in minutes: at
+# S=1,000 for the L-shaped hub and the bound spokes, at S=100 beside the
+# APH hub's S=10,000 run.  The default run keeps the depths short (PERF.md
+# §4 lists each cut); `--full` runs the depths PERF.md reports (~24 min).
+SSLP_15_45 = ["--module-name", "mpisppy_tpu_torch.models.sslp",
+              "--n-servers", str(SSLP_SERVERS), "--n-clients",
+              str(SSLP_CLIENTS), "--sslp-lp-relax", "--rel-gap", "0.01"]
+LSHAPED_FLAGS = ["--lshaped-hub", "--xhatlshaped"]
+# APH as the hub with sslp_options' rho, half the scenarios dispatched
+# per iteration, the classic Lagrangian and x̂-x̄ spokes
+APH_FLAGS = ["--default-rho", "20", "--aph-hub", "--aph-dispatch-frac",
+             "0.5", "--lagrangian", "--xhatxbar"]
+# bf16x3 (K2) as the headline, at PDHG tol 1e-5: bf16x3 solves certify
+# there and stall short of 1e-6, where the classic x̂-x̄ spoke's
+# evaluations never finish (no inner bound in 30 iterations at S=10,000);
+# the JAX CLI takes the flags, and its CPU backend runs the products in
+# f32
+APH_BF16X3 = ["--iter-precision", "bf16x3", "--pdhg-tol", "1e-5"]
+BOUND_SPOKE_FLAGS = ["--default-rho", "20", "--subgradient", "--lagranger",
+                     "--ph-ob", "--reduced-costs", "--xhatxbar"]
+# sslp 5x15 at S=100: the PH view grows rounds of 100 cut rows under 20
+CROSS_SCEN = ["--module-name", "mpisppy_tpu_torch.models.sslp",
+              "--n-servers", "5", "--n-clients", "15", "--num-scens", "100",
+              "--sslp-lp-relax", "--rel-gap", "0.01", "--default-rho", "20",
+              "--cross-scenario-cuts", "--lagrangian", "--xhatshuffle"]
+# the L-shaped and APH batch sizes of the CLI runs, [slice9_windows] and
+# the profile; the bound spokes run at LSHAPED_SCENS too
+LSHAPED_SCENS = 1_000
+APH_SCENS = 10_000
+# the JAX CLI's (outer, inner) for [bound_spokes] at LSHAPED_SCENS, 2
+# iterations (4.0 min on the CPU)
+BOUND_SPOKES_JAX = (-302.0449523925781, -276.5506286621094)
+
+
+def sslp_cli(S, *flags):
+    return SSLP_15_45 + ["--num-scens", str(S), *flags]
+
+
+def slice9_table(full=False):
+    """phase -> [(label, CLI args, the JAX CLI's (outer, inner) or
+    None)] at the default run's depths, or with `full` at PERF.md's.  A
+    None bound: the JAX CLI publishes none at that depth."""
+    def d(short, long):
+        return long if full else short
+    return {
+        # the subproblems detect infeasibility and may run 100,000 PDHG
+        # iterations (2,500 windows) in each Benders iteration; the JAX
+        # CLI's one at S=1,000 takes 3.5 min on the CPU and publishes no
+        # inner bound, its 10 at S=100 take 3.4 min
+        "lshaped_hub": [
+            ("lshaped_hub", sslp_cli(LSHAPED_SCENS, *LSHAPED_FLAGS,
+                                     "--lshaped-max-iter", d("1", "3")),
+             d((-326.3166809082031, None), None)),
+            *d([], [("lshaped_hub_100", sslp_cli(
+                100, *LSHAPED_FLAGS, "--lshaped-max-iter", "10"),
+                (-318.86767578125, -263.0153987079396))])],
+        # the headline's size; the JAX CLI's 30 at S=100 in f32 take 9.7
+        # min on the CPU
+        "aph_hub": [
+            ("aph_hub", sslp_cli(APH_SCENS, *APH_FLAGS,
+                                 *d(APH_BF16X3, APH_BF16X3[:2]),
+                                 "--max-iterations", d("2", "30")), None),
+            ("aph_hub_100", sslp_cli(100, *APH_FLAGS, *d(APH_BF16X3, []),
+                                     "--max-iterations", d("3", "30")),
+             d((-317.73504638671875, -284.2300720214844),
+               (-316.54156494140625, -284.23101806640625)))],
+        "bound_spokes": [
+            ("bound_spokes", sslp_cli(LSHAPED_SCENS, *BOUND_SPOKE_FLAGS,
+                                      "--max-iterations", d("2", "10")),
+             d(BOUND_SPOKES_JAX, None)),
+            *d([], [("bound_spokes_100", sslp_cli(
+                100, *BOUND_SPOKE_FLAGS, "--max-iterations", "10"),
+                (-302.9385070800781, -284.1163024902344))])],
+        # one iteration by default: the cuts generated after iter0 are
+        # installed at the next sync, and the final EF check runs over
+        # them
+        "cross_scen": [("cross_scen", CROSS_SCEN + d(
+            ["--cross-scenario-iter-cnt", "1", "--max-iterations", "1"],
+            ["--max-iterations", "10"]),
+            d((-103.318603515625, -86.65963745117188),
+              (-96.95027923583984, -87.26406860351562)))],
+    }
+
+
+# [cli_ccopf_fused]: ccopf (3,3) --soc through --fused-wheel --xhatxbar,
+# whose x̄ spoke is EFXhatInnerBound on a three-stage tree (the JAX CLI,
+# same flags: 2 hub iterations)
+CLI_CCOPF_FUSED = ["--module-name", "mpisppy_tpu_torch.models.ccopf",
+                   "--branching-factors", "3", "3", "--soc", "--lagrangian",
+                   "--xhatxbar", "--fused-wheel", "--max-iterations", "20"]
+CLI_CCOPF_FUSED_JAX_BOUNDS = (71.77212524414062, 71.77219394929853)
+# [sc]: the Schur-complement interior point on sslp 5x15 LP relaxation
+# at S=100, in f64 on the card, against scipy HiGHS on algos/ef.py's EF
+SC_SCENS = 100
+SC_TOL = 1e-12
+SC_REL_TOL = 1e-6
 
 def phase(name, **fields):
     parts = " ".join(f"{k}={v}" for k, v in fields.items())
@@ -289,10 +414,11 @@ def ccopf_batch(bfs, device, n_buses=4):
     return b
 
 
-def window_inputs(batch, seed=0):
+def window_inputs(batch, seed=0, done_every=7):
     """A mid-solve window input at the batch's shapes: two cold windows
     from init_state (through the kernel), per-scenario step sizes from
-    the solver's omega/Lnorm, every 7th lane done."""
+    the solver's omega/Lnorm, every `done_every`-th lane done (none for
+    0)."""
     import dataclasses
 
     from mpisppy_tpu_torch.ops import pdhg
@@ -306,7 +432,8 @@ def window_inputs(batch, seed=0):
     tau = opts.step_margin * st.omega / st.Lnorm
     sigma = opts.step_margin / (st.omega * st.Lnorm)
     done = torch.zeros_like(st.done)
-    done[::7] = True
+    if done_every:
+        done[::done_every] = True
     return (batch.qp, st.x, st.y, st.x_sum, st.y_sum, tau, sigma, done,
             N_ITERS)
 
@@ -786,12 +913,13 @@ def sslp_path(dev):
     tail = sslp_batch(TAIL_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
     tail_args = window_inputs(tail, seed=1)[:8] + (TAIL_ITERS,)
     del tail
-    errs = {}
+    errs, streamed_errs = {}, {}
     for mode in ("f32", "bf16x3"):
         errs[mode] = parity(args, mode, "parity", HEADLINE_SCENS,
                             design="resident")[0]
         parity(tail_args, mode, "parity", TAIL_SCENS, design="resident")
-        parity(args, mode, "parity", HEADLINE_SCENS, design="streamed")
+        streamed_errs[mode] = parity(args, mode, "parity", HEADLINE_SCENS,
+                                     design="streamed")[0]
     mma_accumulation(batch.qp)
     timing = window_times(args, "window_time", SWEEP_SCENS, DESIGNS)
     timing.update(time_designs(tail_args, "window_time", DESIGNS, reps=20,
@@ -815,7 +943,16 @@ def sslp_path(dev):
                          by_design[f"pdhg_window/{mode}/resident"],
                          errs[mode], timing[HEADLINE_SCENS, mode, "resident"])
             for name, mode, line in (("pdhg_window", "bf16x3", 663),
-                                     ("pdhg_window_f32", "f32", 491))]
+                                     ("pdhg_window_f32", "f32", 491))] + [
+        # the streamed box design (batches past the resident rows: the
+        # L-shaped master, the cross-scenario PH view), timed in f32
+        kernel_entry("pdhg_window_streamed", STREAMED_SOURCE,
+                     "mpisppy_tpu/ops/pdhg_pallas.py:491",
+                     sum(v for k, v in by_design.items()
+                         if k.startswith("pdhg_window/")
+                         and k.endswith("/streamed")),
+                     streamed_errs["f32"],
+                     timing[HEADLINE_SCENS, "f32", "streamed"])]
 
 
 def soc_parity(args, mode, S, qp, design=None, **extra):
@@ -872,12 +1009,13 @@ def ccopf_path(dev):
              for s_ in (S, TAIL_SCENS)}
     phase("ccopf_plan", **{f"S{k}": f"{v.design}/T{v.tile}/blocks{v.blocks}"
                            for k, v in plans.items()})
-    errs = {}
+    errs, streamed_errs = {}, {}
     for mode in ("f32", "bf16x3"):
         errs[mode] = soc_parity(args, mode, S, batch.qp, model="ccopf_soc")
         soc_parity(tail_args, mode, TAIL_SCENS, tail.qp, model="ccopf_soc")
-        soc_parity(args, mode, S, batch.qp, design="streamed",
-                   model="ccopf_soc")
+        streamed_errs[mode] = soc_parity(args, mode, S, batch.qp,
+                                         design="streamed",
+                                         model="ccopf_soc")
     wide = ccopf_batch((WIDE_SCENS, 1), dev, n_buses=WIDE_FEEDER_BUSES)
     soc_parity(window_inputs(wide, seed=2), "f32", WIDE_SCENS, wide.qp,
                design="streamed", model=f"ccopf_soc_{WIDE_FEEDER_BUSES}bus",
@@ -908,10 +1046,18 @@ def ccopf_path(dev):
     if nodes != batch.tree.num_nodes or rel > 1e-3:
         raise AssertionError("ccopf_soc: not one best_nonants row per tree "
                              "node, or bounds off the JAX reference")
-    return kernel_entry("pdhg_window_soc", CONES_SOURCE,
-                        "mpisppy_tpu/ops/pdhg_pallas.py:192",
-                        by_design["pdhg_window_soc/f32/resident"],
-                        errs["f32"], timing[S, "f32", "resident"])
+    return [kernel_entry("pdhg_window_soc", CONES_SOURCE,
+                         "mpisppy_tpu/ops/pdhg_pallas.py:192",
+                         by_design["pdhg_window_soc/f32/resident"],
+                         errs["f32"], timing[S, "f32", "resident"]),
+            # the streamed SOC design (conic batches no resident tile
+            # takes: the 33-bus feeder, the root-fixed ccopf EF)
+            kernel_entry("pdhg_window_soc_streamed", STREAMED_SOURCE,
+                         "mpisppy_tpu/ops/pdhg_pallas.py:192",
+                         sum(v for k, v in by_design.items()
+                             if k.startswith("pdhg_window_soc/")
+                             and k.endswith("/streamed")),
+                         streamed_errs["f32"], timing[S, "f32", "streamed"])]
 
 
 def counting_plain_windows(fn):
@@ -1048,11 +1194,11 @@ def farmer_path(dev):
         raise AssertionError("farmer_wheel: no 1% certificate at S=10,000")
 
 
-def cli_run(label, args, box_kernel=True):
+def cli_run(label, args, box_kernel=True, kernel="pdhg_window"):
     """generic_cylinders.main(args) in this process, on the card, with
-    the launch counts set to 0 just before and read just after: the box
-    kernel must have launched (box_kernel), or no window kernel at all
-    (an ELL batch).  The CLI's own JSON result line is captured and
+    the launch counts set to 0 just before and read just after: the
+    window kernel `kernel` (the box rows' by default) must have launched
+    (box_kernel), or no window kernel at all (an ELL batch).  The CLI's own JSON result line is captured and
     printed as fields of this phase's line.  Returns (its JSON result,
     launches by instantiation, launches by design, the spinner)."""
     import contextlib
@@ -1074,11 +1220,11 @@ def cli_run(label, args, box_kernel=True):
           device=ws.opt.batch.device.type, hub_iters=result["iterations"],
           outer=result["outer_bound"], inner=result["inner_bound"],
           rel_gap=result["rel_gap"], wall_s=round(secs, 3),
-          kernel_launches=launches["pdhg_window"],
+          kernel_launches=launches[kernel],
           all_launches=json.dumps(launches).replace(" ", ""),
           by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
     outer, inner = result["outer_bound"], result["inner_bound"]
-    launched = launches["pdhg_window"] > 0 if box_kernel \
+    launched = launches[kernel] > 0 if box_kernel \
         else sum(launches.values()) == 0
     # a short run may end before an inner bound lands (null in the JSON)
     if ws.opt.batch.device.type != "cuda" or outer is None \
@@ -1090,11 +1236,14 @@ def cli_run(label, args, box_kernel=True):
 
 
 def vs_jax(label, result, jax_bounds, rtol):
-    """The CLI result's bounds against the JAX CLI's for the command."""
-    if result["outer_bound"] is None or result["inner_bound"] is None:
+    """The CLI result's bounds against the JAX CLI's for the command (a
+    None in `jax_bounds`: the JAX CLI published no such bound, and that
+    one is not held)."""
+    pairs = [(result[k], j) for k, j in zip(("outer_bound", "inner_bound"),
+                                            jax_bounds) if j is not None]
+    if any(r is None for r, _ in pairs):
         raise AssertionError(f"{label}: a bound is missing")
-    rel = max(abs(result[k] - j) / abs(j) for k, j in zip(
-        ("outer_bound", "inner_bound"), jax_bounds))
+    rel = max(abs(r - j) / abs(j) for r, j in pairs)
     phase(label, jax_outer=jax_bounds[0], jax_inner=jax_bounds[1],
           max_rel_diff_vs_jax=rel, tol=rtol)
     if rel > rtol:
@@ -1104,7 +1253,7 @@ def vs_jax(label, result, jax_bounds, rtol):
 def cli_path():
     """The CLI phases: the README's sslp command (classic Lagrangian and
     shuffle spokes, S=100, sslp 5x25 with integer first stage) without
-    --presolve (cut to 3 hub iterations) and with it (cut to 10), each
+    --presolve (cut to 3 hub iterations) and with it (cut to 5), each
     against the JAX
     package's bounds for the same command, and the box kernel against
     its plain version on the presolved batch (per-scenario l/u); the
@@ -1711,11 +1860,6 @@ class MipCounts:
                     .replace(" ", ""))
 
 
-def add_launches(total, counts):
-    for k, v in counts.by_design.items():
-        total[k] = total.get(k, 0) + v
-
-
 def bnb_node_args(batch, seed=0):
     """B&B node operands at the batch's shapes: the integer root box,
     lane s's first (s mod 97) integer columns fixed (l == u at 0 or 1),
@@ -2095,7 +2239,7 @@ def mip_path(dev):
     total = {}
     for run in (lambda: mip_lagrangian(dev, MIP_SCENS), lambda: mip_gap(dev),
                 lambda: mip_small(dev), lambda: dispatch_phase(dev)):
-        add_launches(total, run())
+        merge_launches(total, run().by_design)
         torch.cuda.empty_cache()
     cli_ef()
     phase("mip_path", seconds=round(time.perf_counter() - t0, 2),
@@ -2103,6 +2247,394 @@ def mip_path(dev):
           .replace(" ", ""))
     return errs, timing, total
 
+
+
+def plan_line(qp, S, mode="f32"):
+    """The design plan_window gives a window of `qp` at S scenarios
+    (the SOC layout's ints with cones), as design/tile/blocks."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    cone_ints = 0
+    if qp.cones is not None and qp.cones.num_cones > 0:
+        _, rows = qp.cones.csr(qp.device)
+        cone_ints = qp.cones.num_cones + 1 + rows.numel() + qp.m
+    plan = pdhg_window.plan_window(
+        mode, qp.m, qp.n, S, *pdhg_window.card_limits(
+            torch.cuda.current_device()), cone_ints=cone_ints)
+    return f"{plan.design}/T{plan.tile}/blocks{plan.blocks}"
+
+
+def random_state_args(qp, seed=5):
+    """Window inputs at a random mid-solve point of one problem: x
+    uniform in its box (within 1 of a finite side where the other is
+    infinite), normal duals on the rows with a finite side, no done
+    lane."""
+    from mpisppy_tpu_torch.ops import pdhg
+    opts = pdhg.PDHGOptions(restart_period=N_ITERS)
+    st = pdhg.init_state(qp, opts)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dev = qp.c.device
+
+    def draw(t, normal=False):
+        r = torch.randn if normal else torch.rand
+        return r(t.shape, generator=g).to(dev)
+    l, u = torch.broadcast_to(qp.l, st.x.shape), \
+        torch.broadcast_to(qp.u, st.x.shape)  # noqa: E741
+    lo = torch.where(torch.isfinite(l), l, torch.where(
+        torch.isfinite(u), u - 1.0, torch.zeros_like(u)))
+    hi = torch.where(torch.isfinite(u), u, lo + 1.0)
+    x = lo + (hi - lo) * draw(st.x)
+    sided = torch.isfinite(torch.broadcast_to(qp.bl, st.y.shape)) \
+        | torch.isfinite(torch.broadcast_to(qp.bu, st.y.shape))
+    y = torch.where(sided, draw(st.y, normal=True), torch.zeros_like(st.y))
+    tau = opts.step_margin * st.omega / st.Lnorm
+    sigma = opts.step_margin / (st.omega * st.Lnorm)
+    return (qp, x, y, torch.zeros_like(x), torch.zeros_like(y), tau, sigma,
+            torch.zeros_like(st.done), N_ITERS)
+
+
+def held_window(label, qp, args, soc=False, **extra):
+    """parity() of one window of a new batch shape in f32 and bf16x3 at
+    TOLS, in the design plan_window gives (printed as its route); the
+    window must move x and y (a state at a fixed point checks nothing).
+    SOC windows also keep their duals in the polar cone.  Returns
+    {mode: max_abs_err}."""
+    from mpisppy_tpu_torch.ops import cones
+    S = args[1].shape[0]
+    errs = {}
+    for mode in ("f32", "bf16x3"):
+        errs[mode], k = parity(args, mode, "slice9_windows", S, shape=label,
+                               m=qp.m, n=qp.n, route=plan_line(qp, S, mode),
+                               **extra)
+        moved_x = float((k[0] - args[1]).abs().max())
+        moved_y = float((k[1] - args[2]).abs().max())
+        dcr = float(cones.dual_cone_residual_rows(qp.cones, k[1]).max()) \
+            if soc else 0.0
+        phase("slice9_windows", shape=label, mode=mode, moved_x=moved_x,
+              moved_y=moved_y, polar_cone_residual=dcr)
+        if not (moved_x > 0.0 and moved_y > 0.0 and dcr <= POLAR_TOL):
+            raise AssertionError(f"{label}: the window left x or y where "
+                                 "it was, or duals left the polar cone")
+    return errs
+
+
+def slice9_windows(dev):
+    """[slice9_windows]: one window of each new batch shape, kernel
+    against plain version at TOLS in the design the shape rule gives, in
+    f32 and bf16x3: L-shaped's fixed-nonant subproblems (per-scenario
+    nonant boxes), the single- and multi-cut L-shaped masters (one
+    problem; cut buffers holding the cuts of one inexact round of
+    subproblem solves; from a random mid-solve state) and APH's prox
+    batch (q = rho on the nonants), at S=1,000; the cross-scenario PH
+    view (sslp's rows and 800 cut rows, of which sslp's complete
+    recourse leaves the feasibility rows empty) and EF view (cut rows
+    with the eta columns, each scenario's own eta pinned) of sslp 5x15
+    at S=100 after one round of cuts from x̂."""
+    import types
+
+    import numpy as np
+
+    from mpisppy_tpu_torch.algos import cross_scen, lshaped
+    from mpisppy_tpu_torch.ops import pdhg
+    batch = sslp_batch(LSHAPED_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    N, S = batch.num_nonants, batch.num_scenarios
+    xhat = torch.full((N,), 0.5, device=dev)
+    cut_opts = pdhg.PDHGOptions(tol=1e-6, max_iters=400, detect_infeas=True)
+    shapes = {"lshaped_subproblems": (batch.with_fixed_nonants(xhat), 7)}
+    # the cut pieces of one round of capped subproblem solves at x̂
+    res = lshaped._subproblem_cuts(batch, xhat, cut_opts)
+    g = res["g"].double().cpu().numpy()
+    alpha = res["alpha"].double().cpu().numpy()
+    dual = res["dual"].double().cpu().numpy()
+    p = batch.p.double().cpu().numpy()
+    for multicut in (False, True):
+        ls = lshaped.LShapedMethod(lshaped.LShapedOptions(
+            multicut=multicut), batch)
+        n_eta = S if multicut else 1
+        cuts_A = np.zeros((ls.options.max_cuts, N + n_eta))
+        bl = np.full(ls.options.max_cuts, -np.inf)
+        if multicut:
+            k = min(ls.options.max_cuts, S)
+            cuts_A[np.arange(k), :N] = -g[:k]
+            cuts_A[np.arange(k), N + np.arange(k)] = 1.0
+            bl[:k] = alpha[:k]
+            eta_lb = dual - 0.05 * np.abs(dual) - 1.0
+        else:
+            cuts_A[0, :N] = -(p[:, None] * g).sum(0)
+            cuts_A[0, N] = 1.0
+            bl[0] = float((p * alpha).sum())
+            ws = float((p * dual).sum())
+            eta_lb = ws - 0.05 * abs(ws) - 1.0
+        qp, _ = ls._master_qp(cuts_A, bl, np.full_like(bl, np.inf), eta_lb)
+        label = "lshaped_master_" + ("multicut" if multicut else "single")
+        shapes[label] = (qp, None)
+    rho = torch.full((S, N), 20.0, device=dev)
+    shapes["aph_prox"] = (batch.with_nonant_linear_quad(-rho * 0.5, rho), 7)
+    del batch
+    # the cross-scenario views after one round of cuts from x̂, the
+    # scenario farthest from x̄ (launch_cuts), as [cross_scen] builds them
+    cs = sslp_batch(100, 5, 15, dev)
+    meta = cross_scen.make_meta(cs, np.full(100, -1e3))
+    nonants = torch.rand((100, cs.num_nonants), generator=torch.Generator(
+        device="cpu").manual_seed(6)).to(dev)
+    cross_scen.write_cuts(meta, cross_scen.package_cuts(
+        cross_scen.launch_cuts(cs, nonants, nonants.mean(0), cut_opts),
+        cut_opts))
+    owner = torch.arange(meta.S, device=dev).repeat(meta.max_rounds)
+    shapes["cross_scen_ph_view"] = (meta.aug_ph.qp, 7)
+    shapes["cross_scen_ef_view"] = (cross_scen._ef_bound_qp(
+        meta.aug_ef, owner, torch.as_tensor(meta.is_opt, device=dev),
+        torch.as_tensor(meta.eta_lb, device=dev), meta.n_orig), 7)
+    errs = {}
+    for label, (qp, done_every) in shapes.items():
+        args = random_state_args(qp) if done_every is None else \
+            window_inputs(types.SimpleNamespace(qp=qp), done_every=done_every)
+        cut_rows = {}
+        if label.startswith("cross_scen"):
+            cut_rows["active_cut_rows"] = int(torch.isfinite(
+                torch.broadcast_to(qp.bu, args[2].shape)[..., meta.m_orig:])
+                .any(0).sum())
+        for mode, err in held_window(label, qp, args, **cut_rows).items():
+            errs[label, mode] = err
+        del args
+    del shapes, meta
+    torch.cuda.empty_cache()
+    return errs
+
+
+def merge_launches(total, by_design):
+    for k, v in by_design.items():
+        total[k] = total.get(k, 0) + v
+
+
+def slice9_runs(table, name, check):
+    """Each run of phase `name` in `config` through cli_run, `check`
+    applied to the first, the JAX-held ones against their bounds.
+    Returns the launches by design."""
+    total = {}
+    for i, (label, args, jax_bounds) in enumerate(table[name]):
+        result, _, by_design, ws = cli_run(label, args)
+        merge_launches(total, by_design)
+        if i == 0:
+            check(label, result, by_design, ws)
+        if jax_bounds is not None:
+            vs_jax(label, result, jax_bounds, 1e-3)
+        del ws
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_lshaped(label, result, by_design, ws):
+    """Restart windows per Benders iteration (the subproblem solve's and
+    the master's), the master's route; both kernels' designs ran."""
+    rows = ws.opt.trace
+    phase(label, benders_iters=len(rows),
+          sub_windows=json.dumps([r["sub_windows"] for r in rows]),
+          master_windows=json.dumps([r["master_windows"] for r in rows]),
+          s_per_benders_iter=round(ws.spcomm.trace[-1]["t"]
+                                   / max(1, len(rows)), 3),
+          master_route=plan_line(empty_master_qp(ws.opt), 1),
+          spokes=",".join(type(sp).__name__ for sp in ws.spcomm.spokes))
+    if not (rows and all(r["sub_windows"] > 0 for r in rows)
+            and by_design.get("pdhg_window/f32/resident", 0) > 0
+            and by_design.get("pdhg_window/f32/streamed", 0) > 0):
+        raise AssertionError(f"{label}: the subproblems or the master did "
+                             "not run their windows in the kernel")
+
+
+def empty_master_qp(ls):
+    """The master BoxQP of an L-shaped method at an empty cut buffer."""
+    import numpy as np
+    n_eta = ls.batch.num_scenarios if ls.options.multicut else 1
+    A = np.zeros((ls.options.max_cuts, ls._N + n_eta))
+    bl = np.full(ls.options.max_cuts, -np.inf)
+    return ls._master_qp(A, bl, -bl, 0.0)[0]
+
+
+def check_aph(label, result, by_design, ws):
+    """The APH hub, its prox windows in K2 (bf16x3), half the scenarios
+    dispatched in the last iteration."""
+    import numpy as np
+    st = ws.opt.state
+    last = st.last_solved.cpu().numpy()
+    half = int(np.ceil(0.5 * ws.opt.batch.num_real))
+    phase(label, hub=type(ws.spcomm).__name__, theta=float(st.theta),
+          conv=float(st.conv),
+          dispatched_last_iter=int((last == int(st.it)).sum()),
+          never_dispatched=int((last == 0).sum()),
+          s_per_hub_iter=round(ws.spcomm.trace[-1]["t"]
+                               / max(1, result["iterations"]), 3))
+    if not (type(ws.spcomm).__name__ == "APHHub"
+            and by_design.get("pdhg_window/bf16x3/resident", 0) > 0
+            and int((last == int(st.it)).sum()) == half):
+        raise AssertionError(f"{label}: not the APH hub, no K2 (bf16x3) "
+                             "window, or not half dispatched")
+
+
+def check_bound_spokes(label, result, by_design, ws):
+    """Every outer spoke certified a bound at or below the inner bound."""
+    inner = ws.BestInnerBound
+    outer = {type(sp).__name__: sp.bound for sp in ws.spcomm.spokes
+             if type(sp).__name__ != "XhatXbarInnerBound"}
+    rc = next(sp for sp in ws.spcomm.spokes
+              if type(sp).__name__ == "ReducedCostsSpoke")
+    phase(label, spoke_bounds=json.dumps(outer).replace(" ", ""),
+          inner=inner, rc_finite=int(0 if rc.rc_global is None
+                                     else (rc.rc_global == rc.rc_global)
+                                     .sum()))
+    if len(outer) != 4 or not all(
+            b is not None and b <= inner + HUB_BOUND_SLACK
+            * max(1.0, abs(inner)) for b in outer.values()):
+        raise AssertionError(f"{label}: an outer spoke certified no bound, "
+                             "or one above the inner bound")
+
+
+def check_cross_scen(label, result, by_design, ws):
+    """Cuts installed, the PH batch is the row-augmented view, its route
+    a kernel design that ran."""
+    ext = ws.opt.extobject
+    qp = ws.opt.batch.qp
+    phase(label, cuts_installed=ext.cuts_installed,
+          rounds=ext.meta.rounds_used, m_orig=ext.meta.m_orig, m=qp.m,
+          n=qp.n, route=plan_line(qp, ws.opt.batch.num_scenarios),
+          ob_char=ws.spcomm.latest_ob_char)
+    if not (ext.cuts_installed > 0 and qp.m == ext.meta.aug_ph.qp.m
+            and by_design.get("pdhg_window/f32/streamed", 0) > 0):
+        raise AssertionError(f"{label}: no cuts installed, or the "
+                             "augmented view's windows not in the kernel")
+
+
+CHECKS = {"lshaped_hub": check_lshaped, "aph_hub": check_aph,
+          "bound_spokes": check_bound_spokes, "cross_scen": check_cross_scen}
+
+
+def ccopf_fused_phase():
+    """[cli_ccopf_fused]: ccopf (3,3) --soc through --fused-wheel
+    --xhatxbar: the x̄ spoke is EFXhatInnerBound, whose root-fixed EF
+    runs as one conic problem in the SOC window kernel (its route
+    printed); against the JAX CLI at 1e-4 (converged iterates)."""
+    result, _, by_design, ws = cli_run("cli_ccopf_fused", CLI_CCOPF_FUSED,
+                                       kernel="pdhg_window_soc")
+    ef = next(sp for sp in ws.spcomm.spokes
+              if type(sp).__name__ == "EFXhatInnerBound")
+    phase("cli_ccopf_fused",
+          spokes=",".join(type(sp).__name__ for sp in ws.spcomm.spokes),
+          ef_m=ef._qp.m, ef_n=ef._qp.n, ef_route=plan_line(ef._qp, 1))
+    vs_jax("cli_ccopf_fused", result, CLI_CCOPF_FUSED_JAX_BOUNDS, 1e-4)
+    # [slice9_windows]: the root-fixed EF at the spoke's last candidate,
+    # two cold windows in, held against its plain version
+    import dataclasses
+    import types
+    xs = ef._frozen.repeat(len(ef.efp.probs)) / ef._dcols
+    l, u = ef._qp.l.clone(), ef._qp.u.clone()  # noqa: E741
+    l[..., ef._cols], u[..., ef._cols] = xs, xs
+    qp = dataclasses.replace(ef._qp, l=l, u=u)
+    held_window("ef_root_fixed", qp, window_inputs(
+        types.SimpleNamespace(qp=qp), done_every=0), soc=True)
+    return by_design
+
+
+def sc_phase(dev):
+    """[sc]: SchurComplement on sslp 5x15 LP relaxation at SC_SCENS in
+    f64 on the card, against scipy HiGHS on algos/ef.py's extensive
+    form (SC_REL_TOL)."""
+    from mpisppy_tpu_torch.algos.sc import SchurComplement, SCOptions
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import sslp
+    inst = sslp.synthetic_instance(5, 15, seed=0)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=SC_SCENS,
+                                   lp_relax=True)
+             for nm in sslp.scenario_names_creator(SC_SCENS)]
+    sc = SchurComplement(SCOptions(max_iter=250, tol=SC_TOL),
+                         batch_mod.from_specs(specs, device=dev))
+    res = sc.solve()
+    ref = ef_oracle(specs)
+    rel = abs(res["objective"] - ref) / abs(ref)
+    phase("sc", S=SC_SCENS, backend=res["backend_used"],
+          dtype=str(res["x"].dtype), objective=res["objective"],
+          highs_ef=ref, rel_diff=rel, tol=SC_REL_TOL,
+          converged=res["converged"], mu=res["mu"], resid=res["resid"],
+          solve_s=res["solve_seconds"])
+    if not (res["backend_used"] == "cuda" and res["converged"]
+            and rel <= SC_REL_TOL):
+        raise AssertionError("sc: not on the card, not converged, or off "
+                             "the HiGHS EF optimum")
+
+
+def cli_capped(args, flag, value):
+    """`args` with the value of `flag` replaced."""
+    a = list(args)
+    a[a.index(flag) + 1] = str(value)
+    return a
+
+
+def slice9_profile(dev):
+    """[slice9_profile]: profile_wheel over the L-shaped hub at
+    LSHAPED_SCENS capped at one Benders iteration and the APH hub at
+    APH_SCENS capped at one hub iteration after iter0 (device busy
+    share, window share, top kernels)."""
+    import contextlib
+    import io
+
+    from mpisppy_tpu_torch import generic_cylinders
+
+    def runner(args):
+        def run():
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ws = generic_cylinders.main(list(args))
+            torch.cuda.synchronize()
+            return ws, time.perf_counter() - t0
+        return run
+    import types
+    for label, S, args in (
+            ("lshaped_profile", LSHAPED_SCENS,
+             cli_capped(slice9_table(True)["lshaped_hub"][0][1],
+                        "--lshaped-max-iter", 1)),
+            ("aph_profile", APH_SCENS,
+             cli_capped(slice9_table(True)["aph_hub"][0][1],
+                        "--max-iterations",
+                        1))):
+        profile_wheel(label, types.SimpleNamespace(num_scenarios=S),
+                      runner(args))
+        torch.cuda.empty_cache()
+
+
+def slice9_path(dev, full=False):
+    """The decomposition hubs and bound spokes: [slice9_windows], then
+    each new path through the CLI (slice9_table(full)).
+    Returns the window parity errors and the launches by design over
+    the main paths."""
+    t0 = time.perf_counter()
+    errs = slice9_windows(dev)
+    total = {}
+    for name, check in CHECKS.items():
+        merge_launches(total, slice9_runs(slice9_table(full), name,
+                                          check))
+    merge_launches(total, ccopf_fused_phase())
+    sc_phase(dev)
+    phase("slice9_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return errs, total
+
+
+def credit(kernels, by_design):
+    """Add main-path launches (by instantiation/mode/design) to the
+    kernels line's entries: resident box bf16x3 -> K2, resident box f32
+    -> K1, streamed box -> the streamed entry, SOC by design."""
+    names = {e["name"]: e for e in kernels}
+    for key, count in by_design.items():
+        inst, mode, design = key.split("/")
+        if inst == "pdhg_window" and design == "resident":
+            name = "pdhg_window" if mode == "bf16x3" else "pdhg_window_f32"
+        elif inst == "pdhg_window":
+            name = "pdhg_window_streamed"
+        elif inst == "pdhg_window_soc":
+            name = "pdhg_window_soc" if design == "resident" \
+                else "pdhg_window_soc_streamed"
+        else:
+            name = inst
+        names[name]["launches"] += count
 
 
 def main() -> int:
@@ -2129,19 +2661,27 @@ def main() -> int:
           seconds=round(time.perf_counter() - t0, 2),
           ptxas_registers=registers_by_instantiation(log))
 
+    full = "--full" in sys.argv[1:]
     only = {"headline_profile": headline_profile,
             "ccopf_profile": ccopf_profile,
             "farmer_profile": farmer_profile,
             "uc_wheel_full": uc_wheel_full,
             "mip": mip_path,
-            "mip_gap": mip_gap}
+            "mip_gap": mip_gap,
+            "slice9_profile": slice9_profile,
+            "slice9_windows": slice9_windows,
+            "cli_ccopf_fused": lambda dev: ccopf_fused_phase(),
+            "sc": sc_phase,
+            **{name: (lambda dev, n=name: slice9_runs(
+                slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if sys.argv[1:2] == ["--only"]:
-        only[sys.argv[2]](dev)
+        for name in sys.argv[2].split(","):
+            only[name](dev)
         return 0
     normal_path(dev)
     kernels = sslp_path(dev)
     torch.cuda.empty_cache()
-    kernels.append(ccopf_path(dev))
+    kernels.extend(ccopf_path(dev))
     torch.cuda.empty_cache()
     kernels.append(scengen_path(dev))
     torch.cuda.empty_cache()
@@ -2152,10 +2692,13 @@ def main() -> int:
     cli_path()
     torch.cuda.empty_cache()
     _, _, mip_launches = mip_path(dev)
-    # the MIP phases' node LPs ran in K1 (f32); K2 only if bf16x3 was asked
-    for entry, mode in zip(kernels[:2], ("bf16x3", "f32")):
-        entry["launches"] += sum(v for k, v in mip_launches.items()
-                                 if k.startswith(f"pdhg_window/{mode}/"))
+    torch.cuda.empty_cache()
+    _, slice9_launches = slice9_path(dev)
+    # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
+    # K2 (APH's bf16x3), the streamed box design (L-shaped masters, the
+    # cross-scenario view) and a SOC design (the root-fixed ccopf EF)
+    credit(kernels, mip_launches)
+    credit(kernels, slice9_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 # Carrying state across from the JAX package, with numpy in and out.
 #
 # arrays_of() turns any dataclass of arrays — this package's BoxQP,
-# ConeSpec, EllMatrix, PDHGState, FWPHState, ScenarioBatch, BnBState or
-# EFProblem, or their JAX counterparts — into nested dicts of numpy arrays without importing
-# JAX (it only calls np.asarray).  The *_from_arrays() builders turn such
+# ConeSpec, EllMatrix, PDHGState, PHState, APHState, FWPHState,
+# ScenarioBatch, BnBState, EFProblem or CrossScenMeta, or their JAX
+# counterparts — into nested dicts of numpy arrays without importing JAX
+# (it only calls np.asarray).  The *_from_arrays() builders turn such
 # dicts into this package's objects on a device.  Tests use the pair to
 # feed both packages identical data.
 ###############################################################################
@@ -114,6 +115,48 @@ def fwph_state_from_arrays(d: dict, device=None):
         else:
             kw[f.name] = _tensor(v, dev)
     return FWPHState(**kw)
+
+
+def ph_state_from_arrays(d: dict, device=None):
+    """A PHState (algos/ph.py) from a dict of its fields (the solver as
+    a PDHGState's dict)."""
+    from mpisppy_tpu_torch.algos.ph import PHState
+    dev = resolve_device(device)
+    return PHState(**{f.name: pdhg_state_from_arrays(d[f.name], dev)
+                      if f.name == "solver" else _tensor(d[f.name], dev)
+                      for f in dataclasses.fields(PHState)})
+
+
+def aph_state_from_arrays(d: dict, device=None):
+    """An APHState (algos/aph.py) from a dict of its fields (the solver
+    as a PDHGState's dict; last_solved and it as int32)."""
+    from mpisppy_tpu_torch.algos.aph import APHState
+    dev = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(APHState):
+        v = d[f.name]
+        if f.name == "solver":
+            kw[f.name] = pdhg_state_from_arrays(v, dev)
+        elif f.name in ("last_solved", "it"):
+            kw[f.name] = _tensor(v, dev, torch.int32)
+        else:
+            kw[f.name] = _tensor(v, dev, torch.float32)
+    return APHState(**kw)
+
+
+def cross_scen_meta_from_arrays(d: dict, device=None):
+    """A CrossScenMeta (algos/cross_scen.py) from a dict of its fields:
+    both augmented views as batches' dicts, the registry as numpy."""
+    from mpisppy_tpu_torch.algos.cross_scen import CrossScenMeta
+    dev = resolve_device(device)
+    return CrossScenMeta(
+        n_orig=int(d["n_orig"]), m_orig=int(d["m_orig"]), S=int(d["S"]),
+        max_rounds=int(d["max_rounds"]),
+        eta_lb=np.asarray(d["eta_lb"], np.float64),
+        aug_ph=batch_from_arrays(d["aug_ph"], dev),
+        aug_ef=batch_from_arrays(d["aug_ef"], dev),
+        is_opt=np.asarray(d["is_opt"], bool),
+        rounds_used=int(d["rounds_used"]))
 
 
 def tree_from_arrays(tree) -> ScenarioTree:

@@ -1,7 +1,7 @@
 ###############################################################################
-# Hub: runs the hub algorithm (PH), feeds spokes, tracks bounds, decides
-# termination (port of the core of mpisppy_tpu/cylinders/hub.py;
-# ref:mpisppy/cylinders/hub.py:28-724).
+# Hub: runs the hub algorithm (PH, APH or L-shaped), feeds spokes, tracks
+# bounds, decides termination (port of the core of
+# mpisppy_tpu/cylinders/hub.py; ref:mpisppy/cylinders/hub.py:28-724).
 #
 # Termination semantics match ref:mpisppy/cylinders/hub.py:82-166:
 #   * rel_gap  <= options['rel_gap']   (gap = (inner-outer)/|inner|;
@@ -22,6 +22,7 @@ import math
 import time
 
 import numpy as np
+import torch
 
 from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
@@ -292,6 +293,13 @@ class PHHub(Hub):
             self._inner_bound_update_iter = self._iter
         self._contra[side] = []
 
+    def _fold_own_bounds(self):
+        """Fold bounds the hub algorithm itself produces (PH: none — the
+        trivial bound enters via is_converged)."""
+
+    def _trace_extra(self) -> dict:
+        return {"conv": self.opt._read_conv()}
+
     def sync(self):
         """One hub<->spoke exchange: harvest the spokes' results (fused
         spokes every iteration, classic ones every spoke_sync_period),
@@ -310,6 +318,7 @@ class PHHub(Hub):
             ext = getattr(self.opt, "extobject", None)
             if ext is not None and hasattr(ext, "sync_with_spokes"):
                 ext.sync_with_spokes()
+        self._fold_own_bounds()
         if (do_spokes and classic) or self.options.get("publish_snapshots"):
             payload = self._snapshot()
             self.from_hub.put(payload)
@@ -319,17 +328,19 @@ class PHHub(Hub):
                         sp.update(payload)
         self._harvest_dispatch_stats()
         abs_gap, rel_gap = self.compute_gaps()
-        conv = self.opt._read_conv()
+        extra = self._trace_extra()
         self.trace.append({
-            "iter": self._iter, "conv": conv,
+            "iter": self._iter, **extra,
             "outer": self.BestOuterBound, "inner": self.BestInnerBound,
             "abs_gap": abs_gap, "rel_gap": rel_gap,
             "ob_char": self.latest_ob_char, "ib_char": self.latest_ib_char,
             "t": time.monotonic() - self._t0,
         })
         if self.options.get("display_progress"):
+            conv_str = (f" conv {extra['conv']:9.3e}"
+                        if "conv" in extra else "")
             global_toc(
-                f"iter {self._iter:4d} conv {conv:9.3e}"
+                f"iter {self._iter:4d}{conv_str}"
                 f" outer {self.BestOuterBound:12.5g}"
                 f" inner {self.BestInnerBound:12.5g} rel_gap {rel_gap:8.3e}"
                 f" ({self.latest_ob_char}/{self.latest_ib_char})", True)
@@ -386,4 +397,69 @@ class PHHub(Hub):
                 num_nodes = self.opt.batch.tree.num_nodes
                 return np.broadcast_to(xhat, (num_nodes, xhat.shape[0]))
             return xhat
+        return self._fallback_nonants()
+
+    def _fallback_nonants(self) -> np.ndarray:
         return self.opt.state.xbar_nodes.cpu().numpy()
+
+
+class APHHub(PHHub):
+    """APH as the hub algorithm (ref:mpisppy/cylinders/hub.py:712-724):
+    PHHub's exchange surface (W and nonants out, bounds in) with APH's
+    conv and theta in the trace rows."""
+
+    def _trace_extra(self) -> dict:
+        return {"conv": float(self.opt.state.conv),
+                "theta": float(self.opt.state.theta)}
+
+    def main(self):
+        """ref:cylinders/hub.py:722-724."""
+        return self.opt.APH_main()
+
+
+class LShapedHub(PHHub):
+    """L-shaped (Benders) as the hub algorithm
+    (ref:mpisppy/cylinders/hub.py:618-710): it sends only NONANTS (the
+    master's current candidate) to spokes — no W exists — and folds the
+    Benders lb/ub into the bound bookkeeping."""
+
+    def setup_hub(self):
+        self.opt.spcomm = self
+        for sp in self.spokes:
+            if ConvergerSpokeType.W_GETTER in sp.converger_spoke_types:
+                raise RuntimeError(
+                    "LShapedHub cannot feed W-getter spokes "
+                    "(ref:hub.py:618-710 sends nonants only)")
+            sp.make_windows()
+
+    def _snapshot(self) -> dict:
+        ls = self.opt  # an algos.lshaped.LShapedMethod
+        batch = ls.batch
+        xhat = torch.as_tensor(ls.xhat, dtype=batch.qp.c.dtype,
+                               device=batch.device)
+        S = batch.num_scenarios
+        return {
+            "nonants": torch.broadcast_to(xhat, (S, xhat.shape[0])),
+            "xbar_scen": torch.broadcast_to(xhat, (S, xhat.shape[0])),
+            "xbar_nodes": xhat[None, :],
+            "iter": self._iter,
+            "bounds": (self.BestOuterBound, self.BestInnerBound),
+        }
+
+    def _fold_own_bounds(self):
+        # the hub algorithm itself produces both bounds
+        self.OuterBoundUpdate(self.opt.lb, "B")
+        if np.isfinite(self.opt.ub):
+            self.InnerBoundUpdate(self.opt.ub, "B")
+
+    def _trace_extra(self) -> dict:
+        return {}
+
+    def is_converged(self) -> bool:
+        return self.determine_termination()
+
+    def main(self):
+        return self.opt.lshaped_algorithm()
+
+    def _fallback_nonants(self) -> np.ndarray:
+        return np.asarray(self.opt.xhat)[None, :]

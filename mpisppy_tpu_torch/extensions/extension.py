@@ -11,6 +11,7 @@
 # (ref:mpisppy/phbase.py:829-1061), and the cylinder layer drives
 # setup_hub/sync_with_spokes.  pre_solve/post_solve (per-SUBPROBLEM
 # hooks) have no per-scenario callout in the batched design.
+# MultiExtension composes several extensions.
 ###############################################################################
 from __future__ import annotations
 
@@ -66,3 +67,38 @@ class Extension:
     def sync_with_spokes(self):
         pass
 
+
+
+class MultiExtension(Extension):
+    """Compose several extensions; each hook fans out in order
+    (ref:mpisppy/extensions/extension.py:154-226)."""
+
+    def __init__(self, ph, ext_classes):
+        super().__init__(ph)
+        self.extdict = {}
+        for cls in ext_classes:
+            # classes, factories and functools.partial(s) all work
+            name = getattr(cls, "__name__", None) \
+                or getattr(getattr(cls, "func", None), "__name__", None) \
+                or f"ext{len(self.extdict)}"
+            self.extdict[name] = cls(ph)
+
+    def _fan(self, hook, *args):
+        for ext in self.extdict.values():
+            getattr(ext, hook)(*args)
+
+
+def _fan_out(hook):
+    def f(self, *args):
+        self._fan(hook, *args)
+    f.__name__ = hook
+    return f
+
+
+for _hook in ("pre_iter0", "iter0_post_solver_creation", "post_iter0",
+              "post_iter0_after_sync", "miditer", "enditer",
+              "enditer_after_sync", "post_everything", "pre_solve_loop",
+              "post_solve_loop", "pre_solve", "post_solve", "setup_hub",
+              "initialize_spoke_indices", "sync_with_spokes"):
+    setattr(MultiExtension, _hook, _fan_out(_hook))
+del _hook

@@ -6,6 +6,8 @@
 #   python -m mpisppy_tpu_torch --module-name mpisppy_tpu_torch.models.farmer \
 #          --num-scens 3 --lagrangian --xhatxbar --rel-gap 0.01 \
 #          [--fused-wheel --slammin] [--fwph] [--presolve] [--device cpu]
+#   python -m mpisppy_tpu_torch --module-name ... --lshaped-hub --xhatlshaped
+#   python -m mpisppy_tpu_torch --module-name ... --aph-hub --lagrangian
 #   python -m mpisppy_tpu_torch --module-name ... --num-scens 3 --EF
 #
 # The model module supplies the reference's 5-function API:
@@ -40,7 +42,7 @@ def _queue_item(item: int, what: str) -> str:
     return f"ROADMAP.md queue A, item {item} ({what})"
 
 
-_ALGOS = _queue_item(6, "the remaining algorithms and cylinders")
+_ASYNC = _queue_item(6, "the async wheel")
 _EXT = _queue_item(8, "extensions, convergers and utils")
 _TELEMETRY = _queue_item(10, "telemetry")
 _RESILIENCE = _queue_item(11, "resilience and checkpoints")
@@ -49,17 +51,8 @@ _SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 # The JAX package's CLI flags (its argument groups) that the port does
 # not implement, each with the queue item that ports it.
 UNPORTED_FLAGS = {
-    **dict.fromkeys((
-        "aph_hub", "aph_gamma", "aph_nu", "aph_dispatch_frac",
-        "aph_use_dynamic_gamma", "aph_frac_needed", "lagranger",
-        "lagranger_rho_rescale_factors_json", "subgradient",
-        "subgradient_rho", "async_staleness", "async_exchange_deadline_s",
-        "reduced_costs", "rc_bound_tol", "rc_zero_rc_tol",
-        "rc_fix_fraction_iter0", "rc_fix_fraction_iterk",
-        "rc_bound_tightening", "ph_ob", "ph_ob_rho_rescale_factor",
-        "cross_scenario_cuts", "cross_scenario_iter_cnt",
-        "cross_scenario_max_rounds", "lshaped_hub", "lshaped_max_iter",
-        "lshaped_multicut", "xhatlshaped"), _ALGOS),
+    **dict.fromkeys(("async_staleness", "async_exchange_deadline_s"),
+                    _ASYNC),
     **dict.fromkeys((
         "grad_rho", "grad_order_stat", "grad_rho_update_interval",
         "grad_rho_relative_bound", "grad_rho_indep_denom", "rho_file_in",
@@ -115,13 +108,20 @@ def _parse_args(module, args=None):
     cfg.num_scens_optional()
     cfg.popular_args()
     cfg.ph_args()
+    cfg.aph_args()
     cfg.two_sided_args()
+    cfg.fwph_args()
     cfg.lagrangian_args()
+    cfg.lagranger_args()
+    cfg.subgradient_args()
     cfg.xhatxbar_args()
     cfg.fused_wheel_args()
     cfg.xhatshuffle_args()
     cfg.slama_args()
-    cfg.fwph_args()
+    cfg.reduced_costs_args()
+    cfg.ph_ob_args()
+    cfg.cross_scenario_cuts_args()
+    cfg.lshaped_args()
     cfg.presolve_args()
     cfg.dispatch_args()
     cfg.multistage()
@@ -175,15 +175,19 @@ def _build_batch(cfg, module):
     return batch, names, specs
 
 
-def _fuse_wheel(cfg, hub, spokes, tree=None):
+def _fuse_wheel(cfg, hub, spokes, specs=None, tree=None):
     """Swap the PH hub's driver for FusedPH and the fusable bound spokes
     (lagrangian / xhatxbar / slam / xhatshuffle) for their fused
-    classes; the others (FWPH) stay classic spokes on the hub's sync
-    period.  On a tree deeper than two stages the reference maps the x̄
-    spoke to EFXhatInnerBound, which is not ported: refused."""
+    classes; the others (cut providers, FWPH, reduced costs, ...) stay
+    classic spokes on the hub's sync period.  On a tree deeper than two
+    stages the x̄ recourse planes would fix EVERY stage's nonants, which
+    is infeasible whenever a later-stage equality couples nonants with
+    stage randomness: there the x̄ spoke maps to EFXhatInnerBound
+    (root-fixed EF with intra-tree nonanticipativity)."""
     from mpisppy_tpu_torch.algos import fused_wheel as fw
     from mpisppy_tpu_torch.cylinders import spoke as spoke_mod
 
+    multistage = tree is not None and tree.num_stages > 2
     fusable = {
         spoke_mod.LagrangianOuterBound: spoke_mod.FusedLagrangianOuterBound,
         spoke_mod.XhatXbarInnerBound: spoke_mod.FusedXhatXbarInnerBound,
@@ -192,16 +196,22 @@ def _fuse_wheel(cfg, hub, spokes, tree=None):
         spoke_mod.SlamMaxHeuristic: spoke_mod.FusedSlamHeuristic,
         spoke_mod.SlamMinHeuristic: spoke_mod.FusedSlamHeuristic,
     }
-    present = {sd["spoke_class"] for sd in spokes}
-    if spoke_mod.XhatXbarInnerBound in present and tree is not None \
-            and tree.num_stages > 2:
-        raise SystemExit(
-            "--xhatxbar with --fused-wheel on a multistage tree needs "
-            "EFXhatInnerBound, which is not ported to mpisppy_tpu_torch: "
-            + _ALGOS)
-    out_spokes = [{"spoke_class": fusable[sd["spoke_class"]],
-                   "opt_kwargs": {"options": {}}}
-                  if sd["spoke_class"] in fusable else sd for sd in spokes]
+    present = set()
+    out_spokes = []
+    for sd in spokes:
+        cls = sd["spoke_class"]
+        if cls is spoke_mod.XhatXbarInnerBound and multistage \
+                and specs is not None:
+            out_spokes.append({
+                "spoke_class": spoke_mod.EFXhatInnerBound,
+                "opt_kwargs": {"options": {"specs": specs,
+                                           "tree": tree}}})
+        elif cls in fusable:
+            present.add(cls)
+            out_spokes.append({"spoke_class": fusable[cls],
+                               "opt_kwargs": {"options": {}}})
+        else:
+            out_spokes.append(sd)
     wopts = fw.FusedWheelOptions(
         lag_windows=8 if spoke_mod.LagrangianOuterBound in present else 0,
         xhat_windows=4 if spoke_mod.XhatXbarInnerBound in present else 0,
@@ -219,26 +229,58 @@ def _fuse_wheel(cfg, hub, spokes, tree=None):
     return hub, out_spokes
 
 
+def _ph_extensions(cfg):
+    """The PH hub's extensions the flags ask for: the cross-scenario cut
+    installer and the reduced-costs fixer (composed when both)."""
+    factories = []
+    if cfg.get("cross_scenario_cuts"):
+        factories.append(vanilla.cross_scenario_extension(cfg))
+    if cfg.get("reduced_costs"):
+        factories.append(vanilla.reduced_costs_fixer(cfg))
+    if len(factories) <= 1:
+        return factories[0] if factories else None
+    import functools
+    from mpisppy_tpu_torch.extensions.extension import MultiExtension
+    return functools.partial(MultiExtension, ext_classes=factories)
+
+
 def build_wheel(cfg, module):
     """Assemble (hub, spokes, names, specs, batch) from a parsed
-    Config."""
+    Config: the hub from --lshaped-hub, --aph-hub or PH (in that order
+    of precedence, as the JAX package), then the spoke list."""
     batch, names, specs = _build_batch(cfg, module)
-    hub = vanilla.ph_hub(cfg, batch, scenario_names=names)
+    lshaped, aph = cfg.get("lshaped_hub"), cfg.get("aph_hub")
+    if lshaped:
+        if aph:
+            global_toc("WARNING: --aph-hub is ignored because "
+                       "--lshaped-hub is also set", True)
+        hub = vanilla.lshaped_hub(cfg, batch, scenario_names=names)
+    elif aph:
+        hub = vanilla.aph_hub(cfg, batch, scenario_names=names)
+    else:
+        hub = vanilla.ph_hub(cfg, batch, scenario_names=names,
+                             extensions=_ph_extensions(cfg))
     spokes = []
-    if cfg.get("fwph"):
-        spokes.append(vanilla.fwph_spoke(cfg))
-    if cfg.get("lagrangian"):
-        spokes.append(vanilla.lagrangian_spoke(cfg))
-    if cfg.get("xhatxbar"):
-        spokes.append(vanilla.xhatxbar_spoke(cfg))
-    if cfg.get("xhatshuffle"):
-        spokes.append(vanilla.xhatshuffle_spoke(cfg))
-    if cfg.get("slammax"):
-        spokes.append(vanilla.slammax_spoke(cfg))
-    if cfg.get("slammin"):
-        spokes.append(vanilla.slammin_spoke(cfg))
-    if cfg.get("fused_wheel"):
-        hub, spokes = _fuse_wheel(cfg, hub, spokes, tree=batch.tree)
+    if not lshaped and not aph:
+        if cfg.get("cross_scenario_cuts"):
+            spokes.append(vanilla.cross_scenario_cuts_spoke(cfg))
+        if cfg.get("reduced_costs"):
+            spokes.append(vanilla.reduced_costs_spoke(cfg))
+    for flag, factory in (("ph_ob", vanilla.ph_ob_spoke),
+                          ("xhatlshaped", vanilla.xhatlshaped_spoke),
+                          ("fwph", vanilla.fwph_spoke),
+                          ("lagrangian", vanilla.lagrangian_spoke),
+                          ("lagranger", vanilla.lagranger_spoke),
+                          ("subgradient", vanilla.subgradient_spoke),
+                          ("xhatxbar", vanilla.xhatxbar_spoke),
+                          ("xhatshuffle", vanilla.xhatshuffle_spoke),
+                          ("slammax", vanilla.slammax_spoke),
+                          ("slammin", vanilla.slammin_spoke)):
+        if cfg.get(flag):
+            spokes.append(factory(cfg))
+    if cfg.get("fused_wheel") and not lshaped and not aph:
+        hub, spokes = _fuse_wheel(cfg, hub, spokes, specs=specs,
+                                  tree=batch.tree)
     return hub, spokes, names, specs, batch
 
 

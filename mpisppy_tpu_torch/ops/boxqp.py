@@ -134,6 +134,13 @@ def make_boxqp(c, A, bl, bu, l, u, q=None,  # noqa: E741
                  A=t(A), bl=t(bl), bu=t(bu), l=t(l), u=t(u), cones=cones)
 
 
+def one_problem(p: BoxQP) -> BoxQP:
+    """An unbatched problem (an L-shaped master, an assembled EF) as a
+    batch of one: with a dense A it then takes the window kernel on
+    CUDA like every other batch."""
+    return dataclasses.replace(p, **{k: getattr(p, k)[None]
+                                     for k in ("c", "q", "l", "u")})
+
 def objective(p: BoxQP, x: Tensor) -> Tensor:
     """c'x + 1/2 x'diag(q)x (sums over the trailing axis only)."""
     return torch.sum(p.c * x + 0.5 * p.q * x * x, dim=-1)

@@ -126,9 +126,10 @@ def estimate_norm(p: BoxQP, iters: int = 30) -> Tensor:
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     lam = torch.ones(_bshape(p), dtype=p.c.dtype, device=p.device)
     if isinstance(p.A, Tensor) and p.A.ndim == 3:
-        # a per-scenario A as products and sums: they add in the order of
-        # the JAX package's XLA dot on the CPU, so farmer's estimate is
-        # its bit for bit (a batched matmul differs by an ulp)
+        # a per-scenario A as products and sums, the order of the JAX
+        # package's XLA dot on some CPUs; XLA's CPU reduction order
+        # follows the host's vector ISA, so elsewhere farmer's estimate
+        # differs from the JAX package's by an ulp (within 1e-7)
         def AtA(u):
             return (p.A * (p.A * u[..., None, :]).sum(-1)[..., None]).sum(-2)
     else:

@@ -475,7 +475,9 @@ def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
     grid of _plan_cones.  The streamed design takes the rest, four
     scenarios per block once S >= 8 x SMs and four fit, else one.
     `design` names the design instead of the rule (to time both on one
-    batch); naming "resident" for a batch it cannot take raises."""
+    batch); naming "resident" for a batch it cannot take raises, and so
+    does a shape no design takes (one streamed scenario's vectors past
+    the block's shared memory)."""
     if cone_ints:
         cone_plan = _plan_cones(mode, m, n, S, smem_per_block, sm_count,
                                 cone_ints)
@@ -497,6 +499,10 @@ def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
                           max(1, min(tiles, sm_count)))
     if design != "streamed":
         raise ValueError(f"unknown window design {design!r}")
+    if streamed_smem_bytes(m, n, 1, cone_ints) > smem_per_block:
+        raise ValueError(f"no window design takes shape ({m}, {n}) with "
+                         f"cones={cone_ints > 0}: one streamed scenario "
+                         "needs more shared memory than a block has")
     spb = 4 if (S >= 8 * sm_count and streamed_smem_bytes(
         m, n, 4, cone_ints) <= smem_per_block) else 1
     return WindowPlan("streamed", spb, max(1, -(-S // spb)))

@@ -136,6 +136,86 @@ class Config:
         self.add_to_config("presolve_sweeps",
                            "FBBT interval-tightening sweeps", int, 3)
 
+    def aph_args(self):
+        """ref:config.py:396-430."""
+        self.add_to_config("aph_hub", "use APH as the hub algorithm",
+                           bool, False)
+        self.add_to_config("aph_gamma", "APH gamma parameter", float, 1.0)
+        self.add_to_config("aph_nu", "APH step scaling nu", float, 1.0)
+        self.add_to_config("aph_dispatch_frac",
+                           "fraction of subproblems dispatched per "
+                           "iteration", float, 1.0)
+        self.add_to_config("aph_use_dynamic_gamma",
+                           "adapt gamma from the u/v norm decrease ratio",
+                           bool, False)
+        # the JAX package's parse-only legacy alias (the listener
+        # consensus fraction has no analog in one program)
+        self.add_to_config("aph_frac_needed",
+                           "legacy parse-only no-op (listener consensus "
+                           "fraction; use --aph-dispatch-frac)", float, 1.0)
+
+    def lagranger_args(self):
+        self.add_to_config("lagranger", "use a Lagranger bound spoke",
+                           bool, False)
+        self.add_to_config("lagranger_rho_rescale_factors_json",
+                           "json {iter: factor}", str, None)
+
+    def subgradient_args(self):
+        self.add_to_config("subgradient", "use a subgradient bound spoke",
+                           bool, False)
+        self.add_to_config("subgradient_rho", "subgradient step rho",
+                           float, 1.0)
+
+    def reduced_costs_args(self):
+        """ref:config.py:539-600."""
+        self.add_to_config("reduced_costs",
+                           "use a reduced-costs spoke + fixer", bool,
+                           False)
+        self.add_to_config("rc_bound_tol", "at-bound tolerance for rc "
+                           "extraction", float, 1e-6)
+        self.add_to_config("rc_zero_rc_tol", "zero reduced-cost "
+                           "tolerance", float, 1e-4)
+        self.add_to_config("rc_fix_fraction_iter0",
+                           "fraction of nonants to fix after iter0",
+                           float, 0.0)
+        self.add_to_config("rc_fix_fraction_iterk",
+                           "fraction of nonants to fix at iter k",
+                           float, 0.0)
+        self.add_to_config("rc_bound_tightening",
+                           "tighten nonant bounds from reduced costs",
+                           bool, False)
+
+    def ph_ob_args(self):
+        """ref:config.py ph_ob group."""
+        self.add_to_config("ph_ob", "use a PH outer-bound spoke", bool,
+                           False)
+        self.add_to_config("ph_ob_rho_rescale_factor",
+                           "rho rescale for the ph_ob spoke", float, 0.1)
+
+    def cross_scenario_cuts_args(self):
+        """ref:config.py cross_scenario_cuts group."""
+        self.add_to_config("cross_scenario_cuts",
+                           "use a cross-scenario cut spoke + hub "
+                           "extension", bool, False)
+        self.add_to_config("cross_scenario_iter_cnt",
+                           "hub iterations between EF bound checks",
+                           int, 4)
+        self.add_to_config("cross_scenario_max_rounds",
+                           "capacity of the preallocated cut buffer "
+                           "(rounds of S cuts)", int, 8)
+
+    def lshaped_args(self):
+        """L-shaped (Benders) hub options (ref:mpisppy/opt/lshaped.py
+        options dict: max_iter/tol/root_solver)."""
+        self.add_to_config("lshaped_hub", "use L-shaped (Benders) as the "
+                           "hub algorithm instead of PH", bool, False)
+        self.add_to_config("lshaped_max_iter", "Benders iterations", int,
+                           50)
+        self.add_to_config("lshaped_multicut", "per-scenario cuts", bool,
+                           False)
+        self.add_to_config("xhatlshaped", "use an xhat-lshaped inner "
+                           "spoke", bool, False)
+
     def fwph_args(self):
         """ref:config.py:487-520."""
         self.add_to_config("fwph", "use an FWPH outer-bound spoke", bool,

@@ -86,3 +86,47 @@ def test_round_integers_matches_jax(mode):
     np.testing.assert_array_equal(
         txhat.round_integers(tb, torch.as_tensor(xbar), mode).numpy(),
         np.asarray(jxhat.round_integers(jb, xbar, mode)))
+
+
+def test_subgradient_steps_match_jax(sslp8):
+    """subgradient_init and three steps from one carried state: W, x̄ and
+    each step's bound agree (1e-5 of W's scale, bounds 1e-4 relative),
+    and the certificate gates best_bound alike."""
+    jb, tb = sslp8
+    kw = dict(tol=1e-6)
+    jo, to = jpdhg.PDHGOptions(**kw), tpdhg.PDHGOptions(**kw)
+    jst = jlag.subgradient_init(jb, jo)
+    tst = tlag.subgradient_init(tb, to)
+    assert float(tst.best_bound) == float(jst.best_bound) == -np.inf
+    tst = tlag.SubgradientState(
+        W=tst.W, xbar=tst.xbar, bound=tst.bound, best_bound=tst.best_bound,
+        certified=tst.certified,
+        solver=convert.pdhg_state_from_arrays(
+            convert.arrays_of(jst.solver), "cpu"))
+    for k in range(3):
+        jst = jlag.subgradient_step(jb, jst, 2.0, jo, 20)
+        tst = tlag.subgradient_step(tb, tst, torch.tensor(2.0), to, 20)
+        assert bool(tst.certified) == bool(jst.certified)
+        assert float(tst.bound) == pytest.approx(float(jst.bound), rel=1e-4)
+        if np.isfinite(float(jst.best_bound)):
+            assert float(tst.best_bound) == pytest.approx(
+                float(jst.best_bound), rel=1e-4)
+        W = np.asarray(jst.W)
+        np.testing.assert_allclose(tst.W.numpy(), W, rtol=0,
+                                   atol=1e-5 * max(np.abs(W).max(), 1.0),
+                                   err_msg=f"step {k + 1}")
+
+
+def test_nonant_reduced_costs_match_jax(sslp8):
+    """The reduced costs of a Lagrangian solve's nonant columns, from
+    the same (x, y): 1e-5 of their scale."""
+    jb, tb = sslp8
+    rng = np.random.default_rng(1)
+    W = rng.normal(scale=5.0, size=(8, jb.num_nonants)).astype(np.float32)
+    W -= W.mean(axis=0)
+    jr = jlag.lagrangian_bound(jb, W, jpdhg.PDHGOptions(tol=1e-6))
+    solver = convert.pdhg_state_from_arrays(convert.arrays_of(jr.solver),
+                                            "cpu")
+    j = np.asarray(jlag.nonant_reduced_costs(jb, W, jr.solver))
+    t = tlag.nonant_reduced_costs(tb, torch.as_tensor(W), solver).numpy()
+    np.testing.assert_allclose(t, j, rtol=0, atol=1e-5 * np.abs(j).max())

@@ -3,7 +3,10 @@
 # tests/test_config_cli.py::test_cli_end_to_end run on the CPU
 # (`--device cpu`) in a subprocess, with the same asserts on the last
 # JSON line (rel_gap <= 0.01, the inner bound within 5e-3 of the farmer
-# EF value -108390).  --EF prints the JAX CLI's EF objective (to 1e-4);
+# EF value -108390).  The flags of the L-shaped and APH hubs, the
+# Lagranger/subgradient/PH-OB/reduced-costs bound spokes and the
+# cross-scenario cuts build and run their cylinders; a fused multistage
+# wheel's x̄ spoke is the root-fixed EF spoke.  --EF prints the JAX CLI's EF objective (to 1e-4);
 # the --dispatch-* group configures the scheduler as the JAX CLI's does,
 # and the final line's dispatch counters are the scheduler's.  A flag of
 # the JAX package's CLI that the port does not implement exits non-zero
@@ -48,8 +51,8 @@ def test_cli_end_to_end(extra):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--subgradient"], 6), (["--async-staleness", "1"], 6), (["--aph-hub"], 6),
-    (["--lshaped-hub"], 6), (["--rho-file-in=r.csv"], 8),
+    (["--async-exchange-deadline-s", "2"], 6), (["--async-staleness", "1"], 6),
+    (["--mult-rho"], 8), (["--sensi-rho"], 8), (["--rho-file-in=r.csv"], 8),
     (["--grad-rho"], 8), (["--scenarios-per-bundle", "2"], 8),
     (["--trace-jsonl", "t.jsonl"], 10), (["--kernel-counters"], 10),
     (["--checkpoint-path", "ck"], 11), (["--lane-guard"], 11)])
@@ -88,19 +91,77 @@ def test_uc_module_runs_with_fwph():
 
 
 def test_unported_flag_exits_nonzero():
-    out = _run_cli(FARMER + ["--device", "cpu", "--aph-hub"], timeout=120)
+    out = _run_cli(FARMER + ["--device", "cpu", "--async-staleness", "1"],
+                   timeout=120)
     assert out.returncode != 0
-    assert "--aph-hub" in out.stderr and "queue A, item 6" in out.stderr
+    assert "--async-staleness" in out.stderr
+    assert "queue A, item 6 (the async wheel)" in out.stderr
     assert out.stdout.strip() == ""
 
 
 def test_fused_xhatxbar_on_a_multistage_tree_is_refused():
-    """The reference maps the x̄ spoke of a fused multistage wheel to
-    EFXhatInnerBound, which is not ported."""
-    with pytest.raises(SystemExit, match="EFXhatInnerBound"):
-        gc.main(["--module-name", "mpisppy_tpu_torch.models.ccopf",
-                 "--branching-factors", "2", "2", "--soc", "--device", "cpu",
-                 "--lagrangian", "--xhatxbar", "--fused-wheel"])
+    """The x̄ spoke of a fused multistage wheel is no longer refused: as
+    in the JAX package it maps to EFXhatInnerBound (the root-fixed EF),
+    and ccopf (3,3) --soc certifies at the JAX CLI's bounds (outer
+    71.77212524, inner 71.77219395, to 1e-5)."""
+    ws = gc.main(["--module-name", "mpisppy_tpu_torch.models.ccopf",
+                  "--branching-factors", "3", "3", "--soc", "--device",
+                  "cpu", "--lagrangian", "--xhatxbar", "--fused-wheel",
+                  "--max-iterations", "20"])
+    names = [type(sp).__name__ for sp in ws.spcomm.spokes]
+    assert names == ["FusedLagrangianOuterBound", "EFXhatInnerBound"]
+    assert ws.spcomm.compute_gaps()[1] <= 0.01
+    assert ws.BestOuterBound == pytest.approx(71.77212524, rel=1e-5)
+    assert ws.BestInnerBound == pytest.approx(71.77219395, rel=1e-5)
+
+
+NEW_FLAGS = {
+    "lshaped": (["--lshaped-hub", "--xhatlshaped", "--lshaped-max-iter",
+                 "30"], "LShapedHub", ["XhatLShapedInnerBound"]),
+    "lshaped_multicut": (["--lshaped-hub", "--lshaped-multicut",
+                          "--xhatlshaped"], "LShapedHub",
+                         ["XhatLShapedInnerBound"]),
+    "aph": (["--aph-hub", "--aph-gamma", "1.0", "--aph-nu", "1.0",
+             "--aph-dispatch-frac", "0.67", "--aph-use-dynamic-gamma",
+             "--aph-frac-needed", "1.0", "--lagrangian", "--xhatxbar"],
+            "APHHub", ["LagrangianOuterBound", "XhatXbarInnerBound"]),
+    "bound_spokes": (["--lagranger", "--subgradient", "--subgradient-rho",
+                      "2.0", "--ph-ob", "--ph-ob-rho-rescale-factor",
+                      "0.5", "--xhatxbar"], "PHHub",
+                     ["PhOuterBound", "LagrangerOuterBound",
+                      "SubgradientOuterBound", "XhatXbarInnerBound"]),
+    "reduced_costs": (["--reduced-costs", "--rc-fix-fraction-iterk", "0.5",
+                       "--rc-bound-tightening", "--rc-zero-rc-tol", "1e-4",
+                       "--rc-bound-tol", "1e-6", "--xhatxbar"], "PHHub",
+                      ["ReducedCostsSpoke", "XhatXbarInnerBound"]),
+    "cross_scen": (["--cross-scenario-cuts", "--cross-scenario-iter-cnt",
+                    "2", "--cross-scenario-max-rounds", "4", "--lagrangian",
+                    "--xhatxbar"], "PHHub",
+                   ["CrossScenarioCutSpoke", "LagrangianOuterBound",
+                    "XhatXbarInnerBound"]),
+}
+
+
+@pytest.mark.parametrize("case", list(NEW_FLAGS))
+def test_newly_ported_flags_run(case):
+    """Each flag of the decomposition hubs and bound spokes builds its
+    hub and spokes (in the JAX CLI's order) and runs farmer S=3 to
+    certified bounds around the EF value -108390: a finite outer bound
+    from the hub or its outer spokes and a finite inner bound from the
+    x̂ spoke."""
+    flags, hub, spokes = NEW_FLAGS[case]
+    base = ["--module-name", "mpisppy_tpu_torch.models.farmer",
+            "--num-scens", "3", "--max-iterations", "12", "--rel-gap",
+            "0.01", "--convthresh", "0", "--device", "cpu"]
+    ws = gc.main(base + flags)
+    assert type(ws.spcomm).__name__ == hub
+    assert [type(sp).__name__ for sp in ws.spcomm.spokes] == spokes
+    assert ws.BestOuterBound <= -108390.0 * (1 - 1e-3)
+    assert math.isfinite(ws.BestOuterBound)
+    # every case has an x̂ spoke (x̂-x̄ or x̂-L-shaped): it must publish
+    assert math.isfinite(ws.BestInnerBound)
+    assert ws.BestInnerBound >= ws.BestOuterBound
+    assert ws.BestInnerBound == pytest.approx(-108390.0, rel=1e-2)
 
 
 def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):

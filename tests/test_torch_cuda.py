@@ -652,3 +652,91 @@ def test_solve_mip_on_the_card_matches_the_cpu(cuda):
     scale = 1.0 + c.inner.abs()
     assert bool(torch.all(g.outer.cpu() <= c.inner + 1e-3 * scale))
     assert bool(torch.all(c.outer <= g.inner.cpu() + 1e-3 * scale))
+
+
+def _sslp_batch(device, S, n_servers=5, n_clients=15):
+    inst = sslp.synthetic_instance(n_servers, n_clients, seed=0)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=S,
+                                   lp_relax=True)
+             for nm in sslp.scenario_names_creator(S)]
+    return batch_mod.from_specs(specs, device=device)
+
+
+def _held_to_plain(args, precision, tol):
+    k = pdhg_window.run_window(*args, precision=precision)
+    r = pdhg_window.run_window_reference(*args, precision=precision)
+    for a, b in zip(k, r):
+        torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("precision,tol", [(None, 1e-4), ("bf16x3", 1e-3)])
+@pytest.mark.parametrize("shape", ["lshaped_subproblems", "lshaped_master",
+                                   "aph_prox", "cross_scen_view",
+                                   "cross_scen_ef_view"])
+def test_kernel_matches_plain_on_this_slices_batches(cuda, shape,
+                                                     precision, tol):
+    """The decomposition hubs' batches: the fixed-nonant subproblems
+    (per-scenario nonant boxes), the single-cut L-shaped master (one
+    problem, a 256-row cut buffer: the streamed design, from a state the
+    window moves), APH's prox batch (q = rho on the nonants) and the
+    cross-scenario PH and EF views after one round of cuts (cut rows
+    under sslp's, streamed; the EF view's with eta columns and each
+    scenario's own eta pinned)."""
+    from mpisppy_tpu_torch.algos import cross_scen, lshaped
+    batch = _sslp_batch(cuda, 24)
+    N = batch.num_nonants
+    if shape == "lshaped_subproblems":
+        qp = batch.with_fixed_nonants(torch.full((N,), 0.5, device=cuda))
+    elif shape == "lshaped_master":
+        ls = lshaped.LShapedMethod(lshaped.LShapedOptions(), batch)
+        A = np.zeros((256, N + 1))
+        A[0, :N], A[0, N] = -np.linspace(1.0, 2.0, N), 1.0
+        bl = np.full(256, -np.inf)
+        bl[0] = -50.0
+        qp = ls._master_qp(A, bl, np.full(256, np.inf), -100.0)[0]
+    elif shape == "aph_prox":
+        rho = torch.full((24, N), 20.0, device=cuda)
+        qp = batch.with_nonant_linear_quad(-0.5 * rho, rho)
+    else:
+        meta = cross_scen.make_meta(batch, np.full(24, -1e3), max_rounds=2)
+        opts = pdhg.PDHGOptions(tol=1e-6, max_iters=400, detect_infeas=True)
+        nonants = torch.rand((24, N), generator=torch.Generator(
+            device="cpu").manual_seed(6)).to(cuda)
+        cross_scen.write_cuts(meta, cross_scen.package_cuts(
+            cross_scen.launch_cuts(batch, nonants, nonants.mean(0), opts),
+            opts))
+        qp = meta.aug_ph.qp
+        if shape == "cross_scen_ef_view":
+            qp = cross_scen._ef_bound_qp(
+                meta.aug_ef, torch.arange(24, device=cuda).repeat(2),
+                torch.as_tensor(meta.is_opt, device=cuda),
+                torch.as_tensor(meta.eta_lb, device=cuda), meta.n_orig)
+    args = _solver_args(qp)
+    if args[1].shape[0] == 1:
+        # the master from a random point of its box with random duals on
+        # its cut rows: two cold windows leave it where a window no
+        # longer moves it
+        g = torch.Generator(device="cpu").manual_seed(5)
+        x = qp.l + torch.rand(args[1].shape, generator=g).to(cuda) \
+            * (torch.clamp(qp.u, max=1e3) - qp.l)
+        y = torch.where(torch.isfinite(qp.bl),
+                        torch.randn(args[2].shape, generator=g).to(cuda),
+                        torch.zeros_like(args[2]))
+        args = (qp, x, y, torch.zeros_like(x), torch.zeros_like(y),
+                *args[5:7], torch.zeros_like(args[7]), args[8])
+    k = pdhg_window.run_window(*args, precision=precision)
+    assert float((k[0] - args[1]).abs().max()) > 0.0
+    assert float((k[1] - args[2]).abs().max()) > 0.0
+    _held_to_plain(args, precision, tol)
+
+
+def test_schur_complement_runs_in_f64_on_the_card(cuda):
+    """SchurComplement on the card: f64 throughout, its objective equal
+    to the CPU run's to 1e-9 relative (the same Newton iterates)."""
+    from mpisppy_tpu_torch.algos.sc import SchurComplement, SCOptions
+    opts = SCOptions(max_iter=250, tol=1e-10)
+    g = SchurComplement(opts, _sslp_batch(cuda, 8)).solve()
+    c = SchurComplement(opts, _sslp_batch("cpu", 8)).solve()
+    assert g["backend_used"] == "cuda" and g["converged"]
+    assert g["x"].dtype == np.float64
+    assert g["objective"] == pytest.approx(c["objective"], rel=1e-9)

@@ -70,7 +70,17 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/dispatch/__init__.py",
                  "mpisppy_tpu_torch/dispatch/buckets.py",
                  "mpisppy_tpu_torch/dispatch/compilewatch.py",
-                 "mpisppy_tpu_torch/dispatch/scheduler.py", *PORT_TOOLS):
+                 "mpisppy_tpu_torch/dispatch/scheduler.py",
+                 "mpisppy_tpu_torch/algos/lagrangian.py",
+                 "mpisppy_tpu_torch/algos/lshaped.py",
+                 "mpisppy_tpu_torch/algos/aph.py",
+                 "mpisppy_tpu_torch/algos/cross_scen.py",
+                 "mpisppy_tpu_torch/algos/sc.py",
+                 "mpisppy_tpu_torch/cylinders/spoke.py",
+                 "mpisppy_tpu_torch/extensions/extension.py",
+                 "mpisppy_tpu_torch/extensions/cross_scen_extension.py",
+                 "mpisppy_tpu_torch/extensions/reduced_costs_fixer.py",
+                 *PORT_TOOLS):
         assert must in names
 
 

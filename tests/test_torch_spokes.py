@@ -200,3 +200,99 @@ def test_classic_spokes_publish_against_a_snapshot(model, cls):
         return
     assert b is not None and b >= L0 - VALUE_RTOL * abs(L0)
     assert sp.best_xhat.shape[-1] == tb.num_nonants
+
+
+class _NamedOpt(_Opt):
+    def __init__(self, batch, names):
+        super().__init__(batch)
+        self.scenario_names = names
+
+
+def _payloads(jb, tb, x_non, it):
+    """The same hub snapshot for both packages (W = rho (x - x̄), a valid
+    multiplier: its node mean is zero)."""
+    xbar = x_non.mean(axis=0, keepdims=True)
+    W = 2.0 * (x_non - xbar)
+    arrs = dict(W=W, nonants=x_non, xbar_scen=np.broadcast_to(
+        xbar, x_non.shape).copy(), xbar_nodes=xbar)
+    jp = {k: jnp.asarray(v) for k, v in arrs.items()}
+    tp = {k: torch.as_tensor(v) for k, v in arrs.items()}
+    jp["iter"] = tp["iter"] = it
+    return jp, tp
+
+
+SPOKES_OF_THIS_SLICE = [
+    ("LagrangerOuterBound", {"rho": 2.0}),
+    ("SubgradientOuterBound", {"rho": 2.0, "n_windows": 20}),
+    ("PhOuterBound", {"rho": 2.0, "n_windows": 8}),
+    ("ReducedCostsSpoke", {}),
+    ("XhatLooperInnerBound", {"scen_limit": 2}),
+    ("XhatSpecificInnerBound", {"scenario_ids": [2, 1]}),
+    ("XhatLShapedInnerBound", {}),
+]
+
+
+@pytest.mark.parametrize("name,options", SPOKES_OF_THIS_SLICE,
+                         ids=[s[0] for s in SPOKES_OF_THIS_SLICE])
+def test_spokes_of_this_slice_match_jax(model, name, options):
+    """Two syncs of each spoke against the same snapshots: the harvested
+    bound agrees with the JAX spoke's to 1e-4 relative (both None when
+    neither certifies or finds a feasible candidate); the reduced-costs
+    spoke's per-scenario reduced costs agree to 1e-4 of their scale and
+    its expected ones are finite (consensus at a bound) alike."""
+    from mpisppy_tpu.cylinders import spoke as jspoke
+    jb, tb, x_non = model
+    names = [f"scen{i}" for i in range(tb.num_scenarios)]
+    o = dict(options, pdhg_opts=None)
+    del o["pdhg_opts"]
+    js = getattr(jspoke, name)(_NamedOpt(jb, names), dict(o))
+    ts = getattr(tspoke, name)(_NamedOpt(tb, names), dict(o))
+    for it in (1, 2):
+        jp, tp = _payloads(jb, tb, x_non, it)
+        js.update(jp)
+        ts.update(tp)
+        jbnd, tbnd = js.harvest(), ts.harvest()
+        assert (jbnd is None) == (tbnd is None), (it, jbnd, tbnd)
+        if jbnd is not None:
+            assert tbnd == pytest.approx(jbnd, rel=VALUE_RTOL), it
+    if name == "ReducedCostsSpoke":
+        assert ts.new_rc == js.new_rc
+        if js.rc_scenario is not None:
+            np.testing.assert_allclose(
+                ts.rc_scenario, js.rc_scenario, rtol=0,
+                atol=1e-4 * max(1.0, np.abs(js.rc_scenario).max()))
+            fin = np.isfinite(js.rc_global)
+            np.testing.assert_array_equal(np.isfinite(ts.rc_global), fin)
+            np.testing.assert_allclose(ts.rc_global[fin],
+                                       js.rc_global[fin], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["EFOuterBound", "EFXhatInnerBound"])
+def test_ef_spokes_match_jax_on_a_multistage_tree(name):
+    """The EF spokes on ccopf (2,2) --soc (a three-stage conic tree):
+    three syncs from the same x̄, bounds within 1e-4 relative."""
+    from mpisppy_tpu.cylinders import spoke as jspoke
+    from mpisppy_tpu.models import ccopf as jm
+    jtree = jm.make_tree((2, 2))
+    specs = [jm.scenario_creator(nm, branching_factors=(2, 2), soc=True)
+             for nm in jm.scenario_names_creator(4)]
+    jb = jbatch.from_specs(specs, tree=jtree)
+    tb = convert.batch_from_arrays(convert.arrays_of(jb), "cpu")
+    o = jpdhg.PDHGOptions()
+    st = jpdhg.solve(jb.qp, o)
+    xbar_nodes = np.asarray(jb.node_average(jb.nonants(st.x))[1])
+    from mpisppy_tpu_torch.models import ccopf as tm
+    tspecs = [tm.scenario_creator(nm, branching_factors=(2, 2), soc=True)
+              for nm in tm.scenario_names_creator(4)]
+    js = getattr(jspoke, name)(_Opt(jb), {"specs": specs, "tree": jtree})
+    ts = getattr(tspoke, name)(_Opt(tb), {"specs": tspecs,
+                                          "tree": tm.make_tree((2, 2))})
+    for _ in range(3):
+        js.update({"xbar_nodes": jnp.asarray(xbar_nodes)})
+        ts.update({"xbar_nodes": torch.tensor(xbar_nodes)})
+        jbnd, tbnd = js.harvest(), ts.harvest()
+        assert (jbnd is None) == (tbnd is None)
+        if jbnd is not None:
+            assert tbnd == pytest.approx(jbnd, rel=VALUE_RTOL)
+    assert ts.bound is not None

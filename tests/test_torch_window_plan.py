@@ -205,6 +205,30 @@ def test_layout_beyond_the_cards_shared_memory_is_streamed(mode):
         "resident"
 
 
+@pytest.mark.parametrize("shape,S", [((820, 85), 100), ((256, 16), 1),
+                                     ((256, 1015), 1)])
+@pytest.mark.parametrize("mode", MODES)
+def test_this_slices_batches_take_the_streamed_design(mode, shape, S):
+    """The batches of the decomposition hubs past the resident rows: the
+    cross-scenario PH view of sslp 5x15 at S=100 (8 rounds of 100 cut
+    rows under its 20), the single-cut and the multi-cut L-shaped
+    masters (a 256-row cut buffer, one problem; multi-cut at S=1,000)."""
+    plan = pw.plan_window(mode, *shape, S, *H100)
+    assert plan.design == "streamed" and plan.tile == 1
+    assert plan.blocks == S
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_a_shape_no_design_takes_raises(mode):
+    """One streamed scenario's vectors past the block's shared memory:
+    no design takes the shape, and the rule says so instead of handing
+    the launch a block it cannot start."""
+    m, n = 6_000, 4_000
+    assert pw.streamed_smem_bytes(m, n, 1) > H100[0]
+    with pytest.raises(ValueError, match="no window design"):
+        pw.plan_window(mode, m, n, 10, *H100)
+
+
 @pytest.mark.parametrize("m,n", [(60, 705), (13, 77), (20, 85)])
 @pytest.mark.parametrize("mode", MODES)
 def test_packed_a(mode, m, n):

@@ -35,9 +35,9 @@ from mpisppy_tpu.ops import pdhg  # noqa: E402
 from mpisppy_tpu.ops.bnb import BnBOptions  # noqa: E402
 
 # the [mip_gap] budgets (chip_smoke.py keeps the same numbers)
-MIP_GAP_PH_ITERS = 30
+MIP_GAP_PH_ITERS = 10
 MIP_GAP_RHO = 10.0
-MIP_GAP_MAX_ROUNDS = 10
+MIP_GAP_MAX_ROUNDS = 3
 MIP_GAP_POOL = 32
 MIP_GAP_DIVE_TAIL = 16
 MIP_GAP_PUMP_ROUNDS = 2
