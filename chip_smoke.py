@@ -50,7 +50,7 @@ nvcc per source, started together) and drives its main paths:
   iterations with a short profile;
 * the CLI — generic_cylinders.main in this process, as
   `python -m mpisppy_tpu_torch` runs it: the README's sslp command
-  without --presolve (cut to 3 hub iterations) and with it (cut to 5)
+  without --presolve (cut to 3 hub iterations) and with it (also cut to 3)
   against the JAX package's bounds for each, the box kernel against its plain
   version on the presolved batch's per-scenario bounds, the sslp 15x45
   headline at 10,000 scenarios with all four fusable spokes in bf16x3
@@ -81,6 +81,17 @@ nvcc per source, started together) and drives its main paths:
   --fused-wheel --xhatxbar with the root-fixed EF on the SOC kernel
   (its window then held against its plain version), and the
   Schur-complement interior point in f64 against HiGHS;
+* the async exchange wheel (algos/async_wheel.py) — bench.py's
+  bench_wheel_overhead_async at sslp 15x45, S=10,000, bf16x3 (bare PH,
+  the sync pair and the async pair at staleness 0/1/2 for 12 hub
+  iterations: s/iter, overhead factors, the exchange halves, the host
+  time blocked per iteration under a two-iteration profile, staleness 0
+  equal to the sync pair row for row), the headline CLI flags with
+  --async-staleness 1 --trace-jsonl to a 1% certificate beside the sync
+  headline's iterations, the README's sslp command with --fused-wheel
+  --async-staleness 1 against the JAX CLI's bounds and again with
+  dropped and torn plane writes, and the ccopf (100,100) wheel at
+  staleness 1 on the SOC kernel against the sync ccopf wheel's bounds;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -97,7 +108,10 @@ the [mip_gap] phase alone; `--only slice9_profile` profiles the L-shaped
 and APH hubs, and `--only lshaped_hub` (or aph_hub, bound_spokes,
 cross_scen, cli_ccopf_fused, sc, slice9_windows, or several of these
 names joined by commas) runs those phases, with `--full` at the depths
-PERF.md reports (~24 min for the four hub phases).
+PERF.md reports (~24 min for the four hub phases); `--only async` (or
+async_overhead, async_headline, async_held, async_ccopf) runs the async
+wheel's phases, `--full` at 30 hub iterations for [async_overhead] and
+[async_held].
 """
 import json
 import math
@@ -177,12 +191,13 @@ CLI_README = README_SSLP + ["--max-iterations", "3"]
 # mpisppy_tpu --module-name mpisppy_tpu.models.sslp ... --max-iterations
 # 3): (outer, inner); the port's must agree to 1e-3 relative
 CLI_README_JAX_BOUNDS = (-216.85543823242188, -149.89996337890625)
-# the README command as it is (with --presolve: FBBT) cut to 5 hub
-# iterations (at 10 the JAX CLI gives -216.44839/-149.89996): the JAX
-# package's CLI on the CPU, the same command, gives (outer, inner); the
-# port's must agree to 1e-4 relative
-CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "5"]
-CLI_README_PRESOLVE_JAX_BOUNDS = (-216.73626708984375, -149.89996337890625)
+# the README command as it is (with --presolve: FBBT) cut to 3 hub
+# iterations (5 before the async wheel's phases, with the JAX CLI's
+# -216.73627/-149.89996; at 10 -216.44839/-149.89996): the JAX package's
+# CLI on the CPU, the same command, gives (outer, inner); the port's
+# must agree to 1e-4 relative
+CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "3"]
+CLI_README_PRESOLVE_JAX_BOUNDS = (-216.8553009033203, -149.89996337890625)
 # the power iteration's ||A|| estimate of farmer S=3 (Ruiz-scaled), the
 # JAX package's (mpisppy_tpu.ops.pdhg.estimate_norm on the CPU, from
 # jax.random.normal(PRNGKey(7))); the port's must agree to 1e-5 relative
@@ -195,16 +210,16 @@ UC_SCENS = 100
 ELL_SCENS = (100, 1_000, 10_000)
 # batch sizes at which the two forms of the ELL products are timed
 ELL_PRODUCT_SCENS = (100, 300, 1_000, 3_000, 10_000)
-# cut from 25 to 10 hub iterations for the MIP phases and to 5 for the
-# decomposition hubs': the FWPH outer bound has landed by then in both
-# packages
-UC_WHEEL_HUB_ITERS = 5
+# cut from 25 to 10 hub iterations for the MIP phases, to 5 for the
+# decomposition hubs' and to 3 for the async wheel's: the outer bound has
+# landed by then in both packages, at the same value
+UC_WHEEL_HUB_ITERS = 3
 UC_FULL_MAX_ITERS = 600
 UC_FWPH_OUTER_ITERS = 3                 # cut from 5 like the wheel
 UC_PROGRAM_SCENS = 10_000
 UC_PROGRAM_HUB_ITERS = 3
-# the JAX package on the CPU (tools/uc_jax_reference.py 100 5 3; with
-# 10 and 25 hub iterations the same outer bound): the
+# the JAX package on the CPU (tools/uc_jax_reference.py 100 3 3; with
+# 5, 10 and 25 hub iterations the same outer bound): the
 # outer bound of [uc_wheel] (its inner bound has not landed by then, in
 # either package) and the certified outer bound of [uc_fwph_hub]; the
 # port's must agree to 1e-3 relative
@@ -232,8 +247,8 @@ CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
 MIP_SCENS = 1_000                     # [bnb_operands], [mip_lagrangian]
 MIP_RHO = 10.0                        # tests/test_mip_bnb.py's PH rho
 MIP_LAG_PH_ITERS = 20                 # the short LP PH run giving W
-MIP_LAG_MAX_ROUNDS = 20               # the capped B&B of [mip_lagrangian]
-#                                       (cut from 60)
+MIP_LAG_MAX_ROUNDS = 10               # the capped B&B of [mip_lagrangian]
+#                                       (cut from 60, then 20)
 MIP_LAG_PUMP_ROUNDS = 5
 MIP_PROFILE_ROUNDS = 5                # B&B rounds under the profiler
 # every node LP of the capped MIP phases stops at 2,000 iterations (50
@@ -253,15 +268,15 @@ MIP_LP_SLACK = 1e-3
 # [mip_gap]: certified_mip_gap at SIPLIB sslp_15_45_10's dimensions
 # (synthetic data, instance seed 0) with these budgets, and the JAX
 # package's bracket for the same run on the CPU
-# (tools/mip_jax_reference.py 10 3): (inner, outer).  Cut from 10 B&B
+# (tools/mip_jax_reference.py 10 1): (inner, outer).  Cut from 10 B&B
 # rounds to 3 and from 30 PH iterations to 10 to make room for the
-# decomposition hubs' phases (before, the JAX bracket was
-# 4826.35/-310.15)
+# decomposition hubs' phases, then to 1 round for the async wheel's
+# (before, the JAX bracket was 4826.35/-310.15, then 4826.34/-322.95)
 MIP_GAP_SCENS = 10
 MIP_GAP_PH_ITERS = 10
-MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 3, 32, 4
+MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 1, 32, 4
 MIP_GAP_DIVE_TAIL, MIP_GAP_PUMP_ROUNDS = 16, 2
-MIP_GAP_JAX = (4826.34375, -322.95477294921875)
+MIP_GAP_JAX = (4826.71484375, -462.9410400390625)
 # the CLI's --EF on farmer, and the JAX CLI's EF objective for the same
 # command on the CPU (tools/mip_jax_reference.py)
 CLI_EF = ["--module-name", "mpisppy_tpu_torch.models.farmer",
@@ -271,7 +286,7 @@ CLI_EF_JAX_OBJ = -108390.09433410698
 # solve, so the scheduler's counters stay 0 and come from it)
 CLI_DISPATCH = ["--module-name", "mpisppy_tpu_torch.models.farmer",
                 "--num-scens", "3", "--fused-wheel", "--lagrangian",
-                "--xhatxbar", "--rel-gap", "0.01", "--max-iterations", "10",
+                "--xhatxbar", "--rel-gap", "0.01", "--max-iterations", "3",
                 "--dispatch-max-batch", "64", "--dispatch-timeout-s", "600"]
 
 
@@ -307,9 +322,9 @@ CROSS_SCEN = ["--module-name", "mpisppy_tpu_torch.models.sslp",
 # the profile; the bound spokes run at LSHAPED_SCENS too
 LSHAPED_SCENS = 1_000
 APH_SCENS = 10_000
-# the JAX CLI's (outer, inner) for [bound_spokes] at LSHAPED_SCENS, 2
-# iterations (4.0 min on the CPU)
-BOUND_SPOKES_JAX = (-302.0449523925781, -276.5506286621094)
+# the JAX CLI's (outer, inner) for [bound_spokes] at LSHAPED_SCENS, 1
+# iteration (13 min on the CPU; at 2: -302.04495/-276.55063)
+BOUND_SPOKES_JAX = (-303.463134765625, -276.5506286621094)
 
 
 def sslp_cli(S, *flags):
@@ -346,7 +361,7 @@ def slice9_table(full=False):
                (-316.54156494140625, -284.23101806640625)))],
         "bound_spokes": [
             ("bound_spokes", sslp_cli(LSHAPED_SCENS, *BOUND_SPOKE_FLAGS,
-                                      "--max-iterations", d("2", "10")),
+                                      "--max-iterations", d("1", "10")),
              d(BOUND_SPOKES_JAX, None)),
             *d([], [("bound_spokes_100", sslp_cli(
                 100, *BOUND_SPOKE_FLAGS, "--max-iterations", "10"),
@@ -374,6 +389,29 @@ CLI_CCOPF_FUSED_JAX_BOUNDS = (71.77212524414062, 71.77219394929853)
 SC_SCENS = 100
 SC_TOL = 1e-12
 SC_REL_TOL = 1e-6
+# the async exchange wheel: bench.py's bench_wheel_overhead_async (sslp
+# 15x45, S=10,000, bf16x3, PH rho 20, 8 subproblem windows, tol 1e-6,
+# restart 40; the four fused spokes, slam 2, shuffle 4, spoke_period 3)
+ASYNC_OVERHEAD_ITERS = {False: 12, True: 30}     # by --full
+# the sync pair and staleness 1 are profiled over their last two hub
+# iterations (the profiler slows the iterations after its window, so it
+# goes last); the steady-state times of every run are read over
+# iterations 4 to the one before that window (iter0 and the first two
+# iterk left out, as bench.py), so all runs share one set
+ASYNC_PROFILE_ITERS = 2
+# the headline CLI flags at staleness 1, traced
+CLI_ASYNC_HEADLINE = CLI_HEADLINE + ["--async-staleness", "1"]
+# the README's sslp command on the fused wheel at staleness 1, and the
+# JAX package's CLI on the CPU for the same command (python -m
+# mpisppy_tpu --module-name mpisppy_tpu.models.sslp --num-scens 100
+# --lagrangian --xhatshuffle --rel-gap 0.01 --fused-wheel
+# --async-staleness 1 --max-iterations N): (outer, inner) by N; the
+# port's must agree to 1e-3 relative
+CLI_ASYNC_HELD = README_SSLP + ["--fused-wheel", "--async-staleness", "1"]
+ASYNC_HELD_ITERS = {False: 10, True: 30}         # by --full
+ASYNC_HELD_JAX_BOUNDS = {10: (-216.515869140625, -149.8999786376953),
+                         30: (-215.45925903320312, -149.8999786376953)}
+ASYNC_CCOPF_MAX_ITERS = 10
 
 def phase(name, **fields):
     parts = " ".join(f"{k}={v}" for k, v in fields.items())
@@ -553,18 +591,24 @@ def ccopf_options(max_iterations=CCOPF_MAX_ITERS):
                             pdhg=pdhg.PDHGOptions(tol=1e-6))
 
 
-def wheel(batch, opts):
+def wheel(batch, opts, staleness=None):
     """The fused PH wheel (PH hub, fused Lagrangian and x̂-x̄ spokes) to
-    a 1% gap; returns the spinner and its wall seconds."""
+    a 1% gap, or the async pair at `staleness`; returns the spinner and
+    its wall seconds."""
+    from mpisppy_tpu_torch.algos import async_wheel as aw
     from mpisppy_tpu_torch.algos import fused_wheel as fw
     from mpisppy_tpu_torch.cylinders import spoke
-    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.cylinders.hub import AsyncPHHub, PHHub
     from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
     hub = {"hub_class": PHHub,
            "hub_kwargs": {"options": {"rel_gap": 0.01}},
            "opt_class": fw.FusedPH,
            "opt_kwargs": {"options": opts, "batch": batch,
                           "wheel_options": fw.FusedWheelOptions()}}
+    if staleness is not None:
+        hub["hub_class"], hub["opt_class"] = AsyncPHHub, aw.AsyncFusedPH
+        hub["opt_kwargs"]["async_options"] = aw.AsyncWheelOptions(
+            staleness=staleness)
     spokes = [{"spoke_class": spoke.FusedLagrangianOuterBound,
                "opt_kwargs": {"options": {}}},
               {"spoke_class": spoke.FusedXhatXbarInnerBound,
@@ -749,7 +793,8 @@ def small_wheel(label, model, gpu_batch, cpu_batch, opts, **extra):
     return g
 
 
-def main_wheel(label, kernel, batch, opts, slack=0.0, **fields):
+def main_wheel(label, kernel, batch, opts, slack=0.0, staleness=None,
+               **fields):
     """Drive one main path with the launch counts set to 0 just before
     and read just after; its kernel must have launched, and its bounds
     be finite and ordered (outer <= inner + slack * max(1, |inner|)).
@@ -757,7 +802,7 @@ def main_wheel(label, kernel, batch, opts, slack=0.0, **fields):
     by instantiation/mode/design."""
     from mpisppy_tpu_torch.ops import pdhg_window
     reset_launches()
-    ws, secs = wheel(batch, opts)
+    ws, secs = wheel(batch, opts, staleness)
     launches = dict(pdhg_window.run_window.launches)
     by_design = dict(pdhg_window.run_window.launches_by_design)
     outer, inner = ws.BestOuterBound, ws.BestInnerBound
@@ -982,12 +1027,13 @@ def check_soc_designs(label, by_design):
                              "or no f32 resident SOC window")
 
 
-def ccopf_path(dev):
+def ccopf_path(dev, sync):
     """The ccopf --soc phases: SOC-window parity (ccopf at S=10,000 and
     the 64 x 160 tail in the shape rule's design, the 33-bus feeder on
     the streamed design), window times of both designs, the (3,3) wheel
     on card and CPU, the profile of a capped (100,100) wheel, and the
-    (100,100) wheel at S=10,000."""
+    (100,100) wheel at S=10,000, whose bounds go into `sync` for
+    [async_ccopf]."""
     from mpisppy_tpu_torch.ops import pdhg_window
     S = CCOPF_BFS[0] * CCOPF_BFS[1]
     t0 = time.perf_counter()
@@ -1037,6 +1083,7 @@ def ccopf_path(dev):
         slack=HUB_BOUND_SLACK, model="ccopf_soc",
         bfs="x".join(map(str, CCOPF_BFS)), iter_precision="f32")
     check_soc_designs("ccopf_soc", by_design)
+    sync["ccopf_soc"] = (ws.BestOuterBound, ws.BestInnerBound)
     nodes = ws.spcomm.best_nonants().shape[0]
     rel = max(abs(a - b) / abs(b) for a, b in zip(
         (ws.BestOuterBound, ws.BestInnerBound), CCOPF_JAX_BOUNDS))
@@ -1216,6 +1263,7 @@ def cli_run(label, args, box_kernel=True, kernel="pdhg_window"):
     launches = dict(pdhg_window.run_window.launches)
     by_design = dict(pdhg_window.run_window.launches_by_design)
     result = json.loads(out.getvalue().strip().splitlines()[-1])
+    result["wall_s"] = secs
     phase(label, S=ws.opt.batch.num_scenarios,
           device=ws.opt.batch.device.type, hub_iters=result["iterations"],
           outer=result["outer_bound"], inner=result["inner_bound"],
@@ -1250,17 +1298,18 @@ def vs_jax(label, result, jax_bounds, rtol):
         raise AssertionError(f"{label}: bounds off the JAX reference")
 
 
-def cli_path():
+def cli_path(sync):
     """The CLI phases: the README's sslp command (classic Lagrangian and
     shuffle spokes, S=100, sslp 5x25 with integer first stage) without
-    --presolve (cut to 3 hub iterations) and with it (cut to 5), each
+    --presolve (cut to 3 hub iterations) and with it (also cut to 3), each
     against the JAX
     package's bounds for the same command, and the box kernel against
     its plain version on the presolved batch (per-scenario l/u); the
     sslp 15x45 headline at S=10,000 through the CLI with all four
     fusable spokes in bf16x3 to a 1% certificate, every box window in
-    the design the shape rule gives; the uc model with --fwph for 5 hub
-    iterations (ELL: no window kernel)."""
+    the design the shape rule gives (its result goes into `sync` for
+    [async_headline]); the uc model with --fwph for 5 hub iterations
+    (ELL: no window kernel)."""
     result, _, _, _ = cli_run("cli_readme", CLI_README)
     vs_jax("cli_readme", result, CLI_README_JAX_BOUNDS, 1e-3)
     result, _, _, ws = cli_run("cli_readme_presolve", CLI_README_PRESOLVE)
@@ -1277,6 +1326,7 @@ def cli_path():
     result, _, by_design, ws = cli_run("cli_headline", CLI_HEADLINE)
     if not result["rel_gap"] <= 0.01:
         raise AssertionError("cli_headline: no 1% certificate")
+    sync["cli_headline"] = result
     qp = ws.opt.batch.qp
     check_designs("cli_headline", by_design, qp.m, qp.n,
                   (HEADLINE_SCENS, TAIL_SCENS))
@@ -2430,8 +2480,9 @@ def check_lshaped(label, result, by_design, ws):
     phase(label, benders_iters=len(rows),
           sub_windows=json.dumps([r["sub_windows"] for r in rows]),
           master_windows=json.dumps([r["master_windows"] for r in rows]),
-          s_per_benders_iter=round(ws.spcomm.trace[-1]["t"]
-                                   / max(1, len(rows)), 3),
+          s_per_benders_iter=round((ws.spcomm.trace[-1]["t"]
+                                    - ws.spcomm._t0) / max(1, len(rows)),
+                                   3),
           master_route=plan_line(empty_master_qp(ws.opt), 1),
           spokes=",".join(type(sp).__name__ for sp in ws.spcomm.spokes))
     if not (rows and all(r["sub_windows"] > 0 for r in rows)
@@ -2461,7 +2512,7 @@ def check_aph(label, result, by_design, ws):
           conv=float(st.conv),
           dispatched_last_iter=int((last == int(st.it)).sum()),
           never_dispatched=int((last == 0).sum()),
-          s_per_hub_iter=round(ws.spcomm.trace[-1]["t"]
+          s_per_hub_iter=round((ws.spcomm.trace[-1]["t"] - ws.spcomm._t0)
                                / max(1, result["iterations"]), 3))
     if not (type(ws.spcomm).__name__ == "APHHub"
             and by_design.get("pdhg_window/bf16x3/resident", 0) > 0
@@ -2618,6 +2669,374 @@ def slice9_path(dev, full=False):
     return errs, total
 
 
+class EventProbe:
+    """A telemetry sink keeping the data of the events of some kinds."""
+
+    def __init__(self, *kinds):
+        self.kinds, self.seen = kinds, []
+
+    def handle(self, e):
+        if e.kind in self.kinds:
+            self.seen.append((e.kind, dict(e.data)))
+
+    def close(self):
+        pass
+
+    def of(self, kind):
+        return [d for k, d in self.seen if k == kind]
+
+
+class ProfileIters:
+    """PH extension: torch.profiler (host and device) over hub
+    iterations [first, first + count): wall per iteration, the device
+    busy share, and the host time blocked in synchronizing CUDA calls
+    (stream/event/device synchronize and the blocking device-to-host
+    copies behind a host read of a device value)."""
+
+    BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize",
+                "cudaDeviceSynchronize", "cudaMemcpyAsync")
+
+    def __init__(self, opt, first, count, out):
+        self.opt, self.first, self.count, self.out = opt, first, count, out
+        self.prof = None
+
+    def miditer(self):
+        from torch.profiler import ProfilerActivity, profile
+        if self.opt._iter == self.first:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+
+    def enditer_after_sync(self):
+        from torch.autograd import DeviceType
+        if self.prof is None \
+                or self.opt._iter != self.first + self.count - 1:
+            return
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        spans, blocked, launches = [], 0.0, 0
+        for e in self.prof.events():
+            dur = e.time_range.end - e.time_range.start
+            if e.device_type == DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end))
+            elif e.name in self.BLOCKING:
+                blocked += dur
+            elif e.name == "cudaLaunchKernel":
+                launches += 1
+        n = self.count
+        self.out.update(
+            profiled_iters=n, wall_ms_per_iter=round(1e3 * wall / n, 3),
+            blocked_ms_per_iter=round(blocked / 1e3 / n, 3),
+            blocked_share=round(blocked / (wall * 1e6), 4),
+            device_busy_share=round(union_us(spans) / (wall * 1e6), 4),
+            kernel_launches_per_iter=round(launches / n, 1))
+        self.prof = None
+
+
+def overhead_wheel(batch, opts, staleness, profile_out=None):
+    """bench.py's overhead wheel (the four fused spokes, slam 2, shuffle
+    4, spoke_period 3; rel_gap 0): the sync pair (staleness None) or the
+    async pair.  Returns the spinner, its events and its launches by
+    design."""
+    import functools
+
+    from mpisppy_tpu_torch import telemetry
+    from mpisppy_tpu_torch.algos import async_wheel as aw
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import AsyncPHHub, PHHub
+    from mpisppy_tpu_torch.ops import pdhg_window
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    probe = EventProbe("plane-write", "exchange-overlap")
+    bus = telemetry.EventBus()
+    bus.subscribe(probe)
+    hub_opts = {"rel_gap": 0.0, "telemetry_bus": bus}
+    hub = {"hub_class": PHHub, "hub_kwargs": {"options": hub_opts},
+           "opt_class": fw.FusedPH,
+           "opt_kwargs": {"options": opts, "batch": batch,
+                          "wheel_options": fw.FusedWheelOptions(
+                              slam_windows=2, shuffle_windows=4,
+                              spoke_period=3)}}
+    if staleness is not None:
+        hub["hub_class"], hub["opt_class"] = AsyncPHHub, aw.AsyncFusedPH
+        hub["opt_kwargs"]["async_options"] = aw.AsyncWheelOptions(
+            staleness=staleness)
+        hub_opts["async_staleness"] = staleness
+    if profile_out is not None:
+        hub["opt_kwargs"]["extensions"] = functools.partial(
+            ProfileIters,
+            first=opts.max_iterations - ASYNC_PROFILE_ITERS + 1,
+            count=ASYNC_PROFILE_ITERS, out=profile_out)
+    spokes = [{"spoke_class": c, "opt_kwargs": {"options": {}}} for c in (
+        spoke.FusedLagrangianOuterBound, spoke.FusedXhatXbarInnerBound,
+        spoke.FusedXhatShuffleInnerBound, spoke.FusedSlamHeuristic)]
+    reset_launches()
+    ws = WheelSpinner(hub, spokes).spin()
+    torch.cuda.synchronize()
+    return ws, probe, dict(pdhg_window.run_window.launches_by_design)
+
+
+def steady_s_per_iter(ws, n_iters):
+    """Steady-state seconds per hub iteration from the trace rows of
+    iterations 4 to n_iters - ASYNC_PROFILE_ITERS: the median
+    (bench.py's; at spoke_period 3 a hub-only iteration) and the mean
+    (spoke iterations included)."""
+    import statistics
+    rows = ws.spcomm.trace
+    last = n_iters - ASYNC_PROFILE_ITERS
+    diffs = [b["t"] - a["t"] for a, b in zip(rows[3:], rows[4:])
+             if b["iter"] <= last]
+    return statistics.median(diffs), statistics.mean(diffs)
+
+
+def bare_ph_s_per_iter(batch, opts, n_iters):
+    """Bare PH seconds per iteration (iter0 and one iterk excluded)."""
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    rho = torch.full((batch.num_nonants,), opts.default_rho,
+                     device=batch.device)
+    st, _, _ = ph_mod.ph_iter0(batch, rho, opts)
+    st = ph_mod.ph_iterk(batch, st, opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        st = ph_mod.ph_iterk(batch, st, opts)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_iters
+
+
+def rows_minus_t(ws):
+    return [{k: v for k, v in row.items() if k != "t"}
+            for row in ws.spcomm.trace]
+
+
+def async_overhead(dev, full=False):
+    """[async_overhead]: bench.py's bench_wheel_overhead_async on the
+    card — bare PH, the sync pair, then the async pair at staleness
+    0/1/2, each for ASYNC_OVERHEAD_ITERS hub iterations, the sync pair
+    and staleness 1 with a profile of two steady iterations.  Staleness 0 must equal the sync pair row for
+    row (minus `t`); every plane write must be at most s stale;
+    staleness 1/2 must publish a finite outer bound, and an inner bound
+    that lands must lie above it (at this depth the x̂ candidate may not
+    have landed yet, in the sync pair either).  Returns the launches by
+    design of the async runs."""
+    import statistics
+    n_iters = ASYNC_OVERHEAD_ITERS[full]
+    t0 = time.perf_counter()
+    batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    build_s = time.perf_counter() - t0
+    opts = sslp_options("bf16x3", n_iters, 1e-6, 8)
+    bare = bare_ph_s_per_iter(batch, opts, n_iters)
+    phase("async_overhead", S=HEADLINE_SCENS, iter_precision="bf16x3",
+          hub_iters=n_iters, bare_ph_s_per_iter=round(bare, 5),
+          batch_build_s=round(build_s, 2))
+    total, rows = {}, {}
+    for s in (None, 0, 1, 2):
+        prof = {} if s in (None, 1) else None
+        t0 = time.perf_counter()
+        ws, probe, by_design = overhead_wheel(batch, opts, s, prof)
+        wall = time.perf_counter() - t0
+        per_iter, mean_iter = steady_s_per_iter(ws, n_iters)
+        rows[s] = rows_minus_t(ws)
+        writes = probe.of("plane-write")
+        overlaps = probe.of("exchange-overlap")
+        thetas = [o["theta"] for o in overlaps if "theta" in o]
+        fields = {}
+        if overlaps:
+            fields = dict(
+                issue_s_median=round(statistics.median(
+                    o["issue_s"] for o in overlaps), 6),
+                complete_s_median=round(statistics.median(
+                    o["complete_s"] for o in overlaps), 6),
+                plane_writes=len(writes),
+                plane_staleness_max=max(
+                    (w["staleness"] for w in writes), default=None),
+                theta_min=min(thetas, default=None),
+                theta_max=max(thetas, default=None))
+        phase("async_overhead", staleness="sync" if s is None else s,
+              s_per_iter=round(per_iter, 5),
+              overhead_factor=round(per_iter / bare, 3),
+              mean_s_per_iter=round(mean_iter, 5),
+              mean_overhead_factor=round(mean_iter / bare, 3),
+              outer=ws.BestOuterBound, inner=ws.BestInnerBound,
+              wall_s=round(wall, 2),
+              by_design=json.dumps(by_design, sort_keys=True)
+              .replace(" ", ""), **fields)
+        if prof is not None:
+            phase("async_overhead_profile",
+                  staleness="sync" if s is None else s, **prof)
+            if not prof:
+                raise AssertionError("async_overhead_profile: the "
+                                     "profiled iterations did not run")
+        if s is not None:
+            merge_launches(total, by_design)
+        if any(w["staleness"] > max(1, s or 0) for w in writes):
+            raise AssertionError(f"async_overhead: a plane write past "
+                                 f"staleness {s}")
+        if s in (1, 2) and not (
+                math.isfinite(ws.BestOuterBound)
+                and ws.BestOuterBound <= ws.BestInnerBound):
+            raise AssertionError(f"async_overhead: staleness {s} outer "
+                                 "bound not finite, or bounds crossed")
+        if s in (1, 2) and len(writes) != n_iters:
+            raise AssertionError("async_overhead: not one plane write "
+                                 "per iterk")
+        del ws
+    same = rows[0] == rows[None]
+    phase("async_overhead", staleness0_rows_equal_sync=same,
+          rows=len(rows[0]))
+    if not same:
+        raise AssertionError("async_overhead: staleness 0 differs from "
+                             "the sync pair")
+    del batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def async_headline(sync):
+    """[async_headline]: the headline CLI flags with --async-staleness 1
+    and --trace-jsonl, S=10,000, to a 1% certificate (at most
+    HEADLINE_MAX_ITERS hub iterations), beside the sync headline's
+    iterations and seconds from [cli_headline] in the same run.  The
+    trace holds one run-start and one run-end, and a plane-write and an
+    exchange-overlap per iterk."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "async_headline.jsonl")
+        result, _, by_design, ws = cli_run(
+            "async_headline", CLI_ASYNC_HEADLINE + ["--trace-jsonl", path])
+        with open(path) as f:
+            kinds = [json.loads(line)["kind"] for line in f]
+    iters = result["iterations"]
+    count = {k: kinds.count(k) for k in ("run-start", "run-end",
+                                         "plane-write", "exchange-overlap")}
+    ref = sync.get("cli_headline")
+    phase("async_headline", hub=type(ws.spcomm).__name__,
+          iterations_to_1pct=iters, seconds_to_1pct=round(
+              result["wall_s"], 2),
+          sync_iterations=None if ref is None else ref["iterations"],
+          sync_seconds=None if ref is None else round(ref["wall_s"], 2),
+          trace_events=len(kinds), **{k.replace("-", "_"): v
+                                      for k, v in count.items()})
+    if not (result["rel_gap"] <= 0.01
+            and type(ws.spcomm).__name__ == "AsyncPHHub"
+            and count["run-start"] == count["run-end"] == 1
+            and count["plane-write"] == iters - 1
+            and count["exchange-overlap"] == iters):
+        raise AssertionError("async_headline: no 1% certificate, not the "
+                             "async hub, or the trace is short of events")
+    qp = ws.opt.batch.qp
+    check_designs("async_headline", by_design, qp.m, qp.n,
+                  (HEADLINE_SCENS, TAIL_SCENS))
+    return by_design
+
+
+def held_with_faults(args):
+    """The [async_held] command built as the CLI builds it, with a
+    FaultPlan of one dropped plane write and one torn swap in the hub's
+    options.  Returns the spinner, its plane-write events, the plan and
+    the launches by design."""
+    import importlib
+
+    from mpisppy_tpu_torch import dispatch, telemetry
+    from mpisppy_tpu_torch import generic_cylinders as gc
+    from mpisppy_tpu_torch.ops import pdhg_window
+    from mpisppy_tpu_torch.resilience import AsyncExchangeFault, FaultPlan
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    module = importlib.import_module("mpisppy_tpu_torch.models.sslp")
+    cfg = gc._parse_args(module, args)
+    hub, spokes, _, _, _ = gc.build_wheel(cfg, module)
+    plan = FaultPlan(seed=11, exchanges=(
+        AsyncExchangeFault("drop_plane_write", at_iters=(3,)),
+        AsyncExchangeFault("torn_swap", at_iters=(6,))))
+    probe = EventProbe("plane-write")
+    bus = telemetry.EventBus()
+    bus.subscribe(probe)
+    hub["hub_kwargs"]["options"].update(fault_plan=plan, telemetry_bus=bus)
+    dispatch.from_cfg(cfg)
+    reset_launches()
+    ws = WheelSpinner(hub, spokes).spin()
+    torch.cuda.synchronize()
+    return ws, probe.of("plane-write"), plan, \
+        dict(pdhg_window.run_window.launches_by_design)
+
+
+def async_held(full=False):
+    """[async_held]: the README's sslp command (5x25, S=100) with
+    --fused-wheel --async-staleness 1 for ASYNC_HELD_ITERS hub
+    iterations against the JAX CLI's bounds, then the same run with a
+    dropped plane write and a torn swap: plane writes past the bound,
+    and finite ordered bounds still."""
+    n = ASYNC_HELD_ITERS[full]
+    args = CLI_ASYNC_HELD + ["--max-iterations", str(n)]
+    result, _, total, _ = cli_run("async_held", args)
+    vs_jax("async_held", result, ASYNC_HELD_JAX_BOUNDS[n], 1e-3)
+    ws, writes, plan, by_design = held_with_faults(args)
+    merge_launches(total, by_design)
+    stal = [w["staleness"] for w in writes]
+    fired = sorted({d.split()[0] for seam, d in plan.fired
+                    if seam == "exchange"})
+    phase("async_held_faults", fired=",".join(fired),
+          plane_writes=len(writes), staleness_max=max(stal),
+          staleness=json.dumps(stal).replace(" ", ""),
+          outer=ws.BestOuterBound, inner=ws.BestInnerBound)
+    if not (fired == ["drop_plane_write", "torn_swap"] and max(stal) > 1
+            and math.isfinite(ws.BestOuterBound)
+            and math.isfinite(ws.BestInnerBound)
+            and ws.BestOuterBound <= ws.BestInnerBound):
+        raise AssertionError("async_held: the faults did not show, or the "
+                             "bounds are not finite and ordered")
+    return total
+
+
+def async_ccopf(dev, sync):
+    """[async_ccopf]: the ccopf --soc (100,100) wheel at S=10,000, f32,
+    staleness 1, to its gap or ASYNC_CCOPF_MAX_ITERS hub iterations, on
+    the resident SOC kernel; its bounds within the hub's bound_slack of
+    the sync ccopf wheel's from [ccopf_soc] (run here when that phase
+    did not)."""
+    batch = ccopf_batch(CCOPF_BFS, dev)
+    if "ccopf_soc" not in sync:
+        ws, _ = wheel(batch, ccopf_options())
+        sync["ccopf_soc"] = (ws.BestOuterBound, ws.BestInnerBound)
+        del ws
+    ws, _, by_design = main_wheel(
+        "async_ccopf", "pdhg_window_soc", batch,
+        ccopf_options(ASYNC_CCOPF_MAX_ITERS), slack=HUB_BOUND_SLACK,
+        staleness=1, model="ccopf_soc", bfs="x".join(map(str, CCOPF_BFS)),
+        iter_precision="f32")
+    check_soc_designs("async_ccopf", by_design)
+    ref = sync["ccopf_soc"]
+    diff = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(
+        (ws.BestOuterBound, ws.BestInnerBound), ref))
+    phase("async_ccopf", sync_outer=ref[0], sync_inner=ref[1],
+          max_rel_diff_vs_sync=diff, bound_slack=HUB_BOUND_SLACK)
+    if diff > HUB_BOUND_SLACK:
+        raise AssertionError("async_ccopf: bounds off the sync wheel's")
+    del ws, batch
+    torch.cuda.empty_cache()
+    return by_design
+
+
+def async_path(dev, sync, full=False):
+    """The async wheel's four phases, compared with the sync results in
+    `sync` (filled by cli_path and ccopf_path); returns their main runs'
+    launches by design (K1, K2 and the resident SOC kernel)."""
+    t0 = time.perf_counter()
+    total = async_overhead(dev, full)
+    merge_launches(total, async_headline(sync))
+    torch.cuda.empty_cache()
+    merge_launches(total, async_held(full))
+    merge_launches(total, async_ccopf(dev, sync))
+    phase("async_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return total
+
+
 def credit(kernels, by_design):
     """Add main-path launches (by instantiation/mode/design) to the
     kernels line's entries: resident box bf16x3 -> K2, resident box f32
@@ -2672,6 +3091,11 @@ def main() -> int:
             "slice9_windows": slice9_windows,
             "cli_ccopf_fused": lambda dev: ccopf_fused_phase(),
             "sc": sc_phase,
+            "async": lambda dev: async_path(dev, {}, full),
+            "async_overhead": lambda dev: async_overhead(dev, full),
+            "async_headline": lambda dev: async_headline({}),
+            "async_held": lambda dev: async_held(full),
+            "async_ccopf": lambda dev: async_ccopf(dev, {}),
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if sys.argv[1:2] == ["--only"]:
@@ -2681,7 +3105,8 @@ def main() -> int:
     normal_path(dev)
     kernels = sslp_path(dev)
     torch.cuda.empty_cache()
-    kernels.extend(ccopf_path(dev))
+    sync = {}     # the sync results the async phases compare with
+    kernels.extend(ccopf_path(dev, sync))
     torch.cuda.empty_cache()
     kernels.append(scengen_path(dev))
     torch.cuda.empty_cache()
@@ -2689,16 +3114,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     uc_path(dev)
     torch.cuda.empty_cache()
-    cli_path()
+    cli_path(sync)
     torch.cuda.empty_cache()
     _, _, mip_launches = mip_path(dev)
     torch.cuda.empty_cache()
     _, slice9_launches = slice9_path(dev)
+    torch.cuda.empty_cache()
+    async_launches = async_path(dev, sync)
     # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
     # K2 (APH's bf16x3), the streamed box design (L-shaped masters, the
-    # cross-scenario view) and a SOC design (the root-fixed ccopf EF)
+    # cross-scenario view) and a SOC design (the root-fixed ccopf EF);
+    # the async wheel's in K1, K2 (its bf16x3 stale-prox hub step) and
+    # the resident SOC kernel (ccopf)
     credit(kernels, mip_launches)
     credit(kernels, slice9_launches)
+    credit(kernels, async_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

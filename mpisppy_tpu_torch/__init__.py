@@ -13,7 +13,6 @@
 # Scoring matmuls run in IEEE f32 (TF32 is switched off here, at import,
 # and again whenever a CUDA device is resolved).
 ###############################################################################
-import sys as _sys
 import time as _time
 
 import torch
@@ -41,9 +40,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def global_toc(msg: str, cond: bool = True) -> None:
-    """Timestamped progress logging to stderr (ref:mpisppy/__init__.py:16-22).
-    The JAX package routes this through its telemetry console, which is
-    not ported yet."""
+    """Timestamped progress logging (ref:mpisppy/__init__.py:16-22),
+    routed through the telemetry console (telemetry/console.py): with no
+    telemetry configured it prints `[elapsed] msg` to stderr as before;
+    with a configured bus every line also lands in the JSONL trace."""
     if cond:
-        print(f"[{_time.time() - _T0:8.2f}] {msg}", file=_sys.stderr,
-              flush=True)
+        from mpisppy_tpu_torch.telemetry import console
+        console.log(msg)

@@ -16,7 +16,8 @@
 # one host read of `needed` per exchange; the packed scalars are copied
 # to pinned host memory as soon as they are computed, so the pipelined
 # read of the previous iteration's scalars never waits for the current
-# step.
+# step.  The async wheel's exchange plane (ExchangePlane, plane_of,
+# ph_stale_step) lives here too, beside the planes it feeds.
 ###############################################################################
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import dispatch as _dispatch
+from mpisppy_tpu_torch.algos import aph as aph_mod
 from mpisppy_tpu_torch.algos import lagrangian as lag_mod
 from mpisppy_tpu_torch.algos import ph as ph_mod
 from mpisppy_tpu_torch.algos import xhat as xhat_mod
@@ -343,6 +345,69 @@ def _shuf_step(batch, x, solver, sid, wopts, windows):
     return st, fcand, value, feas
 
 
+# --- async exchange plane ------------------------------------------------
+# One slot of the double-buffered host<->device exchange plane: the
+# W/x̄/iterate view the spoke planes and the stale-prox hub step read at
+# iteration k while the host completes the exchange for an earlier
+# iteration.  Slots hold REFERENCES: no step writes these tensors in
+# place (the window wrapper returns fresh tensors, _tail_rescue's
+# index_copy and the lane guard's where are out of place, extensions
+# rebind the state instead of mutating it, and FaultPlan.corrupt_lanes
+# clones), so a plane write is a reference swap, never a copy, and the
+# ring costs no memory beyond the generations it keeps alive.
+
+@dataclasses.dataclass(frozen=True)
+class ExchangePlane:
+    W: Tensor           # (S, N) duals at the plane's generation
+    xbar: Tensor        # (S, N) per-scenario view of node averages
+    xbar_nodes: Tensor  # (num_nodes, N)
+    x: Tensor           # (S, n) full primal iterates (slam/shuf inputs)
+
+
+def plane_of(phst: ph_mod.PHState) -> ExchangePlane:
+    """The exchange-plane view of one PH state generation."""
+    return ExchangePlane(W=phst.W, xbar=phst.xbar,
+                         xbar_nodes=phst.xbar_nodes, x=phst.solver.x)
+
+
+def ph_stale_step(batch: ScenarioBatch, st: ph_mod.PHState,
+                  plane: ExchangePlane, opts: ph_mod.PHOptions,
+                  nu: float = 1.0, gamma: float = 1.0,
+                  theta_floor: float = 0.05):
+    """One theta-damped PH hub step against a (possibly stale) exchange
+    plane.  The subproblem proxes around the PLANE's x̄ instead of the
+    state's freshest average; the multiplier update is damped by the APH
+    projective step length (algos/aph.projective_theta):
+
+        W_new = W + theta * rho * (x_new - x̄_new),  theta in [floor, 1]
+
+    At plane == the previous iteration's output and theta == 1 this is
+    exactly ph_iterk, so staleness 1 deviates from the synchronous
+    trajectory only by the damping.  Returns (new_state, theta); theta
+    is a device scalar."""
+    batch = concretize(batch)  # scengen: draw the scenario data here
+    smooth_p = opts.smooth_p if opts.smoothed else 0.0
+    qp_eff = ph_mod._prox_qp(batch, st.W, plane.xbar, st.z, st.rho,
+                             smooth_p)
+    solver = pdhg.solve_fixed(qp_eff, opts.subproblem_windows, opts.pdhg,
+                              st.solver)
+    st2 = dataclasses.replace(st, solver=solver)
+    x_non, xbar, xbar_nodes, xsqbar, W_full, z, conv = ph_mod._xbar_w_conv(
+        batch, st2, opts.smooth_beta, opts.smoothed, opts.compute_xsqbar)
+    theta = aph_mod.projective_theta(batch, x_non, xbar, st.W, plane.xbar,
+                                     plane.W, st.rho, nu, gamma)
+    # floor: near convergence phi -> 0 would freeze the duals; a small
+    # floor keeps the (already tiny) PH update flowing
+    theta = torch.clamp(theta, min=theta_floor)
+    # W_full is st.W + rho*(x - xbar) (masked for var_prob batches), so
+    # blending recovers the damped update exactly
+    W = st.W + theta * (W_full - st.W)
+    out = dataclasses.replace(st2, W=W, z=z, xbar=xbar,
+                              xbar_nodes=xbar_nodes, xsqbar=xsqbar,
+                              conv=conv)
+    return out, theta
+
+
 # --- split-dispatch planes: each plane as its own step ------------------
 # Each plane draws a VirtualBatch's data at its own entry (concretize),
 # as the JAX package's jitted planes do; _round_xbar reads only
@@ -390,29 +455,35 @@ class _PlaneBudget:
         self.streak = self.streak + 1 if certified else 0
 
 
-class _ScalarCopy:
-    """The packed scalars of one iteration on their way to the host:
-    on CUDA a non-blocking copy into pinned memory with an event, so a
-    later read waits for that iteration only — never for work enqueued
-    after it.  The candidate tensors stay on the device (transferred
-    only when a spoke offers them)."""
+class _HostCopy:
+    """A device tensor on its way to the host: on CUDA a non-blocking
+    copy into pinned memory with an event, so a later read waits for
+    that tensor only — never for work enqueued after it."""
 
-    def __init__(self, wstate: FusedWheelState):
-        s = wstate.scalars
-        if s.is_cuda:
-            self.host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-            self.host.copy_(s, non_blocking=True)
+    def __init__(self, t: Tensor):
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.host, self.event = s, None
-        self.cands = {"xhat": wstate.xhat_cand, "slam": wstate.slam_cand,
-                      "shuf": wstate.shuf_cand}
+            self.host, self.event = t, None
 
     def values(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+class _ScalarCopy(_HostCopy):
+    """The packed scalars of one iteration on their way to the host.
+    The candidate tensors stay on the device (transferred only when a
+    spoke offers them)."""
+
+    def __init__(self, wstate: FusedWheelState):
+        super().__init__(wstate.scalars)
+        self.cands = {"xhat": wstate.xhat_cand, "slam": wstate.slam_cand,
+                      "shuf": wstate.shuf_cand}
 
 
 class FusedPH(ph_mod.PH):
@@ -552,33 +623,44 @@ class FusedPH(ph_mod.PH):
                                               phst.solver.x, sid)
         return dataclasses.replace(out, scalars=_pack_scalars(out))
 
-    def _dispatch_spoke_planes(self, out, W, xbar_nodes, x, sid):
-        """The spoke-plane steps against one (W, x̄-nodes, x) view."""
+    def _dispatch_spoke_planes(self, out, W, xbar_nodes, x, sid,
+                               dispatch=None):
+        """The spoke-plane steps against one (W, x̄-nodes, x) view: the
+        current step's outputs on the synchronous split path, the stale
+        exchange plane on the async wheel.  `dispatch(label, fn, *args)`
+        wraps each plane call (the async wheel routes them through plane
+        tickets); the default calls fn directly."""
+        if dispatch is None:
+            def dispatch(label, fn, *args):
+                return fn(*args)
         wopts = self.wheel_options
         batch = self.batch
         b = self._budgets
         if b["lag"].windows() > 0:
-            ls, lb, lc = lag_plane(batch, W, out.lag_solver, wopts,
-                                   b["lag"].windows())
+            ls, lb, lc = dispatch("lag", lag_plane, batch, W,
+                                  out.lag_solver, wopts,
+                                  b["lag"].windows())
             out = dataclasses.replace(
                 out, lag_solver=ls, lag_bound=lb, lag_certified=lc)
         if b["xhat"].windows() > 0:
             cand = self._next_xhat_cand(xbar_nodes, out.xhat_cand)
-            xs, xv, xf, xd = xhat_plane(batch, cand, out.xhat_solver, wopts,
-                                        b["xhat"].windows())
+            xs, xv, xf, xd = dispatch("xhat", xhat_plane, batch, cand,
+                                      out.xhat_solver, wopts,
+                                      b["xhat"].windows())
             out = dataclasses.replace(
                 out, xhat_solver=xs, xhat_cand=cand, xhat_value=xv,
                 xhat_feasible=xf, xhat_dead=xd)
         if b["slam"].windows() > 0:
-            ss, scand, sv, sf = slam_plane(batch, x, out.slam_solver, wopts,
-                                           b["slam"].windows(),
-                                           wopts.slam_sense_max)
+            ss, scand, sv, sf = dispatch(
+                "slam", slam_plane, batch, x, out.slam_solver, wopts,
+                b["slam"].windows(), wopts.slam_sense_max)
             out = dataclasses.replace(
                 out, slam_solver=ss, slam_cand=scand, slam_value=sv,
                 slam_feasible=sf)
         if b["shuf"].windows() > 0:
-            fs, fcand, fv, ff = shuf_plane(batch, x, out.shuf_solver, sid,
-                                           wopts, b["shuf"].windows())
+            fs, fcand, fv, ff = dispatch(
+                "shuf", shuf_plane, batch, x, out.shuf_solver, sid,
+                wopts, b["shuf"].windows())
             out = dataclasses.replace(
                 out, shuf_solver=fs, shuf_cand=fcand, shuf_value=fv,
                 shuf_feasible=ff)

@@ -9,15 +9,29 @@
 #   * abs_gap  <= options['abs_gap']
 #   * inner bounds stalled for 'max_stalled_iters' hub iterations
 #
-# The hub stamps its iteration (and, for a session with a run_id, a
-# thread-local session token) onto the dispatch scheduler at every sync,
-# and appends a dispatch_trace row whenever MIP solves were dispatched
-# since the last one.  Not ported yet: the telemetry event stream (here
-# the per-iteration trace rows are appended directly), checkpoints and
-# preemption, the watchdog and fault plans.
+# Telemetry spine: every hub observation — iterations, harvests, bound
+# decisions, spans, plane writes — is EMITTED through an event bus
+# (telemetry/); `trace` and each spoke's `(iter, bound)` trace are
+# subscriber views (telemetry/views.py), a row's `t` its event's
+# perf_counter stamp.  A bus arrives via options['telemetry_bus'] (the
+# CLI's --trace-jsonl / --metrics-snapshot / flight-recorder wiring);
+# otherwise the hub gets a private bus whose only subscriber is the view.
+#
+# Each sync is split as the JAX hub's: a prologue (dispatch stamps, the
+# fault plan's lane seam), the host exchange (harvest -> validate ->
+# publish), and an epilogue (dispatch stats, the watchdog beat, the
+# iteration event).  options['fault_plan'] arms resilience.FaultPlan's
+# harvest, lane and dispatch seams; options['watchdog_budget_s'] starts
+# the progress watchdog (resilience/watchdog.py).  AsyncPHHub runs the
+# exchange against the async wheel's stale plane (algos/async_wheel.py).
+#
+# Not ported yet: checkpoints, preemption and the emergency save, the
+# kernel-counter harvest and the profiler session (ROADMAP.md queue A,
+# items 10-11).
 ###############################################################################
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -26,8 +40,11 @@ import torch
 
 from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
+from mpisppy_tpu_torch import telemetry as tel
 from mpisppy_tpu_torch.cylinders.spcommunicator import SPCommunicator
 from mpisppy_tpu_torch.cylinders.spoke import ConvergerSpokeType
+from mpisppy_tpu_torch.telemetry import metrics as metrics_mod
+from mpisppy_tpu_torch.telemetry import profiler as _prof
 
 
 class Hub(SPCommunicator):
@@ -42,24 +59,94 @@ class Hub(SPCommunicator):
         self.latest_ob_char = ""
         self._inner_bound_update_iter = 0
         self._iter = 0
-        self._t0 = time.monotonic()
-        # one row per hub iteration (iter, conv, bounds, gaps, chars, t)
+        # the perf_counter origin of the trace rows' `t`
+        self._t0 = time.perf_counter()
+        # one row per hub iteration (iter, conv, bounds, gaps, chars, t),
+        # kept by the WheelTraceView subscriber
         self.trace: list[dict] = []
+        self.telemetry = self.options.get("telemetry_bus") \
+            or tel.EventBus()
+        # a session passes its own id; a standalone wheel mints one
+        self.run_id = self.options.get("run_id") or tel.new_run_id()
+        if self.telemetry.trace is None:
+            self.telemetry.set_trace(tel.TraceContext.mint())
+        self._trace_view = tel.WheelTraceView(self)
+        self.telemetry.subscribe(self._trace_view)
+        plan = self.options.get("fault_plan")
+        if plan is not None:
+            # fault injections report through the same spine
+            plan.telemetry = self.telemetry
+            plan.telemetry_run = self.run_id
+        # adopt the process-default dispatch scheduler into this run
+        # (its megabatch events then carry this run's id) and arm the
+        # run's fault plan on its dispatch seams; a session hub
+        # (options["run_id"]) stamps its driver thread, pre-wheel work
+        # included, with its own token
+        sched = _dispatch.get_scheduler(create=False)
+        if sched is not None and not sched.run:
+            sched.run = self.run_id
+        if sched is not None and plan is not None \
+                and sched.fault_plan is None:
+            sched.fault_plan = plan
+        if self.options.get("run_id"):
+            _dispatch.set_session_context(self.run_id, -1,
+                                          **self._trace_token())
+        self._last_dispatch_batches = 0
+        # progress watchdog: no hub iteration or bound movement for
+        # watchdog_budget_s wall seconds -> flight-recorder dump + the
+        # configured action (exit 75, or degrade the dispatch scheduler)
+        self._watchdog = None
+        budget = self.options.get("watchdog_budget_s")
+        if budget:
+            from mpisppy_tpu_torch.resilience.watchdog import HubWatchdog
+            self._watchdog = HubWatchdog(
+                self, float(budget),
+                action=self.options.get("watchdog_action", "abort"),
+                interval_s=self.options.get("watchdog_interval_s"),
+            ).start()
+        self._emit(tel.RUN_START, hub_class=type(self).__name__,
+                   num_spokes=len(self.spokes))
         # sense-contradiction bookkeeping: the DISTINCT spokes whose
         # bounds contradicted the CURRENT incumbent of each side
         self._contra: dict[str, list] = {"outer": [], "inner": []}
-        # dispatch scheduler: a session hub (options["run_id"]) names the
-        # scheduler's run when it has none and stamps its driver thread
-        # (pre-wheel work included) with its own token
-        self.run_id = str(self.options.get("run_id") or "")
-        sched = _dispatch.get_scheduler(create=False)
-        if sched is not None and self.run_id and not sched.run:
-            sched.run = self.run_id
-        if self.run_id:
-            _dispatch.set_session_context(self.run_id, -1)
-        # one row of scheduler stats per hub iteration that dispatched
-        self.dispatch_trace: list[dict] = []
-        self._last_dispatch_batches = 0
+
+    # -- the telemetry spine ----------------------------------------------
+    def _emit(self, kind: str, **data):
+        """Publish one event for this hub's run."""
+        self.telemetry.emit(kind, run=self.run_id, cyl="hub",
+                            hub_iter=self._iter, **data)
+
+    def _trace_token(self) -> dict:
+        """The bus's trace/span ids as set_session_context kwargs."""
+        ctx = self.telemetry.trace
+        return {"trace_id": ctx.trace_id, "span_id": ctx.span_id}
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        """Profiler range + SPAN event (host wall seconds) for one wheel
+        phase.  A span covers launches plus any blocking read inside
+        it, so the device wait lands in whichever span first reads a
+        result."""
+        with _prof.annotate(f"wheel/{name}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._emit(tel.SPAN, name=name,
+                           dur_s=time.perf_counter() - t0)
+
+    def emit_run_end(self, reason: str, **extra):
+        """The run-end record (exit reason + final gap), exactly once:
+        finalize() on the normal path, WheelSpinner.spin's unwind for a
+        dying wheel ("exception")."""
+        if getattr(self, "_run_ended", False):
+            return
+        self._run_ended = True
+        abs_gap, rel_gap = self.compute_gaps()
+        self._emit(tel.RUN_END, reason=reason,
+                   outer=self.BestOuterBound, inner=self.BestInnerBound,
+                   abs_gap=abs_gap, rel_gap=rel_gap,
+                   iterations=self._iter, **extra)
 
     # -- bound bookkeeping (ref:hub.py:207-243) ---------------------------
     # Non-finite values never enter: a NaN outer bound would poison every
@@ -100,21 +187,14 @@ class Hub(SPCommunicator):
         return None
 
     # -- gaps + termination (ref:hub.py:82-166) ---------------------------
-    def _stamp_dispatch(self):
-        """The current hub iteration onto the dispatch scheduler's
-        stamps (the session token too, for a session hub)."""
-        if self.run_id:
-            _dispatch.set_session_context(self.run_id, self._iter)
-        _dispatch.set_hub_iter(self._iter)
-
     def _harvest_dispatch_stats(self):
-        """One dispatch_trace row of the scheduler's stats, only when MIP
+        """One DISPATCH event of the scheduler's stats, only when MIP
         solves were dispatched since the last one."""
         stats = _dispatch.scheduler_stats()
         if not stats or stats["batches"] == self._last_dispatch_batches:
             return
         self._last_dispatch_batches = stats["batches"]
-        self.dispatch_trace.append({"iter": self._iter, **stats})
+        self._emit(tel.DISPATCH, **stats)
 
     def compute_gaps(self) -> tuple[float, float]:
         abs_gap = self.BestInnerBound - self.BestOuterBound
@@ -195,7 +275,9 @@ class PHHub(Hub):
         Non-finite bounds count a strike against the producing spoke
         (disabled after `spoke_max_strikes`); sense-violating ones are
         rejected without blame and recorded as contradictions against the
-        standing opposite incumbent."""
+        standing opposite incumbent.  The fault plan's harvest seam
+        poisons bounds HERE, between the spoke and the validation."""
+        plan = self.options.get("fault_plan")
         max_strikes = int(self.options.get("spoke_max_strikes", 3))
         for j, sp in enumerate(self.spokes):
             if only is not None and sp not in only:
@@ -212,8 +294,15 @@ class PHHub(Hub):
                 sense = "inner"
             else:
                 continue  # cut/rc providers publish no bound
+            self._emit(tel.SPOKE_HARVEST, spoke=j,
+                       spoke_class=type(sp).__name__, sense=sense,
+                       bound=float(b))
+            if plan is not None:
+                b = plan.filter_bound(j, sense, float(b), self._iter)
             reason = self._validate_bound(sense, b)
             if reason is not None:
+                self._emit(tel.BOUND_REJECT, spoke=j, sense=sense,
+                           bound=float(b), reason=reason)
                 # scrub the offending value from the spoke's monotone
                 # cache, or it would re-offer itself every sync
                 if getattr(sp, "bound", None) is not None:
@@ -226,10 +315,13 @@ class PHHub(Hub):
             ch = getattr(sp, "converger_spoke_char",
                          type(sp).__name__[0])
             if sense == "outer":
+                before = self.BestOuterBound
                 self.OuterBoundUpdate(b, ch)
+                improved = self.BestOuterBound > before
             else:
                 before = self.BestInnerBound
                 self.InnerBoundUpdate(b, ch)
+                improved = self.BestInnerBound < before
                 # hub-side incumbent cache: BestInnerBound always has a
                 # backing solution, even if the spoke is later scrubbed
                 if (self.BestInnerBound < before
@@ -238,12 +330,17 @@ class PHHub(Hub):
             # an accepted bound is consistent with the opposite incumbent
             other = "inner" if sense == "outer" else "outer"
             self._contra[other] = []
-            sp.trace.append((self._iter, float(b)))
+            # the view appends (iter, bound) to sp.trace
+            self._emit(tel.BOUND_ACCEPT, spoke=j, sense=sense,
+                       bound=float(b), char=ch, improved=bool(improved))
 
     def _strike(self, j: int, sp, reason: str, max_strikes: int):
         """One unambiguously-garbage (non-finite) bound = one strike; K
         strikes disable the spoke."""
         sp.strikes = getattr(sp, "strikes", 0) + 1
+        self._emit(tel.SPOKE_STRIKE, spoke=j,
+                   spoke_class=type(sp).__name__, reason=reason,
+                   strikes=sp.strikes, max_strikes=max_strikes)
         global_toc(f"hub: rejected bound from spoke {j} "
                    f"({type(sp).__name__}): {reason} "
                    f"[strike {sp.strikes}/{max_strikes}]",
@@ -251,6 +348,8 @@ class PHHub(Hub):
         if sp.strikes >= max_strikes and not getattr(sp, "disabled",
                                                      False):
             sp.disabled = True
+            self._emit(tel.SPOKE_DISABLE, spoke=j,
+                       spoke_class=type(sp).__name__, strikes=sp.strikes)
             global_toc(f"hub: DISABLED spoke {j} ({type(sp).__name__}) "
                        f"after {sp.strikes} strikes; continuing with "
                        f"the remaining spokes", True)
@@ -274,6 +373,8 @@ class PHHub(Hub):
         surviving producers re-establish the bound next exchange."""
         val = self.BestOuterBound if side == "outer" \
             else self.BestInnerBound
+        self._emit(tel.BOUND_EVICT, side=side, value=float(val),
+                   contradictors=len(contradictors))
         global_toc(f"hub: EVICTING the {side} incumbent ({val:.6g}) — "
                    f"contradicted by {len(contradictors)} distinct "
                    f"spokes", True)
@@ -301,40 +402,74 @@ class PHHub(Hub):
         return {"conv": self.opt._read_conv()}
 
     def sync(self):
-        """One hub<->spoke exchange: harvest the spokes' results (fused
-        spokes every iteration, classic ones every spoke_sync_period),
-        then launch the classic spokes' next round on a fresh snapshot,
-        then record the iteration's trace row."""
+        """One hub<->spoke exchange (fused spokes every iteration,
+        classic ones every spoke_sync_period): prologue, exchange,
+        epilogue, as one profiler step."""
         self._iter += 1
-        self._stamp_dispatch()
+        with _prof.step("wheel_sync", self._iter):
+            self._sync_body()
+
+    def _sync_body(self):
+        self._sync_prologue()
+        self._sync_exchange()
+        self._sync_epilogue()
+
+    def _sync_prologue(self):
+        """Stamp the hub iteration onto the out-of-band emitters (the
+        dispatch scheduler, the fault plan) and run the fault plan's
+        lane seam (it corrupts the solver state so the PDHG lane guard
+        has something real to catch)."""
+        if self.options.get("run_id"):
+            _dispatch.set_session_context(self.run_id, self._iter,
+                                          **self._trace_token())
+        _dispatch.set_hub_iter(self._iter)
+        plan = self.options.get("fault_plan")
+        if plan is not None:
+            plan.telemetry_iter = self._iter
+            plan.corrupt_lanes(self._iter, self.opt)
+
+    def _sync_exchange(self):
+        """The host exchange: harvest -> validate -> publish.  The async
+        hub runs it as its host-complete half while the next device step
+        is already queued."""
         period = max(1, int(self.options.get("spoke_sync_period", 1)))
         do_spokes = (self._iter <= 2) or (self._iter % period == 0)
         fused = [sp for sp in self.spokes if getattr(sp, "fused", False)]
         classic = [sp for sp in self.spokes
                    if not getattr(sp, "fused", False)]
-        self._harvest_all(only=fused)
+        with self._span("harvest"):
+            self._harvest_all(only=fused)
+            if do_spokes:
+                self._harvest_all(only=classic)
         if do_spokes:
-            self._harvest_all(only=classic)
             ext = getattr(self.opt, "extobject", None)
             if ext is not None and hasattr(ext, "sync_with_spokes"):
                 ext.sync_with_spokes()
         self._fold_own_bounds()
         if (do_spokes and classic) or self.options.get("publish_snapshots"):
-            payload = self._snapshot()
-            self.from_hub.put(payload)
+            with self._span("hub_sync"):
+                payload = self._snapshot()
+                self.from_hub.put(payload)
             if do_spokes:
-                for sp in classic:
-                    if not getattr(sp, "disabled", False):
-                        sp.update(payload)
+                with self._span("spoke_update"):
+                    for sp in classic:
+                        if not getattr(sp, "disabled", False):
+                            sp.update(payload)
+
+    def _sync_epilogue(self):
+        """Off the critical path: dispatch stats, the watchdog beat and
+        the iteration event (the trace row)."""
         self._harvest_dispatch_stats()
         abs_gap, rel_gap = self.compute_gaps()
+        if self._watchdog is not None:
+            self._watchdog.beat(self._iter, self.BestOuterBound,
+                                self.BestInnerBound)
         extra = self._trace_extra()
-        self.trace.append({
+        self._emit(tel.HUB_ITERATION, **{
             "iter": self._iter, **extra,
             "outer": self.BestOuterBound, "inner": self.BestInnerBound,
             "abs_gap": abs_gap, "rel_gap": rel_gap,
             "ob_char": self.latest_ob_char, "ib_char": self.latest_ib_char,
-            "t": time.monotonic() - self._t0,
         })
         if self.options.get("display_progress"):
             conv_str = (f" conv {extra['conv']:9.3e}"
@@ -360,11 +495,17 @@ class PHHub(Hub):
         return self.opt.ph_main()
 
     def finalize(self):
+        # the run is terminating on purpose: the watchdog must not trip
+        # on the finalization work
+        if self._watchdog is not None:
+            self._watchdog.stop()
         # one last harvest so late results count; fused drivers first
         # sync their pipelined scalar cache to the final iterate
         if hasattr(self.opt, "flush_scalars"):
             self.opt.flush_scalars()
         self._harvest_all()
+        self.emit_run_end(getattr(self, "_term_reason", None)
+                          or "max-iter")
         return self.BestInnerBound
 
     def hub_finalize(self):
@@ -401,6 +542,74 @@ class PHHub(Hub):
 
     def _fallback_nonants(self) -> np.ndarray:
         return self.opt.state.xbar_nodes.cpu().numpy()
+
+
+class AsyncPHHub(PHHub):
+    """Asynchronous exchange hub (port of the JAX package's AsyncPHHub).
+    Pair with algos.async_wheel.AsyncFusedPH.
+
+    At staleness s >= 1 every sync splits into a device-issue half
+    (iteration stamps, fault seams, the driver's plane-write events —
+    while the just-launched step runs) and a host-complete half
+    (settle the previous iteration's plane tickets, harvest -> validate
+    -> publish, against scalars the depth-2 pipeline already landed),
+    and emits one exchange-overlap event per sync.  s = 0 routes every
+    sync through PHHub's body: trajectories and trace events equal a
+    plain PHHub wheel's."""
+
+    def _async_staleness(self) -> int:
+        """The driver's AsyncWheelOptions are the one source of truth
+        (the driver owns the delay line); options['async_staleness'] is
+        only the CLI's mirror, and a contradictory mirror raises."""
+        aopts = getattr(self.opt, "async_options", None)
+        drv = None if aopts is None else int(aopts.staleness)
+        mirror = self.options.get("async_staleness")
+        if drv is not None and mirror is not None and int(mirror) != drv:
+            raise ValueError(
+                f"async_staleness mismatch: hub options carry "
+                f"{int(mirror)} but the driver's AsyncWheelOptions "
+                f"carry {drv} — set one (the driver's is "
+                f"authoritative)")
+        if drv is not None:
+            return drv
+        return int(mirror or 0)
+
+    def _sync_body(self):
+        staleness = self._async_staleness()
+        if staleness <= 0:
+            return super()._sync_body()
+        t0 = time.perf_counter()
+        with self._span("exchange_issue"):
+            self._sync_prologue()
+            plan = self.options.get("fault_plan")
+            # the driver recorded its plane writes while launching this
+            # iteration; stamp them onto the stream here (it has no bus)
+            for evd in getattr(self.opt, "take_plane_events",
+                               lambda: [])():
+                self._emit(tel.PLANE_WRITE, **evd)
+                metrics_mod.REGISTRY.inc("async_plane_writes_total")
+                metrics_mod.REGISTRY.set_gauge(
+                    "async_plane_staleness",
+                    float(evd.get("staleness", 0)))
+        t1 = time.perf_counter()
+        with self._span("exchange_complete"):
+            if plan is not None:
+                # a slow host harvest (AsyncExchangeFault) — the wedged
+                # exchange the watchdog must still catch
+                plan.before_harvest(self._iter)
+            # settle the PREVIOUS iteration's plane tickets (a late one
+            # raises SolveFailed('deadline'), never a silent hang)
+            if hasattr(self.opt, "result_exchange"):
+                self.opt.result_exchange()
+            self._sync_exchange()
+        t2 = time.perf_counter()
+        self._sync_epilogue()
+        theta = getattr(self.opt, "last_theta", None)
+        self._emit(tel.EXCHANGE_OVERLAP,
+                   staleness=staleness,
+                   issue_s=round(t1 - t0, 6),
+                   complete_s=round(t2 - t1, 6),
+                   **({} if theta is None else {"theta": float(theta)}))
 
 
 class APHHub(PHHub):

@@ -38,9 +38,14 @@
 # so the launches stay ordered.  A hung CUDA call cannot be cancelled: a
 # dispatch timeout abandons its worker thread, as in the reference.
 #
-# Not ported here: the fault-injection seams (resilience.FaultPlan,
-# ROADMAP queue A item 11) and the metrics-registry/event-bus emission
-# (item 10); the counters live in stats().
+# Observability and chaos: every counter is also mirrored into the
+# process metrics REGISTRY (telemetry/metrics.py, the JAX package's
+# dispatch_* names), and with a bus each megabatch lands as a DISPATCH
+# event (retries, quarantines, dispatcher deaths and plane-ticket misses
+# as their own kinds).  `fault_plan` (resilience.FaultPlan, armed by
+# tests and by the hub when its options carry one) fires the
+# before_dispatch / drop_ticket / maybe_kill_dispatcher seams on the
+# host dispatch path.
 ###############################################################################
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import torch
 
 from mpisppy_tpu_torch.dispatch import buckets as _buckets
 from mpisppy_tpu_torch.dispatch import compilewatch as _cw
+from mpisppy_tpu_torch.telemetry import metrics as _metrics
 
 # -- hub-iteration stamp and the per-session context token ------------------
 # The hub calls set_hub_iter at every sync; a session's hub installs a
@@ -333,13 +339,16 @@ class SolveScheduler:
     the queue with fake solves); the default is ops.bnb.solve_mip."""
 
     def __init__(self, options: DispatchOptions = DispatchOptions(),
-                 solve_fn=None, run: str = ""):
+                 solve_fn=None, bus=None, run: str = "",
+                 fault_plan=None):
         if solve_fn is None:
             from mpisppy_tpu_torch.ops import bnb as _bnb
             solve_fn = _bnb.solve_mip
         self.options = options
         self.solve_fn = solve_fn
+        self.bus = bus
         self.run = run
+        self.fault_plan = fault_plan
         self.ladder = _buckets.BucketLadder(options.bucket_growth)
         # every field marked `guarded-by: _lock` is touched only under
         # the lock (or _wake, a Condition over it)
@@ -352,6 +361,7 @@ class SolveScheduler:
         self._closed = False              # guarded-by: _lock
         self._degraded = False            # guarded-by: _lock
         self._next_sid = 0                # guarded-by: _lock
+        self._attempts = 0                # guarded-by: _lock
         self._buckets: dict = {}          # guarded-by: _lock
         self._inflight = 0                # guarded-by: _lock
         self._inflight_max = 0            # guarded-by: _lock
@@ -450,11 +460,17 @@ class SolveScheduler:
             else time.perf_counter() + float(deadline_s)
         with self._lock:
             self._plane_tickets += 1
+        _metrics.REGISTRY.inc("dispatch_plane_tickets_total")
         return PlaneTicket(self, value, label=label, deadline=deadline)
 
     def _note_plane_miss(self, label: str) -> None:
+        """A plane ticket's bounded wait expired (from whichever thread
+        timed it out)."""
         with self._lock:
             self._plane_deadline_misses += 1
+        _metrics.REGISTRY.inc("dispatch_plane_deadline_misses_total")
+        self._emit_event("watchdog", component="exchange",
+                         action="deadline", label=label)
 
     def stats(self) -> dict:
         """Point-in-time snapshot of the scheduler's counters."""
@@ -562,6 +578,9 @@ class SolveScheduler:
     def _dispatch_loop_inner(self):
         wait_s = max(self.options.max_wait_ms, 0.1) / 1e3
         while True:
+            plan = self.fault_plan
+            if plan is not None:
+                plan.maybe_kill_dispatcher()
             with self._lock:
                 now = time.perf_counter()
                 open_w = [w for w in self._pending.values()
@@ -590,6 +609,7 @@ class SolveScheduler:
                 w.frozen = True
             self._pending = {}
             self._dispatcher_deaths += 1
+        failed = 0
         for w in wins:
             for t in w.tickets:
                 if not t.done():
@@ -597,6 +617,12 @@ class SolveScheduler:
                         "dispatcher-died", lanes=t._lanes,
                         detail=f"{type(exc).__name__}: {exc}")
                     t._event.set()
+                    failed += 1
+        _metrics.REGISTRY.inc("dispatch_dispatcher_deaths_total")
+        self._emit_event(
+            "watchdog", component="dispatcher", action="fail-fast",
+            failed_tickets=failed,
+            error=f"{type(exc).__name__}: {exc}")
 
     def _expedite(self, win: _Window):
         """Mark the window due and wake the dispatcher."""
@@ -642,14 +668,19 @@ class SolveScheduler:
                 self._inflight += 1
                 self._inflight_max = max(self._inflight_max,
                                          self._inflight)
-            self._solve_recover(win, reqs, tickets)
+                _metrics.REGISTRY.set_gauge("dispatch_inflight",
+                                            self._inflight)
+            t_launch = time.perf_counter()
+            self._solve_recover(win, reqs, tickets, t_launch)
         finally:
             with self._lock:
                 self._inflight -= 1
+                _metrics.REGISTRY.set_gauge("dispatch_inflight",
+                                            self._inflight)
             self._sem.release()
 
     def _solve_recover(self, win: _Window, reqs, tickets,
-                       bisected: bool = False):
+                       t_launch: float, bisected: bool = False):
         """Solve this request set with retry + exponential backoff; a
         set still failing after its budget BISECTS by lanes (each half
         with a fresh budget); a single request that still fails is
@@ -660,33 +691,43 @@ class SolveScheduler:
         for attempt in range(max(0, self.options.retry_max) + 1):
             if attempt:
                 backoff = self.options.retry_backoff_s * (2 ** (attempt - 1))
-                with self._lock:
-                    self._retries += 1
+                self._retry_note(reqs, attempt, last, backoff)
                 time.sleep(backoff)
             attempts += 1
             try:
-                res, sizes, S_pad, _ = self._solve_merged(reqs)
+                res, sizes, S_pad, sig = self._solve_merged(reqs)
             except AssertionError:
                 raise          # the compile guard must stay loud
             except Exception as e:  # noqa: BLE001 — the retryable class
                 last = e
                 continue
-            self._deliver(tickets, res, sizes)
-            self._record(win, reqs, sizes, S_pad)
+            self._deliver(reqs, tickets, res, sizes)
+            self._record(win, reqs, sizes, S_pad, sig, t_launch)
             return
         if len(reqs) > 1:
             mid = _buckets.balanced_split([_lanes(r) for r in reqs])
-            self._solve_recover(win, reqs[:mid], tickets[:mid], True)
-            self._solve_recover(win, reqs[mid:], tickets[mid:], True)
+            self._solve_recover(win, reqs[:mid], tickets[:mid], t_launch,
+                                True)
+            self._solve_recover(win, reqs[mid:], tickets[mid:], t_launch,
+                                True)
             return
-        self._quarantine(reqs[0], tickets[0], attempts, last)
+        self._quarantine(reqs[0], tickets[0], attempts, last, bisected)
 
-    def _solve_attempt(self, qp, d_col, int_cols, opts, kwargs):
+    def _solve_attempt(self, reqs, qp, d_col, int_cols, opts, kwargs):
         """One bounded solve attempt: with dispatch_timeout_s set the
         solve runs on a worker thread and a hang becomes a typed
         _DispatchTimeout after the budget (the abandoned worker runs on
-        until its device work returns)."""
+        until its device work returns).  The fault plan's seam runs
+        INSIDE the attempt, so an injected hang consumes the timeout
+        exactly like a real one."""
+        with self._lock:
+            idx = self._attempts
+            self._attempts += 1
+        plan = self.fault_plan
+
         def run():
+            if plan is not None:
+                plan.before_dispatch(idx, [r[5] for r in reqs])
             return self.solve_fn(qp, d_col, int_cols, opts, **kwargs)
 
         timeout = self.options.dispatch_timeout_s
@@ -712,9 +753,15 @@ class SolveScheduler:
             raise box["exc"]
         return box["res"]
 
-    def _deliver(self, tickets, res, sizes):
+    def _deliver(self, reqs, tickets, res, sizes):
         off = 0
-        for t, S in zip(tickets, sizes):
+        plan = self.fault_plan
+        for t, S, r in zip(tickets, sizes, reqs):
+            if plan is not None and plan.drop_ticket(r[5]):
+                # injected result loss: the ticket stays unresolved and
+                # its deadline turns the would-be hang into SolveFailed
+                off += S
+                continue
             # per-request slices exclude the pad lanes (they sit past
             # the last real lane)
             t._result = _buckets._map_leading(
@@ -722,8 +769,18 @@ class SolveScheduler:
             t._event.set()
             off += S
 
+    def _retry_note(self, reqs, attempt: int, exc: BaseException | None,
+                    backoff_s: float):
+        with self._lock:
+            self._retries += 1
+        _metrics.REGISTRY.inc("dispatch_retries_total")
+        self._emit_event(
+            "dispatch-retry", attempt=attempt, requests=len(reqs),
+            lanes=sum(_lanes(r) for r in reqs), backoff_s=backoff_s,
+            error="" if exc is None else f"{type(exc).__name__}: {exc}")
+
     def _quarantine(self, req, ticket, attempts: int,
-                    exc: BaseException | None):
+                    exc: BaseException | None, bisected: bool = False):
         """Terminal isolation of one poisoned request: its ticket
         resolves with SolveFailed and its lanes are accounted."""
         lanes = _lanes(req)
@@ -733,10 +790,22 @@ class SolveScheduler:
         with self._lock:
             self._quarantined_lanes += lanes
             self._quarantined_requests += 1
+        _metrics.REGISTRY.inc("dispatch_quarantined_lanes_total", lanes)
+        _metrics.REGISTRY.inc("dispatch_quarantined_requests_total")
+        self._emit_event(
+            "dispatch-quarantine", submit=req[5], lanes=lanes,
+            attempts=attempts, reason=reason, bisected=bisected,
+            error=detail)
         if not ticket.done():
             ticket._exc = SolveFailed(reason, detail=detail,
                                       attempts=attempts, lanes=lanes)
             ticket._event.set()
+
+    def _emit_event(self, kind: str, **data):
+        if self.bus is None:
+            return
+        self.bus.emit(kind, run=self.run, cyl="dispatch",
+                      hub_iter=_hub_iter, **data)
 
     def _solve_merged(self, reqs):
         """Concatenate the window's requests, pad up the ladder, solve.
@@ -760,7 +829,7 @@ class SolveScheduler:
             warm = sig in self._buckets
         before = self._watch.total()
         _cw.note_signature(sig)
-        res = self._solve_attempt(qp, d_col, int_cols, opts, kwargs)
+        res = self._solve_attempt(reqs, qp, d_col, int_cols, opts, kwargs)
         compiled = self._watch.total() - before
         with self._lock:
             self._dispatch_compiles += compiled
@@ -770,6 +839,8 @@ class SolveScheduler:
             # the window too — compile_guard is the strict mode
             with self._lock:
                 self._unexpected_recompiles += compiled
+            _metrics.REGISTRY.inc("dispatch_unexpected_recompiles_total",
+                                  compiled)
             if self.options.compile_guard:
                 raise AssertionError(
                     f"compile-cache discipline violated: {compiled} "
@@ -820,9 +891,28 @@ class SolveScheduler:
         digest = abs(hash(win.key)) & 0xFFFF
         return f"n{n}m{m}:{dtype.replace('torch.', '')}:k{digest:04x}"
 
-    def _record(self, win: _Window, reqs, sizes, S_pad: int):
+    def _session_breakdown(self, reqs, sizes) -> list[dict]:
+        """Per-session (run, iter, lanes) aggregation of a megabatch's
+        requests from their captured DispatchContext tokens."""
+        agg: dict[tuple, dict] = {}
+        for r, S in zip(reqs, sizes):
+            ctx = r[6]
+            a = agg.setdefault((ctx.run, ctx.hub_iter),
+                               {"run": ctx.run, "iter": ctx.hub_iter,
+                                "lanes": 0, "requests": 0})
+            a["lanes"] += S
+            a["requests"] += 1
+            if ctx.trace_id and "trace_id" not in a:
+                a["trace_id"] = ctx.trace_id
+                a["span_id"] = ctx.span_id
+        return list(agg.values())
+
+    def _record(self, win: _Window, reqs, sizes, S_pad: int, sig,
+                t_launch: float):
         real = sum(sizes)
-        runs = {r[6].run for r in reqs}
+        occ = real / max(1, S_pad)
+        sessions = self._session_breakdown(reqs, sizes)
+        runs = {s["run"] for s in sessions}
         key_label = self._key_label(win)
         with self._lock:
             self._batches += 1
@@ -841,6 +931,40 @@ class SolveScheduler:
             if len(sizes) > 1:
                 bk["coalesced_lanes"] += real
             bk["runs"].update(runs)
+            queue_depth = sum(len(w.reqs) for w in self._pending.values())
+            n_buckets = len(self._buckets)
+            dispatch_compiles = self._dispatch_compiles
+            inflight_max = self._inflight_max
+        R = _metrics.REGISTRY
+        R.inc("dispatch_batches_total")
+        R.inc("dispatch_lanes_total", real)
+        R.inc("dispatch_pad_lanes_total", S_pad - real)
+        R.set_gauge("dispatch_batch_occupancy", occ)
+        R.set_gauge("dispatch_queue_depth", queue_depth)
+        R.set_gauge("dispatch_buckets_active", n_buckets)
+        R.set_counter("dispatch_backend_compiles_total", dispatch_compiles)
+        if self.bus is not None:
+            from mpisppy_tpu_torch import telemetry as tel
+            # one riding session: the event joins that session's
+            # timeline; a mixed batch keeps the scheduler's run with the
+            # per-session breakdown carrying the attribution
+            ev_run, ev_iter, ev_trace = self.run, _hub_iter, None
+            if len(sessions) == 1 and sessions[0]["run"]:
+                ev_run = sessions[0]["run"]
+                ev_iter = sessions[0]["iter"]
+                ctx0 = reqs[0][6]
+                ev_trace = ctx0 if ctx0.trace_id else None
+            self.bus.emit(
+                tel.DISPATCH, run=ev_run, cyl="dispatch",
+                hub_iter=ev_iter, trace=ev_trace,
+                requests=len(sizes), lanes=real, padded_to=S_pad,
+                occupancy=occ, bucket=list(sig[:3]), key=key_label,
+                wait_ms=1e3 * (t_launch - win.t0),
+                queue_depth=queue_depth, cause=win.cause,
+                inflight_max=inflight_max,
+                **({"sessions": sessions}
+                   if any(s["run"] for s in sessions)
+                   and (len(runs) > 1 or runs != {self.run}) else {}))
 
 
 # -- the process-default scheduler ------------------------------------------
@@ -858,7 +982,7 @@ def get_scheduler(create: bool = True) -> SolveScheduler | None:
         return _default
 
 
-def configure(options: DispatchOptions | None = None,
+def configure(options: DispatchOptions | None = None, bus=None,
               run: str = "") -> SolveScheduler:
     """(Re)build the process-default scheduler (the CLI calls this off
     the --dispatch-* group).  Any previous default is flushed first, and
@@ -871,13 +995,13 @@ def configure(options: DispatchOptions | None = None,
         old.close()
     clear_session_context()
     set_hub_iter(-1)
-    sched = SolveScheduler(options or DispatchOptions(), run=run)
+    sched = SolveScheduler(options or DispatchOptions(), bus=bus, run=run)
     with _default_lock:
         _default = sched
     return sched
 
 
-def from_cfg(cfg, run: str = "") -> SolveScheduler:
+def from_cfg(cfg, bus=None, run: str = "") -> SolveScheduler:
     """Build + install the default scheduler from the dispatch_args
     Config group (utils/config.py)."""
     timeout = cfg.get("dispatch_timeout_s")
@@ -894,7 +1018,7 @@ def from_cfg(cfg, run: str = "") -> SolveScheduler:
         retry_max=int(cfg.get("dispatch_retry_max", 2)),
         retry_backoff_s=float(cfg.get("dispatch_retry_backoff_s", 0.05)),
         deadline_s=None if deadline is None else float(deadline),
-    ), run=run)
+    ), bus=bus, run=run)
 
 
 def solve_mip(qp, d_col, int_cols, opts=None, **kwargs):

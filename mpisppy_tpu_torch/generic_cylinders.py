@@ -9,6 +9,8 @@
 #   python -m mpisppy_tpu_torch --module-name ... --lshaped-hub --xhatlshaped
 #   python -m mpisppy_tpu_torch --module-name ... --aph-hub --lagrangian
 #   python -m mpisppy_tpu_torch --module-name ... --num-scens 3 --EF
+#   python -m mpisppy_tpu_torch --module-name ... --fused-wheel \
+#          --lagrangian --xhatxbar --async-staleness 1 --trace-jsonl t.jsonl
 #
 # The model module supplies the reference's 5-function API:
 # scenario_creator, scenario_names_creator, inparser_adder, kw_creator,
@@ -18,7 +20,12 @@
 # of stdout is one JSON object with the bounds, the gaps, the iteration
 # count and the dispatch scheduler's fault-domain counters (--EF: the EF
 # objective and whether its solve converged).  The --dispatch-* group
-# configures the process-default scheduler every MIP solve goes through.
+# configures the process-default scheduler every MIP solve goes through;
+# --async-staleness swaps in the async exchange wheel (algos/
+# async_wheel.py); the telemetry group builds the run's event bus
+# (--trace-jsonl writes the JAX package's trace schema) and an always-on
+# flight recorder; the resilience group sets the strike policy, the PDHG
+# lane guard and the hub watchdog.
 #
 # A flag of the JAX package's CLI that the port does not implement is
 # refused by name (UNPORTED_FLAGS), never ignored.
@@ -31,7 +38,7 @@ import math
 import sys
 
 from mpisppy_tpu_torch import dispatch as _dispatch
-from mpisppy_tpu_torch import global_toc
+from mpisppy_tpu_torch import global_toc, telemetry
 from mpisppy_tpu_torch.core import batch as batch_mod
 from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
 from mpisppy_tpu_torch.utils import cfg_vanilla as vanilla
@@ -42,7 +49,6 @@ def _queue_item(item: int, what: str) -> str:
     return f"ROADMAP.md queue A, item {item} ({what})"
 
 
-_ASYNC = _queue_item(6, "the async wheel")
 _EXT = _queue_item(8, "extensions, convergers and utils")
 _TELEMETRY = _queue_item(10, "telemetry")
 _RESILIENCE = _queue_item(11, "resilience and checkpoints")
@@ -51,8 +57,6 @@ _SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 # The JAX package's CLI flags (its argument groups) that the port does
 # not implement, each with the queue item that ports it.
 UNPORTED_FLAGS = {
-    **dict.fromkeys(("async_staleness", "async_exchange_deadline_s"),
-                    _ASYNC),
     **dict.fromkeys((
         "grad_rho", "grad_order_stat", "grad_rho_update_interval",
         "grad_rho_relative_bound", "grad_rho_indep_denom", "rho_file_in",
@@ -62,17 +66,11 @@ UNPORTED_FLAGS = {
         "init_W_fname", "init_Xbar_fname", "W_fname", "Xbar_fname",
         "scenarios_per_bundle", "pickle_bundles_dir",
         "unpickle_bundles_dir"), _EXT),
-    **dict.fromkeys((
-        "trace_jsonl", "metrics_snapshot", "metrics_every_s",
-        "telemetry_verbosity", "kernel_counters", "profile_dir",
-        "profile_iters", "flight_recorder", "flight_capacity",
-        "flight_dir"), _TELEMETRY),
+    **dict.fromkeys(("kernel_counters", "profile_dir", "profile_iters"),
+                    _TELEMETRY),
     **dict.fromkeys((
         "checkpoint_path", "checkpoint_every_s", "checkpoint_keep",
-        "checkpoint_restore", "spoke_max_strikes", "bound_slack",
-        "bound_evict_contras", "lane_guard", "guard_max_resets",
-        "watchdog_budget_s", "watchdog_action", "watchdog_interval_s"),
-        _RESILIENCE),
+        "checkpoint_restore"), _RESILIENCE),
     **dict.fromkeys(("uc_mpc_step", "uc_mpc_stride"), _SERVING),
     "pallas_pipeline": "no port: it double-buffers the TPU kernel's tile "
                        "DMA; on the card ops/pdhg_window.plan_window picks "
@@ -123,6 +121,8 @@ def _parse_args(module, args=None):
     cfg.cross_scenario_cuts_args()
     cfg.lshaped_args()
     cfg.presolve_args()
+    cfg.resilience_args()
+    cfg.telemetry_args()
     cfg.dispatch_args()
     cfg.multistage()
     cfg.device_args()
@@ -183,7 +183,11 @@ def _fuse_wheel(cfg, hub, spokes, specs=None, tree=None):
     stages the x̄ recourse planes would fix EVERY stage's nonants, which
     is infeasible whenever a later-stage equality couples nonants with
     stage randomness: there the x̄ spoke maps to EFXhatInnerBound
-    (root-fixed EF with intra-tree nonanticipativity)."""
+    (root-fixed EF with intra-tree nonanticipativity).
+    --async-staleness s >= 1 swaps in the async pair (AsyncPHHub /
+    AsyncFusedPH); 0 keeps the synchronous one."""
+    import dataclasses
+
     from mpisppy_tpu_torch.algos import fused_wheel as fw
     from mpisppy_tpu_torch.cylinders import spoke as spoke_mod
 
@@ -212,7 +216,13 @@ def _fuse_wheel(cfg, hub, spokes, specs=None, tree=None):
                                "opt_kwargs": {"options": {}}})
         else:
             out_spokes.append(sd)
+    # --lane-guard must reach the fused planes' PDHG options too, or it
+    # would cover only the hub's subproblems
+    defaults = fw.FusedWheelOptions()
+    guard = vanilla._guard(cfg)
     wopts = fw.FusedWheelOptions(
+        lag_pdhg=dataclasses.replace(defaults.lag_pdhg, **guard),
+        xhat_pdhg=dataclasses.replace(defaults.xhat_pdhg, **guard),
         lag_windows=8 if spoke_mod.LagrangianOuterBound in present else 0,
         xhat_windows=4 if spoke_mod.XhatXbarInnerBound in present else 0,
         slam_windows=2 if (spoke_mod.SlamMaxHeuristic in present
@@ -226,6 +236,20 @@ def _fuse_wheel(cfg, hub, spokes, specs=None, tree=None):
     hub["opt_class"] = fw.FusedPH
     hub["opt_kwargs"] = dict(hub.get("opt_kwargs", {}))
     hub["opt_kwargs"]["wheel_options"] = wopts
+    staleness = max(0, int(cfg.get("async_staleness", 0) or 0))
+    if staleness > 0:
+        from mpisppy_tpu_torch.algos import async_wheel as aw
+        from mpisppy_tpu_torch.cylinders.hub import AsyncPHHub
+        hub["hub_class"] = AsyncPHHub
+        hub["opt_class"] = aw.AsyncFusedPH
+        ddl = float(cfg.get("async_exchange_deadline_s", 0.0) or 0.0)
+        hub["opt_kwargs"]["async_options"] = aw.AsyncWheelOptions(
+            staleness=staleness,
+            exchange_deadline_s=ddl if ddl > 0 else None)
+        hub["hub_kwargs"] = dict(hub.get("hub_kwargs", {}))
+        hub_opts = dict(hub["hub_kwargs"].get("options", {}))
+        hub_opts["async_staleness"] = staleness
+        hub["hub_kwargs"]["options"] = hub_opts
     return hub, out_spokes
 
 
@@ -281,6 +305,12 @@ def build_wheel(cfg, module):
     if cfg.get("fused_wheel") and not lshaped and not aph:
         hub, spokes = _fuse_wheel(cfg, hub, spokes, specs=specs,
                                   tree=batch.tree)
+    elif int(cfg.get("async_staleness", 0) or 0) > 0:
+        why = ("--fused-wheel is vetoed by --aph-hub/--lshaped-hub here"
+               if cfg.get("fused_wheel") else "requires --fused-wheel")
+        global_toc(f"WARNING: --async-staleness {why} "
+                   "(the async exchange plane is the fused wheel's); "
+                   "running synchronous", True)
     return hub, spokes, names, specs, batch
 
 
@@ -299,8 +329,9 @@ def _spin_and_report(cfg, module, hub, spokes, names, specs):
     for rank0, nm in enumerate(names):
         module.scenario_denouement(0, nm, specs[rank0])
     # the fault-domain counters: the scheduler's retries and quarantined
-    # lanes (no watchdog is ported: 0 trips)
+    # lanes, the watchdog's trips
     dstats = _dispatch.scheduler_stats() or {}
+    wd = wheel.spcomm._watchdog
     print(json.dumps({
         "outer_bound": _finite(wheel.BestOuterBound),
         "inner_bound": _finite(wheel.BestInnerBound),
@@ -308,7 +339,7 @@ def _spin_and_report(cfg, module, hub, spokes, names, specs):
         "iterations": wheel.spcomm._iter,
         "dispatch_retries": dstats.get("retries_total", 0),
         "dispatch_quarantined_lanes": dstats.get("quarantined_lanes", 0),
-        "watchdog_trips": 0,
+        "watchdog_trips": 0 if wd is None else wd.trips,
     }), flush=True)
     return wheel
 
@@ -318,18 +349,27 @@ def _do_EF(cfg, module):
     (ref:generic_cylinders.py:396-457); prints {"EF_objective": ...,
     "converged": ...} as the last line."""
     from mpisppy_tpu_torch.algos import ef as ef_mod
-    names, kwargs, tree = _model_plumbing(cfg, module)
-    ef = ef_mod.ExtensiveForm({"tol": cfg.get("pdhg_tol", 1e-6)}, names,
-                              module.scenario_creator, kwargs, tree=tree,
-                              device=cfg.get("device", "cuda"))
-    st = ef.solve_extensive_form()
-    obj = ef.get_objective_value()
-    converged = bool(st.done.all())
-    global_toc(f"EF objective: {obj:.6g} (converged={converged})", True)
-    if cfg.get("solution_base_name"):
-        import numpy as np
-        np.save(cfg["solution_base_name"] + ".npy",
-                np.asarray(list(ef.get_root_solution().values())))
+    # no hub emits wheel events here, but --trace-jsonl /
+    # --metrics-snapshot still capture the console stream and a final
+    # metrics snapshot
+    tel_bus = telemetry.from_cfg(cfg)
+    try:
+        names, kwargs, tree = _model_plumbing(cfg, module)
+        ef = ef_mod.ExtensiveForm({"tol": cfg.get("pdhg_tol", 1e-6)},
+                                  names, module.scenario_creator, kwargs,
+                                  tree=tree,
+                                  device=cfg.get("device", "cuda"))
+        st = ef.solve_extensive_form()
+        obj = ef.get_objective_value()
+        converged = bool(st.done.all())
+        global_toc(f"EF objective: {obj:.6g} (converged={converged})",
+                   True)
+        if cfg.get("solution_base_name"):
+            import numpy as np
+            np.save(cfg["solution_base_name"] + ".npy",
+                    np.asarray(list(ef.get_root_solution().values())))
+    finally:
+        telemetry.close_bus(tel_bus)
     print(json.dumps({"EF_objective": obj, "converged": converged}),
           flush=True)
     return ef
@@ -354,9 +394,42 @@ def main(args=None):
     cfg = _parse_args(module, argv)
     if cfg.get("EF"):
         return _do_EF(cfg, module)
-    _dispatch.from_cfg(cfg)
+    return _do_decomp(cfg, module)
+
+
+def _do_decomp(cfg, module):
+    """Build the wheel, wire its telemetry and dispatch scheduler, spin
+    and report.  The flight recorder rides every run (a private bus
+    carries it, and the console stream, when no --trace-jsonl /
+    --metrics-snapshot bus exists): a wheel that dies leaves
+    flight-<runid>.jsonl behind."""
     hub, spokes, names, specs, _ = build_wheel(cfg, module)
-    return _spin_and_report(cfg, module, hub, spokes, names, specs)
+    tel_bus = telemetry.from_cfg(cfg)
+    wheel_bus, own_bus = tel_bus, False
+    if cfg.get("flight_recorder", True):
+        from mpisppy_tpu_torch.telemetry import flightrec
+        if wheel_bus is None:
+            wheel_bus = telemetry.EventBus()
+            telemetry.console.attach(wheel_bus)
+            own_bus = True
+        wheel_bus.subscribe(flightrec.FlightRecorder(
+            capacity=int(cfg.get("flight_capacity", 512)),
+            dump_dir=cfg.get("flight_dir", ".")))
+    # the scheduler's megabatch events land in the trace too
+    _dispatch.from_cfg(cfg, bus=wheel_bus)
+    if wheel_bus is not None:
+        hub = dict(hub)
+        hub["hub_kwargs"] = dict(hub.get("hub_kwargs", {}))
+        hub_opts = dict(hub["hub_kwargs"].get("options", {}))
+        hub_opts["telemetry_bus"] = wheel_bus
+        hub["hub_kwargs"]["options"] = hub_opts
+    try:
+        return _spin_and_report(cfg, module, hub, spokes, names, specs)
+    finally:
+        if own_bus:
+            telemetry.console.detach(wheel_bus)
+            wheel_bus.close()
+        telemetry.close_bus(tel_bus)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,11 @@
 #   spoke_dict = {"spoke_class": FusedLagrangianOuterBound,
 #                 "opt_kwargs": {"options": {...}}}
 #
-# Preemption handlers and emergency checkpoints are not ported yet.
+# A wheel that dies on an exception emits its run-end event (reason
+# "exception") and dumps every flight recorder on the hub's bus to
+# flight-<runid>.jsonl.  Preemption handlers and emergency checkpoints
+# are not ported yet (the JAX package installs them only with a
+# checkpoint_path).
 ###############################################################################
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 
 from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
+from mpisppy_tpu_torch.telemetry import flightrec
 
 
 class WheelSpinner:
@@ -54,6 +59,9 @@ class WheelSpinner:
         global_toc("Starting wheel spin", False)
         try:
             self.spcomm.main()
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            self._record_crash(e)
+            raise
         finally:
             # the run is over: a later wheel (or bare scheduler use) on
             # this thread must not inherit its dispatch session token
@@ -63,6 +71,23 @@ class WheelSpinner:
         self.spcomm.hub_finalize()
         self.spcomm.free_windows()
         return self
+
+    def _record_crash(self, exc: BaseException) -> None:
+        """Last words of a dying wheel: stop the watchdog (the wheel is
+        dying on an exception, not a hang), emit the run-end event and
+        dump the flight recorders.  Best effort: the original exception
+        keeps propagating whatever happens here."""
+        detail = f"{type(exc).__name__}: {exc}"
+        if self.spcomm._watchdog is not None:
+            self.spcomm._watchdog.stop()
+        try:
+            self.spcomm.emit_run_end("exception", error=detail)
+        except Exception:
+            pass
+        for path in flightrec.dump_all(self.spcomm.telemetry, reason=detail):
+            if path:
+                global_toc(f"flight recorder: black box written to {path}",
+                           True)
 
     # -- results (ref:spin_the_wheel.py:151-222) --------------------------
     @property

@@ -38,14 +38,24 @@ def _pdhg_opts(cfg) -> pdhg.PDHGOptions:
     # before any solve, with the full alias list in the message
     boxqp.as_precision(prec)
     return pdhg.PDHGOptions(tol=cfg.get("pdhg_tol", 1e-6),
-                            iter_precision=prec)
+                            iter_precision=prec, **_guard(cfg))
+
+
+def _guard(cfg) -> dict:
+    """--lane-guard / --guard-max-resets as PDHGOptions fields."""
+    return {"lane_guard": bool(cfg.get("lane_guard", False)),
+            "guard_max_resets": int(cfg.get("guard_max_resets", 3))}
 
 
 def _hub_opts(cfg) -> dict:
-    """Hub termination options (ref:hub.py:82-166 inputs)."""
+    """Hub termination options (ref:hub.py:82-166 inputs) plus the
+    resilience knobs (strike policy, bound validation, watchdog); the
+    event bus itself is wired by the CLI."""
     hub_opts = {"rel_gap": cfg.get("rel_gap", 0.01),
                 "display_progress": cfg.get("display_progress", False)}
-    for key in ("abs_gap", "max_stalled_iters"):
+    for key in ("abs_gap", "max_stalled_iters", "spoke_max_strikes",
+                "bound_slack", "bound_evict_contras", "watchdog_budget_s",
+                "watchdog_action", "watchdog_interval_s"):
         if cfg.get(key) is not None:
             hub_opts[key] = cfg[key]
     return hub_opts
@@ -124,8 +134,9 @@ def lshaped_hub(cfg, batch, scenario_names=None) -> dict:
         tol=cfg.get("rel_gap", 1e-4),
         multicut=cfg.get("lshaped_multicut", False),
         sub_pdhg=pdhg.PDHGOptions(tol=tol, max_iters=100_000,
-                                  detect_infeas=True),
-        master_pdhg=pdhg.PDHGOptions(tol=tol, max_iters=200_000),
+                                  detect_infeas=True, **_guard(cfg)),
+        master_pdhg=pdhg.PDHGOptions(tol=tol, max_iters=200_000,
+                                     **_guard(cfg)),
         display_progress=cfg.get("display_progress", False),
     )
     return {

@@ -246,6 +246,17 @@ class Config:
         self.add_to_config("fused_spoke_period",
                            "run fused planes every k-th iteration",
                            int, 1)
+        self.add_to_config("async_staleness",
+                           "async wheel: exchange-plane staleness bound "
+                           "(0 = synchronous hub; algos/async_wheel.py)",
+                           int, 0)
+        self.add_to_config("async_exchange_deadline_s",
+                           "async wheel: bound (seconds) on settling an "
+                           "exchange plane ticket — expiry surfaces a "
+                           "typed SolveFailed instead of a hang "
+                           "(0 = unbounded; the hub watchdog is then "
+                           "the wedged-exchange backstop)",
+                           float, 0.0)
 
     def xhatshuffle_args(self):
         """ref:config.py:676-699."""
@@ -317,6 +328,68 @@ class Config:
                            "default per-ticket deadline: result() can "
                            "never block longer; expiry raises a typed "
                            "SolveFailed (off when unset)", float, None)
+
+    def resilience_args(self):
+        """Graceful-degradation knobs: the spoke strike policy, the
+        PDHG per-lane divergence guard and the hub progress watchdog
+        (the checkpoint flags wait for ROADMAP.md queue A, item 11)."""
+        self.add_to_config("spoke_max_strikes",
+                           "auto-disable a spoke after this many "
+                           "rejected (non-finite) bounds", int, 3)
+        self.add_to_config("bound_slack",
+                           "relative slack for sense-violation bound "
+                           "rejection", float, 5e-3)
+        self.add_to_config("bound_evict_contras",
+                           "distinct contradicting spokes that evict a "
+                           "standing incumbent bound", int, 3)
+        self.add_to_config("lane_guard",
+                           "quarantine-reset diverged PDHG scenario "
+                           "lanes at restart boundaries", bool, False)
+        self.add_to_config("guard_max_resets",
+                           "bounded quarantine retries per PDHG lane",
+                           int, 3)
+        self.add_to_config("watchdog_budget_s",
+                           "hub progress watchdog: trip when no hub "
+                           "iteration or bound movement for this many "
+                           "wall seconds (off when unset)", float, None)
+        self.add_to_config("watchdog_action",
+                           "watchdog trip action: 'abort' (flight dump "
+                           "+ exit 75) or 'degrade' (un-coalesced "
+                           "direct dispatch; a second stalled budget "
+                           "escalates to abort)", str, "abort")
+        self.add_to_config("watchdog_interval_s",
+                           "watchdog poll interval (default: a quarter "
+                           "of the budget)", float, None)
+
+    def telemetry_args(self):
+        """Telemetry knobs: the structured wheel trace, the metrics
+        snapshot, console verbosity and the crash flight recorder (the
+        kernel counters and the profiler session wait for ROADMAP.md
+        queue A, item 10)."""
+        self.add_to_config("trace_jsonl",
+                           "write structured wheel events to this JSONL "
+                           "trace file", str, None)
+        self.add_to_config("metrics_snapshot",
+                           "Prometheus-style text metrics file, "
+                           "rewritten atomically during the run", str,
+                           None)
+        self.add_to_config("metrics_every_s",
+                           "seconds between metrics snapshot rewrites",
+                           float, 30.0)
+        self.add_to_config("telemetry_verbosity",
+                           "console verbosity: 0 quiet, 1 progress, "
+                           "2 debug", int, 1)
+        self.add_to_config("flight_recorder",
+                           "always-on crash black box: ring of the last "
+                           "events, dumped to flight-<runid>.jsonl when "
+                           "the wheel dies (disable: "
+                           "--flight-recorder false)", bool, True)
+        self.add_to_config("flight_capacity",
+                           "events held by the flight-recorder ring",
+                           int, 512)
+        self.add_to_config("flight_dir",
+                           "directory flight-<runid>.jsonl dumps land "
+                           "in", str, ".")
 
     def checker(self):
         """Cross-option validation (ref:config.py:143-157)."""

@@ -8,10 +8,12 @@
 # cross-scenario cuts build and run their cylinders; a fused multistage
 # wheel's x̄ spoke is the root-fixed EF spoke.  --EF prints the JAX CLI's EF objective (to 1e-4);
 # the --dispatch-* group configures the scheduler as the JAX CLI's does,
-# and the final line's dispatch counters are the scheduler's.  A flag of
-# the JAX package's CLI that the port does not implement exits non-zero
-# naming its ROADMAP.md queue item, and the default device is CUDA,
-# which raises without a card.
+# and the final line's dispatch counters are the scheduler's.  The async
+# wheel, telemetry and resilience flags are accepted (their own tests are
+# tests/test_torch_async_wheel.py, test_torch_telemetry.py and
+# test_torch_faults.py).  A flag of the JAX package's CLI that the port
+# does not implement exits non-zero naming its ROADMAP.md queue item,
+# and the default device is CUDA, which raises without a card.
 import json
 import math
 import os
@@ -51,11 +53,11 @@ def test_cli_end_to_end(extra):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--async-exchange-deadline-s", "2"], 6), (["--async-staleness", "1"], 6),
+    (["--checkpoint-every-s", "5"], 11), (["--checkpoint-restore"], 11),
     (["--mult-rho"], 8), (["--sensi-rho"], 8), (["--rho-file-in=r.csv"], 8),
     (["--grad-rho"], 8), (["--scenarios-per-bundle", "2"], 8),
-    (["--trace-jsonl", "t.jsonl"], 10), (["--kernel-counters"], 10),
-    (["--checkpoint-path", "ck"], 11), (["--lane-guard"], 11)])
+    (["--profile-dir", "p"], 10), (["--kernel-counters"], 10),
+    (["--checkpoint-path", "ck"], 11), (["--profile-iters", "3"], 10)])
 def test_unported_flags_are_refused(flag, item):
     name = flag[0].split("=")[0]
     with pytest.raises(SystemExit) as exc:
@@ -91,15 +93,15 @@ def test_uc_module_runs_with_fwph():
 
 
 def test_unported_flag_exits_nonzero():
-    out = _run_cli(FARMER + ["--device", "cpu", "--async-staleness", "1"],
+    out = _run_cli(FARMER + ["--device", "cpu", "--checkpoint-path", "ck"],
                    timeout=120)
     assert out.returncode != 0
-    assert "--async-staleness" in out.stderr
-    assert "queue A, item 6 (the async wheel)" in out.stderr
+    assert "--checkpoint-path" in out.stderr
+    assert "queue A, item 11 (resilience and checkpoints)" in out.stderr
     assert out.stdout.strip() == ""
 
 
-def test_fused_xhatxbar_on_a_multistage_tree_is_refused():
+def test_fused_xhatxbar_on_a_multistage_tree_runs_the_root_fixed_ef():
     """The x̄ spoke of a fused multistage wheel is no longer refused: as
     in the JAX package it maps to EFXhatInnerBound (the root-fixed EF),
     and ccopf (3,3) --soc certifies at the JAX CLI's bounds (outer

@@ -80,6 +80,21 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/extensions/extension.py",
                  "mpisppy_tpu_torch/extensions/cross_scen_extension.py",
                  "mpisppy_tpu_torch/extensions/reduced_costs_fixer.py",
+                 "mpisppy_tpu_torch/utils/atomic_io.py",
+                 "mpisppy_tpu_torch/telemetry/__init__.py",
+                 "mpisppy_tpu_torch/telemetry/events.py",
+                 "mpisppy_tpu_torch/telemetry/tracecontext.py",
+                 "mpisppy_tpu_torch/telemetry/metrics.py",
+                 "mpisppy_tpu_torch/telemetry/bus.py",
+                 "mpisppy_tpu_torch/telemetry/sinks.py",
+                 "mpisppy_tpu_torch/telemetry/console.py",
+                 "mpisppy_tpu_torch/telemetry/views.py",
+                 "mpisppy_tpu_torch/telemetry/flightrec.py",
+                 "mpisppy_tpu_torch/telemetry/profiler.py",
+                 "mpisppy_tpu_torch/resilience/__init__.py",
+                 "mpisppy_tpu_torch/resilience/faults.py",
+                 "mpisppy_tpu_torch/resilience/watchdog.py",
+                 "mpisppy_tpu_torch/algos/async_wheel.py",
                  *PORT_TOOLS):
         assert must in names
 

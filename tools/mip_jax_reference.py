@@ -37,7 +37,7 @@ from mpisppy_tpu.ops.bnb import BnBOptions  # noqa: E402
 # the [mip_gap] budgets (chip_smoke.py keeps the same numbers)
 MIP_GAP_PH_ITERS = 10
 MIP_GAP_RHO = 10.0
-MIP_GAP_MAX_ROUNDS = 3
+MIP_GAP_MAX_ROUNDS = 1
 MIP_GAP_POOL = 32
 MIP_GAP_DIVE_TAIL = 16
 MIP_GAP_PUMP_ROUNDS = 2
