@@ -44,10 +44,10 @@ nvcc per source, started together) and drives its main paths:
   the card against the CPU, window times at 100, 1,000 and 10,000
   scenarios and PyTorch launches per iteration, bench.py's
   bench_uc_fwph wheel (PH hub with SepRho, an FWPH spoke, the fused
-  Lagrangian, x̂-x̄ and slam planes) at 100 scenarios capped at 10 hub
-  iterations, its FWPH-driven loop (bench_uc_fwph_hub) capped at 5,
-  and the uc program's VirtualBatch at 10,000 scenarios for 3 hub
-  iterations with a short profile;
+  Lagrangian, x̂-x̄ and slam planes) at 100 scenarios capped at 1 hub
+  iteration, its FWPH-driven loop (bench_uc_fwph_hub) capped at 1,
+  and the uc program's VirtualBatch at 10,000 scenarios for 1 hub
+  iteration with a short profile;
 * the CLI — generic_cylinders.main in this process, as
   `python -m mpisppy_tpu_torch` runs it: the README's sslp command
   without --presolve (cut to 3 hub iterations) and with it (also cut to 3)
@@ -92,6 +92,20 @@ nvcc per source, started together) and drives its main paths:
   --async-staleness 1 against the JAX CLI's bounds and again with
   dropped and torn plane writes, and the ccopf (100,100) wheel at
   staleness 1 on the SOC kernel against the sync ccopf wheel's bounds;
+* checkpoints and preemption — the headline wheel again with background
+  checkpoints every 5 s and a fault plan that preempts it at hub
+  iteration 40 (the spinner's emergency save), every snapshot re-read
+  and CRC-checked, then restored into a fresh wheel and resumed to 1%
+  against the uninterrupted [headline] (bounds to 1e-3; the snapshot's
+  bytes, the save's and the restore's seconds, the background saves'
+  cost per iteration), and the README's sslp command through
+  `python -m mpisppy_tpu_torch --checkpoint-path` sent a real SIGTERM
+  (exit 75, the preempted line), then rerun with --checkpoint-restore
+  (rc 0, resumed at the snapshot's hub iteration + 1, its trace rows
+  those of an uninterrupted run at the same cap); [lshaped_hub] runs
+  with --kernel-counters and prints the subproblem solve's per-lane PDHG
+  iterations and the device kernels per window with the counters on
+  and off;
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -103,15 +117,17 @@ prints no result.  `python3 chip_smoke.py --only headline_profile` (or
 wheel at 10,000 scenarios capped at 3 hub iterations) runs that profile
 phase alone (to profile another tree's package with it); `--only
 uc_wheel_full` runs the uc wheel to its 1% certificate (at most 600 hub
-iterations); `--only mip` runs the exact-MIP phases and `--only mip_gap`
-the [mip_gap] phase alone; `--only slice9_profile` profiles the L-shaped
+iterations) and `--only uc` the uc phases; `--only mip` runs the
+exact-MIP phases and `--only mip_gap` the [mip_gap] phase alone; `--only slice9_profile` profiles the L-shaped
 and APH hubs, and `--only lshaped_hub` (or aph_hub, bound_spokes,
 cross_scen, cli_ccopf_fused, sc, slice9_windows, or several of these
 names joined by commas) runs those phases, with `--full` at the depths
 PERF.md reports (~24 min for the four hub phases); `--only async` (or
 async_overhead, async_headline, async_held, async_ccopf) runs the async
 wheel's phases, `--full` at 30 hub iterations for [async_overhead] and
-[async_held].
+[async_held]; `--only resilience` (or checkpoint_headline, preempt_cli)
+runs the checkpoint and preemption phases ([checkpoint_headline] runs
+its own [headline] first).
 """
 import json
 import math
@@ -211,26 +227,30 @@ ELL_SCENS = (100, 1_000, 10_000)
 # batch sizes at which the two forms of the ELL products are timed
 ELL_PRODUCT_SCENS = (100, 300, 1_000, 3_000, 10_000)
 # cut from 25 to 10 hub iterations for the MIP phases, to 5 for the
-# decomposition hubs' and to 3 for the async wheel's: the outer bound has
-# landed by then in both packages, at the same value
-UC_WHEEL_HUB_ITERS = 3
+# decomposition hubs', to 3 for the async wheel's and to 1 for the
+# checkpoint phases: the outer bound has landed by then in both
+# packages, at the same value
+UC_WHEEL_HUB_ITERS = 1
 UC_FULL_MAX_ITERS = 600
-UC_FWPH_OUTER_ITERS = 3                 # cut from 5 like the wheel
+UC_FWPH_OUTER_ITERS = 1                 # cut from 5, then 3
 UC_PROGRAM_SCENS = 10_000
-UC_PROGRAM_HUB_ITERS = 3
-# the JAX package on the CPU (tools/uc_jax_reference.py 100 3 3; with
-# 5, 10 and 25 hub iterations the same outer bound): the
+UC_PROGRAM_HUB_ITERS = 1    # cut from 3: the FWPH outer bound has landed
+#                             after one (ob_char F); PH's iter0 and
+#                             FWPH's init are 868 of the 3 iterations'
+#                             940 windows
+# the JAX package on the CPU (tools/uc_jax_reference.py 100 1 1; with
+# 3, 5, 10 and 25 hub iterations the same outer bound): the
 # outer bound of [uc_wheel] (its inner bound has not landed by then, in
 # either package) and the certified outer bound of [uc_fwph_hub]; the
 # port's must agree to 1e-3 relative
 UC_WHEEL_JAX_OUTER = 589529.1875
-UC_FWPH_HUB_JAX_OUTER = 589529.4375     # 589618.25 at 5
+UC_FWPH_HUB_JAX_OUTER = 589529.1875     # 589529.4375 at 3, 589618.25 at 5
 # the uc model through the CLI with flags the JAX CLI takes for the same
 # run (python -m mpisppy_tpu --module-name mpisppy_tpu.models.uc ...)
 CLI_UC = ["--module-name", "mpisppy_tpu_torch.models.uc",
           "--num-scens", str(UC_SCENS), "--fused-wheel", "--lagrangian",
           "--xhatxbar", "--slammax", "--fwph", "--rel-gap", "0.01",
-          "--max-iterations", "3"]             # cut from 5
+          "--max-iterations", "1"]             # cut from 5, then 3
 CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
                 "--n-servers", str(SSLP_SERVERS), "--n-clients",
                 str(SSLP_CLIENTS), "--num-scens", str(HEADLINE_SCENS),
@@ -247,10 +267,15 @@ CLI_HEADLINE = ["--module-name", "mpisppy_tpu_torch.models.sslp",
 MIP_SCENS = 1_000                     # [bnb_operands], [mip_lagrangian]
 MIP_RHO = 10.0                        # tests/test_mip_bnb.py's PH rho
 MIP_LAG_PH_ITERS = 20                 # the short LP PH run giving W
-MIP_LAG_MAX_ROUNDS = 10               # the capped B&B of [mip_lagrangian]
-#                                       (cut from 60, then 20)
-MIP_LAG_PUMP_ROUNDS = 5
-MIP_PROFILE_ROUNDS = 5                # B&B rounds under the profiler
+MIP_LAG_MAX_ROUNDS = 2                # the capped B&B of [mip_lagrangian]
+#                                       (cut from 60, then 20, 10, 5)
+MIP_LAG_PUMP_ROUNDS = 2               # (cut from 5)
+MIP_PROFILE_ROUNDS = 2                # B&B rounds under the profiler
+#                                       (cut from 5)
+MIP_SMALL_PH_ITERS = 5                # [mip_small]'s certified_mip_gap
+#                                       PH (cut from 20, then 10)
+MIP_SMALL_DD_NODES = 1                # and its decomposition nodes (cut
+#                                       from 2)
 # every node LP of the capped MIP phases stops at 2,000 iterations (50
 # windows) instead of BnBOptions' 8,000: on the card a window with its
 # restart costs ~5 ms of host launches, and the slowest lane of a round
@@ -271,10 +296,12 @@ MIP_LP_SLACK = 1e-3
 # (tools/mip_jax_reference.py 10 1): (inner, outer).  Cut from 10 B&B
 # rounds to 3 and from 30 PH iterations to 10 to make room for the
 # decomposition hubs' phases, then to 1 round for the async wheel's
-# (before, the JAX bracket was 4826.35/-310.15, then 4826.34/-322.95)
+# (before, the JAX bracket was 4826.35/-310.15, then 4826.34/-322.95),
+# then from 4 decomposition nodes to 2 for the checkpoint phases and to
+# 1 after them (the JAX bracket is the same at 1, 2 and 4)
 MIP_GAP_SCENS = 10
 MIP_GAP_PH_ITERS = 10
-MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 1, 32, 4
+MIP_GAP_MAX_ROUNDS, MIP_GAP_POOL, MIP_GAP_DD_NODES = 1, 32, 1
 MIP_GAP_DIVE_TAIL, MIP_GAP_PUMP_ROUNDS = 16, 2
 MIP_GAP_JAX = (4826.71484375, -462.9410400390625)
 # the CLI's --EF on farmer, and the JAX CLI's EF objective for the same
@@ -344,20 +371,22 @@ def slice9_table(full=False):
         # inner bound, its 10 at S=100 take 3.4 min
         "lshaped_hub": [
             ("lshaped_hub", sslp_cli(LSHAPED_SCENS, *LSHAPED_FLAGS,
-                                     "--lshaped-max-iter", d("1", "3")),
+                                     "--lshaped-max-iter", d("1", "3"),
+                                     "--kernel-counters"),
              d((-326.3166809082031, None), None)),
             *d([], [("lshaped_hub_100", sslp_cli(
                 100, *LSHAPED_FLAGS, "--lshaped-max-iter", "10"),
                 (-318.86767578125, -263.0153987079396))])],
         # the headline's size; the JAX CLI's 30 at S=100 in f32 take 9.7
-        # min on the CPU
+        # min on the CPU; the S=100 run cut from 3 iterations to 2 (half
+        # the scenarios are dispatched from the second on)
         "aph_hub": [
             ("aph_hub", sslp_cli(APH_SCENS, *APH_FLAGS,
                                  *d(APH_BF16X3, APH_BF16X3[:2]),
                                  "--max-iterations", d("2", "30")), None),
             ("aph_hub_100", sslp_cli(100, *APH_FLAGS, *d(APH_BF16X3, []),
-                                     "--max-iterations", d("3", "30")),
-             d((-317.73504638671875, -284.2300720214844),
+                                     "--max-iterations", d("2", "30")),
+             d((-317.7518310546875, -284.2300720214844),
                (-316.54156494140625, -284.23101806640625)))],
         "bound_spokes": [
             ("bound_spokes", sslp_cli(LSHAPED_SCENS, *BOUND_SPOKE_FLAGS,
@@ -412,6 +441,18 @@ ASYNC_HELD_ITERS = {False: 10, True: 30}         # by --full
 ASYNC_HELD_JAX_BOUNDS = {10: (-216.515869140625, -149.8999786376953),
                          30: (-215.45925903320312, -149.8999786376953)}
 ASYNC_CCOPF_MAX_ITERS = 10
+# checkpoints and preemption: the headline wheel saved in the background
+# every CKPT_EVERY_S seconds (each save kept, up to CKPT_KEEP rotated
+# files, so each can be re-read) and preempted at hub iteration
+# CKPT_PREEMPT_AT by a fault plan; the README's sslp command through the
+# CLI, run to PREEMPT_CLI_CAP PH iterations at most and sent SIGTERM
+# once its trace shows hub iteration PREEMPT_CLI_AT, then resumed, like
+# the uninterrupted run it is held to, for two more PH iterations
+CKPT_EVERY_S = 5.0
+CKPT_KEEP = 64
+CKPT_PREEMPT_AT = 40
+PREEMPT_CLI_AT = 3
+PREEMPT_CLI_CAP = 10
 
 def phase(name, **fields):
     parts = " ".join(f"{k}={v}" for k, v in fields.items())
@@ -591,17 +632,17 @@ def ccopf_options(max_iterations=CCOPF_MAX_ITERS):
                             pdhg=pdhg.PDHGOptions(tol=1e-6))
 
 
-def wheel(batch, opts, staleness=None):
-    """The fused PH wheel (PH hub, fused Lagrangian and x̂-x̄ spokes) to
-    a 1% gap, or the async pair at `staleness`; returns the spinner and
-    its wall seconds."""
+def wheel_dicts(batch, opts, staleness=None, hub_extra=None):
+    """(hub dict, spoke dicts) of the fused PH wheel (PH hub, fused
+    Lagrangian and x̂-x̄ spokes) to a 1% gap, or of the async pair at
+    `staleness`; `hub_extra` joins the hub's options."""
     from mpisppy_tpu_torch.algos import async_wheel as aw
     from mpisppy_tpu_torch.algos import fused_wheel as fw
     from mpisppy_tpu_torch.cylinders import spoke
     from mpisppy_tpu_torch.cylinders.hub import AsyncPHHub, PHHub
-    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
     hub = {"hub_class": PHHub,
-           "hub_kwargs": {"options": {"rel_gap": 0.01}},
+           "hub_kwargs": {"options": {"rel_gap": 0.01,
+                                      **(hub_extra or {})}},
            "opt_class": fw.FusedPH,
            "opt_kwargs": {"options": opts, "batch": batch,
                           "wheel_options": fw.FusedWheelOptions()}}
@@ -613,8 +654,15 @@ def wheel(batch, opts, staleness=None):
                "opt_kwargs": {"options": {}}},
               {"spoke_class": spoke.FusedXhatXbarInnerBound,
                "opt_kwargs": {"options": {}}}]
+    return hub, spokes
+
+
+def wheel(batch, opts, staleness=None):
+    """The wheel of wheel_dicts spun; returns the spinner and its wall
+    seconds."""
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
     t0 = time.perf_counter()
-    ws = WheelSpinner(hub, spokes).spin()
+    ws = WheelSpinner(*wheel_dicts(batch, opts, staleness)).spin()
     if batch.device.type == "cuda":
         torch.cuda.synchronize()
     return ws, time.perf_counter() - t0
@@ -888,6 +936,23 @@ def union_us(spans):
     return busy
 
 
+def recorded_events(prof):
+    """(name, on_device, start_us, end_us) of every event a finished
+    torch.profiler recorded, read from its kineto results: building the
+    profiler's FunctionEvent list (prof.events()) costs ~75 us an event,
+    which over a profiled wheel's 10^4-10^5 events was most of a profile
+    phase's time."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.device_type() == DeviceType.CUDA,
+             e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()]
+
+
+def device_spans(prof):
+    """(start_us, end_us) of every device activity a profiler recorded."""
+    return [(a, b) for _, dev, a, b in recorded_events(prof) if dev]
+
+
 def profile_wheel(label, batch, run):
     """torch.profiler over one wheel run (run() returns the spinner and
     its wall seconds): the device busy share (union of device activity
@@ -897,18 +962,16 @@ def profile_wheel(label, batch, run):
     shows what the profiler adds on the host.  Only device activity is
     traced: the host events of a wheel's ~10^5 launches took over a
     minute per profile to read back."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _, plain_secs = run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ws, secs = run()
     spans, by_kernel = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for name, on_device, a, b in recorded_events(prof):
+        if not on_device:
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
-            (e.time_range.end - e.time_range.start)
+        spans.append((a, b))
+        by_kernel[name] = by_kernel.get(name, 0.0) + (b - a)
     device_us = sum(by_kernel.values())
     if device_us <= 0.0:
         # the profiler saw no device activity: time the same run with
@@ -947,12 +1010,13 @@ def profile_wheel(label, batch, run):
               ms=round(us / 1e3, 3), share=round(us / device_us, 4))
 
 
-def sslp_path(dev):
+def sslp_path(dev, sync):
     """The sslp phases: the resident kernel against its plain version at
     S=10,000 and at the straggler tail's shape, the streamed body at
     S=10,000, the tensor-core accumulation error, window times of both
     designs, the S=64 wheel on card and CPU, the profile of a capped
-    headline run, and the sslp 15x45 headline at S=10,000."""
+    headline run, and the sslp 15x45 headline at S=10,000 (its batch
+    and trace go into `sync` for [checkpoint_headline])."""
     batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
     args = window_inputs(batch)
     tail = sslp_batch(TAIL_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
@@ -975,14 +1039,7 @@ def sslp_path(dev):
                 sslp_options(None, 200, 1e-7, 10))
 
     headline_profile(dev, batch)
-    # the headline: sslp 15x45, 10,000 scenarios, bench_sslp_gap's
-    # options, through the kernels the shape rule picks
-    _, _, by_design = main_wheel(
-        "headline", "pdhg_window", batch,
-        sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8),
-        model="sslp_15_45", iter_precision="bf16x3")
-    check_designs("headline", by_design, batch.qp.m, batch.qp.n,
-                  (HEADLINE_SCENS, TAIL_SCENS))
+    by_design = headline(batch, sync)
     return [kernel_entry(name, RESIDENT_SOURCE,
                          f"mpisppy_tpu/ops/pdhg_pallas.py:{line}",
                          by_design[f"pdhg_window/{mode}/resident"],
@@ -998,6 +1055,27 @@ def sslp_path(dev):
                          and k.endswith("/streamed")),
                      streamed_errs["f32"],
                      timing[HEADLINE_SCENS, "f32", "streamed"])]
+
+
+def headline(batch, sync):
+    """[headline]: sslp 15x45, 10,000 scenarios, bench_sslp_gap's
+    options, through the kernels the shape rule picks; its batch, trace
+    rows and bounds go into `sync`.  Returns the launches by design."""
+    ws, _, by_design = main_wheel(
+        "headline", "pdhg_window", batch,
+        sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8),
+        model="sslp_15_45", iter_precision="bf16x3")
+    check_designs("headline", by_design, batch.qp.m, batch.qp.n,
+                  (HEADLINE_SCENS, TAIL_SCENS))
+    sync["headline"] = {"batch": batch, "rows": trace_rows(ws),
+                        "bounds": (ws.BestOuterBound, ws.BestInnerBound),
+                        "iterations": ws.spcomm._iter}
+    return by_design
+
+
+def trace_rows(ws):
+    """The hub's trace rows, `t` made relative to the hub's start."""
+    return [{**r, "t": r["t"] - ws.spcomm._t0} for r in ws.spcomm.trace]
 
 
 def soc_parity(args, mode, S, qp, design=None, **extra):
@@ -1308,7 +1386,7 @@ def cli_path(sync):
     sslp 15x45 headline at S=10,000 through the CLI with all four
     fusable spokes in bf16x3 to a 1% certificate, every box window in
     the design the shape rule gives (its result goes into `sync` for
-    [async_headline]); the uc model with --fwph for 5 hub iterations
+    [async_headline]); the uc model with --fwph for 1 hub iteration
     (ELL: no window kernel)."""
     result, _, _, _ = cli_run("cli_readme", CLI_README)
     vs_jax("cli_readme", result, CLI_README_JAX_BOUNDS, 1e-3)
@@ -1478,7 +1556,6 @@ def uc_wheel_phase(label, batch, max_iterations, model="uc_10g24h",
 
 def count_launches(fn, reps):
     """Device kernels per call of fn (torch.profiler over `reps` calls)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1486,14 +1563,12 @@ def count_launches(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return n / reps
+    return len(device_spans(prof)) / reps
 
 
 def busy_share(fn):
     """Device busy share of one call of fn: the union of device activity
     over the call's wall time (torch.profiler), and the device ms."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1502,8 +1577,7 @@ def busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = [(e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = device_spans(prof)
     total = sum(b - a for a, b in spans)
     return union_us(spans) / (wall * 1e6), total / 1e3, wall
 
@@ -1655,8 +1729,9 @@ def uc_fwph_hub(dev):
 
 
 def uc_program(dev):
-    """[uc_program]: the uc program's VirtualBatch at 10,000 scenarios
-    (demand drawn at every step entry; the ELL template shared): its
+    """[uc_program]: the uc program's VirtualBatch at UC_PROGRAM_SCENS
+    scenarios (demand drawn at every step entry; the ELL template
+    shared): its
     resident bytes, UC_PROGRAM_HUB_ITERS hub iterations of the uc wheel,
     and the device busy share of two of the hub's subproblem windows."""
     from mpisppy_tpu_torch import scengen
@@ -2014,7 +2089,6 @@ def mip_round_profile(dev, batch, W, opts, rounds):
     """Device busy share of `rounds` B&B rounds from the root state
     (cold warm start) under torch.profiler (device activity only), with
     the windows and launches per round."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mpisppy_tpu_torch.algos import mip
@@ -2031,8 +2105,7 @@ def mip_round_profile(dev, batch, W, opts, rounds):
                 st = bnb.bnb_round(qp, batch.d_col, ic, st, opts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    spans = [(e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = device_spans(prof)
     busy = union_us(spans) / (wall * 1e6) if spans else None
     phase("mip_round_profile", S=batch.num_scenarios,
           wall_s=round(wall, 3), device_busy_share=None if busy is None
@@ -2172,11 +2245,11 @@ def mip_small(dev):
         in_bracket("mip_small", r["inner"], r["outer"], ref)
         t0 = time.perf_counter()
         g = mip.certified_mip_gap(
-            inst_batch, ph_mod.PHOptions(max_iterations=20,
+            inst_batch, ph_mod.PHOptions(max_iterations=MIP_SMALL_PH_ITERS,
                                          default_rho=10.0),
             bnb.BnBOptions(**MIP_LEAN,
                            lp=mip_node_lp(MIP_GAP_NODE_MAX_ITERS)),
-            dd_nodes=2)
+            dd_nodes=MIP_SMALL_DD_NODES)
         phase("mip_small", problem="certified_mip_gap_sslp_4_8_S4",
               gap=g.gap, seconds=round(time.perf_counter() - t0, 3))
         in_bracket("mip_small", g.inner, g.outer, ref)
@@ -2490,6 +2563,50 @@ def check_lshaped(label, result, by_design, ws):
             and by_design.get("pdhg_window/f32/streamed", 0) > 0):
         raise AssertionError(f"{label}: the subproblems or the master did "
                              "not run their windows in the kernel")
+    if ws.opt.options.sub_pdhg.telemetry:   # --kernel-counters
+        lane_counters(label, ws)
+
+
+def lane_counters(label, ws):
+    """--kernel-counters on the L-shaped hub: the last subproblem solve's
+    per-lane PDHG iterations (min, median, max, lanes at the solve's
+    iteration cap), the kernel-counters event's totals (mirrored in the
+    metrics registry), and device kernels per restart window of that
+    subproblem batch with the counters on and off (torch.profiler)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mpisppy_tpu_torch.ops import pdhg
+    from mpisppy_tpu_torch.telemetry import counters as kcounters
+    from mpisppy_tpu_torch.telemetry import metrics
+    ls = ws.opt
+    st, opts = ls.sub_state, ls.options.sub_pdhg
+    lanes = kcounters.per_lane(st)
+    if lanes is None:
+        raise AssertionError(f"{label}: --kernel-counters armed no counters")
+    iters = lanes["iters"][ls.batch.p.cpu().numpy() > 0]
+    cap = opts.max_iters
+    at_cap = np.nonzero(iters >= cap)[0]
+    qp = ls.batch.with_fixed_nonants(torch.as_tensor(
+        ls.xhat, dtype=ls.batch.qp.c.dtype, device=ls.batch.device))
+    off = dataclasses.replace(opts, telemetry=False)
+    k_on = count_launches(lambda: pdhg._window(qp, st, opts), 5)
+    k_off = count_launches(lambda: pdhg._window(
+        qp, dataclasses.replace(st, counters=None), off), 5)
+    phase(label + "_counters", lanes=iters.size,
+          iters_min=int(iters.min()), iters_median=float(np.median(iters)),
+          iters_max=int(iters.max()), cap=cap, lanes_at_cap=at_cap.size,
+          lanes_at_cap_ids=json.dumps(at_cap[:16].tolist()),
+          restarts_median=float(np.median(lanes["restarts"])),
+          event_iterations_total=metrics.REGISTRY.get(
+              "pdhg_iterations_total", cyl="hub"),
+          event_windows_total=metrics.REGISTRY.get(
+              "pdhg_windows_total", cyl="hub"),
+          kernels_per_window_on=k_on, kernels_per_window_off=k_off)
+    if not (iters.max() > 0 and k_on >= k_off):
+        raise AssertionError(f"{label}: counters empty, or fewer kernels "
+                             "with the counters on")
 
 
 def empty_master_qp(ls):
@@ -2710,7 +2827,6 @@ class ProfileIters:
             self.t0 = time.perf_counter()
 
     def enditer_after_sync(self):
-        from torch.autograd import DeviceType
         if self.prof is None \
                 or self.opt._iter != self.first + self.count - 1:
             return
@@ -2718,13 +2834,12 @@ class ProfileIters:
         wall = time.perf_counter() - self.t0
         self.prof.__exit__(None, None, None)
         spans, blocked, launches = [], 0.0, 0
-        for e in self.prof.events():
-            dur = e.time_range.end - e.time_range.start
-            if e.device_type == DeviceType.CUDA:
-                spans.append((e.time_range.start, e.time_range.end))
-            elif e.name in self.BLOCKING:
-                blocked += dur
-            elif e.name == "cudaLaunchKernel":
+        for name, on_device, a, b in recorded_events(self.prof):
+            if on_device:
+                spans.append((a, b))
+            elif name in self.BLOCKING:
+                blocked += b - a
+            elif name == "cudaLaunchKernel":
                 launches += 1
         n = self.count
         self.out.update(
@@ -3037,6 +3152,295 @@ def async_path(dev, sync, full=False):
     return total
 
 
+def checkpoint_headline(dev, sync):
+    """[checkpoint_headline]: the headline wheel ([headline]'s batch and
+    options) with checkpoints: background saves every CKPT_EVERY_S
+    seconds and a fault plan that preempts it at hub iteration
+    CKPT_PREEMPT_AT, whose emergency save the spinner writes; then a
+    freshly built wheel restores the newest snapshot and resumes to 1%
+    (at most HEADLINE_MAX_ITERS).  Prints the snapshot's bytes and
+    leaves, the background saves (each re-read and CRC-checked), the
+    emergency save's and the restore's seconds, seconds per hub
+    iteration before the preemption against [headline]'s over the same
+    rows (the background writes' cost), iterations to 1%, and the final
+    bounds against [headline]'s (held at 1e-3 relative), and whether the
+    resumed rows equal [headline]'s (the snapshot's extras carry the
+    fused wheel's host step cycle) or the first that differs.  Returns
+    the launches by design of both runs."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from mpisppy_tpu_torch import telemetry as tel
+    from mpisppy_tpu_torch.ops import pdhg_window
+    from mpisppy_tpu_torch.resilience.faults import (
+        FaultPlan, SimulatedPreemption,
+    )
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    if "headline" not in sync:      # --only: the uninterrupted run first
+        headline(sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS,
+                            dev), sync)
+    ref = sync["headline"]
+    batch = ref["batch"]
+    opts = sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8)
+    total = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "headline.npz")
+        writes = []     # (hub_iter, bytes) of every snapshot written
+
+        class Writes:
+            def handle(self, e):
+                if e.kind == "checkpoint-write":
+                    writes.append((e.hub_iter, e.data["bytes"]))
+
+            def close(self):
+                pass
+        bus = tel.EventBus()
+        bus.subscribe(Writes())
+        extra = {"checkpoint_path": path, "checkpoint_every_s": CKPT_EVERY_S,
+                 "checkpoint_keep": CKPT_KEEP, "telemetry_bus": bus,
+                 "fault_plan": FaultPlan(seed=0,
+                                         preempt_at_iter=CKPT_PREEMPT_AT)}
+        reset_launches()
+        ws = WheelSpinner(*wheel_dicts(batch, opts, hub_extra=extra)).build()
+        hub = ws.spcomm
+        save = {}
+        real_save = hub.emergency_checkpoint
+
+        def timed_save(p):
+            t0 = time.perf_counter()
+            ok = real_save(p)
+            save["s"] = time.perf_counter() - t0
+            return ok
+        hub.emergency_checkpoint = timed_save
+        try:
+            ws.spin()
+            raise AssertionError("checkpoint_headline: the fault plan "
+                                 "never preempted the wheel")
+        except SimulatedPreemption:
+            pass
+        merge_launches(total, pdhg_window.run_window.launches_by_design)
+        if getattr(hub, "_ckpt_thread", None) is not None:
+            hub._ckpt_thread.join()
+        before = trace_rows(ws)
+        checked = {}     # hub_iter -> (bytes, leaves) of every file
+        for cand in hub._checkpoint_candidates(path):
+            arrays = hub._read_checkpoint_arrays(cand)   # CRC checked
+            checked[int(arrays["hub_iter"])] = (
+                os.path.getsize(cand),
+                sum(1 for k in arrays if k.startswith("leaf")))
+        # the newest by hub_iter is the emergency save's (a background
+        # write landing after it may hold `path` itself)
+        snap_iter = max(checked)
+        nbytes, leaves = checked[snap_iter]
+        background = [it for it, _ in writes if it != snap_iter]
+        del arrays
+        del ws, hub
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        ws2 = WheelSpinner(*wheel_dicts(batch, opts, hub_extra={
+            "checkpoint_path": path, "checkpoint_every_s": 1e9})).build()
+        t0 = time.perf_counter()
+        ws2.spcomm.load_checkpoint(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ws2.spin()
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        merge_launches(total, pdhg_window.run_window.launches_by_design)
+    after = trace_rows(ws2)
+
+    def s_per_iter(rows):
+        r = [row for row in rows if 2 <= row["iter"] < CKPT_PREEMPT_AT]
+        return (r[-1]["t"] - r[0]["t"]) / (r[-1]["iter"] - r[0]["iter"])
+
+    keys = ("iter", "conv", "outer", "inner")
+    by_iter = {r["iter"]: r for r in ref["rows"]}
+    differ = next((r for r in after if r["iter"] not in by_iter
+                   or any(r[k] != by_iter[r["iter"]][k] for k in keys)),
+                  None)
+    outer, inner = ws2.BestOuterBound, ws2.BestInnerBound
+    rel_gap = ws2.spcomm.compute_gaps()[1]
+    rel = max(abs(outer - ref["bounds"][0]) / abs(ref["bounds"][0]),
+              abs(inner - ref["bounds"][1]) / abs(ref["bounds"][1]))
+    phase("checkpoint_headline", S=batch.num_scenarios,
+          snapshot_bytes=nbytes, snapshot_leaves=leaves,
+          snapshot_hub_iter=snap_iter,
+          background_saves=len(background),
+          background_save_iters=json.dumps(background),
+          crc_checked_iters=json.dumps(sorted(checked)),
+          background_save_bytes=json.dumps(
+              [b for it, b in writes if it != snap_iter]),
+          emergency_save_s=round(save["s"], 3), restore_s=round(restore_s, 3),
+          s_per_iter_with_saves=round(s_per_iter(before), 5),
+          s_per_iter_headline=round(s_per_iter(ref["rows"]), 5),
+          resumed_first_iter=after[0]["iter"],
+          iterations_to_1pct=ws2.spcomm._iter,
+          headline_iterations=ref["iterations"], resume_s=round(resume_s, 2),
+          outer=outer, inner=inner, rel_gap=rel_gap,
+          headline_outer=ref["bounds"][0], headline_inner=ref["bounds"][1],
+          max_rel_diff_vs_headline=rel, tol=1e-3)
+    if differ is None:
+        phase("checkpoint_headline", resumed_rows="equal to [headline]'s")
+    else:
+        want = by_iter.get(differ["iter"], {})
+        phase("checkpoint_headline", first_differing_row=differ["iter"],
+              resumed=json.dumps({k: differ[k] for k in keys[1:]}),
+              headline=json.dumps({k: want.get(k) for k in keys[1:]}))
+    if not (snap_iter == CKPT_PREEMPT_AT and background
+            and sorted(checked) == sorted(it for it, _ in writes)
+            and after[0]["iter"] == snap_iter + 1
+            and rel_gap <= 0.01 and rel <= 1e-3):
+        raise AssertionError("checkpoint_headline: wrong snapshot, no "
+                             "background save, no 1% certificate after the "
+                             "resume, or bounds off [headline]'s")
+    return total
+
+
+def preempt_cli():
+    """[preempt_cli]: the README's sslp command through `python -m
+    mpisppy_tpu_torch` in a subprocess with --checkpoint-path (and
+    --trace-jsonl), sent a real SIGTERM once its trace shows hub
+    iteration PREEMPT_CLI_AT: it must exit 75 with the preempted line.
+    Rerun with --checkpoint-restore, capped two PH iterations past the
+    snapshot's: rc 0 and its trace's first iteration the snapshot's
+    hub_iter + 1.  The same command runs uninterrupted to the same cap
+    beside the rerun, and the resumed trace rows are held to its rows:
+    conv and the inner bound on every row at 1e-6 relative, the outer
+    bound from the second row on at 1e-5.  The classic Lagrangian
+    spoke's bound in flight and its warm start are not in the snapshot,
+    in the JAX package neither: the first resumed row shows the bound
+    before it, and the cold solves land ~5e-7 apart (the CPU), against
+    ~3e-4 that the outer bound moves in an iteration.  The rows align
+    at the snapshot's hub_iter + 1, or at + 2 when the signal landed
+    after the state of the PH step in progress had been assigned but
+    before its sync (the snapshot then holds that step's state under
+    the same counters; the JAX package's emergency save does the same,
+    ROADMAP.md C6).  A restart from a fresh state or a neighbouring
+    iteration's moves conv by 1e-3 relative here."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mpisppy_tpu_torch", *README_SSLP]
+
+    def rows(path):
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            return [json.loads(line)["data"] for line in f
+                    if '"hub-iteration"' in line]
+
+    def close(a, b, tol=1e-6):
+        return a == b or (a is not None and b is not None
+                          and abs(a - b) <= tol * abs(b))
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "readme.npz")
+        t1, t2, t3 = (os.path.join(d, f"t{i}.jsonl") for i in (1, 2, 3))
+        with open(os.path.join(d, "err1"), "w") as err:
+            t0 = time.perf_counter()
+            p = subprocess.Popen(
+                cmd + ["--max-iterations", str(PREEMPT_CLI_CAP),
+                       "--checkpoint-path", ckpt, "--trace-jsonl", t1,
+                       "--flight-dir", d],
+                cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+            try:
+                while p.poll() is None and not any(
+                        r["iter"] >= PREEMPT_CLI_AT for r in rows(t1)):
+                    time.sleep(0.05)
+                seen = max((r["iter"] for r in rows(t1)), default=0)
+                p.send_signal(signal.SIGTERM)
+                out, _ = p.communicate(timeout=600)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            first_s = time.perf_counter() - t0
+        line = json.loads(out.strip().splitlines()[-1])
+        with np.load(ckpt) as z:
+            hub_iter, opt_iter = int(z["hub_iter"]), int(z["opt_iter"])
+        cap = ["--max-iterations", str(opt_iter + 2)]
+        t0 = time.perf_counter()
+        runs = (["--checkpoint-path", ckpt, "--checkpoint-restore",
+                 "--trace-jsonl", t2], ["--trace-jsonl", t3])
+        procs, errs = [], []
+        try:
+            for i, extra in enumerate(runs):
+                errs.append(os.path.join(d, f"err{i + 2}"))
+                with open(errs[-1], "w") as e:
+                    procs.append(subprocess.Popen(
+                        cmd + cap + extra, cwd=root,
+                        stdout=subprocess.DEVNULL, stderr=e))
+            for proc in procs:
+                proc.wait(timeout=900)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        q, plain = procs
+        second_s = time.perf_counter() - t0
+        resumed, ref = rows(t2), rows(t3)
+        err1, q_err, plain_err = (
+            Path(f).read_text() for f in [os.path.join(d, "err1"), *errs])
+    by_iter = {r["iter"]: r for r in ref}
+
+    def held(shift):
+        """The resumed rows equal the uninterrupted rows `shift` later."""
+        want = [by_iter.get(r["iter"] + shift) for r in resumed]
+        return bool(resumed) and all(
+            w is not None and close(r["conv"], w["conv"])
+            and close(r["inner"], w["inner"])
+            and (j == 0 or close(r["outer"], w["outer"], 1e-5))
+            for j, (r, w) in enumerate(zip(resumed, want)))
+
+    shift = next((k for k in (0, 1) if held(k)), None)
+    keys = ("iter", "conv", "outer", "inner")
+    phase("preempt_cli", signal_after_iter=seen, rc=p.returncode,
+          preempted_line=json.dumps(line).replace(" ", ""),
+          snapshot_hub_iter=hub_iter, snapshot_opt_iter=opt_iter,
+          first_run_s=round(first_s, 2), restore_rc=q.returncode,
+          resumed_iters=json.dumps([r["iter"] for r in resumed]),
+          second_run_s=round(second_s, 2), cap=opt_iter + 2,
+          uninterrupted_rc=plain.returncode, rows_held_at_shift=shift,
+          tol_conv_inner=1e-6, tol_outer=1e-5)
+    for r in resumed:
+        w = by_iter.get(r["iter"] + (shift or 0), {})
+        phase("preempt_cli", row=r["iter"],
+              resumed=json.dumps({k: r.get(k) for k in keys[1:]}),
+              uninterrupted=json.dumps({k: w.get(k) for k in keys}))
+    if not (p.returncode == 75 and line.get("preempted") is True
+            and line.get("checkpoint_path") == ckpt
+            and "emergency checkpoint written" in err1
+            and q.returncode == 0 and plain.returncode == 0
+            and len(resumed) >= 2 and resumed[0]["iter"] == hub_iter + 1
+            and shift is not None):
+        raise AssertionError(
+            f"preempt_cli: no exit 75 with a preempted line and a save, or "
+            f"the restore did not resume at hub_iter + 1 on the "
+            f"uninterrupted run's rows (stderr of the restore: "
+            f"{q_err[-2000:]}; of the uninterrupted run: "
+            f"{plain_err[-2000:]})")
+
+
+def resilience_path(dev, sync):
+    """The checkpoint and preemption phases.  Returns the launches by
+    design of [checkpoint_headline]."""
+    t0 = time.perf_counter()
+    total = checkpoint_headline(dev, sync)
+    torch.cuda.empty_cache()
+    preempt_cli()
+    phase("resilience_path", seconds=round(time.perf_counter() - t0, 2))
+    return total
+
+
 def credit(kernels, by_design):
     """Add main-path launches (by instantiation/mode/design) to the
     kernels line's entries: resident box bf16x3 -> K2, resident box f32
@@ -3085,6 +3489,7 @@ def main() -> int:
             "ccopf_profile": ccopf_profile,
             "farmer_profile": farmer_profile,
             "uc_wheel_full": uc_wheel_full,
+            "uc": uc_path,
             "mip": mip_path,
             "mip_gap": mip_gap,
             "slice9_profile": slice9_profile,
@@ -3096,6 +3501,9 @@ def main() -> int:
             "async_headline": lambda dev: async_headline({}),
             "async_held": lambda dev: async_held(full),
             "async_ccopf": lambda dev: async_ccopf(dev, {}),
+            "resilience": lambda dev: resilience_path(dev, {}),
+            "checkpoint_headline": lambda dev: checkpoint_headline(dev, {}),
+            "preempt_cli": lambda dev: preempt_cli(),
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if sys.argv[1:2] == ["--only"]:
@@ -3103,9 +3511,9 @@ def main() -> int:
             only[name](dev)
         return 0
     normal_path(dev)
-    kernels = sslp_path(dev)
+    sync = {}     # the results later phases compare with
+    kernels = sslp_path(dev, sync)
     torch.cuda.empty_cache()
-    sync = {}     # the sync results the async phases compare with
     kernels.extend(ccopf_path(dev, sync))
     torch.cuda.empty_cache()
     kernels.append(scengen_path(dev))
@@ -3121,14 +3529,18 @@ def main() -> int:
     _, slice9_launches = slice9_path(dev)
     torch.cuda.empty_cache()
     async_launches = async_path(dev, sync)
+    torch.cuda.empty_cache()
+    resilience_launches = resilience_path(dev, sync)
     # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
     # K2 (APH's bf16x3), the streamed box design (L-shaped masters, the
     # cross-scenario view) and a SOC design (the root-fixed ccopf EF);
     # the async wheel's in K1, K2 (its bf16x3 stale-prox hub step) and
-    # the resident SOC kernel (ccopf)
+    # the resident SOC kernel (ccopf); the checkpointed headline's in K2
+    # and K1
     credit(kernels, mip_launches)
     credit(kernels, slice9_launches)
     credit(kernels, async_launches)
+    credit(kernels, resilience_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

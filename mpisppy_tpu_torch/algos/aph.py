@@ -81,17 +81,21 @@ class APHState:
 def _merge_solver(mask: Tensor, new: pdhg.PDHGState,
                   old: pdhg.PDHGState) -> pdhg.PDHGState:
     """Keep `new` solver lanes only for dispatched scenarios (the lanes
-    of a batched PDHG state are independent); the host iteration count
-    and the counters follow `new`."""
+    of a batched PDHG state are independent), the kernel counters' lanes
+    too; the host iteration count and the ring cursor follow `new`."""
+    if new is None or old is None:
+        return new
     kw = {}
-    for f in dataclasses.fields(pdhg.PDHGState):
+    for f in dataclasses.fields(new):
         a, b = getattr(new, f.name), getattr(old, f.name)
-        if isinstance(a, Tensor) and a.ndim > 0:
+        if dataclasses.is_dataclass(a):
+            kw[f.name] = _merge_solver(mask, a, b)
+        elif isinstance(a, Tensor) and a.ndim > 0:
             m = mask.reshape(mask.shape + (1,) * (a.ndim - 1))
             kw[f.name] = torch.where(m, a, b)
         else:
             kw[f.name] = a
-    return pdhg.PDHGState(**kw)
+    return dataclasses.replace(new, **kw)
 
 
 def aph_iter0(batch: ScenarioBatch, rho: Tensor, opts: APHOptions):

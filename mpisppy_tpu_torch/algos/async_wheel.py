@@ -41,6 +41,7 @@ import dataclasses
 
 from mpisppy_tpu_torch.algos import fused_wheel as fw
 from mpisppy_tpu_torch.algos import ph as ph_mod
+from mpisppy_tpu_torch.utils.host_copy import HostCopy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +79,7 @@ class AsyncFusedPH(fw.FusedPH):
         self._plane_slots: list = [None, None]
         self._plane_slot_gen: list = [0, 0]  # generation each slot holds
         self._plane_delay: list = []   # generation delay line, len <= s
-        self._theta_inflight = None    # fw._HostCopy, a 1-deep pipeline
+        self._theta_inflight = None    # a HostCopy, a 1-deep pipeline
         self.last_theta: float | None = None
         self.plane_events: list[dict] = []   # drained by AsyncPHHub
         self._exchange_tickets: list = []    # THIS iteration's tickets
@@ -229,9 +230,9 @@ class AsyncFusedPH(fw.FusedPH):
         # pipelined host reads: the PREVIOUS iteration's packed scalars
         # and theta — the host never waits for the step in flight
         prev_theta, self._theta_inflight = self._theta_inflight, \
-            fw._HostCopy(theta)
+            HostCopy([theta])
         if prev_theta is not None:
-            self.last_theta = float(prev_theta.values())
+            self.last_theta = float(prev_theta.values()[0])
         self._cache_scalars(pipelined=True)
         if spoke_iter:
             self._observe_progress()
@@ -245,4 +246,4 @@ class AsyncFusedPH(fw.FusedPH):
         cur, self._exchange_tickets = self._exchange_tickets, []
         self._settle(due + cur)
         if self._theta_inflight is not None:
-            self.last_theta = float(self._theta_inflight.values())
+            self.last_theta = float(self._theta_inflight.values()[0])

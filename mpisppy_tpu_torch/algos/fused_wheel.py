@@ -34,6 +34,8 @@ from mpisppy_tpu_torch.algos import xhat as xhat_mod
 from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 from mpisppy_tpu_torch.ops import sparse as sparse_mod
+from mpisppy_tpu_torch.telemetry import counters as kcounters
+from mpisppy_tpu_torch.utils.host_copy import HostCopy
 
 Tensor = torch.Tensor
 
@@ -124,12 +126,27 @@ def _scen_leaf(a, S: int) -> bool:
     return isinstance(a, torch.Tensor) and a.ndim > 0 and a.shape[0] == S
 
 
+def _map_scen(st, S: int, fn, sub=None):
+    """fn(leaf) — fn(leaf, sub's leaf) when `sub` is given — on every
+    (S, ...) tensor field of a PDHGState and of its kernel counters;
+    scalars and host ints stay (the JAX package's tree_map over the
+    state's leaves)."""
+    kw = {}
+    for f in dataclasses.fields(st):
+        a = getattr(st, f.name)
+        b = None if sub is None else getattr(sub, f.name)
+        if dataclasses.is_dataclass(a):
+            kw[f.name] = _map_scen(a, S, fn, b)
+        elif _scen_leaf(a, S):
+            kw[f.name] = fn(a) if sub is None else fn(a, b)
+    return dataclasses.replace(st, **kw)
+
+
 def _gather_scen(st: pdhg.PDHGState, idx: Tensor, S: int) -> pdhg.PDHGState:
     """Index the leading scenario axis of every (S, ...) field of a
-    PDHGState; do NOT use on a BoxQP — see _gather_qp."""
-    return dataclasses.replace(st, **{
-        f.name: getattr(st, f.name)[idx]
-        for f in dataclasses.fields(st) if _scen_leaf(getattr(st, f.name), S)})
+    PDHGState (its counters' too); do NOT use on a BoxQP — see
+    _gather_qp."""
+    return _map_scen(st, S, lambda a: a[idx])
 
 
 def _gather_qp(qp: boxqp.BoxQP, idx: Tensor) -> boxqp.BoxQP:
@@ -154,9 +171,7 @@ def _gather_qp(qp: boxqp.BoxQP, idx: Tensor) -> boxqp.BoxQP:
 def _scatter_scen(st: pdhg.PDHGState, sub: pdhg.PDHGState, idx: Tensor,
                   S: int) -> pdhg.PDHGState:
     """Write a gathered sub-state back into the (S, ...) fields."""
-    return dataclasses.replace(st, **{
-        f.name: getattr(st, f.name).index_copy(0, idx, getattr(sub, f.name))
-        for f in dataclasses.fields(st) if _scen_leaf(getattr(st, f.name), S)})
+    return _map_scen(st, S, lambda a, b: a.index_copy(0, idx, b), sub)
 
 
 def _tail_rescue(qp: boxqp.BoxQP, st: pdhg.PDHGState, rp: Tensor,
@@ -240,6 +255,13 @@ def fused_iter0(batch: ScenarioBatch, rho: Tensor, opts: ph_mod.PHOptions,
     phst, tb, cert = ph_mod.ph_iter0(batch, rho, opts)
     solver = phst.solver
     dt, dev = batch.qp.c.dtype, batch.device
+    if solver.counters is not None:
+        # the planes warm-start from the hub's iter0 ITERATES, but their
+        # kernel counters start at zero (copying the hub's iter0 totals
+        # would count iter0 again under every plane's label)
+        solver = dataclasses.replace(solver, counters=kcounters.init_counters(
+            tuple(solver.omega.shape), dt, dev,
+            ring_size=solver.counters.ring.shape[-1]))
     xhat_solver = dataclasses.replace(
         solver, omega=torch.full_like(solver.omega, wopts.xhat_pdhg.omega0))
 
@@ -268,6 +290,29 @@ def fused_iter0(batch: ScenarioBatch, rho: Tensor, opts: ph_mod.PHOptions,
         scalars=torch.zeros((len(SCALAR_KEYS),), dtype=dt, device=dev),
     )
     return dataclasses.replace(st, scalars=_pack_scalars(st)), tb, cert
+
+
+def fused_state_template(batch: ScenarioBatch, opts: ph_mod.PHOptions,
+                         wopts: FusedWheelOptions) -> FusedWheelState:
+    """fused_iter0's state as shapes and dtypes (meta-device tensors, no
+    solve): every plane solver has the hub solver's template, as
+    fused_iter0 warm-starts them from it."""
+    phst = ph_mod.ph_state_template(batch, opts)
+    dt = batch.qp.c.dtype
+    nodes, N = batch.tree.num_nodes, batch.num_nonants
+
+    def t(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    b = torch.bool
+    return FusedWheelState(
+        ph=phst, lag_solver=phst.solver, lag_bound=t(),
+        lag_certified=t(dtype=b), xhat_solver=phst.solver,
+        xhat_cand=t(nodes, N), xhat_value=t(), xhat_feasible=t(dtype=b),
+        xhat_dead=t(dtype=b), slam_solver=phst.solver, slam_cand=t(N),
+        slam_value=t(), slam_feasible=t(dtype=b), shuf_solver=phst.solver,
+        shuf_cand=t(N), shuf_value=t(), shuf_feasible=t(dtype=b),
+        scalars=t(len(SCALAR_KEYS)))
 
 
 SCALAR_KEYS = ("conv", "lag_bound", "lag_certified", "xhat_value",
@@ -455,35 +500,23 @@ class _PlaneBudget:
         self.streak = self.streak + 1 if certified else 0
 
 
-class _HostCopy:
-    """A device tensor on its way to the host: on CUDA a non-blocking
-    copy into pinned memory with an event, so a later read waits for
-    that tensor only — never for work enqueued after it."""
-
-    def __init__(self, t: Tensor):
-        if t.is_cuda:
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = t, None
-
-    def values(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
-
-
-class _ScalarCopy(_HostCopy):
+class _ScalarCopy(HostCopy):
     """The packed scalars of one iteration on their way to the host.
     The candidate tensors stay on the device (transferred only when a
     spoke offers them)."""
 
-    def __init__(self, wstate: FusedWheelState):
-        super().__init__(wstate.scalars)
-        self.cands = {"xhat": wstate.xhat_cand, "slam": wstate.slam_cand,
-                      "shuf": wstate.shuf_cand}
+    def __init__(self, scalars: Tensor, cands: dict):
+        super().__init__([scalars])
+        self.cands = cands
+
+    @classmethod
+    def of(cls, wstate: FusedWheelState):
+        return cls(wstate.scalars, {"xhat": wstate.xhat_cand,
+                                    "slam": wstate.slam_cand,
+                                    "shuf": wstate.shuf_cand})
+
+
+_ROUND_MODES = ("nearest", "ceil", "floor")
 
 
 class FusedPH(ph_mod.PH):
@@ -526,13 +559,13 @@ class FusedPH(ph_mod.PH):
         never waits for the step in flight; the candidates ride the same
         pipeline, so a cached value is always paired with the candidate
         it was evaluated at."""
-        inflight = _ScalarCopy(self.wstate)
+        inflight = _ScalarCopy.of(self.wstate)
         ready = inflight
         if pipelined and self._scalars_inflight is not None:
             ready = self._scalars_inflight
         self._scalars_inflight = inflight
         self.scalar_cache = dict(zip(SCALAR_KEYS,
-                                     (float(v) for v in ready.values())))
+                                     (float(v) for v in ready.values()[0])))
         self.cand_cache = ready.cands
 
     def flush_scalars(self):
@@ -542,6 +575,70 @@ class FusedPH(ph_mod.PH):
 
     def _read_conv(self) -> float:
         return self.scalar_cache["conv"]
+
+    def state_template(self):
+        return fused_state_template(self.batch, self.options,
+                                    self.wheel_options)
+
+    # -- the host half of the step cycle in a checkpoint -----------------
+    _PLANES = ("lag", "xhat", "slam", "shuf")
+
+    def checkpoint_extras(self) -> dict:
+        """The host state the next iterations decide on, beside the
+        device state a checkpoint already holds: the shuffle cursor, the
+        x̂ candidate's freeze count and rounding mode, the planes' budget
+        streaks, and the scalar pipeline (the cache the next step reads
+        and the copy in flight, each with its candidates).  The hub
+        writes them as `extra_` arrays (the JAX format's extras, which
+        the JAX package ignores), so a restored wheel continues the
+        uninterrupted trajectory; a snapshot without them restores as
+        the JAX package's does, with a fresh cycle.  Tensors and the
+        scalar copy in flight are handed over unread: the hub's writer
+        waits on them, so a background save never drains the
+        pipeline."""
+        if self.wstate is None:
+            return {}
+        out = {"fw_cycle": np.asarray(
+            [self._shuf_cursor, self._xhat_frozen_for,
+             int(self._xhat_has_cand),
+             _ROUND_MODES.index(self._xhat_round_mode)]
+            + [self._budgets[p].streak for p in self._PLANES], np.int64)}
+        if self.scalar_cache is not None:
+            out["fw_cache"] = np.asarray(
+                [self.scalar_cache[k] for k in SCALAR_KEYS], np.float64)
+            for name, t in self.cand_cache.items():
+                out[f"fw_cache_{name}"] = t
+        if self._scalars_inflight is not None:
+            out["fw_inflight"] = self._scalars_inflight
+            for name, t in self._scalars_inflight.cands.items():
+                out[f"fw_inflight_{name}"] = t
+        return out
+
+    def restore_extras(self, extras: dict) -> None:
+        """Inverse of checkpoint_extras (a no-op without them)."""
+        cycle = extras.get("fw_cycle")
+        if cycle is None:
+            return
+        cycle = [int(v) for v in cycle]
+        self._shuf_cursor, self._xhat_frozen_for = cycle[0], cycle[1]
+        self._xhat_has_cand = bool(cycle[2])
+        self._xhat_round_mode = _ROUND_MODES[cycle[3]]
+        for p, streak in zip(self._PLANES, cycle[4:]):
+            self._budgets[p].streak = streak
+        dev = self.batch.device
+
+        def cands(prefix):
+            return {name: torch.as_tensor(np.array(
+                extras[f"{prefix}_{name}"])).to(dev)
+                for name in ("xhat", "slam", "shuf")}
+        if "fw_cache" in extras:
+            self.scalar_cache = dict(zip(
+                SCALAR_KEYS, (float(v) for v in extras["fw_cache"])))
+            self.cand_cache = cands("fw_cache")
+        if "fw_inflight" in extras:
+            self._scalars_inflight = _ScalarCopy(
+                torch.as_tensor(np.array(extras["fw_inflight"])),
+                cands("fw_inflight"))
 
     def _iter0_impl(self):
         self.wstate, tb, cert = fused_iter0(
@@ -600,9 +697,8 @@ class FusedPH(ph_mod.PH):
                 # escalate the rounding direction: nearest-rounding can
                 # strand recourse demand; ceil opens every fractional
                 # facility
-                order = ("nearest", "ceil", "floor")
-                i = order.index(self._xhat_round_mode)
-                self._xhat_round_mode = order[(i + 1) % 3]
+                i = _ROUND_MODES.index(self._xhat_round_mode)
+                self._xhat_round_mode = _ROUND_MODES[(i + 1) % 3]
             cand = _round_xbar(self.batch, xbar_nodes,
                                self._xhat_round_mode)
             self._xhat_frozen_for = 0

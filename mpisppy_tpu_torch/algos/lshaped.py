@@ -111,7 +111,7 @@ def _subproblem_cuts(batch: ScenarioBatch, xhat: Tensor,
                 status=st.status, feas_qval=torch.maximum(q1, q2),
                 feas_const=torch.where(take2, c2, c1),
                 feas_g=torch.where(take2[..., None], g2, g1),
-                windows=_windows(st, opts))
+                windows=_windows(st, opts), state=st)
 
 
 def _master_solve(qp: BoxQP, opts: pdhg.PDHGOptions):
@@ -151,6 +151,9 @@ class LShapedMethod:
         self.iterations = 0
         self.trace: list[dict] = []
         self.spcomm = None  # cylinder seam (ref:lshaped.py spcomm hooks)
+        # the latest subproblem solve's PDHGState: the L-shaped hub
+        # harvests its kernel counters (sub_pdhg.telemetry)
+        self.sub_state = None
 
     def _setup_master_box(self):
         """First-stage box in original space: the tightest intersection
@@ -190,7 +193,7 @@ class LShapedMethod:
 
         # iter 0: unrestricted scenario solves give the wait-and-see
         # bound (default eta_lb) and the first x̂ = E[x_non]
-        st0 = pdhg.solve(b.qp, opts.sub_pdhg)
+        st0 = self.sub_state = pdhg.solve(b.qp, opts.sub_pdhg)
         ws_dual = boxqp.dual_objective(b.qp, st0.x, st0.y)
         ws = float(b.expectation(ws_dual))
         if opts.eta_lb is not None:
@@ -228,6 +231,7 @@ class LShapedMethod:
             res = _subproblem_cuts(b, torch.as_tensor(xhat, dtype=dt,
                                                       device=dev),
                                    opts.sub_pdhg)
+            self.sub_state = res["state"]
             host = {k: v.cpu().numpy() for k, v in res.items()
                     if isinstance(v, Tensor)}
             infeas = real & (host["status"] == pdhg.INFEASIBLE)

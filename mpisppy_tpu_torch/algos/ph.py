@@ -25,6 +25,7 @@ import torch
 from mpisppy_tpu_torch import global_toc
 from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.ops import boxqp, pdhg
+from mpisppy_tpu_torch.telemetry import profiler as _prof
 
 Tensor = torch.Tensor
 
@@ -130,6 +131,23 @@ def ph_iter0(batch: ScenarioBatch, rho: Tensor, opts: PHOptions):
             trivial_bound, certified)
 
 
+def ph_state_template(batch: ScenarioBatch, opts) -> PHState:
+    """ph_iter0's state as shapes and dtypes (meta-device tensors, no
+    solve): built from the batch's dimensions and the PDHG options."""
+    S, N = batch.num_scenarios, batch.num_nonants
+    dt = batch.qp.c.dtype
+
+    def t(*shape):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return PHState(
+        solver=pdhg.state_template((S,), batch.qp.n, batch.qp.m, dt,
+                                   opts.pdhg),
+        W=t(S, N), z=t(S, N), xbar=t(S, N),
+        xbar_nodes=t(batch.tree.num_nodes, N), xsqbar=t(S, N), conv=t(),
+        rho=t(N))
+
+
 def ph_iterk(batch: ScenarioBatch, st: PHState, opts: PHOptions) -> PHState:
     """One PH iteration: solve with current (W, xbar), then refresh
     xbar/W/conv from the new iterates (ref:mpisppy/phbase.py:949-1061)."""
@@ -199,6 +217,13 @@ class PH:
 
     _label = "PH"
 
+    def state_template(self):
+        """Shape/dtype template of this driver's state (meta-device
+        tensors) — the unflatten template of a checkpoint restore
+        (hub.load_checkpoint) without paying an Iter0 solve.  APH
+        inherits it as the JAX package's APH does (ROADMAP.md C5)."""
+        return ph_state_template(self.batch, self.options)
+
     # -- algorithm step hooks (overridden by FusedPH) ---------------------
     def _iter0_impl(self):
         return ph_iter0(self.batch, self.rho, self.options)
@@ -220,7 +245,12 @@ class PH:
     def Iter0(self) -> float:
         self._ext("pre_iter0")
         self._ext("iter0_post_solver_creation")
-        self.state, tb, cert = self._iter0_impl()
+        with _prof.annotate("wheel/iter0_solve"):
+            t0 = time.perf_counter()
+            self.state, tb, cert = self._iter0_impl()
+            dt = time.perf_counter() - t0
+        if self.spcomm is not None:
+            self.spcomm.emit_span("iter0_solve", dt)
         self.trivial_bound = float(tb)
         self.trivial_bound_certified = bool(cert)
         self._ext("post_iter0")
@@ -238,7 +268,14 @@ class PH:
             self._iter = k
             self._ext("miditer")
             self._ext("pre_solve_loop")
-            self.state = self._iterk_impl()
+            with _prof.annotate("wheel/subproblem_solve"):
+                t_solve = time.perf_counter()
+                self.state = self._iterk_impl()
+                dt_solve = time.perf_counter() - t_solve
+            if self.spcomm is not None:
+                # host wall of the step's launches: the device wait shows
+                # in the next blocking read (the hub's harvest span)
+                self.spcomm.emit_span("subproblem_solve", dt_solve)
             self._ext("post_solve_loop")
             conv = self._read_conv()
             self._ext("enditer")
@@ -273,7 +310,9 @@ class PH:
         return self.Eobjective()
 
     def ph_main(self):
-        """Returns (conv, Eobj, trivial_bound) (ref:opt/ph.py:31-76)."""
+        """Returns (conv, Eobj, trivial_bound) (ref:opt/ph.py:31-76).
+        A state preloaded by a checkpoint restore skips Iter0 and the
+        loop continues from the restored iteration counter."""
         tb = self.Iter0() if self.state is None else self.trivial_bound
         conv = self.iterk_loop()
         eobj = self.post_loops()

@@ -84,17 +84,30 @@ def boxqp_from_arrays(d: dict, device=None) -> BoxQP:
                  A=A, cones=cone_spec_from_arrays(d.get("cones"), dev))
 
 
+def counters_from_arrays(d: dict | None, device=None):
+    """KernelCounters (telemetry/counters.py) from a dict of its fields
+    (ring_pos as a 0-d array or int), or None."""
+    if d is None:
+        return None
+    from mpisppy_tpu_torch.telemetry.counters import KernelCounters
+    dev = resolve_device(device)
+    return KernelCounters(**{
+        f.name: int(np.asarray(d[f.name])) if f.name == "ring_pos"
+        else _tensor(d[f.name], dev)
+        for f in dataclasses.fields(KernelCounters)})
+
+
 def pdhg_state_from_arrays(d: dict, device=None) -> PDHGState:
-    """A PDHGState from a dict of its fields (k as a 0-d array or int;
-    kernel counters are not carried)."""
+    """A PDHGState from a dict of its fields (k as a 0-d array or int),
+    its kernel counters included."""
     dev = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(PDHGState):
-        if f.name == "counters":
-            continue
-        v = d[f.name]
+        v = d.get(f.name)
         if f.name == "k":
             kw["k"] = int(np.asarray(v))
+        elif f.name == "counters":
+            kw[f.name] = counters_from_arrays(v, dev)
         else:
             kw[f.name] = _tensor(v, dev)
     return PDHGState(**kw)

@@ -18,22 +18,42 @@
 # otherwise the hub gets a private bus whose only subscriber is the view.
 #
 # Each sync is split as the JAX hub's: a prologue (dispatch stamps, the
-# fault plan's lane seam), the host exchange (harvest -> validate ->
-# publish), and an epilogue (dispatch stats, the watchdog beat, the
-# iteration event).  options['fault_plan'] arms resilience.FaultPlan's
-# harvest, lane and dispatch seams; options['watchdog_budget_s'] starts
-# the progress watchdog (resilience/watchdog.py).  AsyncPHHub runs the
-# exchange against the async wheel's stale plane (algos/async_wheel.py).
+# migration drain, the fault plan's preemption and lane seams), the host
+# exchange (harvest -> validate -> publish -> checkpoint), and an
+# epilogue (the pipelined kernel-counter harvest, dispatch stats, the
+# watchdog beat, the iteration event).  options['fault_plan'] arms
+# resilience.FaultPlan's harvest, lane, preemption, checkpoint and
+# dispatch seams; options['watchdog_budget_s'] starts the progress
+# watchdog (resilience/watchdog.py).  AsyncPHHub runs the exchange
+# against the async wheel's stale plane (algos/async_wheel.py).
 #
-# Not ported yet: checkpoints, preemption and the emergency save, the
-# kernel-counter harvest and the profiler session (ROADMAP.md queue A,
-# items 10-11).
+# Checkpoints (options['checkpoint_path']): rotated npz snapshots of the
+# whole wheel state, CRC-checked, in the JAX package's format (its keys,
+# leaf order, dtypes and CRC; utils/wxbarutils.py walks the states), so
+# each package restores the other's.  The port's snapshots add, as the
+# format's `extra_` arrays (which the JAX package ignores), the host state
+# of the driver, the spokes and the hub (their checkpoint_extras), so a
+# fused wheel preempted at a sync resumes on its uninterrupted trace
+# rows; a JAX snapshot resumes as the JAX package does.  A background save
+# starts the device-to-host copies of the state and of the extras'
+# tensors on the hub thread (pinned buffers, non-blocking, one event)
+# and a daemon thread waits on that event and on the fused wheel's
+# scalar copy in flight, then checksums, writes and rotates: the hub
+# never waits on the card for a background save.  That is safe because
+# no step writes a solver, PH or wheel state tensor in place (every step
+# and seam builds new tensors; the lane fault seam clones), so a copy
+# queued at iteration k reads the state of iteration k however far the
+# hub has run on.  The --profile-dir session is not ported yet
+# (ROADMAP.md queue A, item 10).
 ###############################################################################
 from __future__ import annotations
 
 import contextlib
 import math
+import os
+import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -43,8 +63,32 @@ from mpisppy_tpu_torch import global_toc
 from mpisppy_tpu_torch import telemetry as tel
 from mpisppy_tpu_torch.cylinders.spcommunicator import SPCommunicator
 from mpisppy_tpu_torch.cylinders.spoke import ConvergerSpokeType
+from mpisppy_tpu_torch.telemetry import counters as kcounters
 from mpisppy_tpu_torch.telemetry import metrics as metrics_mod
 from mpisppy_tpu_torch.telemetry import profiler as _prof
+from mpisppy_tpu_torch.utils import atomic_io
+from mpisppy_tpu_torch.utils import wxbarutils
+from mpisppy_tpu_torch.utils.host_copy import HostCopy
+
+
+def _checkpoint_crc(data: dict) -> np.ndarray:
+    """CRC32 over every array in key order: the checkpoint integrity
+    stamp, the JAX package's.  Keys sorted, raw bytes read in place (no
+    copy of the snapshot in the emergency-save path)."""
+    crc = 0
+    for k in sorted(data):
+        crc = zlib.crc32(k.encode(), crc)
+        arr = np.ascontiguousarray(data[k])
+        crc = zlib.crc32(memoryview(arr).cast("B"), crc)
+    return np.asarray(crc, np.uint32)
+
+
+def _unread(v):
+    """A snapshot value as save_checkpoint takes it: a device tensor or a
+    host copy in flight as it is, anything else as a numpy array."""
+    if isinstance(v, (torch.Tensor, HostCopy)):
+        return v
+    return np.asarray(v)
 
 
 class Hub(SPCommunicator):
@@ -92,6 +136,7 @@ class Hub(SPCommunicator):
             _dispatch.set_session_context(self.run_id, -1,
                                           **self._trace_token())
         self._last_dispatch_batches = 0
+        self._last_guard_total = 0
         # progress watchdog: no hub iteration or bound movement for
         # watchdog_budget_s wall seconds -> flight-recorder dump + the
         # configured action (exit 75, or degrade the dispatch scheduler)
@@ -121,19 +166,22 @@ class Hub(SPCommunicator):
         ctx = self.telemetry.trace
         return {"trace_id": ctx.trace_id, "span_id": ctx.span_id}
 
+    def emit_span(self, name: str, dur_s: float):
+        """One timed wheel phase (host wall seconds) onto the stream,
+        the analyzer's per-phase input.  A span covers launches plus any
+        blocking read inside it, so the device wait lands in whichever
+        span first reads a result."""
+        self._emit(tel.SPAN, name=name, dur_s=dur_s)
+
     @contextlib.contextmanager
     def _span(self, name: str):
-        """Profiler range + SPAN event (host wall seconds) for one wheel
-        phase.  A span covers launches plus any blocking read inside
-        it, so the device wait lands in whichever span first reads a
-        result."""
+        """Profiler range + SPAN event for one wheel phase."""
         with _prof.annotate(f"wheel/{name}"):
             t0 = time.perf_counter()
             try:
                 yield
             finally:
-                self._emit(tel.SPAN, name=name,
-                           dur_s=time.perf_counter() - t0)
+                self.emit_span(name, time.perf_counter() - t0)
 
     def emit_run_end(self, reason: str, **extra):
         """The run-end record (exit reason + final gap), exactly once:
@@ -410,28 +458,38 @@ class PHHub(Hub):
             self._sync_body()
 
     def _sync_body(self):
+        self._exchange_pending = True
         self._sync_prologue()
         self._sync_exchange()
+        self._exchange_pending = False
         self._sync_epilogue()
 
     def _sync_prologue(self):
         """Stamp the hub iteration onto the out-of-band emitters (the
-        dispatch scheduler, the fault plan) and run the fault plan's
-        lane seam (it corrupts the solver state so the PDHG lane guard
-        has something real to catch)."""
+        dispatch scheduler, the fault plan); a set options['preempt_event']
+        (a migration drain) raises PreemptionError here, at a consistent
+        sync boundary; then the fault plan's preemption seam and its lane
+        seam (which corrupts the solver state so the PDHG lane guard has
+        something real to catch)."""
         if self.options.get("run_id"):
             _dispatch.set_session_context(self.run_id, self._iter,
                                           **self._trace_token())
         _dispatch.set_hub_iter(self._iter)
+        drain = self.options.get("preempt_event")
+        if drain is not None and drain.is_set():
+            from mpisppy_tpu_torch.resilience.faults import PreemptionError
+            raise PreemptionError(
+                f"migration drain requested at iter {self._iter}")
         plan = self.options.get("fault_plan")
         if plan is not None:
             plan.telemetry_iter = self._iter
+            plan.maybe_preempt(self._iter)
             plan.corrupt_lanes(self._iter, self.opt)
 
     def _sync_exchange(self):
-        """The host exchange: harvest -> validate -> publish.  The async
-        hub runs it as its host-complete half while the next device step
-        is already queued."""
+        """The host exchange: harvest -> validate -> publish ->
+        checkpoint.  The async hub runs it as its host-complete half
+        while the next device step is already queued."""
         period = max(1, int(self.options.get("spoke_sync_period", 1)))
         do_spokes = (self._iter <= 2) or (self._iter % period == 0)
         fused = [sp for sp in self.spokes if getattr(sp, "fused", False)]
@@ -455,10 +513,14 @@ class PHHub(Hub):
                     for sp in classic:
                         if not getattr(sp, "disabled", False):
                             sp.update(payload)
+        with self._span("checkpoint"):
+            self._maybe_checkpoint()
 
     def _sync_epilogue(self):
-        """Off the critical path: dispatch stats, the watchdog beat and
-        the iteration event (the trace row)."""
+        """Off the critical path: the pipelined kernel-counter harvest,
+        dispatch stats, the watchdog beat and the iteration event (the
+        trace row)."""
+        self._harvest_kernel_counters()
         self._harvest_dispatch_stats()
         abs_gap, rel_gap = self.compute_gaps()
         if self._watchdog is not None:
@@ -479,6 +541,393 @@ class PHHub(Hub):
                 f" outer {self.BestOuterBound:12.5g}"
                 f" inner {self.BestInnerBound:12.5g} rel_gap {rel_gap:8.3e}"
                 f" ({self.latest_ob_char}/{self.latest_ib_char})", True)
+
+    # -- kernel counter harvest ------------------------------------------
+    def _counter_solvers(self):
+        """(label, PDHGState) pairs carrying kernel counters: the hub's
+        subproblem solver plus the fused bound planes' warm solvers, each
+        plane gated on ITS options' telemetry flag (a plane warm-starts
+        from the hub's iter0 solver and may carry counters its own solve
+        never updates)."""
+        out = []
+        st = getattr(self.opt, "state", None)
+        solver = getattr(st, "solver", None) if st is not None else None
+        if solver is not None:
+            out.append(("hub", solver))
+        wstate = getattr(self.opt, "wstate", None)
+        wopts = getattr(self.opt, "wheel_options", None)
+        if wstate is not None and wopts is not None:
+            plane_on = {
+                "lag": wopts.lag_pdhg.telemetry and wopts.lag_windows,
+                "xhat": wopts.xhat_pdhg.telemetry and wopts.xhat_windows,
+                "slam": wopts.xhat_pdhg.telemetry and wopts.slam_windows,
+                "shuf": wopts.xhat_pdhg.telemetry
+                and wopts.shuffle_windows,
+            }
+            for name, on in plane_on.items():
+                s = getattr(wstate, f"{name}_solver", None)
+                if on and s is not None:
+                    out.append((name, s))
+        return [(cyl, s) for cyl, s in out
+                if getattr(s, "counters", None) is not None]
+
+    def _harvest_kernel_counters(self, flush: bool = False):
+        """Mirror the cumulative per-lane counters into the metrics
+        registry and the event stream: one small copy per solver per
+        sync (the ring stays on the card), a no-op with telemetry off.
+        Pipelined off the critical path: each sync COMPLETES the harvest
+        begun the previous sync (its copies have landed) and BEGINS one
+        on the current state.  finalize (flush=True) discards the
+        pending one-sync-stale harvest and takes one synchronous harvest
+        of the final state instead, so the exported totals never
+        undercount the run."""
+        pending = getattr(self, "_counters_pending", None)
+        if pending and not flush:
+            for cyl, handle in pending:
+                self._fold_counter_harvest(
+                    cyl, kcounters.complete_harvest(handle))
+        self._counters_pending = [
+            (cyl, kcounters.begin_harvest(s, include_ring=False))
+            for cyl, s in self._counter_solvers()]
+        if flush:
+            for cyl, handle in self._counters_pending:
+                self._fold_counter_harvest(
+                    cyl, kcounters.complete_harvest(handle))
+            self._counters_pending = []
+
+    def _fold_counter_harvest(self, cyl: str, h: dict | None):
+        if h is None:
+            return
+        kcounters.fold_into_registry(metrics_mod.REGISTRY, h, cyl=cyl)
+        if cyl != "hub":
+            return
+        guard_total = h["pdhg_guard_resets_total"]
+        if guard_total > self._last_guard_total:
+            self._emit(tel.LANE_QUARANTINE,
+                       resets=guard_total - self._last_guard_total,
+                       total=guard_total)
+        self._last_guard_total = guard_total
+        self._emit(tel.KERNEL_COUNTERS, **h)
+
+    # -- crash-resilient checkpoints --------------------------------------
+    def _maybe_checkpoint(self):
+        """The checkpoint cadence: every checkpoint_every_iters hub
+        iterations (a synchronous save), else every checkpoint_every_s
+        wall seconds (default 60) in the background; the first sync only
+        starts the clock.  A background save skipped because the
+        previous write is still running does not consume its slot."""
+        path = self.options.get("checkpoint_path")
+        if not path:
+            return
+        every_it = self.options.get("checkpoint_every_iters")
+        if every_it:
+            if self._iter > 0 and self._iter % int(every_it) == 0 \
+                    and self._iter != getattr(self, "_last_ckpt_iter", -1):
+                if self.save_checkpoint(path):
+                    self._last_ckpt_iter = self._iter
+            return
+        every = float(self.options.get("checkpoint_every_s", 60.0))
+        now = time.perf_counter()
+        last = getattr(self, "_last_ckpt_t", None)
+        if last is None:
+            self._last_ckpt_t = now
+            return
+        if now - last < every:
+            return
+        if self.save_checkpoint(path, background=True):
+            self._last_ckpt_t = now
+
+    def save_checkpoint(self, path: str, background: bool = False,
+                        tmp_tag: str = ".tmp"):
+        """Atomic npz snapshot of the whole wheel: the solver state
+        (wstate for FusedPH, else the driver's state), the hub's bound
+        bookkeeping, the spokes' bests and the host extras of the
+        driver, the spokes and the hub (their checkpoint_extras).
+
+        background=True starts the device-to-host copies of the leaves
+        and of the extras' tensors here and leaves every wait (on those
+        copies and on the fused wheel's scalar copy in flight), the
+        checksum, the write and the rotation to a daemon thread, so the
+        hub does not drain the step pipeline; at most one background
+        save is in flight (a later request is skipped, not queued).
+        Returns True when a write launched (or, synchronous, completed),
+        False when skipped — _maybe_checkpoint's cadence depends on it."""
+        st = getattr(self.opt, "wstate", None)
+        which = "wstate" if st is not None else "state"
+        if st is None:
+            st = self.opt.state
+        if st is None:
+            return False  # preempted before Iter0: nothing to persist
+        # created here (on the hub thread) so the two possible writers,
+        # the background daemon and a later emergency save, share one
+        # lock without a creation race
+        if not hasattr(self, "_ckpt_lock"):
+            self._ckpt_lock = threading.Lock()
+        if background:
+            prev = getattr(self, "_ckpt_thread", None)
+            if prev is not None and prev.is_alive():
+                return False
+        meta = self._checkpoint_meta(which)
+        # tensors start their copies now; copies already in flight (a
+        # HostCopy) are read by the writer
+        late = {k: meta.pop(k) for k in list(meta)
+                if isinstance(meta[k], (torch.Tensor, HostCopy))}
+        tensors = {f"leaf{i}": wxbarutils.leaf_tensor(x)
+                   for i, x in enumerate(wxbarutils.state_leaves(st))}
+        tensors.update((k, v) for k, v in late.items()
+                       if isinstance(v, torch.Tensor))
+        pending = (list(tensors), HostCopy(list(tensors.values())),
+                   {k: v for k, v in late.items()
+                    if isinstance(v, HostCopy)})
+        if background:
+            t = threading.Thread(target=self._write_checkpoint,
+                                 args=(path, pending, meta, tmp_tag),
+                                 daemon=True)
+            self._ckpt_thread = t
+            t.start()
+            return True
+        self._write_checkpoint(path, pending, meta, tmp_tag)
+        return True
+
+    def emergency_checkpoint(self, path: str) -> bool:
+        """Synchronous last-gasp save for SIGTERM/SIGINT/preemption or a
+        watchdog abort.  It does not wait for an in-flight background
+        write (that could outlast the eviction grace window); its own
+        tmp name keeps the two writers off each other's staging file,
+        and if the older background snapshot lands after it, ours
+        rotates to path.1 and load_checkpoint still picks the newest by
+        hub_iter.  Best effort: a failure is logged and reported False.
+        Returns True when a snapshot landed."""
+        try:
+            return self.save_checkpoint(path, background=False,
+                                        tmp_tag=".emergency.tmp")
+        except Exception as e:  # noqa: BLE001 — last-gasp, logged
+            global_toc(f"emergency checkpoint failed ({e}); "
+                       "falling back to last rotated snapshot", True)
+            return False
+
+    def _checkpoint_meta(self, which: str) -> dict:
+        """Host-side bookkeeping, captured synchronously (the mutable
+        bits) in the JAX package's keys and dtypes.  Device tensors and
+        host copies in flight are left as they are, for save_checkpoint
+        to read without waiting on the card here."""
+        data = {}
+        data["which"] = np.frombuffer(which.encode(), np.uint8)
+        data["hub_iter"] = np.asarray(self._iter)
+        data["opt_iter"] = np.asarray(self.opt._iter)
+        data["bounds"] = np.asarray([self.BestOuterBound,
+                                     self.BestInnerBound])
+        data["ib_update_iter"] = np.asarray(self._inner_bound_update_iter)
+        tb = self.opt.trivial_bound
+        data["trivial"] = np.asarray([
+            np.nan if tb is None else tb,
+            1.0 if self.opt.trivial_bound_certified else 0.0,
+            1.0 if getattr(self, "_trivial_bound_folded", False) else 0.0])
+        for j, sp in enumerate(self.spokes):
+            if sp.bound is not None:
+                data[f"spoke{j}_bound"] = np.asarray(sp.bound)
+                bx = getattr(sp, "best_xhat", None)
+                if bx is not None:
+                    data[f"spoke{j}_xhat"] = _unread(bx)
+        bx = getattr(self, "_best_inner_xhat", None)
+        if bx is not None:
+            data["hub_best_xhat"] = _unread(bx)
+        # the driver's and the spokes' host state (FusedPH's step cycle),
+        # as extras of the same format; the JAX package returns them to
+        # its caller and ignores them
+        for prefix, owner in self._extra_owners():
+            fn = getattr(owner, "checkpoint_extras", None)
+            if fn is not None:
+                for k, v in fn().items():
+                    data[f"extra_{prefix}{k}"] = _unread(v)
+        return data
+
+    def _extra_owners(self):
+        """(key prefix, object) of every owner of checkpoint extras, in
+        restore order: the driver and the spokes before the hub, whose
+        restore may harvest them."""
+        return [("", self.opt)] + [
+            (f"spoke{j}_", sp) for j, sp in enumerate(self.spokes)] + [
+            ("hub_", self)]
+
+    def checkpoint_extras(self) -> dict:
+        """The chars of the latest bound updates (trace rows carry them)
+        and whether the current sync's exchange is still to run (a
+        preemption in the prologue), so the restore can run its fused
+        harvest."""
+        return {"chars": np.frombuffer(
+                    f"{self.latest_ob_char}|{self.latest_ib_char}".encode(),
+                    np.uint8),
+                "exchange_pending": np.asarray(
+                    int(getattr(self, "_exchange_pending", False)),
+                    np.int64)}
+
+    def restore_extras(self, extras: dict) -> None:
+        """A snapshot taken before its sync's exchange: fold the fused
+        spokes' pending results now (the driver restored the scalar cache
+        that exchange would have read), stamped with that sync's
+        iteration — the uninterrupted wheel's bookkeeping."""
+        if "chars" in extras:
+            self.latest_ob_char, self.latest_ib_char = \
+                bytes(extras["chars"]).decode().split("|")
+        if int(extras.get("exchange_pending", 0)) \
+                and getattr(self.opt, "scalar_cache", None) is not None:
+            self._harvest_all(only=[sp for sp in self.spokes
+                                    if getattr(sp, "fused", False)])
+
+    def _write_checkpoint(self, path: str, pending: tuple, data: dict,
+                          tmp_tag: str = ".tmp"):
+        """Atomic rotated write: the leaves and a CRC32 over every array
+        into path+tmp_tag, then, under the shared writer lock, rotate
+        path -> path.1 -> ... (checkpoint_keep slots, at least 2) and
+        rename the tmp file to path, then fsync the directory.
+        `pending` is save_checkpoint's (keys, HostCopy of their tensors,
+        {key: HostCopy in flight}); its waits happen here."""
+        keys, copy, inflight = pending
+        data.update(zip(keys, copy.values()))
+        for k, hc in inflight.items():
+            data[k] = hc.values()[0]
+        data["crc"] = _checkpoint_crc(data)
+        tmp = path + tmp_tag
+        with open(tmp, "wb") as f:
+            np.savez(f, **data)
+        # without the lock the background daemon could rename its OLDER
+        # tmp over a just-landed emergency snapshot without rotating it
+        lock = getattr(self, "_ckpt_lock", None) or threading.Lock()
+        with lock:
+            # a floor of 2 slots: with one, a slow background write
+            # finishing after an emergency save would clobber it
+            keep = max(2, int(self.options.get("checkpoint_keep", 2)))
+            for i in range(keep - 1, 0, -1):
+                src = path if i == 1 else f"{path}.{i - 1}"
+                try:
+                    if os.path.exists(src):
+                        os.replace(src, f"{path}.{i}")
+                except OSError:
+                    # a stolen rotation slot is harmless: every complete
+                    # snapshot validates itself
+                    pass
+            os.replace(tmp, path)
+            atomic_io.fsync_dir(path)
+        # may run on the daemon: the bus is thread-safe, and the
+        # snapshot's own hub_iter stamps the event
+        self.telemetry.emit(
+            tel.CHECKPOINT_WRITE, run=self.run_id, cyl="hub",
+            hub_iter=int(data["hub_iter"]), path=path,
+            bytes=os.path.getsize(path))
+        metrics_mod.REGISTRY.inc("checkpoint_writes_total")
+        plan = self.options.get("fault_plan")
+        if plan is not None:
+            plan.on_checkpoint_written(path)
+
+    def _checkpoint_candidates(self, path: str) -> list[str]:
+        """Existing snapshots, newest name first: path, path.1, ..."""
+        out = [path] if os.path.exists(path) else []
+        i = 1
+        while os.path.exists(f"{path}.{i}"):
+            out.append(f"{path}.{i}")
+            i += 1
+        return out
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Restore a snapshot (this package's or the JAX package's) into
+        the built, unspun wheel; ph_main then skips Iter0 and resumes the
+        loop.  Returns the extras dict.  The newest VALID snapshot wins:
+        candidates are ordered by the hub_iter stored in each (an
+        emergency save racing a slow background write can leave the
+        older snapshot at `path`), and a torn, corrupt or incompatible
+        one falls back to the next."""
+        order = []
+        for i, cand in enumerate(self._checkpoint_candidates(path)):
+            try:  # cheap lazy read of one meta scalar, no validation
+                with np.load(cand) as d:
+                    it = int(d["hub_iter"])
+            except Exception:
+                it = -1  # unreadable here: full validation gets it last
+            order.append((it, -i, cand))
+        order.sort(reverse=True)
+        errors = []
+        for _, _, cand in order:
+            try:
+                arrays = self._read_checkpoint_arrays(cand)
+            except Exception as e:  # torn zip, bad crc, IO error, ...
+                errors.append(f"{cand}: {type(e).__name__}: {e}")
+                continue
+            try:
+                extras = self._restore_from_arrays(arrays)
+            except ValueError as e:  # wrong shapes/dtypes/leaf count
+                errors.append(f"{cand}: {e}")
+                continue
+            if cand != path:
+                global_toc(f"checkpoint: {path} invalid, restored the "
+                           f"older rotated snapshot {cand}", True)
+            self._emit(tel.CHECKPOINT_RESTORE, path=cand,
+                       fallback=cand != path)
+            return extras
+        detail = "; ".join(errors) if errors else "no snapshot files"
+        raise FileNotFoundError(
+            f"no valid checkpoint under {path!r}: {detail}")
+
+    def _read_checkpoint_arrays(self, path: str) -> dict:
+        """Load and integrity-check one snapshot file (no state
+        change)."""
+        with np.load(path) as data:
+            arrays = {k: np.asarray(data[k]) for k in data.files}
+        if "crc" in arrays:
+            stored = int(arrays.pop("crc"))
+            actual = int(_checkpoint_crc(arrays))
+            if actual != stored:
+                raise ValueError(
+                    f"checksum mismatch (stored {stored:#x}, "
+                    f"recomputed {actual:#x})")
+        if "which" not in arrays:
+            raise ValueError("not a wheel checkpoint (missing 'which')")
+        return arrays
+
+    def _restore_from_arrays(self, data: dict) -> dict:
+        which = bytes(data["which"]).decode()
+        template = self.opt.state_template()
+        wxbarutils.validate_state_leaves(
+            data, wxbarutils.leaf_specs(template))
+        n = len(wxbarutils.state_leaves(template))
+        st = wxbarutils.state_from_leaves(
+            template, [data[f"leaf{i}"] for i in range(n)],
+            self.opt.batch.device)
+        if which == "wstate":
+            self.opt.wstate = st
+            self.opt.state = st.ph
+        else:
+            self.opt.state = st
+        self._iter = int(data["hub_iter"])
+        self.opt._iter = int(data["opt_iter"])
+        ob, ib = [float(v) for v in data["bounds"]]
+        self.BestOuterBound, self.BestInnerBound = ob, ib
+        self._inner_bound_update_iter = int(data["ib_update_iter"])
+        tb, cert, folded = [float(v) for v in data["trivial"]]
+        self.opt.trivial_bound = None if math.isnan(tb) else tb
+        self.opt.trivial_bound_certified = bool(cert)
+        self._trivial_bound_folded = bool(folded)
+        if "hub_best_xhat" in data:
+            self._best_inner_xhat = np.asarray(data["hub_best_xhat"])
+        # re-baseline the quarantine delta: the restored solver carries
+        # its cumulative guard_resets, which must not re-report as fresh
+        solver = getattr(self.opt.state, "solver", None)
+        if solver is not None:
+            self._last_guard_total = int(solver.guard_resets.sum())
+        for j, sp in enumerate(self.spokes):
+            key = f"spoke{j}_bound"
+            if key in data:
+                sp.bound = float(data[key])
+                if f"spoke{j}_xhat" in data:
+                    sp.best_xhat = np.asarray(data[f"spoke{j}_xhat"])
+        extras = {k[len("extra_"):]: data[k] for k in data
+                  if k.startswith("extra_")}
+        for prefix, owner in self._extra_owners():
+            fn = getattr(owner, "restore_extras", None)
+            if fn is not None:
+                fn({k[len(prefix):]: v for k, v in extras.items()
+                    if k.startswith(prefix)})
+        return extras
 
     def is_converged(self) -> bool:
         # the PH trivial bound is the initial outer bound (ref:hub.py:544)
@@ -504,6 +953,14 @@ class PHHub(Hub):
         if hasattr(self.opt, "flush_scalars"):
             self.opt.flush_scalars()
         self._harvest_all()
+        # settle an in-flight background checkpoint write, so the file
+        # on disk is complete before the caller reads or deletes it
+        t = getattr(self, "_ckpt_thread", None)
+        if t is not None and t.is_alive():
+            t.join()
+        # final totals after the last iterk: the exported totals equal
+        # the device state's exactly
+        self._harvest_kernel_counters(flush=True)
         self.emit_run_end(getattr(self, "_term_reason", None)
                           or "max-iter")
         return self.BestInnerBound
@@ -579,6 +1036,7 @@ class AsyncPHHub(PHHub):
         if staleness <= 0:
             return super()._sync_body()
         t0 = time.perf_counter()
+        self._exchange_pending = True
         with self._span("exchange_issue"):
             self._sync_prologue()
             plan = self.options.get("fault_plan")
@@ -602,6 +1060,7 @@ class AsyncPHHub(PHHub):
             if hasattr(self.opt, "result_exchange"):
                 self.opt.result_exchange()
             self._sync_exchange()
+        self._exchange_pending = False
         t2 = time.perf_counter()
         self._sync_epilogue()
         theta = getattr(self.opt, "last_theta", None)
@@ -663,6 +1122,16 @@ class LShapedHub(PHHub):
 
     def _trace_extra(self) -> dict:
         return {}
+
+    def _counter_solvers(self):
+        """The latest subproblem solve's counters (--kernel-counters arms
+        sub_pdhg): each Benders iteration's solve starts them at zero,
+        so a lane's count is its iterations in that solve.  The JAX
+        package's L-shaped hub arms and harvests none."""
+        st = self.opt.sub_state
+        if st is None or st.counters is None:
+            return []
+        return [("hub", st)]
 
     def is_converged(self) -> bool:
         return self.determine_termination()

@@ -214,6 +214,15 @@ class FusedXhatXbarInnerBound(InnerBoundSpoke):
         self.rescue_after = int(self.options.get("rescue_after", 40))
         self._dry_harvests = 0
 
+    def checkpoint_extras(self) -> dict:
+        """The rescue countdown, so a restored wheel rescues when the
+        uninterrupted one would (hub checkpoint extras)."""
+        return {"dry_harvests": np.asarray(self._dry_harvests, np.int64)}
+
+    def restore_extras(self, extras: dict) -> None:
+        if "dry_harvests" in extras:
+            self._dry_harvests = int(extras["dry_harvests"])
+
     def update(self, hub_payload):
         pass
 

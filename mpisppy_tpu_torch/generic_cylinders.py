@@ -23,9 +23,12 @@
 # configures the process-default scheduler every MIP solve goes through;
 # --async-staleness swaps in the async exchange wheel (algos/
 # async_wheel.py); the telemetry group builds the run's event bus
-# (--trace-jsonl writes the JAX package's trace schema) and an always-on
-# flight recorder; the resilience group sets the strike policy, the PDHG
-# lane guard and the hub watchdog.
+# (--trace-jsonl writes the JAX package's trace schema), arms the kernel
+# counters (--kernel-counters) and an always-on flight recorder; the
+# resilience group sets the rotated checkpoints (--checkpoint-path, a
+# SIGTERM/SIGINT emergency save, exit 75 on preemption and
+# --checkpoint-restore to resume), the strike policy, the PDHG lane guard
+# and the hub watchdog.
 #
 # A flag of the JAX package's CLI that the port does not implement is
 # refused by name (UNPORTED_FLAGS), never ignored.
@@ -40,6 +43,7 @@ import sys
 from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc, telemetry
 from mpisppy_tpu_torch.core import batch as batch_mod
+from mpisppy_tpu_torch.resilience.faults import PreemptionError
 from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
 from mpisppy_tpu_torch.utils import cfg_vanilla as vanilla
 from mpisppy_tpu_torch.utils.config import Config
@@ -51,7 +55,6 @@ def _queue_item(item: int, what: str) -> str:
 
 _EXT = _queue_item(8, "extensions, convergers and utils")
 _TELEMETRY = _queue_item(10, "telemetry")
-_RESILIENCE = _queue_item(11, "resilience and checkpoints")
 _SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 
 # The JAX package's CLI flags (its argument groups) that the port does
@@ -66,11 +69,7 @@ UNPORTED_FLAGS = {
         "init_W_fname", "init_Xbar_fname", "W_fname", "Xbar_fname",
         "scenarios_per_bundle", "pickle_bundles_dir",
         "unpickle_bundles_dir"), _EXT),
-    **dict.fromkeys(("kernel_counters", "profile_dir", "profile_iters"),
-                    _TELEMETRY),
-    **dict.fromkeys((
-        "checkpoint_path", "checkpoint_every_s", "checkpoint_keep",
-        "checkpoint_restore"), _RESILIENCE),
+    **dict.fromkeys(("profile_dir", "profile_iters"), _TELEMETRY),
     **dict.fromkeys(("uc_mpc_step", "uc_mpc_stride"), _SERVING),
     "pallas_pipeline": "no port: it double-buffers the TPU kernel's tile "
                        "DMA; on the card ops/pdhg_window.plan_window picks "
@@ -216,8 +215,8 @@ def _fuse_wheel(cfg, hub, spokes, specs=None, tree=None):
                                "opt_kwargs": {"options": {}}})
         else:
             out_spokes.append(sd)
-    # --lane-guard must reach the fused planes' PDHG options too, or it
-    # would cover only the hub's subproblems
+    # --lane-guard and --kernel-counters must reach the fused planes'
+    # PDHG options too, or they would cover only the hub's subproblems
     defaults = fw.FusedWheelOptions()
     guard = vanilla._guard(cfg)
     wopts = fw.FusedWheelOptions(
@@ -319,7 +318,31 @@ def _finite(v):  # strict-JSON safe: a bound that never landed -> null
 
 
 def _spin_and_report(cfg, module, hub, spokes, names, specs):
-    wheel = WheelSpinner(hub, spokes).spin()
+    wheel = WheelSpinner(hub, spokes)
+    ckpt = cfg.get("checkpoint_path")
+    if ckpt and cfg.get("checkpoint_restore"):
+        wheel.build()
+        if wheel.spcomm._checkpoint_candidates(ckpt):
+            try:
+                wheel.spcomm.load_checkpoint(ckpt)
+                global_toc(f"restored checkpoint {ckpt} at hub iter "
+                           f"{wheel.spcomm._iter}; resuming", True)
+            except FileNotFoundError as e:
+                # snapshots exist but none validates: crashing here would
+                # restart-storm the pool against the same dead files —
+                # start fresh instead, loudly
+                global_toc(f"WARNING: no valid checkpoint to restore "
+                           f"({e}); starting fresh", True)
+    try:
+        wheel.spin()
+    except PreemptionError as e:
+        # WheelSpinner.spin already wrote the emergency checkpoint;
+        # EX_TEMPFAIL tells the pool scheduler to restart the run
+        global_toc(f"run preempted ({e}); restart with "
+                   f"--checkpoint-restore to resume", True)
+        print(json.dumps({"preempted": True, "checkpoint_path": ckpt,
+                          "iterations": wheel.spcomm._iter}), flush=True)
+        raise SystemExit(75)
     abs_gap, rel_gap = wheel.spcomm.compute_gaps()
     global_toc(
         f"outer {wheel.BestOuterBound:.6g} inner {wheel.BestInnerBound:.6g}"

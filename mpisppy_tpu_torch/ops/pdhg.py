@@ -37,6 +37,7 @@ from mpisppy_tpu_torch.ops.boxqp import (
 )
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
 from mpisppy_tpu_torch.scengen.random import normal, prng_key
+from mpisppy_tpu_torch.telemetry import counters as kcounters
 
 Tensor = torch.Tensor
 
@@ -81,6 +82,13 @@ class PDHGOptions:
     lane_guard: bool = False
     guard_threshold: float = 1e12
     guard_max_resets: int = 3
+    # kernel counters (telemetry/counters.py): per-lane iteration,
+    # restart and omega-adaptation counts plus a small KKT-score ring,
+    # folded in at each restart boundary by a few elementwise launches
+    # (no kernel changes).  False leaves PDHGState.counters None and a
+    # window's launches exactly those of a build without counters.
+    telemetry: bool = False
+    telemetry_ring: int = 8   # score samples kept per lane
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +108,8 @@ class PDHGState:
     done: Tensor     # (...,) bool
     status: Tensor   # (...,) int32 RUNNING/OPTIMAL/INFEASIBLE/UNBOUNDED
     guard_resets: Tensor  # (...,) int32 cumulative lane-guard quarantines
-    counters: object = None  # kernel telemetry: not ported yet
+    # telemetry.counters.KernelCounters when opts.telemetry, else None
+    counters: object = None
 
 
 def _bshape(p: BoxQP):
@@ -179,7 +188,43 @@ def init_state(p: BoxQP, opts: PDHGOptions = PDHGOptions(),
         restart_score=full(float("inf")), score=full(float("inf")),
         done=full(False, torch.bool), status=full(0, torch.int32),
         guard_resets=full(0, torch.int32),
+        counters=_init_counters(bs, dt, dev, opts),
     )
+
+
+def state_template(bs: tuple, n: int, m: int, dt,
+                   opts: PDHGOptions) -> PDHGState:
+    """init_state's shapes and dtypes without its work: every tensor on
+    the meta device (no memory), counters as `opts` arm them — the
+    checkpoint restore's template (utils/wxbarutils.py)."""
+    bs = tuple(bs)
+
+    def t(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return PDHGState(
+        x=t(bs + (n,)), y=t(bs + (m,)), x_sum=t(bs + (n,)),
+        y_sum=t(bs + (m,)), x_anchor=t(bs + (n,)), y_anchor=t(bs + (m,)),
+        omega=t(bs), Lnorm=t(bs), k=0, nwin=t(bs, torch.int32),
+        restart_score=t(bs), score=t(bs), done=t(bs, torch.bool),
+        status=t(bs, torch.int32), guard_resets=t(bs, torch.int32),
+        counters=_init_counters(bs, dt, "meta", opts))
+
+
+def _init_counters(bs, dt, dev, opts: PDHGOptions):
+    if not opts.telemetry:
+        return None
+    return kcounters.init_counters(bs, dt, dev, ring_size=opts.telemetry_ring)
+
+
+def _with_counters(st: PDHGState, opts: PDHGOptions) -> PDHGState:
+    """A warm state built under telemetry-off options gets zeroed
+    counters when these options turn them on (totals are per solve
+    lineage from here)."""
+    if opts.telemetry and st.counters is None:
+        return dataclasses.replace(st, counters=_init_counters(
+            tuple(st.omega.shape), st.x.dtype, st.x.device, opts))
+    return st
 
 
 def _pdhg_iter(p: BoxQP, st: PDHGState, tau: Tensor,
@@ -337,6 +382,7 @@ def _window(p: BoxQP, st: PDHGState, opts: PDHGOptions) -> PDHGState:
     selects the kernel's arithmetic only)."""
     tau = opts.step_margin * st.omega / st.Lnorm
     sigma = opts.step_margin / (st.omega * st.Lnorm)
+    pre_done, pre_omega = st.done, st.omega
     if window_engine(p, st.x.device.type) == "kernel":
         x, y, xs, ys = pdhg_window.run_window(
             p, st.x, st.y, st.x_sum, st.y_sum, tau, sigma, st.done,
@@ -348,6 +394,15 @@ def _window(p: BoxQP, st: PDHGState, opts: PDHGOptions) -> PDHGState:
             st = _pdhg_iter(p, st, tau, sigma)
     st = dataclasses.replace(st, nwin=st.nwin + opts.restart_period)
     st = _restart(p, st, opts)
+    if opts.telemetry:
+        # the restart boundary is the observation point: nwin was just
+        # incremented by restart_period, so a zero here means _restart
+        # fired for that lane.  Recorded BEFORE the lane guard (a
+        # quarantine also clears nwin and counts in guard_resets).
+        st = dataclasses.replace(st, counters=kcounters.record_window(
+            st.counters, active=~pre_done, restarted=st.nwin == 0,
+            omega_moved=st.omega != pre_omega, score=st.score,
+            period=opts.restart_period))
     if opts.lane_guard:
         st = _lane_guard(p, st, opts)
     return dataclasses.replace(st, k=st.k + opts.restart_period)
@@ -385,7 +440,8 @@ def solve(p: BoxQP, opts: PDHGOptions = PDHGOptions(),
     if state is None:
         st = init_state(p, opts)
     else:
-        st = _reset_bookkeeping(state, reset_k=True, reset_score=True)
+        st = _with_counters(_reset_bookkeeping(
+            state, reset_k=True, reset_score=True), opts)
     if will_chunk(opts):
         while True:
             st = _dispatch_capped(p, opts, st)
@@ -414,7 +470,8 @@ def solve_fixed(p: BoxQP, n_windows: int, opts: PDHGOptions,
     """Fixed budget: n_windows restart windows, no early exit and no
     device sync — the inner solver of the PH hot loops (inexact
     warm-started subproblem solves)."""
-    st = _reset_bookkeeping(state, reset_k=False, reset_score=False)
+    st = _with_counters(_reset_bookkeeping(
+        state, reset_k=False, reset_score=False), opts)
     for _ in range(n_windows):
         st = _window(p, st, opts)
     return st

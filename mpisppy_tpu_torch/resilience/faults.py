@@ -1,7 +1,7 @@
 ###############################################################################
 # Deterministic fault injection for the cylinder wheel (port of
-# mpisppy_tpu/resilience/faults.py, whole: the serve, replica, mesh and
-# checkpoint seams wait for the queue items that port those layers).
+# mpisppy_tpu/resilience/faults.py, whole: the serve, replica and mesh
+# seams wait for the queue items that port those layers).
 #
 # The reference wheel survives solver/license hiccups with per-scenario
 # solve retries (ref:mpisppy/spopt.py:931-960) and tolerates slow or
@@ -22,9 +22,9 @@
 #                       at the next restart boundary (hub.sync);
 #   * checkpoint      — tear (truncate) or corrupt (bit-flip) a rotated
 #                       checkpoint file right after it lands on disk
-#                       (no caller until checkpoints are ported);
+#                       (hub._write_checkpoint);
 #   * preemption      — raise SimulatedPreemption at hub iteration k
-#                       (no caller until preemption is ported);
+#                       (hub._sync_prologue; WheelSpinner.spin saves);
 #   * async exchange  — drop or tear an exchange-plane write, or slow
 #                       the host-complete half (algos/async_wheel.py,
 #                       cylinders/hub.AsyncPHHub);

@@ -21,17 +21,18 @@
 #                    admission timers out of the suspect path) and keep
 #                    watching; a SECOND full budget with no progress
 #                    escalates to the abort action below;
-#        'abort'   — exit 75 (EX_TEMPFAIL, the code a preemption exits
-#                    with) so the pool scheduler restarts the run.  The
-#                    port has no checkpoints yet, so no emergency save
-#                    precedes the exit — what the JAX watchdog does when
-#                    its hub has no checkpoint_path.
+#        'abort'   — a last-gasp emergency checkpoint when the hub has
+#                    a checkpoint_path (hub.emergency_checkpoint), then
+#                    exit 75 (EX_TEMPFAIL, the code a preemption exits
+#                    with) so the pool scheduler restarts the run and
+#                    --checkpoint-restore resumes it.
 #
-# Everything is host-side: the thread reads host state only (never a
-# tensor, never torch.cuda.synchronize), and costs one monotonic-clock
-# read per `interval_s` while healthy.  The abort path deliberately
-# writes its last words straight to stderr: the telemetry console may be
-# wedged inside the very stall being escaped.
+# While healthy the thread reads host state only (never a tensor, never
+# torch.cuda.synchronize) and costs one monotonic-clock read per
+# `interval_s`; only the abort's save reads the state's tensors (a save
+# behind a hung launch waits on it, as in the JAX package).  The abort
+# path deliberately writes its last words straight to stderr: the
+# telemetry console may be wedged inside the very stall being escaped.
 ###############################################################################
 from __future__ import annotations
 
@@ -178,12 +179,23 @@ class HubWatchdog:
             pass
 
     def _abort(self, stalled: float) -> None:
-        """Abort: EX_TEMPFAIL so the pool scheduler restarts the run."""
+        """Checkpoint-and-abort: a last-gasp save when the hub has a
+        checkpoint_path, then EX_TEMPFAIL so the pool scheduler restarts
+        the run and --checkpoint-restore resumes it."""
         if self._stop.is_set():   # re-check: stop() may have landed
             return                # while the trip was dumping
+        path = None
+        try:
+            path = (getattr(self.hub, "options", None) or {}).get(
+                "checkpoint_path")
+            if path:
+                self.hub.emergency_checkpoint(path)
+        except Exception:
+            path = None
         # stderr on purpose: the console bus may be part of the wedge
         print(f"watchdog: ABORT — no hub progress for {stalled:.1f}s "
-              f"(budget {self.budget_s}s); exiting 75", file=sys.stderr,
-              flush=True)
+              f"(budget {self.budget_s}s); "
+              f"{'checkpoint saved to ' + path if path else 'no checkpoint path'}"
+              f"; exiting 75", file=sys.stderr, flush=True)
         self._stop.set()
         self.abort_fn(75)

@@ -12,14 +12,16 @@
 #   profiler  — torch.profiler record_function spans
 #   flightrec — the always-on crash black box (last ~512 events,
 #               dumped to flight-<runid>.jsonl when the wheel dies)
+#   counters  — per-lane PDHG kernel counters (--kernel-counters), the
+#               state-borne totals the hub harvests once per sync
 #
 # The event schema is the JAX package's byte for byte (kinds, field
 # names, JSONL line layout), so its `python -m mpisppy_tpu.telemetry
 # analyze` reads a trace written by the port.  Not ported yet: the
-# on-device kernel counters, the --profile-dir session, and the
+# --profile-dir session, scengen's and the MIP plane's counters, and the
 # analyze/regress/watch/slo consumers (ROADMAP.md queue A, item 10).
 #
-# This package (minus profiler) imports only the stdlib.
+# This package (minus profiler and counters) imports only the stdlib.
 ###############################################################################
 from __future__ import annotations
 

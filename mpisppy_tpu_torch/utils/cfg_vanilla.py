@@ -42,20 +42,24 @@ def _pdhg_opts(cfg) -> pdhg.PDHGOptions:
 
 
 def _guard(cfg) -> dict:
-    """--lane-guard / --guard-max-resets as PDHGOptions fields."""
+    """--lane-guard / --guard-max-resets / --kernel-counters as
+    PDHGOptions fields."""
     return {"lane_guard": bool(cfg.get("lane_guard", False)),
-            "guard_max_resets": int(cfg.get("guard_max_resets", 3))}
+            "guard_max_resets": int(cfg.get("guard_max_resets", 3)),
+            "telemetry": bool(cfg.get("kernel_counters", False))}
 
 
 def _hub_opts(cfg) -> dict:
     """Hub termination options (ref:hub.py:82-166 inputs) plus the
-    resilience knobs (strike policy, bound validation, watchdog); the
-    event bus itself is wired by the CLI."""
+    resilience knobs (checkpoints, strike policy, bound validation,
+    watchdog); the event bus itself is wired by the CLI."""
     hub_opts = {"rel_gap": cfg.get("rel_gap", 0.01),
                 "display_progress": cfg.get("display_progress", False)}
-    for key in ("abs_gap", "max_stalled_iters", "spoke_max_strikes",
-                "bound_slack", "bound_evict_contras", "watchdog_budget_s",
-                "watchdog_action", "watchdog_interval_s"):
+    for key in ("abs_gap", "max_stalled_iters", "checkpoint_path",
+                "checkpoint_every_s", "checkpoint_keep",
+                "spoke_max_strikes", "bound_slack", "bound_evict_contras",
+                "watchdog_budget_s", "watchdog_action",
+                "watchdog_interval_s"):
         if cfg.get(key) is not None:
             hub_opts[key] = cfg[key]
     return hub_opts

@@ -330,9 +330,23 @@ class Config:
                            "SolveFailed (off when unset)", float, None)
 
     def resilience_args(self):
-        """Graceful-degradation knobs: the spoke strike policy, the
-        PDHG per-lane divergence guard and the hub progress watchdog
-        (the checkpoint flags wait for ROADMAP.md queue A, item 11)."""
+        """Preemption-tolerant checkpointing and the graceful-degradation
+        knobs: the spoke strike policy, the PDHG per-lane divergence
+        guard and the hub progress watchdog."""
+        self.add_to_config("checkpoint_path",
+                           "rotated wheel checkpoint file; also enables "
+                           "the SIGTERM/SIGINT emergency save",
+                           str, None)
+        self.add_to_config("checkpoint_every_s",
+                           "seconds between background checkpoints",
+                           float, 60.0)
+        self.add_to_config("checkpoint_keep",
+                           "rotated snapshots kept (path, path.1, ...; "
+                           "minimum 2)", int, 2)
+        self.add_to_config("checkpoint_restore",
+                           "resume from the newest valid snapshot when "
+                           "one exists at checkpoint-path",
+                           bool, False)
         self.add_to_config("spoke_max_strikes",
                            "auto-disable a spoke after this many "
                            "rejected (non-finite) bounds", int, 3)
@@ -354,7 +368,8 @@ class Config:
                            "wall seconds (off when unset)", float, None)
         self.add_to_config("watchdog_action",
                            "watchdog trip action: 'abort' (flight dump "
-                           "+ exit 75) or 'degrade' (un-coalesced "
+                           "+ emergency checkpoint + exit 75) or "
+                           "'degrade' (un-coalesced "
                            "direct dispatch; a second stalled budget "
                            "escalates to abort)", str, "abort")
         self.add_to_config("watchdog_interval_s",
@@ -363,9 +378,9 @@ class Config:
 
     def telemetry_args(self):
         """Telemetry knobs: the structured wheel trace, the metrics
-        snapshot, console verbosity and the crash flight recorder (the
-        kernel counters and the profiler session wait for ROADMAP.md
-        queue A, item 10)."""
+        snapshot, console verbosity, the kernel counters and the crash
+        flight recorder (the profiler session waits for ROADMAP.md queue
+        A, item 10)."""
         self.add_to_config("trace_jsonl",
                            "write structured wheel events to this JSONL "
                            "trace file", str, None)
@@ -379,6 +394,11 @@ class Config:
         self.add_to_config("telemetry_verbosity",
                            "console verbosity: 0 quiet, 1 progress, "
                            "2 debug", int, 1)
+        self.add_to_config("kernel_counters",
+                           "accumulate per-lane PDHG counters "
+                           "(iterations/restarts/omega adaptations + a "
+                           "score ring) at each restart boundary", bool,
+                           False)
         self.add_to_config("flight_recorder",
                            "always-on crash black box: ring of the last "
                            "events, dumped to flight-<runid>.jsonl when "

@@ -226,15 +226,18 @@ def test_exchange_faults_match_jax(batches):
     certified(tws)
 
 
-def test_watchdog_trips_on_wedged_exchange(batches):
+def test_watchdog_trips_on_wedged_exchange(batches, tmp_path):
     """A slow harvest far past the watchdog budget trips the watchdog
-    (abort_fn injected) while the hub sits in iteration 4's exchange."""
+    (abort_fn injected) while the hub sits in iteration 4's exchange;
+    the abort first writes an emergency checkpoint of that iteration."""
     plan = tfaults.FaultPlan(seed=12, exchanges=(
         tfaults.AsyncExchangeFault("slow_harvest", at_iters=(4,),
                                    delay_s=4.0),))
     trips = []
+    ckpt = str(tmp_path / "wd.npz")
     hub_opts = {"fault_plan": plan, "watchdog_budget_s": 1.5,
-                "watchdog_interval_s": 0.05, "watchdog_action": "abort"}
+                "watchdog_interval_s": 0.05, "watchdog_action": "abort",
+                "checkpoint_path": ckpt, "checkpoint_every_s": 1e9}
     # build first, then inject abort_fn before the watchdog can trip
     # a short iter0: every sync, iter0's included, lands well inside
     # the budget, so the one trip is the wedged exchange's
@@ -255,6 +258,9 @@ def test_watchdog_trips_on_wedged_exchange(batches):
     ws.spin()
     assert trips == [(75, 4)]
     assert ws.spcomm._watchdog.trips == 1
+    with np.load(ckpt) as d:
+        assert int(d["hub_iter"]) == 4
+        assert bytes(d["which"]).decode() == "wstate"
 
 
 class _Event:

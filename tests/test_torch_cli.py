@@ -9,11 +9,12 @@
 # wheel's x̄ spoke is the root-fixed EF spoke.  --EF prints the JAX CLI's EF objective (to 1e-4);
 # the --dispatch-* group configures the scheduler as the JAX CLI's does,
 # and the final line's dispatch counters are the scheduler's.  The async
-# wheel, telemetry and resilience flags are accepted (their own tests are
-# tests/test_torch_async_wheel.py, test_torch_telemetry.py and
-# test_torch_faults.py).  A flag of the JAX package's CLI that the port
-# does not implement exits non-zero naming its ROADMAP.md queue item,
-# and the default device is CUDA, which raises without a card.
+# wheel, telemetry, checkpoint and kernel-counter flags are accepted
+# (their own tests are tests/test_torch_async_wheel.py,
+# test_torch_telemetry.py, test_torch_faults.py and
+# test_torch_cli_resilience.py).  A flag of the JAX package's CLI that
+# the port does not implement exits non-zero naming its ROADMAP.md queue
+# item, and the default device is CUDA, which raises without a card.
 import json
 import math
 import os
@@ -53,11 +54,11 @@ def test_cli_end_to_end(extra):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--checkpoint-every-s", "5"], 11), (["--checkpoint-restore"], 11),
+    (["--uc-mpc-step", "1"], 13), (["--use-primal-dual-converger"], 8),
     (["--mult-rho"], 8), (["--sensi-rho"], 8), (["--rho-file-in=r.csv"], 8),
     (["--grad-rho"], 8), (["--scenarios-per-bundle", "2"], 8),
-    (["--profile-dir", "p"], 10), (["--kernel-counters"], 10),
-    (["--checkpoint-path", "ck"], 11), (["--profile-iters", "3"], 10)])
+    (["--profile-dir", "p"], 10), (["--W-fname", "w.csv"], 8),
+    (["--pickle-bundles-dir", "d"], 8), (["--profile-iters", "3"], 10)])
 def test_unported_flags_are_refused(flag, item):
     name = flag[0].split("=")[0]
     with pytest.raises(SystemExit) as exc:
@@ -93,11 +94,11 @@ def test_uc_module_runs_with_fwph():
 
 
 def test_unported_flag_exits_nonzero():
-    out = _run_cli(FARMER + ["--device", "cpu", "--checkpoint-path", "ck"],
+    out = _run_cli(FARMER + ["--device", "cpu", "--profile-dir", "p"],
                    timeout=120)
     assert out.returncode != 0
-    assert "--checkpoint-path" in out.stderr
-    assert "queue A, item 11 (resilience and checkpoints)" in out.stderr
+    assert "--profile-dir" in out.stderr
+    assert "queue A, item 10 (telemetry)" in out.stderr
     assert out.stdout.strip() == ""
 
 

@@ -95,6 +95,9 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/resilience/faults.py",
                  "mpisppy_tpu_torch/resilience/watchdog.py",
                  "mpisppy_tpu_torch/algos/async_wheel.py",
+                 "mpisppy_tpu_torch/telemetry/counters.py",
+                 "mpisppy_tpu_torch/utils/wxbarutils.py",
+                 "mpisppy_tpu_torch/utils/host_copy.py",
                  *PORT_TOOLS):
         assert must in names
 

@@ -6,7 +6,8 @@
 #     count and async row (plane writes, staleness mean/max, a host
 #     share on the stale side);
 #   * both CLIs' traces of that run hold the same event kinds, each with
-#     the same field names, in the same JSONL line layout; the event
+#     the same field names, in the same JSONL line layout, and the same
+#     set of span names (the PH solve spans included); the event
 #     taxonomy and the metric names are the JAX package's;
 #   * the metrics snapshot is written atomically and parses; the flight
 #     recorder dumps on an error; global_toc prints as before without
@@ -101,6 +102,23 @@ def test_event_kinds_and_fields_match_the_jax_cli(traces):
 
     assert schema(paths["torch"]) == schema(paths["jax"])
     assert layouts(paths["torch"]) == layouts(paths["jax"])
+
+
+def test_span_names_match_the_jax_cli(traces):
+    """The set of SPAN names of the two CLI traces is the same, the PH
+    solve phases (iter0_solve, subproblem_solve) included, and the JAX
+    analyzer's per-phase breakdown of the port's trace carries them."""
+    paths, _, _ = traces
+
+    def names(path):
+        return {r["data"]["name"] for r in _rows(path) if r["kind"] == "span"}
+
+    assert names(paths["torch"]) == names(paths["jax"])
+    assert {"iter0_solve", "subproblem_solve", "harvest",
+            "checkpoint"} <= names(paths["torch"])
+    rep = _report(paths["torch"])
+    phases = json.dumps(rep)
+    assert "subproblem_solve" in phases and "iter0_solve" in phases
 
 
 def test_event_line_layout_and_taxonomy_equal_the_jax_package():

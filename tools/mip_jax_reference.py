@@ -41,7 +41,7 @@ MIP_GAP_MAX_ROUNDS = 1
 MIP_GAP_POOL = 32
 MIP_GAP_DIVE_TAIL = 16
 MIP_GAP_PUMP_ROUNDS = 2
-MIP_GAP_DD_NODES = 4
+MIP_GAP_DD_NODES = 1
 MIP_NODE_MAX_ITERS = 800
 CLI_EF = ["--module-name", "mpisppy_tpu.models.farmer", "--num-scens", "3",
           "--EF"]
