@@ -43,8 +43,12 @@
 # no step writes a solver, PH or wheel state tensor in place (every step
 # and seam builds new tensors; the lane fault seam clones), so a copy
 # queued at iteration k reads the state of iteration k however far the
-# hub has run on.  The --profile-dir session is not ported yet
-# (ROADMAP.md queue A, item 10).
+# hub has run on.
+#
+# The --profile-dir session (options['profile_dir'],
+# options['profile_iters']): a telemetry.profiler.ProfilerSession that
+# each sync advances before its wheel_sync range opens and finalize
+# closes, so its torch.profiler window holds whole hub iterations.
 ###############################################################################
 from __future__ import annotations
 
@@ -149,6 +153,15 @@ class Hub(SPCommunicator):
                 action=self.options.get("watchdog_action", "abort"),
                 interval_s=self.options.get("watchdog_interval_s"),
             ).start()
+        self._profiler = None
+        if self.options.get("profile_dir"):
+            batch = getattr(opt, "batch", None)
+            self._profiler = _prof.ProfilerSession(
+                self.options["profile_dir"],
+                num_iters=int(self.options.get("profile_iters", 5)),
+                bus=self.telemetry, run=self.run_id,
+                cuda=None if batch is None
+                else batch.device.type == "cuda")
         self._emit(tel.RUN_START, hub_class=type(self).__name__,
                    num_spokes=len(self.spokes))
         # sense-contradiction bookkeeping: the DISTINCT spokes whose
@@ -452,8 +465,11 @@ class PHHub(Hub):
     def sync(self):
         """One hub<->spoke exchange (fused spokes every iteration,
         classic ones every spoke_sync_period): prologue, exchange,
-        epilogue, as one profiler step."""
+        epilogue, as one profiler step; the --profile-dir session
+        advances first, so a window opens before a step range."""
         self._iter += 1
+        if self._profiler is not None:
+            self._profiler.on_sync(self._iter)
         with _prof.step("wheel_sync", self._iter):
             self._sync_body()
 
@@ -958,6 +974,8 @@ class PHHub(Hub):
         t = getattr(self, "_ckpt_thread", None)
         if t is not None and t.is_alive():
             t.join()
+        if self._profiler is not None:
+            self._profiler.close()
         # final totals after the last iterk: the exported totals equal
         # the device state's exactly
         self._harvest_kernel_counters(flush=True)

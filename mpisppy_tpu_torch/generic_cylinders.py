@@ -24,11 +24,13 @@
 # --async-staleness swaps in the async exchange wheel (algos/
 # async_wheel.py); the telemetry group builds the run's event bus
 # (--trace-jsonl writes the JAX package's trace schema), arms the kernel
-# counters (--kernel-counters) and an always-on flight recorder; the
-# resilience group sets the rotated checkpoints (--checkpoint-path, a
-# SIGTERM/SIGINT emergency save, exit 75 on preemption and
-# --checkpoint-restore to resume), the strike policy, the PDHG lane guard
-# and the hub watchdog.
+# counters (--kernel-counters), the device profile (--profile-dir,
+# --profile-iters: a torch.profiler window over hub iterations, read back
+# into <profile-dir>/device_profile.json) and an always-on flight
+# recorder; the resilience group sets the rotated checkpoints
+# (--checkpoint-path, a SIGTERM/SIGINT emergency save, exit 75 on
+# preemption and --checkpoint-restore to resume), the strike policy, the
+# PDHG lane guard and the hub watchdog.
 #
 # A flag of the JAX package's CLI that the port does not implement is
 # refused by name (UNPORTED_FLAGS), never ignored.
@@ -54,7 +56,6 @@ def _queue_item(item: int, what: str) -> str:
 
 
 _EXT = _queue_item(8, "extensions, convergers and utils")
-_TELEMETRY = _queue_item(10, "telemetry")
 _SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 
 # The JAX package's CLI flags (its argument groups) that the port does
@@ -69,7 +70,6 @@ UNPORTED_FLAGS = {
         "init_W_fname", "init_Xbar_fname", "W_fname", "Xbar_fname",
         "scenarios_per_bundle", "pickle_bundles_dir",
         "unpickle_bundles_dir"), _EXT),
-    **dict.fromkeys(("profile_dir", "profile_iters"), _TELEMETRY),
     **dict.fromkeys(("uc_mpc_step", "uc_mpc_stride"), _SERVING),
     "pallas_pipeline": "no port: it double-buffers the TPU kernel's tile "
                        "DMA; on the card ops/pdhg_window.plan_window picks "
@@ -317,6 +317,41 @@ def _finite(v):  # strict-JSON safe: a bound that never landed -> null
     return v if isinstance(v, (int, float)) and math.isfinite(v) else None
 
 
+def _report_device_profile(profile_dir: str) -> None:
+    """A --profile-dir run reads its own capture: the roofline of the
+    newest capture under profile_dir (the ProfilerSession's) goes next
+    to it as device_profile.json, the form `telemetry gate` reads, and
+    the headline device numbers go to the console."""
+    import os
+
+    from mpisppy_tpu_torch.telemetry import deviceprof, roofline
+    try:
+        cap = deviceprof.newest_capture(profile_dir)
+        if cap is None:
+            return
+        rep = roofline.roofline(deviceprof.build_timeline(cap))
+    except (OSError, ValueError) as e:
+        global_toc(f"device profile unreadable under {profile_dir}: {e}",
+                   True)
+        return
+    out_path = os.path.join(profile_dir, "device_profile.json")
+    try:
+        from mpisppy_tpu_torch.utils.atomic_io import atomic_write_text
+        atomic_write_text(out_path, json.dumps(rep, indent=1) + "\n")
+    except OSError:
+        out_path = "(unwritable)"
+
+    def _g(v):
+        return "-" if v is None else format(v, ".4g")
+    global_toc(
+        f"device profile: sec/iter {_g(rep.get('device_sec_per_iter'))}"
+        f"  busy {_g(rep.get('busy_share'))}"
+        f"  stream {_g(rep.get('measured_stream_gbps'))} GB/s"
+        f"  hbm {_g(rep.get('achieved_hbm_gbps'))}/"
+        f"{_g(rep.get('peak_hbm_gbps'))} GB/s"
+        f"  overlap {_g(rep.get('overlap_frac'))}  -> {out_path}", True)
+
+
 def _spin_and_report(cfg, module, hub, spokes, names, specs):
     wheel = WheelSpinner(hub, spokes)
     ckpt = cfg.get("checkpoint_path")
@@ -347,6 +382,8 @@ def _spin_and_report(cfg, module, hub, spokes, names, specs):
     global_toc(
         f"outer {wheel.BestOuterBound:.6g} inner {wheel.BestInnerBound:.6g}"
         f" rel_gap {rel_gap:.3e}", True)
+    if cfg.get("profile_dir"):
+        _report_device_profile(cfg["profile_dir"])
     if cfg.get("solution_base_name"):
         wheel.write_first_stage_solution(cfg["solution_base_name"] + ".csv")
     for rank0, nm in enumerate(names):

@@ -1045,6 +1045,15 @@ def solve_mip(qp: BoxQP, d_col: Tensor, int_cols,
             st.incumbent, st.x_inc, torch.isfinite(st.incumbent), *rep)
         st = dataclasses.replace(st, incumbent=new_inc, x_inc=new_x)
 
+    # the loop's telemetry: this solve's nodes (counted per lane in
+    # BnBState.nodes_solved) and closed lanes go into the process metrics
+    # registry; inc, not set: each solve_mip adds its share to the
+    # monotone process totals, as in the JAX package
+    from mpisppy_tpu_torch.telemetry import metrics as _metrics
+    _metrics.REGISTRY.inc("bnb_nodes_solved_total",
+                          int(st.nodes_solved.sum()))
+    _metrics.REGISTRY.inc("bnb_lanes_closed_total", int(st.done.sum()))
+
     inner = st.incumbent
     # a scenario that exhausted its pool with no incumbent and no open
     # nodes has outer = min(fathom_floor, lost): reported as is

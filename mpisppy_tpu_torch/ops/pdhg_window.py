@@ -38,6 +38,7 @@
 ###############################################################################
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -189,6 +190,99 @@ def run_window_reference(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         ys = ys + y1
         x, y = x1, y1
     return x, y, xs, ys
+
+
+# -- the work model ------------------------------------------------------
+# The least work of one window, for its least-time bound (chip_smoke.py's
+# bound column) and for the roofline of a profile (telemetry/roofline.py
+# reads it from the record_function range run_window opens around each
+# launch while a profiler runs).
+
+#: threefry2x32 operations per draw: 20 rounds of add, rotate (two
+#: shifts and an or) and xor, the key injections, and the bits-to-float
+#: and compare — integer work counted at the f32 CUDA-core rate
+THREEFRY_OPS = 125
+
+
+def stored_bytes(t: Tensor) -> int:
+    """Bytes an input holds: a stride-0 (S, k) view (a shared row
+    expanded over the batch) is read as its one row."""
+    if t.ndim == 2 and t.stride(0) == 0:
+        t = t[0]
+    return t.numel() * t.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowWork:
+    """The bytes a window must move (each input read once, each output
+    written once) and its operations by the peak they run at: "bf16"
+    the tensor cores' products in bf16x3 mode, "f32" the rest."""
+
+    S: int
+    m: int
+    n: int
+    iters: int
+    nbytes: int
+    f32_flops: float
+    bf16_flops: float
+
+    def label(self, key: str) -> str:
+        """The record_function range name of a launch
+        (telemetry/deviceprof.py::WORK_RE)."""
+        return (f"{key}[S={self.S} m={self.m} n={self.n} it={self.iters} "
+                f"bytes={self.nbytes} f32_flops={self.f32_flops:.0f} "
+                f"bf16_flops={self.bf16_flops:.0f}]")
+
+    def bound_ms(self, peaks: dict) -> tuple[float, str]:
+        """Least time on a card with these peak rates
+        (telemetry/roofline.py::CARD_PEAKS), in ms, and what binds it:
+        "bytes" or "operations"."""
+        from mpisppy_tpu_torch.telemetry import roofline
+        t, by = roofline.least_time_s(
+            self.nbytes, {"f32": self.f32_flops, "bf16": self.bf16_flops},
+            peaks)
+        return 1e3 * t, by
+
+
+def window_work(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
+                y_sum: Tensor, tau: Tensor, sigma: Tensor, done: Tensor,
+                n_iters: int, precision=None,
+                synth: TileSynth | None = None) -> WindowWork:
+    """The work of run_window on these operands: A'y and A v are 4 m n
+    flops per scenario and iteration, the prox, clips and window sums
+    9 n + 6 m; SOC rows add about 6 flops each per iteration (shift,
+    square, sum, scale, subtract, window sum) and each block a sqrt and
+    a divide.  With `synth` the drawn rows are not read: bl/bu are the
+    shared template rows, d_row is read once, and each scenario pays one
+    key fold and one draw per drawn row (THREEFRY_OPS each).  In bf16x3
+    mode the products run three times on the tensor cores; in f32 and
+    bf16 they count at the f32 rate."""
+    mode = as_precision(precision) or "f32"
+    S, n = x.shape
+    m = y.shape[1]
+    ins = [p.A, p.c, p.q, p.l, p.u, p.bl, p.bu, x, y, x_sum, y_sum, tau,
+           sigma, done]
+    soc_rows = 0
+    if p.cones is not None:
+        cone_ptr, cone_rows = p.cones.csr(x.device)
+        ins += [cone_ptr, cone_rows]
+        soc_rows = cone_rows.numel()
+    if synth is not None:
+        ins.append(synth.d_row)
+    nbytes = sum(stored_bytes(t) for t in ins) \
+        + 2 * (x.numel() + y.numel()) * 4
+    mac_flops = 4.0 * m * n * S * n_iters
+    elem_flops = (9.0 * n + 6.0 * m) * S * n_iters
+    if synth is not None:
+        elem_flops += THREEFRY_OPS * (1 + synth.draws.count) * S
+    if p.cones is not None:
+        elem_flops += (6.0 * soc_rows + 2.0 * p.cones.num_cones) * S \
+            * n_iters
+    if mode == "bf16x3":
+        return WindowWork(S, m, n, int(n_iters), nbytes, elem_flops,
+                          3 * mac_flops)
+    return WindowWork(S, m, n, int(n_iters), nbytes,
+                      mac_flops + elem_flops, 0.0)
 
 
 def _build_inputs() -> list[Path]:
@@ -631,23 +725,30 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     def addr(t):
         return ptr(0 if t is None else t.data_ptr())
 
-    rc = lib.pdhg_window_launch(
-        int(plan.design == "resident"), plan.tile, plan.blocks, addr(img),
-        0 if img is None else img.numel() * img.element_size(),
-        addr(A_main), addr(A_lo), m, n, S, int(n_iters), _MODES[mode],
-        addr(tau), addr(sigma), addr(done_f),
-        addr(p.c), _stride(p.c, S), addr(p.q), _stride(p.q, S),
-        addr(p.l), _stride(p.l, S), addr(p.u), _stride(p.u, S),
-        addr(p.bl), _stride(p.bl, S), addr(p.bu), _stride(p.bu, S),
-        addr(cone_ptr), addr(cone_rows), num_cones, cone_nnz,
-        addr(x), addr(y), addr(x_sum), addr(y_sum),
-        addr(xo), addr(yo), addr(xso), addr(yso),
-        *draws, ptr(torch.cuda.current_stream(x.device).cuda_stream))
+    key = f"{kernel}/{mode}/{plan.design}"
+    # under a profiler the launch sits in a range named by its work, the
+    # roofline's bytes and flops for this kernel (deviceprof.WORK_RE)
+    rng = torch.profiler.record_function(window_work(
+        p, x, y, x_sum, y_sum, tau, sigma, done, n_iters, mode,
+        synth).label(key)) if torch.autograd._profiler_enabled() \
+        else contextlib.nullcontext()
+    with rng:
+        rc = lib.pdhg_window_launch(
+            int(plan.design == "resident"), plan.tile, plan.blocks, addr(img),
+            0 if img is None else img.numel() * img.element_size(),
+            addr(A_main), addr(A_lo), m, n, S, int(n_iters), _MODES[mode],
+            addr(tau), addr(sigma), addr(done_f),
+            addr(p.c), _stride(p.c, S), addr(p.q), _stride(p.q, S),
+            addr(p.l), _stride(p.l, S), addr(p.u), _stride(p.u, S),
+            addr(p.bl), _stride(p.bl, S), addr(p.bu), _stride(p.bu, S),
+            addr(cone_ptr), addr(cone_rows), num_cones, cone_nnz,
+            addr(x), addr(y), addr(x_sum), addr(y_sum),
+            addr(xo), addr(yo), addr(xso), addr(yso),
+            *draws, ptr(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed ({plan.design} "
                            f"design): CUDA error {rc}")
     run_window.launches[kernel] += 1
-    key = f"{kernel}/{mode}/{plan.design}"
     counts = run_window.launches_by_design
     counts[key] = counts.get(key, 0) + 1
     return xo, yo, xso, yso

@@ -13,9 +13,8 @@
 # each jitted step.  The host-side loops (PH, the hub, the spokes) read
 # only the surface below, which never draws.
 #
-# Not ported yet: the telemetry event and metrics of virtual_batch (they
-# wait for the port's telemetry), and sharded synthesis over several
-# devices.
+# virtual_batch emits the JAX package's `scengen` event and metrics.  Not
+# ported yet: sharded synthesis over several devices.
 ###############################################################################
 from __future__ import annotations
 
@@ -197,13 +196,15 @@ def _pad_rows(S: int, pad_to: int | None) -> int:
 
 
 def virtual_batch(program: ScenarioProgram, pad_to: int | None = None,
-                  device=None) -> VirtualBatch:
+                  device=None, bus=None) -> VirtualBatch:
     """Build the VirtualBatch for a program (O(n + m + S) work).  Runs on
     CUDA unless device="cpu" is given.
 
     pad_to: pad the scenario axis to a multiple — pad rows get
     probability 0 and clone the last real scenario (pad_to_multiple's
-    contract)."""
+    contract).  Emits one `scengen` telemetry event on `bus` (when
+    given) and mirrors the build into the metrics registry, as the JAX
+    package does."""
     dev = resolve_device(device)
     prog = program
     S = prog.num_scenarios
@@ -239,7 +240,7 @@ def virtual_batch(program: ScenarioProgram, pad_to: int | None = None,
                 [nos, np.repeat(nos[-1:], S_p - S, axis=0)], axis=0)
         node_of_slot = torch.as_tensor(nos.astype(np.int64)).to(dev)
 
-    return VirtualBatch(
+    vb = VirtualBatch(
         base_key=prog.base_key(dev),
         p=torch.as_tensor(probs.astype(np.float32)).to(dev),
         d_col=d_col, d_row=d_row,
@@ -252,6 +253,19 @@ def virtual_batch(program: ScenarioProgram, pad_to: int | None = None,
         program=prog,
         num_real=S,
     )
+
+    from mpisppy_tpu_torch.telemetry import metrics as _metrics
+    saved = max(vb.materialized_bytes() - vb.persistent_bytes(), 0)
+    _metrics.REGISTRY.inc("scengen_virtual_batches_total")
+    _metrics.REGISTRY.set_gauge("scengen_scenarios", float(S))
+    _metrics.REGISTRY.set_gauge("scengen_data_bytes_saved", float(saved))
+    if bus is not None:
+        bus.emit("scengen", program=prog.name, num_scenarios=S,
+                 padded_to=S_p, base_seed=prog.base_seed,
+                 start=prog.start,
+                 persistent_bytes=vb.persistent_bytes(),
+                 materialized_bytes_est=vb.materialized_bytes())
+    return vb
 
 
 def repartition(vb: VirtualBatch, pad_to: int) -> VirtualBatch:

@@ -9,19 +9,26 @@
 #   views     — the Hub.trace / Spoke.trace list views
 #   metrics   — MetricsRegistry + the shared snapshot schema
 #   console   — log(): what global_toc routes through
-#   profiler  — torch.profiler record_function spans
+#   profiler  — torch.profiler record_function spans and the
+#               --profile-dir session (ProfilerSession)
 #   flightrec — the always-on crash black box (last ~512 events,
 #               dumped to flight-<runid>.jsonl when the wheel dies)
 #   counters  — per-lane PDHG kernel counters (--kernel-counters), the
 #               state-borne totals the hub harvests once per sync
+#   deviceprof, roofline — read a ProfilerSession capture (kineto's
+#               chrome trace) into a device timeline and its H100
+#               roofline report (device_profile.json)
+#   analyze, spans, slo, watch, regress — the trace toolbox, run as
+#               `python -m mpisppy_tpu_torch.telemetry` (analyze, watch,
+#               trace, slo, compare, gate)
 #
 # The event schema is the JAX package's byte for byte (kinds, field
-# names, JSONL line layout), so its `python -m mpisppy_tpu.telemetry
-# analyze` reads a trace written by the port.  Not ported yet: the
-# --profile-dir session, scengen's and the MIP plane's counters, and the
-# analyze/regress/watch/slo consumers (ROADMAP.md queue A, item 10).
+# names, JSONL line layout), so either package's analyzer reads the
+# other's traces.
 #
-# This package (minus profiler and counters) imports only the stdlib.
+# Its modules (minus profiler and counters) import only the stdlib, so
+# the toolbox needs no card and no JAX (the port's own __init__ loads
+# torch).
 ###############################################################################
 from __future__ import annotations
 

@@ -52,14 +52,15 @@ def _guard(cfg) -> dict:
 def _hub_opts(cfg) -> dict:
     """Hub termination options (ref:hub.py:82-166 inputs) plus the
     resilience knobs (checkpoints, strike policy, bound validation,
-    watchdog); the event bus itself is wired by the CLI."""
+    watchdog) and the profiler session's; the event bus itself is wired
+    by the CLI."""
     hub_opts = {"rel_gap": cfg.get("rel_gap", 0.01),
                 "display_progress": cfg.get("display_progress", False)}
     for key in ("abs_gap", "max_stalled_iters", "checkpoint_path",
                 "checkpoint_every_s", "checkpoint_keep",
                 "spoke_max_strikes", "bound_slack", "bound_evict_contras",
-                "watchdog_budget_s", "watchdog_action",
-                "watchdog_interval_s"):
+                "profile_dir", "profile_iters", "watchdog_budget_s",
+                "watchdog_action", "watchdog_interval_s"):
         if cfg.get(key) is not None:
             hub_opts[key] = cfg[key]
     return hub_opts

@@ -378,9 +378,9 @@ class Config:
 
     def telemetry_args(self):
         """Telemetry knobs: the structured wheel trace, the metrics
-        snapshot, console verbosity, the kernel counters and the crash
-        flight recorder (the profiler session waits for ROADMAP.md queue
-        A, item 10)."""
+        snapshot, console verbosity, the kernel counters, the device
+        profile (a torch.profiler window) and the crash flight
+        recorder."""
         self.add_to_config("trace_jsonl",
                            "write structured wheel events to this JSONL "
                            "trace file", str, None)
@@ -399,6 +399,12 @@ class Config:
                            "(iterations/restarts/omega adaptations + a "
                            "score ring) at each restart boundary", bool,
                            False)
+        self.add_to_config("profile_dir",
+                           "bracket wheel iterations with a "
+                           "torch.profiler trace written here", str, None)
+        self.add_to_config("profile_iters",
+                           "wheel iterations the profiler trace covers",
+                           int, 5)
         self.add_to_config("flight_recorder",
                            "always-on crash black box: ring of the last "
                            "events, dumped to flight-<runid>.jsonl when "

@@ -57,8 +57,8 @@ def test_cli_end_to_end(extra):
     (["--uc-mpc-step", "1"], 13), (["--use-primal-dual-converger"], 8),
     (["--mult-rho"], 8), (["--sensi-rho"], 8), (["--rho-file-in=r.csv"], 8),
     (["--grad-rho"], 8), (["--scenarios-per-bundle", "2"], 8),
-    (["--profile-dir", "p"], 10), (["--W-fname", "w.csv"], 8),
-    (["--pickle-bundles-dir", "d"], 8), (["--profile-iters", "3"], 10)])
+    (["--uc-mpc-stride", "2"], 13), (["--W-fname", "w.csv"], 8),
+    (["--pickle-bundles-dir", "d"], 8), (["--rho-file-out=r.csv"], 8)])
 def test_unported_flags_are_refused(flag, item):
     name = flag[0].split("=")[0]
     with pytest.raises(SystemExit) as exc:
@@ -94,11 +94,11 @@ def test_uc_module_runs_with_fwph():
 
 
 def test_unported_flag_exits_nonzero():
-    out = _run_cli(FARMER + ["--device", "cpu", "--profile-dir", "p"],
+    out = _run_cli(FARMER + ["--device", "cpu", "--uc-mpc-step", "1"],
                    timeout=120)
     assert out.returncode != 0
-    assert "--profile-dir" in out.stderr
-    assert "queue A, item 10 (telemetry)" in out.stderr
+    assert "--uc-mpc-step" in out.stderr
+    assert "queue A, item 13 (serving" in out.stderr
     assert out.stdout.strip() == ""
 
 

@@ -98,6 +98,14 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/telemetry/counters.py",
                  "mpisppy_tpu_torch/utils/wxbarutils.py",
                  "mpisppy_tpu_torch/utils/host_copy.py",
+                 "mpisppy_tpu_torch/telemetry/deviceprof.py",
+                 "mpisppy_tpu_torch/telemetry/roofline.py",
+                 "mpisppy_tpu_torch/telemetry/analyze.py",
+                 "mpisppy_tpu_torch/telemetry/spans.py",
+                 "mpisppy_tpu_torch/telemetry/slo.py",
+                 "mpisppy_tpu_torch/telemetry/watch.py",
+                 "mpisppy_tpu_torch/telemetry/regress.py",
+                 "mpisppy_tpu_torch/telemetry/__main__.py",
                  *PORT_TOOLS):
         assert must in names
 
