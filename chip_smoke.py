@@ -48,10 +48,11 @@ nvcc per source, started together) and drives its main paths:
   Lagrangian, x̂-x̄ and slam planes) at 100 scenarios capped at 1 hub
   iteration, its FWPH-driven loop (bench_uc_fwph_hub) capped at 1,
   and the uc program's VirtualBatch at 10,000 scenarios for 1 hub
-  iteration with a short profile;
+  iteration with a short profile, each with 100 cold windows for PH's
+  iter0 and FWPH's init (bench.py's 400 in --only uc_wheel_full);
 * the CLI — generic_cylinders.main in this process, as
   `python -m mpisppy_tpu_torch` runs it: the README's sslp command
-  without --presolve (cut to 2 hub iterations) and with it (also cut to 2)
+  without --presolve (cut to 1 hub iteration) and with it (also cut to 1)
   against the JAX package's bounds for each, the box kernel against its plain
   version on the presolved batch's per-scenario bounds, the sslp 15x45
   headline at 10,000 scenarios with all four fusable spokes in bf16x3
@@ -117,6 +118,33 @@ nvcc per source, started together) and drives its main paths:
   profile phase reads its busy share through the package
   (telemetry/deviceprof.py, roofline.py), from the live profile and
   from its exported file;
+* the remaining models — one window of each new dense shared-A shape
+  (hydro on the (30, 30) tree, aircond on (3, 3, 2), gbd, sizes and
+  usar at 10,000 scenarios, eval_candidates_exact's candidate batch on
+  sslp 15x45) against its plain version in f32 and bf16x3 in every
+  design the shape rule allows, with its route and resident layout
+  ([models_windows]); bench.py's bench_hydro wheel (PH with SepRho, the
+  EF outer bound, the fused Lagrangian, the root-fixed EF inner bound)
+  on hydro (3, 3) on the card and on the CPU ([hydro_small]) and at
+  (30, 30), 900 scenarios, in bf16x3 for 30 hub iterations (--full: to
+  its 1% certificate) against the HiGHS optimum of the same extensive
+  form, with its K2 launches and profiled busy share ([hydro_wheel], the
+  slice's main path); aircond
+  (3, 3, 2) with the EF spokes on the card and on the CPU, and its
+  scengen program's VirtualBatch at 10,000 scenarios (realized, not
+  drawn in-kernel) against the materialized batch, then for 10 hub
+  iterations ([aircond], [aircond_program]); each model through the CLI
+  (2 hub iterations, its route) and with --EF against HiGHS
+  ([models_cli_*]; --full: the --EF runs at the wheel runs' sizes);
+  eval_candidates_exact on the card against the CPU
+  ([exact_candidates]); usar's certified MIP bracket against scipy's
+  MILP ([usar_mip]); distr and stoch_distr through the admm wrappers
+  against the merged LP ([admm_*]);
+
+the CPU halves of the card-against-CPU phases ([wheel_small],
+[wheel_soc_small], [scengen_small], [farmer_wheel], [hydro_small],
+[aircond]) run in one spawned worker process beside the card's phases
+(CpuHalves; in this process under --only);
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -139,7 +167,11 @@ wheel's phases, `--full` at 30 hub iterations for [async_overhead] and
 [async_held]; `--only resilience` (or checkpoint_headline, preempt_cli)
 runs the checkpoint and preemption phases ([checkpoint_headline] runs
 its own [headline] first); `--only profile_cli` the device profile's
-phase.
+phase; `--only models` (or models_windows, hydro_small, hydro_wheel,
+aircond, models_cli, exact_candidates, usar_mip, admm) the remaining
+models' phases, `--full` with [hydro_wheel] to its 1% certificate (30
+hub iterations in the default run) and the --EF runs of [models_cli] at
+the wheel runs' sizes.
 """
 import json
 import math
@@ -157,8 +189,8 @@ N_ITERS = 40                          # restart_period of the headline
 TAIL_SCENS, TAIL_ITERS = 64, 160      # the fused wheel's straggler tail
 DESIGNS = ("resident", "streamed")    # the window kernel's two designs
 HEADLINE_MAX_ITERS = 150              # cap: a few minutes on one H100
-PROFILE_HUB_ITERS = 3                 # [headline_profile]'s capped run
-                                      # (cut from 6)
+PROFILE_HUB_ITERS = 2                 # [headline_profile]'s capped run
+                                      # (cut from 6, then 3)
 PROFILE_CLI_ITERS = 10                # [profile_cli]: the CLI headline's
 PROFILE_CLI_WINDOW = 2                # cap and its --profile-iters
 K2_KEY = "pdhg_window/bf16x3/resident"  # K2 in a device report
@@ -189,6 +221,11 @@ POLAR_TOL = 1e-6
 SCENGEN_SCENS = (100_000, 1_000_000)
 SCENGEN_BASE_SCENS = 10_000
 SCENGEN_SMALL_SCENS = 64
+# the CPU halves of the card-against-CPU phases ([wheel_small],
+# [wheel_soc_small], [scengen_small], [farmer_wheel], [hydro_small],
+# [aircond]) run in one spawned worker process beside the card's phases,
+# with this many torch threads (the card's process keeps the others)
+CPU_HALF_THREADS = 4
 SCENGEN_WHEEL_ITERS = 10              # [scengen_wheel]'s cap (cut from a
                                       # 1% certificate, 77 iterations)
 # the kernels' MODE template argument
@@ -207,20 +244,22 @@ README_SSLP = ["--module-name", "mpisppy_tpu_torch.models.sslp",
                "--rel-gap", "0.01"]
 # cut: the README command's 100 hub iterations take ~550 s on an H100 (a
 # to-tolerance solve per spoke and sync) and, in the JAX package too,
-# end at rel_gap 0.416 (rho 1).  Without --presolve it runs 2 hub
-# iterations (cut from 3; at 3 the JAX CLI gives -216.85544/-149.89996)
-CLI_README = README_SSLP + ["--max-iterations", "2"]
+# end at rel_gap 0.416 (rho 1).  Without --presolve it runs 1 hub
+# iteration (cut from 2 for the models phases; at 2 the JAX CLI gives
+# -216.91704/-149.89996, at 3 -216.85544/-149.89996)
+CLI_README = README_SSLP + ["--max-iterations", "1"]
 # the JAX package's CLI on the CPU, the same command (python -m
 # mpisppy_tpu --module-name mpisppy_tpu.models.sslp ... --max-iterations
-# 2): (outer, inner); the port's must agree to 1e-3 relative
-CLI_README_JAX_BOUNDS = (-216.9170379638672, -149.89996337890625)
-# the README command as it is (with --presolve: FBBT) cut to 2 hub
-# iterations (3 before the device profile's phase, with the JAX CLI's
-# -216.85530/-149.89996; 5 before the async wheel's, -216.73627; at 10
-# -216.44839): the JAX package's CLI on the CPU, the same command, gives
-# (outer, inner); the port's must agree to 1e-4 relative
-CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "2"]
-CLI_README_PRESOLVE_JAX_BOUNDS = (-216.91693115234375, -149.89996337890625)
+# 1): (outer, inner); the port's must agree to 1e-3 relative
+CLI_README_JAX_BOUNDS = (-216.97946166992188, -149.89996337890625)
+# the README command as it is (with --presolve: FBBT) cut to 1 hub
+# iteration (2 before the models phases, with the JAX CLI's
+# -216.91693/-149.89996; 3 before the device profile's phase, -216.85530;
+# 5 before the async wheel's, -216.73627; at 10 -216.44839): the JAX
+# package's CLI on the CPU, the same command, gives (outer, inner); the
+# port's must agree to 1e-4 relative
+CLI_README_PRESOLVE = README_SSLP + ["--presolve", "--max-iterations", "1"]
+CLI_README_PRESOLVE_JAX_BOUNDS = (-216.97947692871094, -149.89996337890625)
 # the power iteration's ||A|| estimate of farmer S=3 (Ruiz-scaled), the
 # JAX package's (mpisppy_tpu.ops.pdhg.estimate_norm on the CPU, from
 # jax.random.normal(PRNGKey(7))); the port's must agree to 1e-5 relative
@@ -245,13 +284,20 @@ UC_PROGRAM_HUB_ITERS = 1    # cut from 3: the FWPH outer bound has landed
 #                             after one (ob_char F); PH's iter0 and
 #                             FWPH's init are 868 of the 3 iterations'
 #                             940 windows
-# the JAX package on the CPU (tools/uc_jax_reference.py 100 1 1; with
-# 3, 5, 10 and 25 hub iterations the same outer bound): the
+# the cold windows of PH's iter0 and FWPH's init in [uc_wheel],
+# [uc_fwph_hub] and [uc_program] (cut from bench.py's 400 for the models
+# phases: ~23 ms each at S=100, ~105 ms at S=10,000; [uc_wheel_full]
+# keeps 400)
+UC_ITER0_WINDOWS = 100
+UC_PROGRAM_ITER0_WINDOWS = 50    # [uc_program]'s (no JAX hold there)
+# the JAX package on the CPU (tools/uc_jax_reference.py 100 1 1 100): the
 # outer bound of [uc_wheel] (its inner bound has not landed by then, in
-# either package) and the certified outer bound of [uc_fwph_hub]; the
-# port's must agree to 1e-3 relative
-UC_WHEEL_JAX_OUTER = 589529.1875
-UC_FWPH_HUB_JAX_OUTER = 589529.1875     # 589529.4375 at 3, 589618.25 at 5
+# either package) and the certified outer bound of [uc_fwph_hub], with
+# UC_ITER0_WINDOWS cold windows; the port's must agree to 1e-3 relative.
+# With 400 (tools/uc_jax_reference.py 100 1 1) both were 589529.1875,
+# and [uc_wheel]'s the same at 3, 5, 10 and 25 hub iterations
+UC_WHEEL_JAX_OUTER = 579162.875
+UC_FWPH_HUB_JAX_OUTER = 577947.125
 # the uc model through the CLI with flags the JAX CLI takes for the same
 # run (python -m mpisppy_tpu --module-name mpisppy_tpu.models.uc ...)
 CLI_UC = ["--module-name", "mpisppy_tpu_torch.models.uc",
@@ -328,7 +374,7 @@ CLI_EF_JAX_OBJ = -108390.09433410698
 # solve, so the scheduler's counters stay 0 and come from it)
 CLI_DISPATCH = ["--module-name", "mpisppy_tpu_torch.models.farmer",
                 "--num-scens", "3", "--fused-wheel", "--lagrangian",
-                "--xhatxbar", "--rel-gap", "0.01", "--max-iterations", "3",
+                "--xhatxbar", "--rel-gap", "0.01", "--max-iterations", "2",
                 "--dispatch-max-batch", "64", "--dispatch-timeout-s", "600"]
 
 
@@ -393,15 +439,17 @@ def slice9_table(full=False):
                 100, *LSHAPED_FLAGS, "--lshaped-max-iter", "10"),
                 (-318.86767578125, -263.0153987079396))])],
         # the headline's size; the JAX CLI's 30 at S=100 in f32 take 9.7
-        # min on the CPU; the S=100 run cut from 3 iterations to 2 (half
-        # the scenarios are dispatched from the second on)
+        # min on the CPU; the S=100 run cut from 3 iterations to 2, then to
+        # 1 for the models phases (at 2 the JAX CLI gives -317.75183/
+        # -284.23007); the S=10,000 run keeps 2 (half the scenarios are
+        # dispatched from the second on)
         "aph_hub": [
             ("aph_hub", sslp_cli(APH_SCENS, *APH_FLAGS,
                                  *d(APH_BF16X3, APH_BF16X3[:2]),
                                  "--max-iterations", d("2", "30")), None),
             ("aph_hub_100", sslp_cli(100, *APH_FLAGS, *d(APH_BF16X3, []),
-                                     "--max-iterations", d("2", "30")),
-             d((-317.7518310546875, -284.2300720214844),
+                                     "--max-iterations", d("1", "30")),
+             d((-318.3777770996094, -284.2300720214844),
                (-316.54156494140625, -284.23101806640625)))],
         "bound_spokes": [
             ("bound_spokes", sslp_cli(LSHAPED_SCENS, *BOUND_SPOKE_FLAGS,
@@ -553,7 +601,8 @@ def tiled(args, reps):
     import dataclasses
     qp = args[0]
     qp = dataclasses.replace(qp, **{f: repeat_rows(getattr(qp, f), reps)
-                                    for f in ("c", "q", "bl", "bu")})
+                                    for f in ("c", "q", "l", "u", "bl", "bu")
+                                    if getattr(qp, f).ndim == 2})
     return (qp,) + tiled_state(args, reps) + (args[8],)
 
 
@@ -714,10 +763,18 @@ def kernel_entry(name, source, replaces, launches, err, timing):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
-def parity(args, mode, label, S, synth=None, design=None, **extra):
+def parity(args, mode, label, S, synth=None, design=None, floor=False,
+           **extra):
     """Kernel against its plain version on the same inputs; done lanes
     must come back bit-unchanged.  `design` names the kernel's design
-    (None: the shape rule's).  Returns (max_abs_err, kernel out)."""
+    (None: the shape rule's).  The kernel passes within TOLS of the plain
+    version element by element, or, with `floor`, where field by field
+    (x, y, x_sum, y_sum) it lies no farther from the plain version run in
+    f64 (f64_reference) than twice the plain f32 version does, plus
+    TOLS' atol: on a batch whose f32 rounding floor lies above TOLS
+    (sizes' columns of 10^4-10^5, gbd's window sums) both f32 versions
+    sit that far from exact arithmetic, in other directions.  Returns
+    (max_abs_err vs plain, kernel out)."""
     from mpisppy_tpu_torch.ops import pdhg_window
     k = pdhg_window.run_window(*args, precision=mode, synth=synth,
                                design=design)
@@ -727,13 +784,37 @@ def parity(args, mode, label, S, synth=None, design=None, **extra):
     done = args[7]
     frozen = torch.equal(k[0][done], args[1][done]) \
         and torch.equal(k[1][done], args[2][done])
+    within = {}
+    if floor and not ok:
+        e = f64_reference(args)
+        kd = [float((a.double() - b).abs().max()) for a, b in zip(k, e)]
+        rd = [float((a.double() - b).abs().max()) for a, b in zip(r, e)]
+        ok = all(a <= 2.0 * b + TOLS[mode][0] for a, b in zip(kd, rd)) \
+            and all(bool(torch.isfinite(t).all()) for t in k)
+        within = dict(kernel_vs_f64=json.dumps(kd).replace(" ", ""),
+                      plain_vs_f64=json.dumps(rd).replace(" ", ""),
+                      within_f32_floor=ok)
     phase(label, S=S, mode=mode, n_iters=args[8],
           design=design or "rule", max_abs_err=err,
           tol=f"{TOLS[mode][0]}+{TOLS[mode][1]}*|plain|", ok=ok,
-          done_lanes_unchanged=frozen, **extra)
+          done_lanes_unchanged=frozen, **within, **extra)
     if not (ok and frozen):
         raise AssertionError(f"{label}: window kernel disagrees ({mode})")
     return err, k
+
+
+def f64_reference(args):
+    """The plain version run in f64 on the same inputs, with f64 products
+    in every mode: the window's arithmetic up to f64 rounding."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.ops import pdhg_window
+    qp = args[0]
+    q64 = dataclasses.replace(qp, **{f: getattr(qp, f).double() for f in
+                                     ("A", "c", "q", "l", "u", "bl", "bu")})
+    rest = tuple(t.double() if t.is_floating_point() else t
+                 for t in args[1:8])
+    return pdhg_window.run_window_reference(q64, *rest, args[8])
 
 
 def time_designs(a, label, designs, reps=5, **extra):
@@ -811,26 +892,103 @@ def mma_accumulation(qp, S=1024, seed=4):
     return kerr
 
 
-def small_wheel(label, model, gpu_batch, cpu_batch, opts, **extra):
-    """The same wheel on the card and on the CPU: both certify 1% and
-    their bounds agree to 1e-3 relative.  Returns the card's spinner."""
+def small_wheel(label, model, gpu_batch, opts, **extra):
+    """The same wheel on the card and on the CPU (its CPU half, `label`,
+    from CPU_HALVES): both certify 1% and their bounds agree to 1e-3
+    relative.  Returns the card's spinner."""
     g, g_s = wheel(gpu_batch, opts)
-    c, c_s = wheel(cpu_batch, opts)
+    c = CPU_HALVES.result(label)
     g_gap = g.spcomm.compute_gaps()[1]
-    c_gap = c.spcomm.compute_gaps()[1]
     rel = [abs(a - b) / abs(b) for a, b in
-           ((g.BestOuterBound, c.BestOuterBound),
-            (g.BestInnerBound, c.BestInnerBound))]
+           ((g.BestOuterBound, c["outer"]), (g.BestInnerBound, c["inner"]))]
     phase(label, S=gpu_batch.num_scenarios, model=model,
-          gpu_iters=g.spcomm._iter, cpu_iters=c.spcomm._iter,
+          gpu_iters=g.spcomm._iter, cpu_iters=c["iters"],
           outer=g.BestOuterBound, inner=g.BestInnerBound, rel_gap=g_gap,
-          cpu_outer=c.BestOuterBound, cpu_inner=c.BestInnerBound,
-          cpu_rel_gap=c_gap, max_rel_diff=max(rel), gpu_s=round(g_s, 2),
-          cpu_s=round(c_s, 2), **extra)
-    if not (g_gap <= 0.01 and c_gap <= 0.01 and max(rel) <= 1e-3):
+          cpu_outer=c["outer"], cpu_inner=c["inner"],
+          cpu_rel_gap=c["rel_gap"], max_rel_diff=max(rel),
+          gpu_s=round(g_s, 2), cpu_s=round(c["s"], 2), **extra)
+    if not (g_gap <= 0.01 and c["rel_gap"] <= 0.01 and max(rel) <= 1e-3):
         raise AssertionError(f"{label}: no 1% certificate on the card or "
                              "the CPU, or their bounds disagree")
     return g
+
+
+def small_sslp_options():
+    """The sslp 5x15 S=64 wheels' options ([wheel_small],
+    [scengen_small])."""
+    return sslp_options(None, 200, 1e-7, 10)
+
+
+def summary(ws, secs):
+    """What a card phase compares of a CPU half: bounds, hub iterations,
+    relative gap and wall seconds."""
+    return {"outer": ws.BestOuterBound, "inner": ws.BestInnerBound,
+            "iters": ws.spcomm._iter, "rel_gap": ws.spcomm.compute_gaps()[1],
+            "s": secs}
+
+
+def cpu_half(name):
+    """The CPU half of phase `name`, built as the phase builds its card
+    half (summary)."""
+    torch.set_num_threads(CPU_HALF_THREADS)
+    if name == "wheel_small":
+        return summary(*wheel(sslp_batch(64, 5, 15, "cpu"),
+                              small_sslp_options()))
+    if name == "wheel_soc_small":
+        return summary(*wheel(ccopf_batch(CCOPF_SMALL_BFS, "cpu"),
+                              ccopf_options()))
+    if name == "scengen_small":
+        from mpisppy_tpu_torch import scengen
+        return summary(*wheel(scengen.virtual_batch(
+            sslp_program(SCENGEN_SMALL_SCENS, 5, 15), device="cpu"),
+            small_sslp_options()))
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    if name == "farmer_wheel":
+        from mpisppy_tpu_torch.models import farmer
+        specs = [farmer.scenario_creator(nm, num_scens=FARMER_SMALL_SCENS)
+                 for nm in farmer.scenario_names_creator(FARMER_SMALL_SCENS)]
+        ws, secs, _ = farmer_wheel(batch_mod.from_specs(specs, device="cpu"),
+                                   5e-3)
+        return summary(ws, secs)
+    bfs, dicts = {"hydro_small": (HYDRO_SMALL_BFS, lambda b, sp, t:
+                                  hydro_wheel_dicts(b, sp, t,
+                                                    HYDRO_MAX_ITERS)),
+                  "aircond": (AIRCOND_BFS, aircond_wheel_dicts)}[name]
+    specs, tree = model_specs(name.split("_")[0], bfs=bfs)
+    b = batch_mod.from_specs(specs, tree=tree, device="cpu")
+    return summary(*spin(*dicts(b, specs, tree), "cpu"))
+
+
+class CpuHalves:
+    """The CPU halves as futures of one spawned worker process (start),
+    or computed in this process when none was started (an --only run).
+    close() stops the worker."""
+
+    NAMES = ("wheel_small", "wheel_soc_small", "scengen_small",
+             "farmer_wheel", "hydro_small", "aircond")
+
+    def __init__(self):
+        self.pool = None
+        self.futures = {}
+
+    def start(self):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {n: self.pool.submit(cpu_half, n) for n in self.NAMES}
+
+    def result(self, name):
+        fut = self.futures.pop(name, None)
+        return cpu_half(name) if fut is None else fut.result()
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+
+
+CPU_HALVES = CpuHalves()
 
 
 def main_wheel(label, kernel, batch, opts, slack=0.0, staleness=None,
@@ -1052,8 +1210,7 @@ def sslp_path(dev, sync):
                                shape="tail"))
 
     small_wheel("wheel_small", "sslp_5_15", sslp_batch(64, 5, 15, dev),
-                sslp_batch(64, 5, 15, "cpu"),
-                sslp_options(None, 200, 1e-7, 10))
+                small_sslp_options())
 
     headline_profile(dev, batch)
     by_design = headline(batch, sync)
@@ -1169,8 +1326,7 @@ def ccopf_path(dev, sync):
     del tail, tail_args
 
     small_wheel("wheel_soc_small", "ccopf_soc_3x3",
-                ccopf_batch(CCOPF_SMALL_BFS, dev),
-                ccopf_batch(CCOPF_SMALL_BFS, "cpu"), ccopf_options())
+                ccopf_batch(CCOPF_SMALL_BFS, dev), ccopf_options())
 
     ccopf_profile(dev, batch)
     ws, _, by_design = main_wheel(
@@ -1299,18 +1455,17 @@ def farmer_path(dev):
     g, g_s, g_plain = farmer_wheel(batch_mod.from_specs(specs, device=dev),
                                    5e-3)
     check_no_kernel("farmer_wheel")
-    c, c_s, _ = farmer_wheel(batch_mod.from_specs(specs, device="cpu"), 5e-3)
+    c = CPU_HALVES.result("farmer_wheel")
     rel = max(abs(a - b) / abs(b) for a, b in (
-        (g.BestOuterBound, c.BestOuterBound),
-        (g.BestInnerBound, c.BestInnerBound)))
+        (g.BestOuterBound, c["outer"]), (g.BestInnerBound, c["inner"])))
     inner_vs_ef = abs(g.BestInnerBound - FARMER_EF_OBJ) / abs(FARMER_EF_OBJ)
     phase("farmer_wheel", S=FARMER_SMALL_SCENS, model="farmer",
-          hub_iters=g.spcomm._iter, cpu_hub_iters=c.spcomm._iter,
+          hub_iters=g.spcomm._iter, cpu_hub_iters=c["iters"],
           outer=g.BestOuterBound, inner=g.BestInnerBound,
-          rel_gap=g.spcomm.compute_gaps()[1], cpu_outer=c.BestOuterBound,
-          cpu_inner=c.BestInnerBound, max_rel_diff=rel,
+          rel_gap=g.spcomm.compute_gaps()[1], cpu_outer=c["outer"],
+          cpu_inner=c["inner"], max_rel_diff=rel,
           inner_vs_ef=inner_vs_ef, wall_s=round(g_s, 3),
-          cpu_wall_s=round(c_s, 3), plain_windows=g_plain,
+          cpu_wall_s=round(c["s"], 3), plain_windows=g_plain,
           plain_windows_per_hub_iter=round(g_plain / g.spcomm._iter, 2),
           kernel_launches=0)
     if not (rel <= 1e-3 and inner_vs_ef <= 5e-3
@@ -1396,7 +1551,7 @@ def vs_jax(label, result, jax_bounds, rtol):
 def cli_path(sync):
     """The CLI phases: the README's sslp command (classic Lagrangian and
     shuffle spokes, S=100, sslp 5x25 with integer first stage) without
-    --presolve (cut to 2 hub iterations) and with it (also cut to 2), each
+    --presolve (cut to 1 hub iteration) and with it (also cut to 1), each
     against the JAX
     package's bounds for the same command, and the box kernel against
     its plain version on the presolved batch (per-scenario l/u); the
@@ -1487,14 +1642,15 @@ def uc_batch(S, device):
     return batch_mod.from_specs(specs, device=device)
 
 
-def uc_wheel(batch, max_iterations):
+def uc_wheel(batch, max_iterations, iter0_windows=400):
     """bench.py's bench_uc_fwph wheel: PH hub (rho 1 with
     SepRho(multiplier=2), 10 subproblem windows, tol 1e-6, restart period
     40, bf16x3 iteration precision: ignored by the ELL products), the
     FWPH spoke (rho 200, its PDHG at tol 1e-6 and 4,000 iterations), the
     fused Lagrangian, x̂-x̄ and slam planes (slam_windows 2) and
-    spoke_sync_period 5.  Returns the spinner, its wall seconds and its
-    plain-iteration windows."""
+    spoke_sync_period 5.  PH's iter0 and FWPH's init solves take at most
+    `iter0_windows` cold windows (both packages' default: 400).  Returns
+    the spinner, its wall seconds and its plain-iteration windows."""
     import functools
 
     from mpisppy_tpu_torch.algos import fused_wheel as fw
@@ -1504,15 +1660,17 @@ def uc_wheel(batch, max_iterations):
     from mpisppy_tpu_torch.extensions.rho_setters import SepRho
     from mpisppy_tpu_torch.ops import pdhg
     from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    from mpisppy_tpu_torch.algos.fwph import FWPHOptions
     opts = ph_mod.PHOptions(
         default_rho=1.0, max_iterations=max_iterations, conv_thresh=0.0,
-        subproblem_windows=10,
+        subproblem_windows=10, iter0_windows=iter0_windows,
         pdhg=pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS,
                               iter_precision="bf16x3"))
     spoke_pdhg = pdhg.PDHGOptions(tol=1e-6, max_iters=4_000)
     spokes = [{"spoke_class": spoke.FWPHOuterBound,
-               "opt_kwargs": {"options": {"rho": 200.0,
-                                          "pdhg_opts": spoke_pdhg}}}]
+               "opt_kwargs": {"options": {
+                   "rho": 200.0, "pdhg_opts": spoke_pdhg,
+                   "fw_opts": FWPHOptions(iter0_windows=iter0_windows)}}}]
     spokes += [{"spoke_class": c, "opt_kwargs": {"options": {}}} for c in (
         spoke.FusedLagrangianOuterBound, spoke.FusedXhatXbarInnerBound,
         spoke.FusedSlamHeuristic)]
@@ -1536,13 +1694,13 @@ def uc_wheel(batch, max_iterations):
 
 
 def uc_wheel_phase(label, batch, max_iterations, model="uc_10g24h",
-                   jax_outer=None):
+                   jax_outer=None, iter0_windows=400):
     """uc_wheel with the launch counts set to 0 just before and read just
     after (an ELL batch launches no window kernel); its outer bound must
     be finite, below any inner bound and, given `jax_outer`, within 1e-3
     of the JAX package's."""
     reset_launches()
-    ws, secs, plain = uc_wheel(batch, max_iterations)
+    ws, secs, plain = uc_wheel(batch, max_iterations, iter0_windows)
     check_no_kernel(label)
     iters = ws.spcomm._iter
     outer, inner = ws.BestOuterBound, ws.BestInnerBound
@@ -1555,7 +1713,7 @@ def uc_wheel_phase(label, batch, max_iterations, model="uc_10g24h",
           ob_char=ws.spcomm.latest_ob_char, ib_char=ws.spcomm.latest_ib_char,
           wall_s=round(secs, 3), s_per_hub_iter=round(secs / iters, 4),
           plain_windows=plain,
-          # with the 400 cold windows each of PH's iter0 and FWPH's init
+          # with the cold windows of PH's iter0 and FWPH's init
           windows_per_hub_iter=round(plain / iters, 2), kernel_launches=0)
     if not (math.isfinite(outer) and outer <= inner):
         raise AssertionError(f"{label}: no finite outer bound, or bounds "
@@ -1709,7 +1867,7 @@ def uc_fwph_hub(dev):
     opts = fwph.FWPHOptions(
         fw_iter_limit=2, max_columns=16,
         max_iterations=UC_FWPH_OUTER_ITERS, conv_thresh=0.0,
-        default_rho=200.0, oracle_windows=10,
+        default_rho=200.0, oracle_windows=10, iter0_windows=UC_ITER0_WINDOWS,
         pdhg=pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS))
     xhat_opts = pdhg.PDHGOptions(tol=1e-6, max_iters=4_000)
     reset_launches()
@@ -1762,7 +1920,8 @@ def uc_program(dev):
           persistent_bytes=vb.persistent_bytes(),
           materialized_bytes=vb.materialized_bytes())
     ws, _ = uc_wheel_phase("uc_program", vb, UC_PROGRAM_HUB_ITERS,
-                           model="uc_10g24h_scengen")
+                           model="uc_10g24h_scengen",
+                           iter0_windows=UC_PROGRAM_ITER0_WINDOWS)
     qp = concretize(vb).qp
     st = ws.opt.state.solver
     opts = ws.opt.options.pdhg
@@ -1779,7 +1938,8 @@ def uc_path(dev):
     ell_path(dev)
     torch.cuda.empty_cache()
     uc_wheel_phase("uc_wheel", uc_batch(UC_SCENS, dev), UC_WHEEL_HUB_ITERS,
-                   jax_outer=UC_WHEEL_JAX_OUTER)
+                   jax_outer=UC_WHEEL_JAX_OUTER,
+                   iter0_windows=UC_ITER0_WINDOWS)
     torch.cuda.empty_cache()
     uc_fwph_hub(dev)
     torch.cuda.empty_cache()
@@ -1887,10 +2047,9 @@ def scengen_path(dev):
     del base
 
     prog = sslp_program(SCENGEN_SMALL_SCENS, 5, 15)
-    opts = sslp_options(None, 200, 1e-7, 10)
+    opts = small_sslp_options()
     g = small_wheel("scengen_small", "sslp_5_15_scengen",
-                    scengen.virtual_batch(prog, device=dev),
-                    scengen.virtual_batch(prog, device="cpu"), opts)
+                    scengen.virtual_batch(prog, device=dev), opts)
     m, _ = wheel(scengen.materialize(prog, device=dev), opts)
     same = (m.BestOuterBound, m.BestInnerBound, m.spcomm._iter) == (
         g.BestOuterBound, g.BestInnerBound, g.spcomm._iter)
@@ -3573,6 +3732,684 @@ def profile_cli():
     return by_design
 
 
+# slice 13: the remaining models.  hydro at bench.py's bench_hydro width
+# (the (30, 30) tree, 900 scenarios) through bench_hydro's wheel: PH hub
+# with SepRho(multiplier=2), 8 subproblem windows at PDHG tol 1e-6 in
+# bf16x3, the EF outer bound and the root-fixed EF inner bound (20
+# windows each), the fused Lagrangian, no x̄ plane, spoke_sync_period 5,
+# at most 600 hub iterations
+HYDRO_BFS = (30, 30)
+HYDRO_SMALL_BFS = (3, 3)
+HYDRO_MAX_ITERS = 600                 # bench_hydro: 2 * MAX_WHEEL_ITERS
+# [hydro_wheel]'s cap in the default run (--full: to its 1% certificate,
+# 90 hub iterations and 34-42 s on an H100): both bounds are published
+# from hub iteration 5 on, and at 30 the inner one is still the loose
+# root-fixed EF value of an early candidate
+HYDRO_WHEEL_ITERS = {False: 30, True: HYDRO_MAX_ITERS}
+# an outer bound at most, an inner bound at least, the HiGHS EF optimum
+# within this share of |EF*| (tests/test_models_zoo.py's
+# test_aircond_honest_inner_multistage_wheel)
+EF_SLACK = 5e-3
+AIRCOND_BFS = (3, 3, 2)               # the model's default tree
+AIRCOND_PROGRAM_BFS = (25, 20, 20)    # the program's VirtualBatch, 10,000
+AIRCOND_PROGRAM_ITERS = 10
+# the VirtualBatch's first hub iteration against the materialized
+# batch's: the realized data are equal bit for bit, but a tree deeper
+# than two stages averages its nodes with index_add_, whose CUDA sums
+# run in atomic order, so two runs on one batch differ in the last bits
+# of conv (ROADMAP C1)
+AIRCOND_FIRST_ITER_RTOL = 1e-5
+# [models_windows]: the batch size of the two-stage dense shapes (their
+# specs built at a tenth of it and the window inputs tiled, as `tiled`
+# makes the S=100,000 sweep: building 10,000 specs costs ~13 s), and
+# eval_candidates_exact's K candidates over S scenarios of sslp 15x45
+MODEL_WINDOW_SCENS = 10_000
+MODEL_WINDOW_TILES = 10               # built at 1,000, tiled to 10,000
+EXACT_K, EXACT_S = 4, 250
+EXACT_RUN_K, EXACT_RUN_S = 2, 10      # the evaluation run on the card
+# [models_cli]: each model at its CLI size (the module's default where it
+# has one), the fused wheel with the Lagrangian and x̂-x̄ spokes capped
+# at 2 hub iterations; box: the batch takes the window kernel (a dense
+# shared A), else the plain iteration
+MODELS_CLI = [
+    ("gbd", ["--num-scens", "100"], True),
+    ("sizes", ["--num-scens", "10"], True),
+    ("apl1p", ["--num-scens", "100"], False),
+    ("netdes", [], False),
+    ("battery", ["--num-scens", "10", "--battery-use-lp"], False),
+    ("usar", ["--num-scens", "10"], True),
+    ("aircond", [], True),
+    ("hydro", ["--branching-factors", "30", "30"], True),
+]
+MODELS_CLI_WHEEL = ["--fused-wheel", "--lagrangian", "--xhatxbar",
+                    "--max-iterations", "2"]
+# then --EF against HiGHS on the same extensive form (its LP relaxation):
+# an EF the CLI reports converged must lie within CLI_EF_RTOL of HiGHS;
+# one that ends at the CLI's 100,000-iteration cap (`"converged": false`,
+# ROADMAP C9) is reported with its distance.  The default run takes the
+# CPU tests' sizes (tests/test_torch_models_cli.py), where gbd's,
+# apl1p's, usar's, aircond's and hydro's EFs converge; sizes', netdes'
+# and battery's end at the cap there too (35-46 s each on the card), so
+# they run with --full, which takes MODELS_CLI's sizes (where only
+# usar's and aircond's EFs converge, on an H100)
+MODELS_CLI_EF = {
+    False: [("gbd", ["--num-scens", "5"]),
+            ("apl1p", ["--num-scens", "6"]), ("usar", ["--num-scens", "4"]),
+            ("aircond", ["--branching-factors", "2", "2"]),
+            ("hydro", ["--branching-factors", "3", "3"])],
+    True: [(name, flags) for name, flags, _ in MODELS_CLI],
+}
+CLI_EF_RTOL = 1e-4
+# [usar_mip]: tests/test_models_zoo2.py::test_usar_integer_first_stage's
+# instance and options, its node LPs capped at MIP_SMALL_NODE_MAX_ITERS
+# (cut from BnBOptions' 8,000: 7,064 windows, 57-81 s on the card; the
+# CPU run at 800 gives the same bracket in 1,771 windows)
+USAR_MIP_INSTANCE = dict(num_depots=3, num_sites=5, time_horizon=4,
+                         num_active_depots=1, seed=2)
+USAR_MIP_SCENS = 3
+# [admm]: the JAX tests' runs and bound (tests/test_battery_distr.py,
+# tests/test_models_zoo2.py): within 5e-3 of the merged LP
+ADMM_REGIONS, ADMM_STOCH_SCENS = 3, 3
+ADMM_TOL = 5e-3
+# stoch_distr capped at 30 PH iterations (cut from the JAX test's 400; it
+# reaches conv 2e-4 at 62, and at 30 lies 1.5e-4 from the merged LP on
+# the CPU); both runs' iter0 solves take ADMM_ITER0_WINDOWS windows (cut
+# from 400: every lane is done long before, and on the CPU 50, 100 and
+# 400 give the same bounds and iterates)
+ADMM_STOCH_ITERS = 30
+ADMM_ITER0_WINDOWS = 50
+
+
+def model_specs(name, S=None, bfs=None, **kw):
+    """(specs, tree) of a model of the port at S scenarios (or on the
+    tree of branching factors bfs), as its CLI builds them."""
+    import importlib
+    mod = importlib.import_module(f"mpisppy_tpu_torch.models.{name}")
+    tree = None
+    if bfs is not None:
+        S = math.prod(bfs)
+        kw["branching_factors"] = tuple(bfs)
+        tree = mod.make_tree(tuple(bfs))
+    if name in ("gbd", "apl1p", "usar") and "num_scens" not in kw:
+        kw["num_scens"] = S
+    if name == "usar" and "instance" not in kw:
+        kw["instance"] = mod.generate_instance()
+    if name == "sizes":
+        kw.setdefault("scenario_count", S)
+        kw.setdefault("lp_relax", True)
+    names = mod.scenario_names_creator(S)
+    return [mod.scenario_creator(nm, **kw) for nm in names], tree
+
+
+def model_batch(name, device, S=None, bfs=None, **kw):
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    specs, tree = model_specs(name, S, bfs, **kw)
+    return batch_mod.from_specs(specs, tree=tree, device=device)
+
+
+def highs_ef(specs, tree=None, integer=False):
+    """The scipy HiGHS optimum of the extensive form, built here in f64
+    from the specs: block-diagonal scenario rows, and one
+    nonanticipativity row for each nonant slot and each scenario that
+    shares its tree node with an earlier one.  The LP relaxation unless
+    `integer` (then the specs' integer columns are integer)."""
+    import numpy as np
+    import scipy.sparse as sps
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    from mpisppy_tpu_torch.core.tree import two_stage_tree
+    S, n = len(specs), specs[0].c.shape[0]
+    idx = np.asarray(specs[0].nonant_idx, np.int64)
+    tree = tree or two_stage_tree(S, len(idx))
+    p = np.array([1.0 / S if sp.probability is None else sp.probability
+                  for sp in specs])
+    c = np.concatenate([p[s] * np.asarray(sp.c, float)
+                        for s, sp in enumerate(specs)])
+    A = sps.block_diag([sps.csr_matrix(sp.A) for sp in specs], format="csr")
+    nos = tree.node_of_slot()
+    rows, cols, vals, first = [], [], [], {}
+    for s in range(S):
+        for j, col in enumerate(idx):
+            key = (j, int(nos[s, j]))
+            if key in first:
+                r = len(rows) // 2
+                rows += [r, r]
+                cols += [first[key] * n + col, s * n + col]
+                vals += [1.0, -1.0]
+            else:
+                first[key] = s
+    k = len(rows) // 2
+    links = sps.csr_matrix((vals, (rows, cols)), shape=(k, S * n))
+    cat = np.concatenate
+    integrality = None
+    if integer:
+        integrality = cat([np.zeros(n) if sp.integer is None
+                           else np.asarray(sp.integer, float)
+                           for sp in specs])
+    res = milp(c, constraints=LinearConstraint(
+        sps.vstack([A, links]).tocsr(),
+        cat([cat([sp.bl for sp in specs]), np.zeros(k)]),
+        cat([cat([sp.bu for sp in specs]), np.zeros(k)])),
+        bounds=Bounds(cat([sp.l for sp in specs]),
+                      cat([sp.u for sp in specs])),
+        integrality=integrality)
+    if res.status != 0:
+        raise AssertionError(f"highs_ef: scipy HiGHS failed: {res.message}")
+    return float(res.fun)
+
+
+def ef_bracket(label, outer, inner, ef_opt, slack=EF_SLACK):
+    """Both bounds finite, outer <= EF* + slack and inner >= EF* - slack,
+    slack = `slack` * max(1, |EF*|)."""
+    tol = slack * max(1.0, abs(ef_opt))
+    ok = math.isfinite(outer) and math.isfinite(inner) \
+        and outer <= ef_opt + tol and inner >= ef_opt - tol
+    phase(label, highs_ef=ef_opt, outer=outer, inner=inner,
+          slack=f"{slack}*max(1,|EF*|)", brackets_ef=ok)
+    if not ok:
+        raise AssertionError(f"{label}: the bounds do not bracket the "
+                             "HiGHS EF optimum")
+
+
+def models_windows(dev):
+    """[models_windows]: one window of each new dense shared-A shape,
+    kernel against plain version (parity with its f32 floor), in f32 and
+    bf16x3, in every design plan_window allows (resident where its
+    layout fits, streamed always): hydro on the (30, 30) tree, aircond
+    on (3, 3, 2), gbd, sizes and usar at MODEL_WINDOW_SCENS, and
+    eval_candidates_exact's K*S batch on sslp 15x45.  Prints each
+    shape's route and resident layout (m_pad, n_pad).  Returns
+    {(shape, mode, design): max_err}."""
+    import types
+
+    import numpy as np
+
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.ops import pdhg_window
+    S = MODEL_WINDOW_SCENS // MODEL_WINDOW_TILES
+
+    def candidates():
+        inst = sslp.synthetic_instance(SSLP_SERVERS, SSLP_CLIENTS, seed=0)
+        cps = [sslp.synthetic_client_present(SSLP_CLIENTS, s)
+               for s in range(EXACT_S)]
+        xh = (np.random.RandomState(0).rand(EXACT_K, SSLP_SERVERS) < 0.5)
+        _, qp = sslp.candidates_batch(inst, cps, xh.astype(float), dev)
+        return types.SimpleNamespace(qp=qp)
+    # (label, batch builder, tiles along the scenario axis)
+    shapes = [("hydro", lambda: model_batch("hydro", dev, bfs=HYDRO_BFS), 1),
+              ("aircond", lambda: model_batch("aircond", dev,
+                                              bfs=AIRCOND_BFS), 1),
+              ("gbd", lambda: model_batch("gbd", dev, S), MODEL_WINDOW_TILES),
+              ("sizes", lambda: model_batch("sizes", dev, S),
+               MODEL_WINDOW_TILES),
+              ("usar", lambda: model_batch("usar", dev, S, lp_relax=True),
+               MODEL_WINDOW_TILES),
+              ("sslp_exact_candidates", candidates, 1)]
+    limits = pdhg_window.card_limits(torch.cuda.current_device())
+    errs = {}
+    for label, build, reps in shapes:
+        args = window_inputs(build(), done_every=7)
+        if reps > 1:
+            args = tiled(args, reps)
+        qp, Sb = args[0], args[1].shape[0]
+        for mode in ("f32", "bf16x3"):
+            L = pdhg_window.resident_layout(mode, qp.m, qp.n)
+            rule = pdhg_window.plan_window(mode, qp.m, qp.n, Sb, *limits)
+            designs = (["resident"] if rule.design == "resident" else []) \
+                + ["streamed"]
+            for design in designs:
+                plan = pdhg_window.plan_window(mode, qp.m, qp.n, Sb, *limits,
+                                               design=design)
+                err, k = parity(
+                    args, mode, "models_windows", Sb, design=design,
+                    floor=True, shape=label, m=qp.m, n=qp.n,
+                    route=f"{plan.design}/T{plan.tile}/blocks{plan.blocks}",
+                    rule=rule.design, m_pad=None if L is None else L.m_pad,
+                    n_pad=None if L is None else L.n_pad)
+                moved = float((k[0] - args[1]).abs().max()) > 0.0 \
+                    and float((k[1] - args[2]).abs().max()) > 0.0
+                if not moved:
+                    raise AssertionError(f"models_windows: {label} window "
+                                         "left x or y where it was")
+                errs[label, mode, design] = err
+        del qp, args
+        torch.cuda.empty_cache()
+    return errs
+
+
+def hydro_wheel_dicts(batch, specs, tree, max_iterations,
+                      iter_precision="bf16x3", hub_extra=None):
+    """bench.py's bench_hydro wheel (see HYDRO_BFS) as (hub, spokes)."""
+    import functools
+
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.algos.ef import build_ef
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.extensions.rho_setters import SepRho
+    from mpisppy_tpu_torch.ops import pdhg
+    opts = ph_mod.PHOptions(
+        default_rho=1.0, max_iterations=max_iterations, conv_thresh=0.0,
+        subproblem_windows=8,
+        pdhg=pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS,
+                              iter_precision=iter_precision))
+    efp = build_ef(specs, tree=tree, device=batch.device)
+    ef = {"ef_problem": efp, "n_windows": 20}
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": 0.01,
+                                      "spoke_sync_period": 5,
+                                      **(hub_extra or {})}},
+           "opt_class": fw.FusedPH,
+           "opt_kwargs": {"options": opts, "batch": batch,
+                          "wheel_options": fw.FusedWheelOptions(
+                              xhat_windows=0),
+                          "extensions": functools.partial(
+                              SepRho, multiplier=2.0)}}
+    spokes = [{"spoke_class": spoke.EFOuterBound,
+               "opt_kwargs": {"options": ef}},
+              {"spoke_class": spoke.FusedLagrangianOuterBound,
+               "opt_kwargs": {"options": {}}},
+              {"spoke_class": spoke.EFXhatInnerBound,
+               "opt_kwargs": {"options": ef}}]
+    return hub, spokes
+
+
+def spin(hub, spokes, device):
+    """WheelSpinner(hub, spokes).spin(); returns the spinner and its wall
+    seconds (after a synchronize on the card)."""
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    t0 = time.perf_counter()
+    ws = WheelSpinner(hub, spokes).spin()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return ws, time.perf_counter() - t0
+
+
+def hydro_small(dev):
+    """[hydro_small]: the bench wheel on hydro (3, 3) on the card and on
+    the CPU, both to 1%: their bounds agree to 1e-3 relative and both
+    bracket the HiGHS EF optimum."""
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    specs, tree = model_specs("hydro", bfs=HYDRO_SMALL_BFS)
+    ef_opt = highs_ef(specs, tree)
+    b = batch_mod.from_specs(specs, tree=tree, device=dev)
+    g, g_s = spin(*hydro_wheel_dicts(b, specs, tree, HYDRO_MAX_ITERS), dev)
+    c = CPU_HALVES.result("hydro_small")
+    g_gap = g.spcomm.compute_gaps()[1]
+    rel = max(abs(a - b) / abs(b) for a, b in (
+        (g.BestOuterBound, c["outer"]), (g.BestInnerBound, c["inner"])))
+    phase("hydro_small", bfs="x".join(map(str, HYDRO_SMALL_BFS)),
+          gpu_iters=g.spcomm._iter, cpu_iters=c["iters"],
+          outer=g.BestOuterBound, inner=g.BestInnerBound, rel_gap=g_gap,
+          cpu_outer=c["outer"], cpu_inner=c["inner"],
+          cpu_rel_gap=c["rel_gap"], max_rel_diff=rel, gpu_s=round(g_s, 2),
+          cpu_s=round(c["s"], 2))
+    ef_bracket("hydro_small", g.BestOuterBound, g.BestInnerBound, ef_opt)
+    ef_bracket("hydro_small_cpu", c["outer"], c["inner"], ef_opt)
+    if not (max(g_gap, c["rel_gap"]) <= 0.01 and rel <= 1e-3):
+        raise AssertionError("hydro_small: no 1% certificate on the card "
+                             "or the CPU, or their bounds disagree")
+
+
+def hydro_wheel(dev, full=False):
+    """[hydro_wheel], the slice's main path: bench_hydro's wheel on the
+    card at (30, 30), 900 scenarios, in bf16x3, capped at
+    HYDRO_WHEEL_ITERS[full] hub iterations (with `full` to its 1%
+    certificate, which it must reach), with the launch counts
+    set to 0 just before and read just after (K2 must have launched),
+    its hub iterations 3-4 under the hub's --profile-dir session (the
+    busy share read back through telemetry/deviceprof.py and
+    roofline.py).  Its bounds must bracket the HiGHS EF optimum of the
+    same 900-scenario batch.  Returns the launches by design."""
+    import tempfile
+
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.ops import pdhg_window
+    from mpisppy_tpu_torch.telemetry import deviceprof, roofline
+    specs, tree = model_specs("hydro", bfs=HYDRO_BFS)
+    t0 = time.perf_counter()
+    ef_opt = highs_ef(specs, tree)
+    highs_s = time.perf_counter() - t0
+    batch = batch_mod.from_specs(specs, tree=tree, device=dev)
+    cap = HYDRO_WHEEL_ITERS[full]
+    with tempfile.TemporaryDirectory() as prof:
+        hub, spokes = hydro_wheel_dicts(
+            batch, specs, tree, cap,
+            hub_extra={"profile_dir": prof, "profile_iters": 2})
+        reset_launches()
+        ws, secs = spin(hub, spokes, dev)
+        launches = dict(pdhg_window.run_window.launches)
+        by_design = dict(pdhg_window.run_window.launches_by_design)
+        cap_ = deviceprof.newest_capture(prof)
+        busy = None if cap_ is None else roofline.busy_share(
+            deviceprof.build_timeline(cap_))
+    iters = ws.spcomm._iter
+    outer, inner = ws.BestOuterBound, ws.BestInnerBound
+    rel_gap = ws.spcomm.compute_gaps()[1]
+    k2 = by_design.get("pdhg_window/bf16x3/resident", 0)
+    # the first hub iteration with both bounds published
+    first = next((r["iter"] for r in trace_rows(ws)
+                  if math.isfinite(r["inner"]) and math.isfinite(r["outer"])),
+                 None)
+    phase("hydro_wheel", S=batch.num_scenarios,
+          bfs="x".join(map(str, HYDRO_BFS)), iter_precision="bf16x3",
+          iterations=iters, cap=cap, outer=outer, inner=inner,
+          rel_gap=rel_gap, certified=rel_gap <= 0.01,
+          seconds=round(secs, 2),
+          s_per_hub_iter=round(secs / max(1, iters), 4),
+          busy_share_profiled=None if busy is None else round(busy, 4),
+          first_bounds_iter=first,
+          k2_launches=k2, kernel_launches=launches["pdhg_window"],
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""),
+          highs_ef=ef_opt, highs_s=round(highs_s, 2))
+    ef_bracket("hydro_wheel", outer, inner, ef_opt)
+    if k2 <= 0 or not busy:
+        raise AssertionError("hydro_wheel: no K2 launch, or no device "
+                             "activity in the profiled window")
+    if (full or iters < cap) and rel_gap > 0.01:
+        raise AssertionError("hydro_wheel: no 1% certificate")
+    del ws, batch
+    torch.cuda.empty_cache()
+    return by_design
+
+
+def aircond_wheel_dicts(batch, specs, tree, max_iterations=60):
+    """tests/test_models_zoo.py's aircond wheel: PH hub (rho 1, 8
+    subproblem windows, PDHG tol 1e-6) with the EF outer bound and the
+    root-fixed EF inner bound, 30 windows each, to 1%."""
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.algos.ef import build_ef
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.ops import pdhg
+    opts = ph_mod.PHOptions(default_rho=1.0, max_iterations=max_iterations,
+                            conv_thresh=0.0, subproblem_windows=8,
+                            pdhg=pdhg.PDHGOptions(tol=1e-6))
+    ef = {"ef_problem": build_ef(specs, tree=tree, device=batch.device),
+          "n_windows": 30}
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": 0.01}},
+           "opt_class": fw.FusedPH,
+           "opt_kwargs": {"options": opts, "batch": batch}}
+    spokes = [{"spoke_class": spoke.EFOuterBound,
+               "opt_kwargs": {"options": ef}},
+              {"spoke_class": spoke.EFXhatInnerBound,
+               "opt_kwargs": {"options": ef}}]
+    return hub, spokes
+
+
+def aircond_program_wheel(batch, max_iterations):
+    """The fused wheel with the Lagrangian outer bound only (PH rho 1, 8
+    subproblem windows, PDHG tol 1e-6, f32)."""
+    from mpisppy_tpu_torch.algos import fused_wheel as fw
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.cylinders import spoke
+    from mpisppy_tpu_torch.cylinders.hub import PHHub
+    from mpisppy_tpu_torch.ops import pdhg
+    opts = ph_mod.PHOptions(default_rho=1.0, max_iterations=max_iterations,
+                            conv_thresh=0.0, subproblem_windows=8,
+                            pdhg=pdhg.PDHGOptions(tol=1e-6))
+    hub = {"hub_class": PHHub,
+           "hub_kwargs": {"options": {"rel_gap": 0.01}},
+           "opt_class": fw.FusedPH,
+           "opt_kwargs": {"options": opts, "batch": batch,
+                          "wheel_options": fw.FusedWheelOptions()}}
+    spokes = [{"spoke_class": spoke.FusedLagrangianOuterBound,
+               "opt_kwargs": {"options": {}}}]
+    return hub, spokes
+
+
+def aircond_phase(dev):
+    """[aircond]: the (3, 3, 2) wheel with the EF spokes on the card and
+    on the CPU, each bracketing the HiGHS EF optimum; then the aircond
+    program's VirtualBatch at (25, 20, 20), 10,000 scenarios (its normal
+    walk declares no row_draws: realize() draws the batch at every step
+    entry), through the fused wheel with the Lagrangian outer bound: its
+    realized data equal the materialized batch's bit for bit, its first
+    hub iteration the same wheel's on the materialized batch to
+    AIRCOND_FIRST_ITER_RTOL (run twice to show the run-to-run spread),
+    then AIRCOND_PROGRAM_ITERS hub iterations.
+    Returns the launches by design of the program's wheel."""
+    from mpisppy_tpu_torch import scengen
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import aircond
+    from mpisppy_tpu_torch.ops import pdhg_window
+    specs, tree = model_specs("aircond", bfs=AIRCOND_BFS)
+    ef_opt = highs_ef(specs, tree)
+    b = batch_mod.from_specs(specs, tree=tree, device=dev)
+    ws, secs = spin(*aircond_wheel_dicts(b, specs, tree), dev)
+    runs = (("aircond", "cuda", summary(ws, secs)),
+            ("aircond_cpu", "cpu", CPU_HALVES.result("aircond")))
+    del ws, b
+    for label, d, r in runs:
+        phase(label, bfs="x".join(map(str, AIRCOND_BFS)), device=d,
+              iterations=r["iters"], outer=r["outer"], inner=r["inner"],
+              rel_gap=r["rel_gap"], seconds=round(r["s"], 2))
+        ef_bracket(label, r["outer"], r["inner"], ef_opt)
+    S = math.prod(AIRCOND_PROGRAM_BFS)
+    prog = aircond.scenario_program(S, seed=0,
+                                    branching_factors=AIRCOND_PROGRAM_BFS)
+    vb = scengen.virtual_batch(prog, device=dev)
+    mat = scengen.materialize(prog, device=dev)
+    real = vb.realize()
+    same_data = all(torch.equal(getattr(real.qp, f), getattr(mat.qp, f))
+                    for f in ("c", "q", "A", "bl", "bu", "l", "u"))
+    del real
+    first = {}
+    for label, b in (("virtual", vb), ("materialized", mat),
+                     ("materialized_again", mat)):
+        ws, _ = spin(*aircond_program_wheel(b, 1), dev)
+        first[label] = (ws.BestOuterBound, float(ws.opt.state.conv))
+        del ws
+    rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in
+              zip(first["virtual"], first["materialized"]))
+    phase("aircond_program", S=S, realized_equals_materialized=same_data,
+          first_iter_virtual=first["virtual"],
+          first_iter_materialized=first["materialized"],
+          first_iter_materialized_again=first["materialized_again"],
+          max_rel_diff=rel, tol=AIRCOND_FIRST_ITER_RTOL)
+    del mat
+    if not same_data or rel > AIRCOND_FIRST_ITER_RTOL:
+        raise AssertionError("aircond_program: the VirtualBatch's data or "
+                             "first hub iteration differs from the "
+                             "materialized batch's")
+    reset_launches()
+    ws, secs = spin(*aircond_program_wheel(vb, AIRCOND_PROGRAM_ITERS), dev)
+    by_design = dict(pdhg_window.run_window.launches_by_design)
+    phase("aircond_program", S=S, bfs="x".join(map(str,
+                                                   AIRCOND_PROGRAM_BFS)),
+          iterations=ws.spcomm._iter, outer=ws.BestOuterBound,
+          seconds=round(secs, 2),
+          persistent_bytes=vb.persistent_bytes(),
+          materialized_bytes=vb.materialized_bytes(),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not math.isfinite(ws.BestOuterBound) \
+            or pdhg_window.run_window.launches["pdhg_window"] <= 0:
+        raise AssertionError("aircond_program: no outer bound or no "
+                             "window kernel launch")
+    return by_design
+
+
+def models_cli(dev, full=False):
+    """[models_cli]: generic_cylinders.main in this process, on the card,
+    for each model of MODELS_CLI with the fused wheel, the Lagrangian and
+    x̂-x̄ spokes capped at 2 hub iterations (its route printed), then each
+    model of MODELS_CLI_EF[full] with --EF against the HiGHS optimum of
+    its extensive form.  Returns the launches by design of the wheel
+    runs."""
+    import contextlib
+    import importlib
+    import io
+
+    from mpisppy_tpu_torch import generic_cylinders
+    from mpisppy_tpu_torch.ops import pdhg
+    total = {}
+    for name, flags, box in MODELS_CLI:
+        args = ["--module-name", f"mpisppy_tpu_torch.models.{name}",
+                *flags]
+        result, _, by_design, ws = cli_run(f"models_cli_{name}",
+                                           args + MODELS_CLI_WHEEL,
+                                           box_kernel=box)
+        merge_launches(total, by_design)
+        qp, S = ws.opt.batch.qp, ws.opt.batch.num_scenarios
+        engine = pdhg.window_engine(qp, "cuda")
+        phase(f"models_cli_{name}", engine=engine,
+              route=plan_line(qp, S) if engine == "kernel" else "plain",
+              a=type(qp.A).__name__, a_shape="x".join(map(str, qp.A.shape)))
+        del ws, qp
+        torch.cuda.empty_cache()
+    for name, flags in MODELS_CLI_EF[full]:
+        args = ["--module-name", f"mpisppy_tpu_torch.models.{name}",
+                *flags]
+        mod = importlib.import_module(f"mpisppy_tpu_torch.models.{name}")
+        names, kwargs, tree = generic_cylinders._model_plumbing(
+            generic_cylinders._parse_args(mod, args), mod)
+        ef_opt = highs_ef([mod.scenario_creator(nm, **kwargs)
+                           for nm in names], tree)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            generic_cylinders.main(args + ["--EF"])
+        torch.cuda.synchronize()
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        rel = abs(res["EF_objective"] - ef_opt) / max(1.0, abs(ef_opt))
+        phase(f"models_cli_{name}_ef", S=len(names),
+              ef_objective=res["EF_objective"], converged=res["converged"],
+              highs_ef=ef_opt, rel_diff=rel,
+              tol=CLI_EF_RTOL if res["converged"] else "at the cap (C9)",
+              wall_s=round(time.perf_counter() - t0, 2))
+        if res["converged"] and rel > CLI_EF_RTOL:
+            raise AssertionError(f"models_cli_{name}: --EF off the HiGHS "
+                                 "optimum")
+        torch.cuda.empty_cache()
+    return total
+
+
+def usar_mip(dev):
+    """[usar_mip]: certified_mip_gap on the JAX test's usar instance (3
+    depots, 5 sites, horizon 4, one active depot, 3 scenarios) with its
+    options (node LPs capped, USAR_MIP_INSTANCE), on the card: the bracket contains scipy's MILP optimum of
+    the extensive form and the incumbent activates exactly one depot."""
+    import numpy as np
+
+    from mpisppy_tpu_torch.algos import mip as mip_mod
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import usar
+    from mpisppy_tpu_torch.ops import bnb, pdhg
+    inst = usar.generate_instance(**USAR_MIP_INSTANCE)
+    specs, _ = model_specs("usar", USAR_MIP_SCENS, instance=inst)
+    opt = highs_ef(specs, integer=True)
+    b = batch_mod.from_specs(specs, device=dev)
+    t0 = time.perf_counter()
+    res = mip_mod.certified_mip_gap(
+        b, ph_options=ph_mod.PHOptions(
+            default_rho=5.0, max_iterations=60, conv_thresh=1e-3,
+            pdhg=pdhg.PDHGOptions(tol=1e-6)),
+        opts=bnb.BnBOptions(max_rounds=120, lp=mip_node_lp(
+            MIP_SMALL_NODE_MAX_ITERS)), dd_nodes=4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    depots = float(np.round(res.xhat[:inst["num_depots"]]).sum())
+    phase("usar_mip", S=USAR_MIP_SCENS, inner=res.inner, outer=res.outer,
+          milp=opt, depots_active=depots, seconds=round(secs, 2))
+    in_bracket("usar_mip", res.inner, res.outer, opt)
+    if depots != 1.0:
+        raise AssertionError("usar_mip: the incumbent does not activate "
+                             "exactly one depot")
+
+
+def admm_phase(dev):
+    """[admm]: distr (3 regions) through AdmmWrapper and stoch_distr (3
+    regions x 3 scenarios) through Stoch_AdmmWrapper, PH on the card
+    with the JAX tests' options, each within ADMM_TOL of the merged LP
+    (global_lp_oracle)."""
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.models import distr, stoch_distr
+    from mpisppy_tpu_torch.ops import pdhg
+    from mpisppy_tpu_torch.utils.admmWrapper import AdmmWrapper
+    from mpisppy_tpu_torch.utils.stoch_admmWrapper import Stoch_AdmmWrapper
+    R = ADMM_REGIONS
+    data = distr.region_data(R, seed=1)
+    w = AdmmWrapper({}, distr.scenario_names_creator(R),
+                    lambda nm, **kw: distr.scenario_creator(nm, data=data),
+                    distr.consensus_vars_creator(R, data))
+    runs = [("admm_distr", w.make_batch(dev), ph_mod.PHOptions(
+        max_iterations=600, default_rho=2.0, conv_thresh=1e-7,
+        subproblem_windows=10, iter0_windows=ADMM_ITER0_WINDOWS),
+        distr.global_lp_oracle(data))]
+    data = distr.region_data(R, seed=2)
+    stoch_names = stoch_distr.stoch_scenario_names_creator(ADMM_STOCH_SCENS)
+    sw = Stoch_AdmmWrapper(
+        {}, stoch_distr.admm_subproblem_names_creator(R), stoch_names,
+        lambda snm, rnm, **kw: stoch_distr.scenario_creator(snm, rnm,
+                                                            data=data),
+        stoch_distr.consensus_vars_creator(R, data))
+    runs.append(("admm_stoch_distr", sw.make_batch(dev), ph_mod.PHOptions(
+        default_rho=2.0, max_iterations=ADMM_STOCH_ITERS, conv_thresh=2e-4,
+        subproblem_windows=10, iter0_windows=ADMM_ITER0_WINDOWS,
+        pdhg=pdhg.PDHGOptions(tol=1e-7, restart_period=N_ITERS)),
+        stoch_distr.global_lp_oracle(data, stoch_names)))
+    for label, b, opts, ref in runs:
+        t0 = time.perf_counter()
+        conv, eobj, _ = ph_mod.PH(opts, b).ph_main()
+        torch.cuda.synchronize()
+        err = abs(eobj - ref) / (1.0 + abs(ref))
+        phase(label, S=b.num_scenarios, device=b.device.type,
+              a=type(b.qp.A).__name__, conv=conv, eobj=eobj, global_lp=ref,
+              rel_err=err, tol=ADMM_TOL,
+              seconds=round(time.perf_counter() - t0, 2))
+        if b.device.type != "cuda" or err > ADMM_TOL:
+            raise AssertionError(f"{label}: off the merged LP")
+
+
+def exact_candidates(dev):
+    """[exact_candidates]: eval_candidates_exact on the card (its K*S LP
+    through the window kernel) against the same call on the CPU."""
+    import numpy as np
+
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.ops import pdhg_window
+    inst = sslp.synthetic_instance(SSLP_SERVERS, SSLP_CLIENTS, seed=0)
+    cps = [sslp.synthetic_client_present(SSLP_CLIENTS, s)
+           for s in range(EXACT_RUN_S)]
+    xh = (np.random.RandomState(1).rand(EXACT_RUN_K, SSLP_SERVERS)
+          < 0.5).astype(float)
+    reset_launches()
+    t0 = time.perf_counter()
+    card = sslp.eval_candidates_exact(inst, cps, xh, device=dev)
+    secs = time.perf_counter() - t0
+    by_design = dict(pdhg_window.run_window.launches_by_design)
+    cpu = sslp.eval_candidates_exact(inst, cps, xh, device="cpu")
+    rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(card, cpu))
+    phase("exact_candidates", K=EXACT_RUN_K, S=EXACT_RUN_S,
+          values=json.dumps(card), cpu_values=json.dumps(cpu),
+          max_rel_diff=rel, seconds=round(secs, 2),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not by_design or rel > 1e-3:
+        raise AssertionError("exact_candidates: no window kernel launch, "
+                             "or the card's values differ from the CPU's")
+    return by_design
+
+
+def models_path(dev, full=False):
+    """The models phases ([models_windows] first).  Returns
+    the launches by design of the runs that go on the kernels line."""
+    t0 = time.perf_counter()
+    models_windows(dev)
+    hydro_small(dev)
+    total = hydro_wheel(dev, full)
+    merge_launches(total, aircond_phase(dev))
+    merge_launches(total, models_cli(dev, full))
+    merge_launches(total, exact_candidates(dev))
+    usar_mip(dev)
+    admm_phase(dev)
+    phase("models_path", seconds=round(time.perf_counter() - t0, 2))
+    return total
+
+
 def resilience_path(dev, sync):
     """The checkpoint and preemption phases.  Returns the launches by
     design of [checkpoint_headline]."""
@@ -3608,6 +4445,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] != ["--only"]:
+        CPU_HALVES.start()
+    try:
+        return run(sys.argv[1:])
+    finally:
+        CPU_HALVES.close()
+
+
+def run(argv) -> int:
+    """Build the kernels and run the phases `argv` names (all of them
+    without --only)."""
     from mpisppy_tpu_torch.ops import pdhg_window
     from mpisppy_tpu_torch.telemetry import roofline
 
@@ -3629,7 +4477,7 @@ def main() -> int:
           seconds=round(time.perf_counter() - t0, 2),
           ptxas_registers=registers_by_instantiation(log))
 
-    full = "--full" in sys.argv[1:]
+    full = "--full" in argv
     only = {"headline_profile": headline_profile,
             "ccopf_profile": ccopf_profile,
             "farmer_profile": farmer_profile,
@@ -3650,10 +4498,19 @@ def main() -> int:
             "checkpoint_headline": lambda dev: checkpoint_headline(dev, {}),
             "preempt_cli": lambda dev: preempt_cli(),
             "profile_cli": lambda dev: profile_cli(),
+            "models": lambda dev: models_path(dev, full),
+            "models_windows": models_windows,
+            "hydro_small": hydro_small,
+            "hydro_wheel": lambda dev: hydro_wheel(dev, full),
+            "aircond": aircond_phase,
+            "models_cli": lambda dev: models_cli(dev, full),
+            "exact_candidates": exact_candidates,
+            "usar_mip": usar_mip,
+            "admm": admm_phase,
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
-    if sys.argv[1:2] == ["--only"]:
-        for name in sys.argv[2].split(","):
+    if argv[:1] == ["--only"]:
+        for name in argv[1].split(","):
             only[name](dev)
         return 0
     normal_path(dev)
@@ -3679,18 +4536,22 @@ def main() -> int:
     async_launches = async_path(dev, sync)
     torch.cuda.empty_cache()
     resilience_launches = resilience_path(dev, sync)
+    torch.cuda.empty_cache()
+    models_launches = models_path(dev, full)
     # [profile_cli]'s windows ran in K2 and K1 (its capped CLI headline);
     # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
     # K2 (APH's bf16x3), the streamed box design (L-shaped masters, the
     # cross-scenario view) and a SOC design (the root-fixed ccopf EF);
     # the async wheel's in K1, K2 (its bf16x3 stale-prox hub step) and
     # the resident SOC kernel (ccopf); the checkpointed headline's in K2
-    # and K1
+    # and K1; the models' in K2 (hydro's bf16x3 wheel) and K1 (its f32
+    # spoke planes, aircond's program, the CLI runs, the exact candidates)
     credit(kernels, profile_launches)
     credit(kernels, mip_launches)
     credit(kernels, slice9_launches)
     credit(kernels, async_launches)
     credit(kernels, resilience_launches)
+    credit(kernels, models_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -329,3 +329,162 @@ def scenario_program(num_scens: int, seed: int = 0, start: int = 0,
         nonant_idx=np.arange(n, dtype=np.int32),
         integer=integer_eff, row_draws=draws,
     )
+
+
+# --------------------------------------------------------------------------
+# Exact integer recourse evaluation (the inner-bound evaluator; port of
+# the JAX package's models/sslp.py::exact_recourse_value and
+# eval_candidates_exact).
+#
+# With the first stage fixed, a scenario's recourse is an assignment
+# with capacity-overflow penalties.  The evaluator solves the recourse
+# LP, rounds each present client to its argmax server (the client rows
+# are SOS1-like equalities), then improves by 1-opt moves and swaps
+# until stable.  The returned value is the exact objective of an
+# integral feasible recourse, computed in closed form from the instance
+# data.
+# --------------------------------------------------------------------------
+def exact_recourse_value(inst: dict, client_present: np.ndarray,
+                         xhat: np.ndarray,
+                         y_lp: np.ndarray | None = None) -> float:
+    """One scenario's exact integer recourse value at first stage
+    `xhat` ((n,) 0/1).  `y_lp` ((m, n) LP allocation, client-major)
+    seeds the rounding; greedy best-revenue seeding is used without it.
+    Serving from closed servers is allowed (original penalty-form
+    semantics) but never chosen by the heuristic unless no server is
+    open."""
+    n = int(inst["NumServers"])
+    m = int(inst["NumClients"])
+    cap = float(inst["Capacity"])
+    pen = float(inst.get("Penalty", DEFAULT_PENALTY))
+    D = np.asarray(inst["Demand"], float)      # (m, n)
+    R = np.asarray(inst["Revenue"], float)
+    fc = np.asarray(inst["FixedCost"], float)
+    x = np.round(np.asarray(xhat, float)[:n])
+    open_j = np.nonzero(x > 0.5)[0]
+    present = np.nonzero(np.asarray(client_present, float) > 0.5)[0]
+    first = float(fc @ x)
+    if present.size == 0:
+        return first
+    serve_set = open_j if open_j.size else np.arange(n)
+
+    # seed assignment
+    assign = np.empty(present.size, int)
+    if y_lp is not None:
+        for k, i in enumerate(present):
+            assign[k] = serve_set[int(np.argmax(y_lp[i, serve_set]))]
+    else:
+        for k, i in enumerate(present):
+            assign[k] = serve_set[int(np.argmax(R[i, serve_set]))]
+
+    def value(assign):
+        load = np.zeros(n)
+        rev = 0.0
+        for k, i in enumerate(present):
+            j = assign[k]
+            load[j] += D[i, j]
+            rev += R[i, j]
+        over = np.maximum(0.0, load - cap * x)
+        return first - rev + pen * float(over.sum())
+
+    best = value(assign)
+    # 1-opt moves + pairwise swaps: single-client moves cannot fix
+    # capacity packing (two clients on over-full servers may need to
+    # trade places), so the sweep alternates move and swap passes
+    improved = True
+    sweeps = 0
+    while improved and sweeps < 30:
+        improved = False
+        sweeps += 1
+        for k in range(present.size):
+            cur = assign[k]
+            for j in serve_set:
+                if j == cur:
+                    continue
+                trial = assign.copy()
+                trial[k] = j
+                v = value(trial)
+                if v < best - 1e-9:
+                    assign, best = trial, v
+                    improved = True
+        for k1 in range(present.size):
+            for k2 in range(k1 + 1, present.size):
+                if assign[k1] == assign[k2]:
+                    continue
+                trial = assign.copy()
+                trial[k1], trial[k2] = assign[k2], assign[k1]
+                v = value(trial)
+                if v < best - 1e-9:
+                    assign, best = trial, v
+                    improved = True
+    return best
+
+
+def candidates_batch(inst: dict, client_presents: "list[np.ndarray]",
+                     xhats, device=None):
+    """(batch, qp) of eval_candidates_exact's one batched LP: the S
+    scenarios repeated for each of the K candidates (K*S problems of
+    one dense shared A), the nonants fixed through with_fixed_nonants.
+    The batch lies on `device`, else on the device of `xhats` where it
+    is a tensor, else on CUDA (core.batch.from_specs).
+
+    As in the JAX package, the (K*S, N) candidate rows go to
+    with_fixed_nonants, which reads a two-dimensional argument per tree
+    node: on the two-stage tree every copy is fixed at candidate 0, and
+    only the rounding's seed comes from that LP (ROADMAP C8)."""
+    import torch
+
+    from mpisppy_tpu_torch.core import batch as batch_mod
+
+    if device is None and isinstance(xhats, torch.Tensor):
+        device = xhats.device
+    xh = np.asarray(xhats.cpu() if isinstance(xhats, torch.Tensor)
+                    else xhats, float)
+    S, K = len(client_presents), len(xh)
+    specs = [_build_spec(inst, client_presents[s], f"p{k}_{s}", None)
+             for k in range(K) for s in range(S)]
+    # uniform pair probabilities keep from_specs happy; expectations are
+    # taken per candidate by the caller
+    for sp in specs:
+        sp.probability = 1.0 / len(specs)
+    b = batch_mod.from_specs(specs, device=device)
+    fixed = torch.as_tensor(np.repeat(xh, S, axis=0), dtype=b.qp.c.dtype,
+                            device=b.device)  # (K*S, n)
+    return b, b.with_fixed_nonants(fixed)
+
+
+def eval_candidates_exact(inst: dict, client_presents: "list[np.ndarray]",
+                          xhats, probs=None, lp_opts=None,
+                          device=None) -> "list[float]":
+    """Exact integer inner-bound values E[f(xhat)] for several candidate
+    first stages: one batched LP over the K*S recourse problems
+    (candidates_batch: a dense shared A, so its windows run in the
+    window kernel on CUDA tensors) seeds per-client argmax rounding +
+    1-opt.  Returns one expectation per candidate."""
+    import torch
+
+    from mpisppy_tpu_torch.ops import pdhg
+
+    xh = np.asarray(xhats.cpu() if isinstance(xhats, torch.Tensor)
+                    else xhats, float)
+    S, K = len(client_presents), len(xh)
+    n = int(inst["NumServers"])
+    m = int(inst["NumClients"])
+    if probs is None:
+        probs = np.full(S, 1.0 / S)
+    b, qp = candidates_batch(inst, client_presents, xhats, device)
+    opts = lp_opts or pdhg.PDHGOptions(tol=1e-5, max_iters=20_000,
+                                       restart_period=40, omega0=0.1)
+    st = pdhg.solve(qp, opts, pdhg.init_state(qp, opts))
+    # original-space allocation block, client-major (m, n) per problem
+    x_orig = (st.x * torch.broadcast_to(b.d_col, (K * S, b.qp.n))) \
+        .cpu().numpy()
+    y_all = x_orig[:, n:n + m * n].reshape(K * S, m, n)
+    out = []
+    for k in range(K):
+        tot = 0.0
+        for s in range(S):
+            tot += probs[s] * exact_recourse_value(
+                inst, client_presents[s], xh[k], y_lp=y_all[k * S + s])
+        out.append(float(tot))
+    return out

@@ -6,7 +6,7 @@
 #   ScenarioProgram   declarative key -> scenario-data recipe
 #   RowDraws          a sampler's Bernoulli-row rule as data (in-kernel)
 #   scen_key          fold_in(base_key, scenario_index) — the counter scheme
-#   program_for       model-module bridge (models/{farmer,sslp})
+#   program_for       model-module bridge (models/{farmer,sslp,uc,aircond})
 #   virtual_batch     program -> VirtualBatch (O(n+m+S) resident)
 #   materialize       program -> fully drawn ScenarioBatch (device)
 #   window_inputs     VirtualBatch -> the window kernel's in-kernel draws

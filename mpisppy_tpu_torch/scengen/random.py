@@ -134,7 +134,10 @@ def _f32(v: float) -> float:
     return torch.tensor(v, dtype=torch.float32).item()
 
 
-def _fma(a, b, c) -> Tensor:
+SQRT2_F32 = _f32(_SQRT2)   # the f32 sqrt(2) of jax.random.normal
+
+
+def fma_f32(a, b, c) -> Tensor:
     """Fused multiply-add in f32: a*b + c rounded once (emulated in f64;
     the product of two f32 values is exact there)."""
     def d(v):
@@ -145,7 +148,7 @@ def _fma(a, b, c) -> Tensor:
 def _horner(coeffs, x: Tensor) -> Tensor:
     p = torch.full_like(x, _f32(coeffs[0]))
     for c in coeffs[1:]:
-        p = _fma(p, x, c)
+        p = fma_f32(p, x, c)
     return p
 
 
@@ -160,12 +163,12 @@ def _xla_log(x: Tensor) -> Tensor:
     t2 = t * t
     t3 = t2 * t
     p = _LOG_P
-    y = _fma(_fma(t, p[0], p[1]), t, p[2])
-    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
-    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
-    y = _fma(y, t3, y1)
-    y = _fma(y, t3, y2)
-    y = _fma(y, t3, e * _f32(-2.12194440e-4))
+    y = fma_f32(fma_f32(t, p[0], p[1]), t, p[2])
+    y1 = fma_f32(fma_f32(t, p[3], p[4]), t, p[5])
+    y2 = fma_f32(fma_f32(t, p[6], p[7]), t, p[8])
+    y = fma_f32(y, t3, y1)
+    y = fma_f32(y, t3, y2)
+    y = fma_f32(y, t3, e * _f32(-2.12194440e-4))
     t = t - t2 * 0.5
     return (t + y) + e * _f32(0.693359375)
 
@@ -192,15 +195,20 @@ def erfinv(u: Tensor) -> Tensor:
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         c = torch.where(lt, torch.full_like(w, _f32(a)),
                         torch.full_like(w, _f32(b)))
-        p = _fma(p, w, c)
+        p = fma_f32(p, w, c)
     r = p * u
     return torch.where(u.abs() == 1.0, u * float("inf"), r)
 
 
+def normal_operand(key: Tensor, shape) -> Tensor:
+    """The u of normal(): uniform on [nextafter(-1, 0), 1), drawn from
+    the same bits as uniform()."""
+    f = uniform(key, shape)
+    return torch.clamp(f * 2.0 + _f32(_LO), min=_f32(_LO))
+
+
 def normal(key: Tensor, shape) -> Tensor:
     """jax.random.normal in f32: keys (..., 2) give key.shape[:-1] +
-    shape standard normals, sqrt(2) * erfinv(u) with u uniform on
-    [nextafter(-1, 0), 1) drawn from the same bits as uniform()."""
-    f = uniform(key, shape)
-    u = torch.clamp(f * 2.0 + _f32(_LO), min=_f32(_LO))
-    return erfinv(u) * _f32(_SQRT2)
+    shape standard normals, sqrt(2) * erfinv(u) with u from
+    normal_operand."""
+    return erfinv(normal_operand(key, shape)) * SQRT2_F32

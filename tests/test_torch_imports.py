@@ -106,6 +106,20 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/telemetry/watch.py",
                  "mpisppy_tpu_torch/telemetry/regress.py",
                  "mpisppy_tpu_torch/telemetry/__main__.py",
+                 "mpisppy_tpu_torch/models/hydro.py",
+                 "mpisppy_tpu_torch/models/aircond.py",
+                 "mpisppy_tpu_torch/models/gbd.py",
+                 "mpisppy_tpu_torch/models/sizes.py",
+                 "mpisppy_tpu_torch/models/usar.py",
+                 "mpisppy_tpu_torch/models/apl1p.py",
+                 "mpisppy_tpu_torch/models/netdes.py",
+                 "mpisppy_tpu_torch/models/battery.py",
+                 "mpisppy_tpu_torch/models/distr.py",
+                 "mpisppy_tpu_torch/models/stoch_distr.py",
+                 "mpisppy_tpu_torch/models/sslp.py",
+                 "mpisppy_tpu_torch/utils/sputils.py",
+                 "mpisppy_tpu_torch/utils/admmWrapper.py",
+                 "mpisppy_tpu_torch/utils/stoch_admmWrapper.py",
                  *PORT_TOOLS):
         assert must in names
 

@@ -28,6 +28,7 @@ from mpisppy_tpu.algos import fused_wheel as jfw
 from mpisppy_tpu.algos import ph as jph
 from mpisppy_tpu.cylinders import spoke as jspoke
 from mpisppy_tpu.cylinders.hub import PHHub as JPHHub
+from mpisppy_tpu.models import aircond as jaircond
 from mpisppy_tpu.models import farmer as jfarmer
 from mpisppy_tpu.models import sslp as jsslp
 from mpisppy_tpu.ops import pdhg as jpdhg
@@ -39,6 +40,7 @@ from mpisppy_tpu_torch.algos import ph as tph
 from mpisppy_tpu_torch.core import batch as tbatch
 from mpisppy_tpu_torch.cylinders import spoke as tspoke
 from mpisppy_tpu_torch.cylinders.hub import PHHub as TPHHub
+from mpisppy_tpu_torch.models import aircond as taircond
 from mpisppy_tpu_torch.models import farmer as tfarmer
 from mpisppy_tpu_torch.models import sslp as tsslp
 from mpisppy_tpu_torch.ops import cones as tcones
@@ -115,6 +117,13 @@ def _programs(name):
         kw = dict(seed=1, n_servers=3, n_clients=8)
         return (jsslp.scenario_program(5, **kw),
                 tsslp.scenario_program(5, **kw))
+    if name == "aircond":
+        # a 4-stage tree: the node-keyed normal walk, with a drift so
+        # that the walk's f32 add is not an add of zero
+        kw = dict(seed=7, branching_factors=(3, 2, 2), mu_dev=3.5,
+                  sigma_dev=30.0)
+        return (jaircond.scenario_program(12, **kw),
+                taircond.scenario_program(12, **kw))
     return (jfarmer.scenario_program(6, seed=3),
             tfarmer.scenario_program(6, seed=3))
 
@@ -145,7 +154,7 @@ def _assert_same_leaves(a, b):
         assert np.array_equal(x, y, equal_nan=True), k
 
 
-@pytest.mark.parametrize("model", ["sslp", "farmer"])
+@pytest.mark.parametrize("model", ["sslp", "farmer", "aircond"])
 def test_programs_materialize_bit_identically(model):
     """Port materialize == port from_specs(to_specs(), scaling=) ==
     JAX scengen.materialize, leaf by leaf, the scaling included."""
