@@ -215,6 +215,12 @@ class PH:
         if obj is not None and hasattr(obj, hook):
             getattr(obj, hook)()
 
+    @property
+    def local_scenarios(self):
+        """The scenario names (the reference's per-rank dict; one
+        program holds them all)."""
+        return self.scenario_names
+
     _label = "PH"
 
     def state_template(self):

@@ -11,6 +11,9 @@
 #   python -m mpisppy_tpu_torch --module-name ... --num-scens 3 --EF
 #   python -m mpisppy_tpu_torch --module-name ... --fused-wheel \
 #          --lagrangian --xhatxbar --async-staleness 1 --trace-jsonl t.jsonl
+#   python -m mpisppy_tpu_torch --module-name ... --grad-rho \
+#          --use-primal-dual-converger --W-fname w.csv --rho-file-out r.csv
+#   python -m mpisppy_tpu_torch --module-name ... --scenarios-per-bundle 10
 #
 # The model module supplies the reference's 5-function API:
 # scenario_creator, scenario_names_creator, inparser_adder, kw_creator,
@@ -30,7 +33,13 @@
 # recorder; the resilience group sets the rotated checkpoints
 # (--checkpoint-path, a SIGTERM/SIGINT emergency save, exit 75 on
 # preemption and --checkpoint-restore to resume), the strike policy, the
-# PDHG lane guard and the hub watchdog.
+# PDHG lane guard and the hub watchdog.  The dynamic rho flags
+# (--grad-rho*, --sensi-rho*, --mult-rho*) and the W/x̄ files
+# (--W-fname, --Xbar-fname, --init-W-fname, --init-Xbar-fname) add PH
+# hub extensions; --rho-file-in sets the starting rho and --rho-file-out
+# writes the final one; --use-primal-dual-converger gives the PH or APH
+# hub a converger; --scenarios-per-bundle runs PH over proper bundles
+# (--pickle-bundles-dir / --unpickle-bundles-dir).
 #
 # A flag of the JAX package's CLI that the port does not implement is
 # refused by name (UNPORTED_FLAGS), never ignored.
@@ -55,21 +64,11 @@ def _queue_item(item: int, what: str) -> str:
     return f"ROADMAP.md queue A, item {item} ({what})"
 
 
-_EXT = _queue_item(8, "extensions, convergers and utils")
 _SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
 
 # The JAX package's CLI flags (its argument groups) that the port does
 # not implement, each with the queue item that ports it.
 UNPORTED_FLAGS = {
-    **dict.fromkeys((
-        "grad_rho", "grad_order_stat", "grad_rho_update_interval",
-        "grad_rho_relative_bound", "grad_rho_indep_denom", "rho_file_in",
-        "rho_file_out", "sensi_rho", "sensi_rho_multiplier", "mult_rho",
-        "mult_rho_update_factor", "mult_rho_update_interval",
-        "use_primal_dual_converger", "primal_dual_converger_tol",
-        "init_W_fname", "init_Xbar_fname", "W_fname", "Xbar_fname",
-        "scenarios_per_bundle", "pickle_bundles_dir",
-        "unpickle_bundles_dir"), _EXT),
     **dict.fromkeys(("uc_mpc_step", "uc_mpc_stride"), _SERVING),
     "pallas_pipeline": "no port: it double-buffers the TPU kernel's tile "
                        "DMA; on the card ops/pdhg_window.plan_window picks "
@@ -115,14 +114,19 @@ def _parse_args(module, args=None):
     cfg.fused_wheel_args()
     cfg.xhatshuffle_args()
     cfg.slama_args()
+    cfg.gradient_args()
+    cfg.dynamic_rho_args()
     cfg.reduced_costs_args()
     cfg.ph_ob_args()
     cfg.cross_scenario_cuts_args()
     cfg.lshaped_args()
+    cfg.converger_args()
     cfg.presolve_args()
     cfg.resilience_args()
     cfg.telemetry_args()
     cfg.dispatch_args()
+    cfg.wxbar_read_write_args()
+    cfg.proper_bundle_config()
     cfg.multistage()
     cfg.device_args()
     cfg.parse_command_line("mpisppy_tpu_torch.generic_cylinders", args)
@@ -167,10 +171,33 @@ def _presolve_maybe(cfg, batch):
 
 
 def _build_batch(cfg, module):
+    """(batch, names, specs): the model's scenarios, or with
+    --scenarios-per-bundle its proper bundles (each the EF of that many
+    scenarios, utils/proper_bundler.py; --pickle-bundles-dir writes them,
+    --unpickle-bundles-dir reads them back)."""
     names, kwargs, tree = _model_plumbing(cfg, module)
+    device = cfg.get("device", "cuda")
+    if cfg.get("scenarios_per_bundle"):
+        from mpisppy_tpu_torch.utils.pickle_bundle import check_args
+        from mpisppy_tpu_torch.utils.proper_bundler import ProperBundler
+        if tree is not None:
+            raise SystemExit("proper bundles are two-stage only "
+                             "(ref:proper_bundler.py:22); drop "
+                             "--scenarios-per-bundle or the "
+                             "branching factors")
+        check_args(cfg)
+        if cfg.get("num_scens") is None:
+            cfg.quick_assign("num_scens", int, len(names))
+        pb = ProperBundler(module)
+        num_buns = len(names) // int(cfg["scenarios_per_bundle"])
+        kwargs = pb.kw_creator(cfg)
+        names = pb.bundle_names_creator(num_buns, cfg=cfg)
+        specs = [pb.scenario_creator(nm, **kwargs) for nm in names]
+        return _presolve_maybe(cfg, batch_mod.from_specs(
+            specs, device=device)), names, specs
     specs = [module.scenario_creator(nm, **kwargs) for nm in names]
     batch = _presolve_maybe(cfg, batch_mod.from_specs(
-        specs, tree=tree, device=cfg.get("device", "cuda")))
+        specs, tree=tree, device=device))
     return batch, names, specs
 
 
@@ -253,18 +280,62 @@ def _fuse_wheel(cfg, hub, spokes, specs=None, tree=None):
 
 
 def _ph_extensions(cfg):
-    """The PH hub's extensions the flags ask for: the cross-scenario cut
-    installer and the reduced-costs fixer (composed when both)."""
+    """The PH hub's extensions the flags ask for (composed with
+    MultiExtension when several): the cross-scenario cut installer, the
+    reduced-costs fixer, the dynamic rho setters (--grad-rho,
+    --sensi-rho, --mult-rho) and the W/x̄ file writer and reader."""
+    import functools
+
+    from mpisppy_tpu_torch.extensions import rho_setters, wxbar_io
     factories = []
     if cfg.get("cross_scenario_cuts"):
         factories.append(vanilla.cross_scenario_extension(cfg))
     if cfg.get("reduced_costs"):
         factories.append(vanilla.reduced_costs_fixer(cfg))
+    if cfg.get("grad_rho"):
+        factories.append(functools.partial(
+            rho_setters.Gradient_extension,
+            grad_order_stat=cfg.get("grad_order_stat", 0.5),
+            grad_rho_update_interval=cfg.get("grad_rho_update_interval", 5),
+            indep_denom=cfg.get("grad_rho_indep_denom", False),
+            grad_rho_relative_bound=cfg.get("grad_rho_relative_bound",
+                                            1e3)))
+    if cfg.get("sensi_rho"):
+        factories.append(functools.partial(
+            rho_setters.SensiRho,
+            sensi_rho_multiplier=cfg.get("sensi_rho_multiplier", 1.0)))
+    if cfg.get("mult_rho"):
+        factories.append(functools.partial(
+            rho_setters.MultRhoUpdater,
+            mult_rho_update_factor=cfg.get("mult_rho_update_factor", 2.0),
+            mult_rho_update_interval=cfg.get("mult_rho_update_interval",
+                                             2)))
+    if cfg.get("W_fname") or cfg.get("Xbar_fname"):
+        factories.append(functools.partial(
+            wxbar_io.WXBarWriter, W_fname=cfg.get("W_fname"),
+            Xbar_fname=cfg.get("Xbar_fname")))
+    if cfg.get("init_W_fname") or cfg.get("init_Xbar_fname"):
+        factories.append(functools.partial(
+            wxbar_io.WXBarReader, init_W_fname=cfg.get("init_W_fname"),
+            init_Xbar_fname=cfg.get("init_Xbar_fname")))
     if len(factories) <= 1:
         return factories[0] if factories else None
-    import functools
     from mpisppy_tpu_torch.extensions.extension import MultiExtension
     return functools.partial(MultiExtension, ext_classes=factories)
+
+
+def _converger(cfg):
+    """--use-primal-dual-converger: the hub algorithm's converger factory."""
+    if not cfg.get("use_primal_dual_converger"):
+        return None
+    import functools
+
+    from mpisppy_tpu_torch.convergers.primal_dual_converger import (
+        PrimalDualConverger,
+    )
+    return functools.partial(
+        PrimalDualConverger,
+        tol=cfg.get("primal_dual_converger_tol", 1e-2))
 
 
 def build_wheel(cfg, module):
@@ -272,17 +343,29 @@ def build_wheel(cfg, module):
     Config: the hub from --lshaped-hub, --aph-hub or PH (in that order
     of precedence, as the JAX package), then the spoke list."""
     batch, names, specs = _build_batch(cfg, module)
+    converger = _converger(cfg)
     lshaped, aph = cfg.get("lshaped_hub"), cfg.get("aph_hub")
     if lshaped:
+        if converger is not None:
+            global_toc("WARNING: converger options are ignored with "
+                       "--lshaped-hub (Benders has its own termination)",
+                       True)
         if aph:
             global_toc("WARNING: --aph-hub is ignored because "
                        "--lshaped-hub is also set", True)
         hub = vanilla.lshaped_hub(cfg, batch, scenario_names=names)
     elif aph:
-        hub = vanilla.aph_hub(cfg, batch, scenario_names=names)
+        hub = vanilla.aph_hub(cfg, batch, scenario_names=names,
+                              converger=converger)
     else:
+        rho_setter = None
+        if cfg.get("rho_file_in"):
+            from mpisppy_tpu_torch.utils.gradient import Set_Rho
+            rho_setter = Set_Rho(cfg).rho_setter
         hub = vanilla.ph_hub(cfg, batch, scenario_names=names,
-                             extensions=_ph_extensions(cfg))
+                             converger=converger,
+                             extensions=_ph_extensions(cfg),
+                             rho_setter=rho_setter)
     spokes = []
     if not lshaped and not aph:
         if cfg.get("cross_scenario_cuts"):
@@ -386,6 +469,11 @@ def _spin_and_report(cfg, module, hub, spokes, names, specs):
         _report_device_profile(cfg["profile_dir"])
     if cfg.get("solution_base_name"):
         wheel.write_first_stage_solution(cfg["solution_base_name"] + ".csv")
+    if cfg.get("rho_file_out") \
+            and getattr(wheel.opt, "state", None) is not None \
+            and hasattr(wheel.opt.state, "rho"):
+        from mpisppy_tpu_torch.utils.rho_utils import rhos_to_csv
+        rhos_to_csv(wheel.opt.state.rho.cpu().numpy(), cfg["rho_file_out"])
     for rank0, nm in enumerate(names):
         module.scenario_denouement(0, nm, specs[rank0])
     # the fault-domain counters: the scheduler's retries and quarantined

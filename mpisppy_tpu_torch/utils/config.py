@@ -273,6 +273,66 @@ class Config:
         self.add_to_config("slammin", "use slam-min heuristic spoke", bool,
                            False)
 
+    def gradient_args(self):
+        """ref:config.py:821-872."""
+        self.add_to_config("grad_rho", "use gradient-based dynamic rho",
+                           bool, False)
+        self.add_to_config("grad_order_stat",
+                           "rho order statistic (0=min,0.5=mean,1=max)",
+                           float, 0.5)
+        self.add_to_config("grad_rho_update_interval",
+                           "iterations between rho recomputation", int, 5)
+        self.add_to_config("grad_rho_relative_bound",
+                           "denominator floor bound", float, 1e3)
+        self.add_to_config("grad_rho_indep_denom",
+                           "use the scenario-independent denominator",
+                           bool, False)
+        self.add_to_config("rho_file_in",
+                           "csv of per-slot rhos (ID,rho header)", str,
+                           None)
+        self.add_to_config("rho_file_out", "write computed rhos here",
+                           str, None)
+
+    def dynamic_rho_args(self):
+        """ref:config.py:873-910."""
+        self.add_to_config("sensi_rho",
+                           "rho from iter0 KKT sensitivities", bool,
+                           False)
+        self.add_to_config("sensi_rho_multiplier",
+                           "sensitivity rho multiplier", float, 1.0)
+        self.add_to_config("mult_rho", "multiplicative rho schedule",
+                           bool, False)
+        self.add_to_config("mult_rho_update_factor", "rho factor",
+                           float, 2.0)
+        self.add_to_config("mult_rho_update_interval",
+                           "iterations between rho multiplications",
+                           int, 2)
+
+    def converger_args(self):
+        """ref:config.py:897-910."""
+        self.add_to_config("use_primal_dual_converger",
+                           "primal-dual converger", bool, False)
+        self.add_to_config("primal_dual_converger_tol",
+                           "pd converger tolerance", float, 1e-2)
+
+    def wxbar_read_write_args(self):
+        """ref:config.py:950-975."""
+        self.add_to_config("init_W_fname", "warm-start W file", str, None)
+        self.add_to_config("init_Xbar_fname", "warm-start xbar file", str,
+                           None)
+        self.add_to_config("W_fname", "output W file", str, None)
+        self.add_to_config("Xbar_fname", "output xbar file", str, None)
+
+    def proper_bundle_config(self):
+        """ref:config.py:976-1010."""
+        self.add_to_config("scenarios_per_bundle",
+                           "proper-bundle size (scenarios per bundle)",
+                           int, None)
+        self.add_to_config("pickle_bundles_dir",
+                           "write pickled bundles here", str, None)
+        self.add_to_config("unpickle_bundles_dir",
+                           "read pickled bundles from here", str, None)
+
     def multistage(self):
         """ref:config.py:315-330."""
         self.add_to_config("branching_factors",

@@ -1,7 +1,14 @@
 ###############################################################################
-# Solver-state leaves for checkpoints (port of the full-state part of
-# mpisppy_tpu/utils/wxbarutils.py; its W/x̄ file readers and writers wait
-# for ROADMAP.md queue A, item 8).
+# W / x̄ files and solver-state leaves for checkpoints (port of
+# mpisppy_tpu/utils/wxbarutils.py; ref:mpisppy/utils/wxbarutils.py:
+# 47-391).
+#
+# W and x̄ files are CSV text, row for row the JAX package's: W as
+# "scenario_name,slot,value" per (scenario, slot), x̄ as "node,slot,value"
+# per (tree node, slot), each value the repr of the float32 as a Python
+# float.  So each package reads the files the other writes, bit for bit.
+# Loading W checks the PH invariant (a zero p-weighted node mean) unless
+# told not to.
 #
 # A checkpoint stores a state as numbered leaves, leaf0, leaf1, ..., in
 # the order jax.tree.flatten gives the JAX package's registered
@@ -86,6 +93,72 @@ def state_from_leaves(template, arrays, device):
             return torch.as_tensor(np.array(a)).to(device)
         return int(a)
     return build(template)
+
+
+# ---- W ---------------------------------------------------------------------
+def write_W_to_file(ph, fname: str, sep_files: bool = False):
+    """ref:wxbarutils.py:47-90.  csv rows: scenario_name,slot,value."""
+    W = ph.state.W.cpu().numpy()
+    with open(fname, "w") as f:
+        for s, nm in enumerate(ph.scenario_names):
+            for i in range(W.shape[1]):
+                f.write(f"{nm},{i},{float(W[s, i])!r}\n")
+
+
+def set_W_from_file(fname: str, ph, disable_check: bool = False):
+    """ref:wxbarutils.py:92-134.  Loads W and installs it into the PH
+    state; checks that its p-weighted node mean is ~0 (the PH invariant,
+    ref:wxbarutils.py:224-275 _check_W) unless disabled."""
+    W = ph.state.W.cpu().numpy().copy()
+    index = {nm: s for s, nm in enumerate(ph.scenario_names)}
+    with open(fname) as f:
+        for line in f:
+            nm, i, v = line.rsplit(",", 2)
+            if nm not in index:
+                raise ValueError(f"unknown scenario {nm!r} in {fname}")
+            W[index[nm], int(i)] = float(v)
+    Wt = torch.as_tensor(W, dtype=ph.batch.qp.c.dtype,
+                         device=ph.batch.device)
+    if not disable_check:
+        wbar, _ = ph.batch.node_average(Wt)
+        if float(wbar.abs().max()) > 1e-4 * (1.0 + np.abs(W).max()):
+            raise ValueError(
+                "loaded W has nonzero probability-weighted node mean "
+                "(invalid PH duals; pass disable_check to force)")
+    ph.state = dataclasses.replace(ph.state, W=Wt)
+
+
+# ---- xbar ------------------------------------------------------------------
+def write_xbar_to_file(ph, fname: str):
+    """ref:wxbarutils.py:276-296.  csv rows: node,slot,value."""
+    xb = ph.state.xbar_nodes.cpu().numpy()
+    with open(fname, "w") as f:
+        for nd in range(xb.shape[0]):
+            for i in range(xb.shape[1]):
+                f.write(f"{nd},{i},{float(xb[nd, i])!r}\n")
+
+
+def set_xbar_from_file(fname: str, ph):
+    """ref:wxbarutils.py:298-356: x̄ per node, and its per-scenario
+    view."""
+    xb = ph.state.xbar_nodes.cpu().numpy().copy()
+    with open(fname) as f:
+        for line in f:
+            nd, i, v = line.split(",")
+            xb[int(nd), int(i)] = float(v)
+    batch = ph.batch
+    xbt = torch.as_tensor(xb, dtype=batch.qp.c.dtype, device=batch.device)
+    if batch.tree.num_nodes > 1:
+        xbar_scen = torch.gather(xbt, 0, batch.node_of_slot)
+    else:
+        xbar_scen = xbt[0].expand_as(ph.state.xbar).clone()
+    ph.state = dataclasses.replace(ph.state, xbar_nodes=xbt,
+                                   xbar=xbar_scen)
+
+
+def ROOT_xbar_npy_serializer(ph, fname: str):
+    """ref:wxbarutils.py:378-388: flat npy of the root-node x̄."""
+    np.save(fname, ph.state.xbar_nodes[0].cpu().numpy())
 
 
 # ---- full-state checkpointing ----------------------------------------------

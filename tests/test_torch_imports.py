@@ -120,6 +120,29 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/utils/sputils.py",
                  "mpisppy_tpu_torch/utils/admmWrapper.py",
                  "mpisppy_tpu_torch/utils/stoch_admmWrapper.py",
+                 "mpisppy_tpu_torch/extensions/__init__.py",
+                 "mpisppy_tpu_torch/extensions/test_extension.py",
+                 "mpisppy_tpu_torch/extensions/fixer.py",
+                 "mpisppy_tpu_torch/extensions/phtracker.py",
+                 "mpisppy_tpu_torch/extensions/wtracker_extension.py",
+                 "mpisppy_tpu_torch/extensions/xhatclosest.py",
+                 "mpisppy_tpu_torch/extensions/mipgapper.py",
+                 "mpisppy_tpu_torch/extensions/diagnoser.py",
+                 "mpisppy_tpu_torch/extensions/avgminmaxer.py",
+                 "mpisppy_tpu_torch/extensions/wxbar_io.py",
+                 "mpisppy_tpu_torch/convergers/__init__.py",
+                 "mpisppy_tpu_torch/convergers/converger.py",
+                 "mpisppy_tpu_torch/convergers/fracintsnotconv.py",
+                 "mpisppy_tpu_torch/convergers/norm_rho_converger.py",
+                 "mpisppy_tpu_torch/convergers/primal_dual_converger.py",
+                 "mpisppy_tpu_torch/utils/amalgamator.py",
+                 "mpisppy_tpu_torch/utils/gradient.py",
+                 "mpisppy_tpu_torch/utils/rho_utils.py",
+                 "mpisppy_tpu_torch/utils/nonant_sensitivities.py",
+                 "mpisppy_tpu_torch/utils/prox_approx.py",
+                 "mpisppy_tpu_torch/utils/proper_bundler.py",
+                 "mpisppy_tpu_torch/utils/pickle_bundle.py",
+                 "mpisppy_tpu_torch/utils/wtracker.py",
                  *PORT_TOOLS):
         assert must in names
 
