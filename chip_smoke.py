@@ -161,11 +161,30 @@ nvcc per source, started together) and drives its main paths:
   --scenarios-per-bundle 10 at 1,000 scenarios, 100 proper bundles in
   ELL (no window kernel), pickled and unpickled to the same hub rows
   ([ext_bundles]);
+* the confidence intervals and the rolling horizon — zhat4xhat's
+  evaluate_sample_trees at the headline's certified incumbent root on
+  three fresh samples of 10,000 sslp 15x45 scenarios through K1 f32
+  resident, zhatbar +/- eps beside the headline's inner bound
+  ([ci_zhat], the slice's full-width path); MMW at a fixed candidate
+  over three batches of 9 (the dense sampled EF in streamed K1) against
+  the JAX package's Glist and CI ([ci_mmw]); Bayraksan-Morton and
+  Bayraksan-Pierre-Louis sequential sampling on farmer with an EF x̂
+  generator, card against CPU ([ci_seq]); the multistage gap
+  estimators and zhats on aircond (3, 3, 2) through its scengen program
+  against the CPU and the JAX package ([ci_mstage]); the RollingDriver
+  on ccopf --soc at the (100,100) tree, 10,000 scenarios, for 3 windows
+  through the resident SOC kernel, each window that kept its warm start
+  again cold, and the (3,3) horizon against the JAX driver's per-step
+  bounds ([mpc_ccopf], [mpc_ccopf_small]); the CLI with --uc-mpc-step 1
+  against the JAX CLI ([mpc_uc_cli]) — the two groups in two more card
+  workers beside the MIP phases, their CPU comparisons here after the
+  join;
 
 the CPU halves of the card-against-CPU phases ([wheel_small],
 [wheel_soc_small], [scengen_small], [farmer_wheel], [hydro_small],
-[aircond], [ext_sensi], [ext_mult]) run in one spawned worker process
-beside the card's phases (CpuHalves; in this process under --only);
+[aircond], [ext_sensi], [ext_mult], [ci_seq], [ci_mstage]) run in one
+spawned worker process beside the card's phases (CpuHalves; in this
+process under --only);
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
@@ -194,7 +213,10 @@ models' phases, `--full` with [hydro_wheel] to its 1% certificate (15
 hub iterations in the default run) and the --EF runs of [models_cli] at
 the wheel runs' sizes; `--only ext` (or ext_cli_headline: with
 [ext_grad_xhat] and [ext_cli_warm], which share its wheel and files;
-ext_sensi_mult, ext_bundles) the slice-14 phases.
+ext_sensi_mult, ext_bundles) the slice-14 phases; `--only ci` (or
+ci_zhat, which runs [headline] first for its x̂; ci_mmw, ci_seq,
+ci_mstage) the confidence-interval phases and `--only mpc` (or
+mpc_ccopf, mpc_uc_cli) the rolling-horizon phases.
 """
 import dataclasses
 import json
@@ -982,6 +1004,12 @@ def cpu_half(name):
         return summary(ws, secs)
     if name in EXT_SMALL_RHO:
         return ext_small_cli(name, "cpu")[0]
+    if name.startswith("ci_seq_"):
+        return ci_seq_run(name[len("ci_seq_"):], "cpu")
+    if name == "ci_mstage":
+        return ci_mstage_run("cpu")
+    if name == "mpc_uc_cli":
+        return mpc_uc_cpu()
     bfs, dicts = {"hydro_small": (HYDRO_SMALL_BFS, lambda b, sp, t:
                                   hydro_wheel_dicts(b, sp, t,
                                                     HYDRO_MAX_ITERS)),
@@ -998,7 +1026,8 @@ class CpuHalves:
 
     NAMES = ("wheel_small", "wheel_soc_small", "scengen_small",
              "farmer_wheel", "hydro_small", "aircond", "ext_sensi",
-             "ext_mult")
+             "ext_mult", "ci_seq_BM", "ci_seq_BPL", "ci_mstage",
+             "mpc_uc_cli")
 
     def __init__(self):
         self.pool = None
@@ -1274,9 +1303,12 @@ def headline(batch, sync):
         model="sslp_15_45", iter_precision="bf16x3")
     check_designs("headline", by_design, batch.qp.m, batch.qp.n,
                   (HEADLINE_SCENS, TAIL_SCENS))
+    import numpy as np
+    root = np.asarray(ws.opt.batch.tree.slot_stage) == 1
     sync["headline"] = {"batch": batch, "rows": trace_rows(ws),
                         "bounds": (ws.BestOuterBound, ws.BestInnerBound),
-                        "iterations": ws.spcomm._iter}
+                        "iterations": ws.spcomm._iter,
+                        "xhat": np.array(ws.spcomm.best_nonants()[0])[root]}
     return by_design
 
 
@@ -2582,13 +2614,10 @@ def plan_line(qp, S, mode="f32"):
     """The design plan_window gives a window of `qp` at S scenarios
     (the SOC layout's ints with cones), as design/tile/blocks."""
     from mpisppy_tpu_torch.ops import pdhg_window
-    cone_ints = 0
-    if qp.cones is not None and qp.cones.num_cones > 0:
-        _, rows = qp.cones.csr(qp.device)
-        cone_ints = qp.cones.num_cones + 1 + rows.numel() + qp.m
     plan = pdhg_window.plan_window(
         mode, qp.m, qp.n, S, *pdhg_window.card_limits(
-            torch.cuda.current_device()), cone_ints=cone_ints)
+            torch.cuda.current_device()),
+        cone_ints=pdhg_window.cone_ints_of(qp, qp.device))
     return f"{plan.design}/T{plan.tile}/blocks{plan.blocks}"
 
 
@@ -2621,24 +2650,26 @@ def random_state_args(qp, seed=5):
             torch.zeros_like(st.done), N_ITERS)
 
 
-def held_window(label, qp, args, soc=False, **extra):
-    """parity() of one window of a new batch shape in f32 and bf16x3 at
-    TOLS, in the design plan_window gives (printed as its route); the
+def held_window(label, qp, args, soc=False, modes=("f32", "bf16x3"),
+                group="slice9_windows", floor=False, **extra):
+    """parity() of one window of a new batch shape in each of `modes` at
+    TOLS (or, with `floor`, parity's f32-floor rule), in the design
+    plan_window gives (printed as its route), on `group`'s lines; the
     window must move x and y (a state at a fixed point checks nothing).
     SOC windows also keep their duals in the polar cone.  Returns
     {mode: max_abs_err}."""
     from mpisppy_tpu_torch.ops import cones
     S = args[1].shape[0]
     errs = {}
-    for mode in ("f32", "bf16x3"):
-        errs[mode], k = parity(args, mode, "slice9_windows", S, shape=label,
-                               m=qp.m, n=qp.n, route=plan_line(qp, S, mode),
-                               **extra)
+    for mode in modes:
+        errs[mode], k = parity(args, mode, group, S, floor=floor,
+                               shape=label, m=qp.m, n=qp.n,
+                               route=plan_line(qp, S, mode), **extra)
         moved_x = float((k[0] - args[1]).abs().max())
         moved_y = float((k[1] - args[2]).abs().max())
         dcr = float(cones.dual_cone_residual_rows(qp.cones, k[1]).max()) \
             if soc else 0.0
-        phase("slice9_windows", shape=label, mode=mode, moved_x=moved_x,
+        phase(group, shape=label, mode=mode, moved_x=moved_x,
               moved_y=moved_y, polar_cone_residual=dcr)
         if not (moved_x > 0.0 and moved_y > 0.0 and dcr <= POLAR_TOL):
             raise AssertionError(f"{label}: the window left x or y where "
@@ -3033,6 +3064,8 @@ class CardWorker:
 
 
 CARD_WORKER = CardWorker()
+CI_WORKER = CardWorker()
+MPC_WORKER = CardWorker()
 
 
 class EventProbe:
@@ -4927,6 +4960,648 @@ def ext_path(dev, sync):
     return total
 
 
+# --------------------------------------------------------------------------
+# Slice 15: confidence intervals and the rolling horizon
+# --------------------------------------------------------------------------
+CI_ZHAT_SAMPLES = 3                   # batches of HEADLINE_SCENS scenarios
+CI_ZHAT_TOL, CI_ZHAT_CAP = 1e-5, 20_000   # f32; at most 500 windows
+# [ci_mmw]: tools/ci_jax_reference.py's sizes, seeds and options (the
+# sampled EF of 9 sslp 15x45 scenarios is dense, 660 x 6,345, and one
+# streamed scenario's vectors fit a block's shared memory; at 10 they
+# do not, and the EF would take the plain iteration).  MMW_TOL and
+# MMW_CAP are the port's CI default (ciutils.DEFAULT_OPTS), which its
+# MMWConfidenceIntervals always uses: the phase checks that they agree
+MMW_BATCH, MMW_BATCHES = 9, 3
+MMW_TOL, MMW_CAP = 1e-6, 20_000
+MMW_XHAT = [0.7222141080547162, 9.493873862145507e-10, 0.0,
+            0.3474066375724128, 0.9999970434231502, 1.5291972692662236e-06,
+            0.7287810859230144, 0.027076254831271757, 0.1694581566335552,
+            0.9446370588312444, 0.38981383080728943, 0.18643116153643607,
+            0.004422107454674035, 5.178908119367865e-09,
+            0.21186549569433438]
+MMW_JAX = {"Glist": [4.440675556631618, 4.418886005688023,
+                     2.1406385793170557],
+           "Gbar": 3.6667333805455655, "std": 1.0791486468153477,
+           "gap_inner_bound": 5.486020940696275}
+MMW_SCALE = 283.3250160133881         # |E f(x̂)| of the first batch
+CI_RTOL = 1e-3
+CI_EF_ROUTE_WINDOWS = 100     # [ci_ef_route]: the same windows both ways
+# [ci_seq]: farmer, an EF x̂ generator, knobs that stop in a few steps
+CI_SEQ_KNOBS = {"BM": dict(BM_h=1.75, BM_hprime=0.3, BM_eps=200.0,
+                           BM_eps_prime=40.0, confidence_level=0.9),
+                "BPL": dict(BPL_eps=600.0, BPL_c0=10,
+                            confidence_level=0.9)}
+CI_SEQ_SCENS, CI_SEQ_MAXIT = 10, 8
+CI_SEQ_TOL, CI_SEQ_EF_CAP = 1e-6, 20_000     # the x̂ generator's EF
+# [ci_mstage]: aircond through its scengen program (tools/ci_jax_reference.py)
+MSTAGE_BFS = (3, 3, 2)
+MSTAGE_XHAT = (200.0, 0.0)
+MSTAGE_TREES, MSTAGE_SEED = 3, 101
+MSTAGE_TOL, MSTAGE_CAP = 1e-6, 20_000
+MSTAGE_JAX = {"G": 69.42533895704487, "s": 33.26155985625671, "seed": 194,
+              "zhats": [628.4479785230425, 775.0313527848984,
+                        838.6282282935249], "zhat_seed": 194}
+MSTAGE_RTOL = 1e-4
+# [mpc_ccopf]: the (100,100) tree through the horizon's extra_args (after
+# the recipe's --num-scens 9, so the later value must win); the (3,3)
+# horizon against tools/mpc_jax_reference.py's JAX driver
+MPC_STEPS = 3
+MPC_CCOPF_ARGS = ("--branching-factors", "100", "100", "--num-scens",
+                  str(CCOPF_BFS[0] * CCOPF_BFS[1]))
+MPC_CCOPF_SMALL_JAX = [
+    {"step": 0, "outer": 71.77212524414062, "inner": 71.77219394929853,
+     "iterations": 2, "warm": False},
+    {"step": 1, "outer": 83.09886169433594, "inner": 83.10934694600292,
+     "iterations": 2, "warm": True},
+    {"step": 2, "outer": 82.66728210449219, "inner": 82.67946995515376,
+     "iterations": 2, "warm": True}]
+MPC_RTOL = 1e-4
+MPC_UC_STEP = 1
+# the JAX CLI's outer bound at window MPC_UC_STEP and at window 0
+# (tools/mpc_jax_reference.py)
+MPC_UC_JAX = {"outer_bound": 18076.2421875, "iterations": 2,
+              "outer_bound_step0": 17994.18359375}
+# At 2 hub rows the outer bound comes from capped windows of the first W
+# and is ill-conditioned in f32 rounding: a 1-ulp change of the demand
+# moves the port's CPU bound by up to 3.2e-3 (tools/uc_mpc_rounding.py),
+# so the card's plain iteration, which sums in another order, sits 3.7e-3
+# from the CPU's and 2.7e-3 from the JAX CLI's (the port's CPU 9.9e-4).
+# Windows 0 and 1 part by 4.5e-3 (JAX) and 6.3e-3 (the port's CPU): the
+# card's window 1 must lie within MPC_UC_RTOL of both window-1 bounds
+# and farther than it from both window-0 bounds, or the step did not move
+MPC_UC_RTOL = 5e-3
+
+
+class SolveLog:
+    """Within the block, every pdhg.solve call's batch size, iterations,
+    windows, seconds and whether all its lanes met tol (status OPTIMAL);
+    and, by shape, the first problem a solve handed the window kernel as
+    a batch of one (gap_estimators' sampled EF: one_problems)."""
+
+    def __enter__(self):
+        from mpisppy_tpu_torch.ops import pdhg, pdhg_window
+        self.real, self.solves, self.one_problems = pdhg.solve, [], {}
+
+        def logged(p, opts=pdhg.PDHGOptions(), state=None):
+            t0 = time.perf_counter()
+            st = self.real(p, opts, state)
+            S, k = int(st.status.numel()), int(st.k)
+            self.solves.append(
+                {"S": S, "iters": k, "windows": -(-k // opts.restart_period),
+                 "s": time.perf_counter() - t0,
+                 "met_tol": bool((st.status == pdhg.OPTIMAL).all())})
+            if S == 1 and p.c.is_cuda and pdhg_window.supported(p):
+                self.one_problems.setdefault((p.m, p.n), p)
+            return st
+        pdhg.solve = logged
+        return self
+
+    def __exit__(self, *exc):
+        from mpisppy_tpu_torch.ops import pdhg
+        pdhg.solve = self.real
+        return False
+
+    def fields(self):
+        return {"windows": json.dumps([s["windows"] for s in self.solves])
+                .replace(" ", ""),
+                "solve_s": json.dumps([round(s["s"], 2) for s in self.solves])
+                .replace(" ", ""),
+                "met_tol": json.dumps([s["met_tol"] for s in self.solves])
+                .replace(" ", "")}
+
+    def held(self, group, floor=False):
+        """held_window (with `floor`, by parity's f32-floor rule), in
+        f32 from a random mid-solve state, of every shape the block's
+        solves handed the window kernel as one problem.  Returns
+        {(m, n): max_abs_err}."""
+        errs = {}
+        for (m, n), qp in self.one_problems.items():
+            errs[m, n] = held_window(f"one_problem_{m}x{n}", qp,
+                                     random_state_args(qp), modes=("f32",),
+                                     group=group, floor=floor)["f32"]
+        phase(group, shapes=len(errs), max_abs_err=max(errs.values(),
+                                                       default=None))
+        return errs
+
+
+def ci_cfg(**kw):
+    from mpisppy_tpu_torch.utils.config import Config
+    cfg = Config()
+    for k, v in kw.items():
+        cfg.quick_assign(k, type(v), v)
+    return cfg
+
+
+def sslp_ci_cfg(num_scens):
+    """The headline's sslp 15x45 LP relaxation, as kw_creator reads it."""
+    return ci_cfg(num_scens=num_scens, n_servers=SSLP_SERVERS,
+                  n_clients=SSLP_CLIENTS, sslp_lp_relax=True)
+
+
+def launches_since_reset():
+    from mpisppy_tpu_torch.ops import pdhg_window
+    return dict(pdhg_window.run_window.launches_by_design)
+
+
+def ci_zhat(xhat, inner):
+    """[ci_zhat]: zhat4xhat.evaluate_sample_trees at the headline's
+    certified incumbent root `xhat` on CI_ZHAT_SAMPLES fresh batches of
+    HEADLINE_SCENS scenarios (past the headline's), f32 at CI_ZHAT_TOL
+    with a CI_ZHAT_CAP-iteration cap: each evaluation's windows and
+    whether it met tol, zhatbar +/- eps (the t-interval of run_samples)
+    beside the headline's inner bound; every sample feasible and K1
+    f32/resident launched.  Returns the launches by design."""
+    import numpy as np
+    import scipy.stats
+
+    from mpisppy_tpu_torch.confidence_intervals import zhat4xhat
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.ops import pdhg
+    opts = pdhg.PDHGOptions(tol=CI_ZHAT_TOL, max_iters=CI_ZHAT_CAP)
+    reset_launches()
+    t0 = time.perf_counter()
+    with SolveLog() as log:
+        zhats, seed = zhat4xhat.evaluate_sample_trees(
+            np.asarray(xhat), CI_ZHAT_SAMPLES, sslp_ci_cfg(HEADLINE_SCENS),
+            sslp, InitSeed=HEADLINE_SCENS, opts=opts, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_design = launches_since_reset()
+    k1 = by_design.get("pdhg_window/f32/resident", 0)
+    n = len(zhats)
+    zbar = float(np.mean(zhats))
+    eps = float(scipy.stats.t.ppf(0.975, n - 1) * np.std(zhats, ddof=1)
+                / math.sqrt(n))
+    phase("ci_zhat", S=HEADLINE_SCENS, samples=n, next_seed=seed,
+          xhat=json.dumps([round(float(v), 6) for v in xhat]),
+          zhats=json.dumps([float(z) for z in zhats]), zhatbar=zbar,
+          eps_95=eps, headline_inner=inner, **log.fields(),
+          k1_launches=k1, seconds=round(secs, 2),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (np.isfinite(zhats).all() and k1 > 0
+            and seed == HEADLINE_SCENS * (1 + CI_ZHAT_SAMPLES)):
+        raise AssertionError("ci_zhat: a sample not feasible at x̂, no K1 "
+                             "f32/resident launch, or the seed not "
+                             "advanced by the samples")
+    return by_design
+
+
+def ci_mmw():
+    """[ci_mmw]: MMWConfidenceIntervals on sslp 15x45 at MMW_XHAT (the
+    root of the JAX package's sampled EF over scenarios 0-8),
+    MMW_BATCHES batches of MMW_BATCH from scenario MMW_BATCH on: the
+    dense sampled EF in streamed K1, the evaluations in resident K1;
+    Glist and the CI within CI_RTOL of MMW_SCALE of the JAX package's
+    (tools/ci_jax_reference.py).  Returns the launches by design."""
+    import numpy as np
+
+    from mpisppy_tpu_torch.confidence_intervals import ciutils, mmw_ci
+    from mpisppy_tpu_torch.models import sslp
+    opts = ciutils.DEFAULT_OPTS
+    if (opts.tol, opts.max_iters) != (MMW_TOL, MMW_CAP):
+        raise AssertionError("ci_mmw: the CI default is not the options "
+                             "the JAX values were computed at")
+    reset_launches()
+    t0 = time.perf_counter()
+    with SolveLog() as log:
+        res = mmw_ci.MMWConfidenceIntervals(
+            sslp, sslp_ci_cfg(MMW_BATCH), np.asarray(MMW_XHAT),
+            MMW_BATCHES, MMW_BATCH, start=MMW_BATCH, verbose=False,
+            device="cuda").run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_design = launches_since_reset()
+    streamed = sum(v for k, v in by_design.items()
+                   if k.startswith("pdhg_window/") and k.endswith("/streamed"))
+    diff = max([abs(a - b) for a, b in zip(res["Glist"], MMW_JAX["Glist"])]
+               + [abs(res[k] - MMW_JAX[k]) for k in
+                  ("Gbar", "std", "gap_inner_bound")])
+    rel = diff / max(MMW_SCALE, 1.0)
+    phase("ci_mmw", batch=MMW_BATCH, batches=MMW_BATCHES,
+          Glist=json.dumps(res["Glist"]), Gbar=res["Gbar"],
+          gap_ci=json.dumps([0.0, res["gap_inner_bound"]]),
+          jax_Glist=json.dumps(MMW_JAX["Glist"]),
+          jax_gap_inner=MMW_JAX["gap_inner_bound"], max_rel_diff_vs_jax=rel,
+          tol=CI_RTOL, streamed_launches=streamed, **log.fields(),
+          seconds=round(secs, 2),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (rel <= CI_RTOL and streamed > 0
+            and by_design.get("pdhg_window/f32/resident", 0) > 0):
+        raise AssertionError("ci_mmw: Glist or the CI off the JAX "
+                             "package's, or the EF/evaluations missed K1")
+    log.held("ci_mmw_windows")
+    ci_ef_route(next(iter(log.one_problems.values())))
+    return by_design
+
+
+def ci_ef_route(qp):
+    """[ci_ef_route]: [ci_mmw]'s first sampled EF (660 x 6,345), solved
+    from a cold start at the CI default's tol both ways on the card for
+    CI_EF_ROUTE_WINDOWS windows (short of the 413-500 it needs in
+    [ci_mmw]): as a batch of one in the streamed window kernel (the route
+    gap_estimators takes where a design takes the shape) and unbatched
+    on the plain iteration (its route where none does): seconds per
+    window, windows, whether tol was met and the objective.  Not on the
+    main path: its launches are not counted."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.confidence_intervals.ciutils import DEFAULT_OPTS
+    from mpisppy_tpu_torch.ops import boxqp, pdhg
+    opts = dataclasses.replace(DEFAULT_OPTS, max_iters=CI_EF_ROUTE_WINDOWS
+                               * DEFAULT_OPTS.restart_period)
+    flat = dataclasses.replace(qp, **{k: getattr(qp, k)[0]
+                                      for k in ("c", "q", "l", "u")})
+    out = {}
+    for route, p in (("window", qp), ("plain", flat)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = pdhg.solve(p, opts, pdhg.init_state(p, opts))
+        k = int(st.k)
+        secs = time.perf_counter() - t0
+        obj = float(boxqp.objective(p, st.x).reshape(-1)[0])
+        out[route] = (secs, obj)
+        windows = -(-k // opts.restart_period)
+        phase("ci_ef_route", route=route, m=qp.m, n=qp.n, iterations=k,
+              windows=windows,
+              met_tol=bool((st.status == pdhg.OPTIMAL).all()),
+              seconds=round(secs, 2),
+              ms_per_window=round(1e3 * secs / max(windows, 1), 3),
+              scaled_objective=obj)
+    phase("ci_ef_route", window_over_plain=round(
+        out["window"][0] / out["plain"][0], 3),
+        objective_rel_diff=abs(out["window"][1] - out["plain"][1])
+        / max(abs(out["plain"][1]), 1.0))
+
+
+def ci_seq_run(criterion, device):
+    """SeqSampling(criterion) on farmer from CI_SEQ_SCENS scenarios on
+    `device`, x̂ from the sampled EF (tol CI_SEQ_TOL), its gap estimators
+    at the CI default: T, nk, converged, the CI, G, s, the candidate and
+    the seconds."""
+    import numpy as np
+
+    from mpisppy_tpu_torch.algos.ef import ExtensiveForm
+    from mpisppy_tpu_torch.confidence_intervals.seqsampling import (
+        SeqSampling,
+    )
+    from mpisppy_tpu_torch.models import farmer
+
+    def xhat_gen(names, **_kw):
+        ef = ExtensiveForm({"tol": CI_SEQ_TOL, "max_iters": CI_SEQ_EF_CAP},
+                           names, farmer.scenario_creator,
+                           {"num_scens": len(names)}, device=device)
+        ef.solve_extensive_form()
+        sol = ef.get_root_solution()
+        return np.array([sol[f"x{i}"] for i in range(3)])
+    cfg = ci_cfg(num_scens=CI_SEQ_SCENS, **CI_SEQ_KNOBS[criterion])
+    t0 = time.perf_counter()
+    res = SeqSampling(farmer, xhat_gen, cfg, stopping_criterion=criterion,
+                      device=device).run(maxit=CI_SEQ_MAXIT)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return {"T": res["T"], "nk": res["nk"], "converged": res["converged"],
+            "CI": res["CI"], "G": res["G"], "s": res["s"],
+            "xhat": [float(v) for v in res["Candidate_solution"]],
+            "s_wall": time.perf_counter() - t0}
+
+
+def ci_seq_card():
+    """The card halves of [ci_seq], then ([ci_seq_windows]) a window of
+    each sampled-EF shape they handed the kernel held against the plain
+    window: (results by criterion, launches by design)."""
+    total, out = {}, {}
+    with SolveLog() as log:
+        for crit in CI_SEQ_KNOBS:
+            reset_launches()
+            out[crit] = ci_seq_run(crit, "cuda")
+            merge_launches(total, launches_since_reset())
+    # farmer's windows from a random state reach x ~5e4, where the f32
+    # rounding of both versions lies above TOLS (0.19 at 197 x 240 on the
+    # card): the kernel is held no farther from the f64 window than twice
+    # the plain f32 window is
+    log.held("ci_seq_windows", floor=True)
+    return out, total
+
+
+def ci_seq_check(card):
+    """[ci_seq]: each criterion's card run against its CPU half: the
+    same T, nk and converged flag, the CI's upper end within CI_RTOL."""
+    for crit, g in card.items():
+        c = CPU_HALVES.result(f"ci_seq_{crit}")
+        rel = abs(g["CI"][1] - c["CI"][1]) / max(abs(c["CI"][1]), 1.0)
+        phase("ci_seq", criterion=crit, T=g["T"], nk=g["nk"],
+              converged=g["converged"], ci=json.dumps(g["CI"]), G=g["G"],
+              s=g["s"], xhat=json.dumps([round(v, 4) for v in g["xhat"]]),
+              cpu_T=c["T"], cpu_nk=c["nk"], cpu_ci=json.dumps(c["CI"]),
+              ci_rel_diff=rel, tol=CI_RTOL, card_s=round(g["s_wall"], 2),
+              cpu_s=round(c["s_wall"], 2))
+        if not ((g["T"], g["nk"], g["converged"])
+                == (c["T"], c["nk"], c["converged"]) and rel <= CI_RTOL):
+            raise AssertionError(f"ci_seq {crit}: card and CPU runs part")
+
+
+def ci_mstage_run(device):
+    """gap_estimators_mstage and the multistage evaluate_sample_trees on
+    aircond MSTAGE_BFS through its scengen program at MSTAGE_XHAT on
+    `device` (tools/ci_jax_reference.py's settings)."""
+    import numpy as np
+
+    from mpisppy_tpu_torch.confidence_intervals import ciutils, zhat4xhat
+    from mpisppy_tpu_torch.models import aircond
+    from mpisppy_tpu_torch.ops import pdhg
+    cfg = ci_cfg(use_scengen=True, branching_factors=list(MSTAGE_BFS))
+    opts = pdhg.PDHGOptions(tol=MSTAGE_TOL, max_iters=MSTAGE_CAP)
+    xhat = np.asarray(MSTAGE_XHAT)
+    t0 = time.perf_counter()
+    est = ciutils.gap_estimators_mstage(
+        xhat, aircond, MSTAGE_TREES, cfg, MSTAGE_SEED, list(MSTAGE_BFS),
+        opts=opts, device=device)
+    zhats, seed = zhat4xhat.evaluate_sample_trees(
+        xhat, MSTAGE_TREES, cfg, aircond, InitSeed=MSTAGE_SEED,
+        branching_factors=MSTAGE_BFS, opts=opts, device=device)
+    return {"G": est["G"], "s": est["s"], "seed": est["seed"],
+            "zhats": [float(z) for z in zhats], "zhat_seed": int(seed),
+            "s_wall": time.perf_counter() - t0}
+
+
+def mstage_rel(a, b):
+    """The largest difference of two [ci_mstage] results, relative to
+    max(|zhat|, 1) (G and s to the mean |zhat|)."""
+    scale = max(float(sum(abs(z) for z in b["zhats"]) / len(b["zhats"])),
+                1.0)
+    rel = [abs(a[k] - b[k]) / scale for k in ("G", "s")]
+    rel += [abs(x - y) / max(abs(y), 1.0)
+            for x, y in zip(a["zhats"], b["zhats"])]
+    return max(rel)
+
+
+def ci_mstage_card():
+    reset_launches()
+    out = ci_mstage_run("cuda")
+    return out, launches_since_reset()
+
+
+def ci_mstage_check(g, by_design):
+    """[ci_mstage]: the card against its CPU half and against the JAX
+    package's values (MSTAGE_JAX), each to MSTAGE_RTOL; the seeds
+    advanced by the trees' node counts."""
+    c = CPU_HALVES.result("ci_mstage")
+    rel_cpu, rel_jax = mstage_rel(g, c), mstage_rel(g, MSTAGE_JAX)
+    phase("ci_mstage", bfs=json.dumps(list(MSTAGE_BFS)), trees=MSTAGE_TREES,
+          G=g["G"], s=g["s"], zhats=json.dumps(g["zhats"]), seed=g["seed"],
+          jax_G=MSTAGE_JAX["G"], cpu_G=c["G"], rel_diff_vs_cpu=rel_cpu,
+          rel_diff_vs_jax=rel_jax, tol=MSTAGE_RTOL,
+          card_s=round(g["s_wall"], 2), cpu_s=round(c["s_wall"], 2),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (rel_cpu <= MSTAGE_RTOL and rel_jax <= MSTAGE_RTOL
+            and g["seed"] == g["zhat_seed"] == MSTAGE_JAX["seed"]):
+        raise AssertionError("ci_mstage: card, CPU and JAX values part")
+
+
+def mpc_ccopf():
+    """[mpc_ccopf]: RollingDriver on ccopf_horizon(soc=True) at the
+    CCOPF_BFS tree (10,000 scenarios, MPC_CCOPF_ARGS after the recipe)
+    for MPC_STEPS windows, step 0 cold and the rest from the shifted
+    plane: per step hub iterations, seconds, the flags and the resident
+    SOC launches (> 0 each), and every wheel the driver spun
+    ([mpc_ccopf_spin]: a warm attempt and its cold fallback are two);
+    then ([mpc_ccopf_cold]) each window 1.. that did not fall back, cold,
+    for the warm plane's saving; then [mpc_ccopf_small].  Returns the
+    launches by design."""
+    from mpisppy_tpu_torch import generic_cylinders as gc
+    from mpisppy_tpu_torch.models import ccopf
+    from mpisppy_tpu_torch.mpc import RollingDriver, ccopf_horizon
+    hz = ccopf_horizon(soc=True, extra_args=MPC_CCOPF_ARGS)
+    cfg = gc._parse_args(ccopf, hz.step_argv(0))
+    later_wins = (cfg["num_scens"] == CCOPF_BFS[0] * CCOPF_BFS[1]
+                  and tuple(cfg["branching_factors"]) == CCOPF_BFS)
+    drv = RollingDriver(hz, device="cuda")
+    spins = []
+    real_spin = drv._spin
+
+    def logged_spin(step, warm_plane):
+        out = real_spin(step, warm_plane)
+        spins.append((step, warm_plane is not None, out))
+        phase("mpc_ccopf_spin", step=step, warm_plane=warm_plane is not None,
+              iterations=out["iterations"],
+              solve_s=round(out["solve_seconds"], 3), outer=out["outer"],
+              inner=out["inner"], rel_gap=out["rel_gap"])
+        return out
+    drv._spin = logged_spin
+    total, runs, soc = {}, [], []
+
+    def step(label, run, **extra):
+        reset_launches()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_design = launches_since_reset()
+        merge_launches(total, by_design)
+        soc.append(by_design.get("pdhg_window_soc/f32/resident", 0))
+        phase(label, step=r.step, iterations=r.iterations,
+              solve_s=round(r.solve_seconds, 3), wall_s=round(wall, 2),
+              warm=r.warm, cold_fallback=r.cold_fallback,
+              degraded=r.degraded, outer=r.outer, inner=r.inner,
+              rel_gap=r.rel_gap, soc_resident_launches=soc[-1], **extra,
+              by_design=json.dumps(by_design, sort_keys=True)
+              .replace(" ", ""))
+        return r
+    t0 = time.perf_counter()
+    stream = drv.stream(MPC_STEPS)
+    for _ in range(MPC_STEPS):
+        runs.append(step("mpc_ccopf", lambda: next(stream),
+                         S=cfg["num_scens"]))
+    for r in runs[1:]:
+        if not r.cold_fallback:
+            step("mpc_ccopf_cold", lambda: drv.run_step(r.step),
+                 warm_iterations=r.iterations,
+                 warm_solve_s=round(r.solve_seconds, 3))
+    phase("mpc_ccopf", later_num_scens_wins=later_wins, spins=len(spins),
+          warm_steps=sum(r.warm for r in runs),
+          cold_fallbacks=sum(r.cold_fallback for r in runs),
+          degraded_steps=sum(r.degraded for r in runs),
+          seconds=round(time.perf_counter() - t0, 2))
+    # a window may end degraded (no inner bound within its hub iterations,
+    # ROADMAP C11): the driver types it and the stream goes on.  At
+    # (10,10) both packages certify every window on the CPU, the warm
+    # ones after a cold fallback; at (30,30) every window ends degraded
+    # in both (tools/mpc_c11_probe.py); at this tree every window ends
+    # degraded on the card (the JAX driver not run at this size)
+    if not (later_wins and all(n > 0 for n in soc) and not runs[0].warm
+            and all(math.isfinite(r.outer) for r in runs)):
+        raise AssertionError("mpc_ccopf: --num-scens/--branching-factors "
+                             "not the later values, a window without a "
+                             "resident SOC launch, or no outer bound")
+    merge_launches(total, mpc_ccopf_small())
+    return total
+
+
+def mpc_ccopf_small():
+    """[mpc_ccopf_small]: the (3,3) ccopf --soc horizon on the card for
+    MPC_STEPS windows against MPC_CCOPF_SMALL_JAX.  Returns the launches
+    by design."""
+    from mpisppy_tpu_torch.mpc import RollingDriver, ccopf_horizon
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = list(RollingDriver(ccopf_horizon(soc=True), device="cuda")
+                .stream(MPC_STEPS))
+    torch.cuda.synchronize()
+    by_design = launches_since_reset()
+    rel = max(abs(getattr(r, f) - j[f]) / max(abs(j[f]), 1.0)
+              for r, j in zip(runs, MPC_CCOPF_SMALL_JAX)
+              for f in ("outer", "inner"))
+    flags = [r.warm for r in runs] == [j["warm"]
+                                       for j in MPC_CCOPF_SMALL_JAX]
+    phase("mpc_ccopf_small", steps=len(runs),
+          outer=json.dumps([r.outer for r in runs]),
+          inner=json.dumps([r.inner for r in runs]),
+          iterations=json.dumps([r.iterations for r in runs]),
+          warm=json.dumps([r.warm for r in runs]),
+          max_rel_diff_vs_jax=rel, tol=MPC_RTOL, same_warm_flags=flags,
+          seconds=round(time.perf_counter() - t0, 2),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (rel <= MPC_RTOL and flags):
+        raise AssertionError("mpc_ccopf_small: per-step bounds or warm "
+                             "flags off the JAX driver's")
+    return by_design
+
+
+def mpc_uc_args(step):
+    """The uc horizon's recipe at tests/test_mpc.py's size (2 units, 4
+    hours, 3 scenarios) for window `step`, 1 PH iteration."""
+    from mpisppy_tpu_torch.mpc import uc_horizon
+    return uc_horizon(2, 4, 1, max_step_iterations=1).step_argv(step)
+
+
+def mpc_uc_cpu():
+    """The CPU half of [mpc_uc_cli]: the CLI's JSON line at windows 0 and
+    MPC_UC_STEP with --device cpu."""
+    import contextlib
+    import io
+
+    from mpisppy_tpu_torch import generic_cylinders
+    out = {}
+    for step in (0, MPC_UC_STEP):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            generic_cylinders.main(mpc_uc_args(step) + ["--device", "cpu"])
+        out[step] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return out
+
+
+def mpc_uc_cli():
+    """The card half of [mpc_uc_cli]: the CLI with --uc-mpc-step
+    MPC_UC_STEP --uc-mpc-stride 1 (an ELL batch: no window kernel).
+    Returns its JSON result."""
+    return cli_run("mpc_uc_cli", mpc_uc_args(MPC_UC_STEP),
+                   box_kernel=False)[0]
+
+
+def mpc_uc_check(result):
+    """[mpc_uc_cli]: the card's window-MPC_UC_STEP outer bound within
+    MPC_UC_RTOL of its CPU half's and of the JAX CLI's, and farther than
+    MPC_UC_RTOL from both packages' window-0 bounds (the step moved the
+    instance); the same hub rows."""
+    cpu = CPU_HALVES.result("mpc_uc_cli")
+    ob = result["outer_bound"]
+
+    def rel(ref):
+        return abs(ob - ref) / abs(ref)
+    near = {"cpu": rel(cpu[MPC_UC_STEP]["outer_bound"]),
+            "jax": rel(MPC_UC_JAX["outer_bound"])}
+    far = {"cpu_step0": rel(cpu[0]["outer_bound"]),
+           "jax_step0": rel(MPC_UC_JAX["outer_bound_step0"])}
+    phase("mpc_uc_cli", mpc_step=MPC_UC_STEP, outer=ob,
+          cpu_outer=cpu[MPC_UC_STEP]["outer_bound"],
+          cpu_outer_step0=cpu[0]["outer_bound"],
+          jax_outer=MPC_UC_JAX["outer_bound"],
+          jax_outer_step0=MPC_UC_JAX["outer_bound_step0"],
+          rel_diff_vs_cpu=near["cpu"], rel_diff_vs_jax=near["jax"],
+          rel_diff_vs_cpu_step0=far["cpu_step0"],
+          rel_diff_vs_jax_step0=far["jax_step0"], tol=MPC_UC_RTOL)
+    if not (max(near.values()) <= MPC_UC_RTOL < min(far.values())
+            and result["iterations"] == cpu[MPC_UC_STEP]["iterations"]
+            == MPC_UC_JAX["iterations"]):
+        raise AssertionError("mpc_uc_cli: off the CPU half or the JAX CLI "
+                             "at its window, or as near window 0's")
+
+
+def ci_runs(xhat, inner):
+    """The sslp confidence-interval phases (a card worker's entry beside
+    the MIP group): [ci_zhat] at the headline's x̂ and [ci_mmw] (with
+    [ci_mmw_windows], [ci_ef_route]).  Returns the launches by design."""
+    t0 = time.perf_counter()
+    total = {}
+    merge_launches(total, ci_zhat(xhat, inner))
+    merge_launches(total, ci_mmw())
+    phase("ci_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return total
+
+
+def ci_small_runs():
+    """The card halves of [ci_seq] (with [ci_seq_windows]) and
+    [ci_mstage].  Returns {"launches", "seq", "mstage",
+    "mstage_launches"}: the CPU comparisons run where the CPU halves are
+    (ci_check)."""
+    total = {}
+    seq, launches = ci_seq_card()
+    merge_launches(total, launches)
+    mstage, mstage_launches = ci_mstage_card()
+    merge_launches(total, mstage_launches)
+    return {"launches": total, "seq": seq, "mstage": mstage,
+            "mstage_launches": mstage_launches}
+
+
+def ci_check(res):
+    """ci_small_runs' card halves against their CPU halves.  Returns the
+    launches by design."""
+    ci_seq_check(res["seq"])
+    ci_mstage_check(res["mstage"], res["mstage_launches"])
+    return res["launches"]
+
+
+def mpc_runs():
+    """The rolling-horizon phases' card halves (a card worker's entry
+    beside the MIP group): [mpc_ccopf] (with [mpc_ccopf_cold],
+    [mpc_ccopf_small]) and [mpc_uc_cli].  Returns {"launches",
+    "uc_cli"}: the CPU comparison runs where the CPU halves are
+    (mpc_check)."""
+    t0 = time.perf_counter()
+    total = mpc_ccopf()
+    uc_cli = mpc_uc_cli()
+    phase("mpc_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return {"launches": total, "uc_cli": uc_cli}
+
+
+def mpc_check(res):
+    """The rolling-horizon card halves against their CPU half.  Returns
+    the launches by design."""
+    mpc_uc_check(res["uc_cli"])
+    return res["launches"]
+
+
+def mpc_and_ci_small_runs():
+    """The second slice-15 card worker's entry: the rolling horizon,
+    then the small confidence-interval phases (farmer, aircond), so that
+    neither worker outlasts the slice-9 CLI group.  Returns {"mpc",
+    "ci_small"}."""
+    return {"mpc": mpc_runs(), "ci_small": ci_small_runs()}
+
+
+def headline_xhat(dev):
+    """--only ci / ci_zhat: [headline] run here for its x̂ and inner
+    bound."""
+    sync = {}
+    headline(sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev),
+             sync)
+    return sync["headline"]["xhat"], sync["headline"]["bounds"][1]
+
+
 def credit(kernels, by_design):
     """Add main-path launches (by instantiation/mode/design) to the
     kernels line's entries: resident box bf16x3 -> K2, resident box f32
@@ -4957,7 +5632,8 @@ def main() -> int:
         return run(sys.argv[1:])
     finally:
         CPU_HALVES.close()
-        CARD_WORKER.close()
+        for worker in (CARD_WORKER, CI_WORKER, MPC_WORKER):
+            worker.close()
 
 
 def run(argv) -> int:
@@ -5018,6 +5694,15 @@ def run(argv) -> int:
             "ext_cli_headline": lambda dev: ext_cli_headline_alone(dev),
             "ext_sensi_mult": lambda dev: ext_sensi_mult(),
             "ext_bundles": lambda dev: ext_bundles(),
+            "ci": lambda dev: (ci_runs(*headline_xhat(dev)),
+                               ci_check(ci_small_runs())),
+            "ci_zhat": lambda dev: ci_zhat(*headline_xhat(dev)),
+            "ci_mmw": lambda dev: ci_mmw(),
+            "ci_seq": lambda dev: ci_seq_check(ci_seq_card()[0]),
+            "ci_mstage": lambda dev: ci_mstage_check(*ci_mstage_card()),
+            "mpc": lambda dev: mpc_check(mpc_runs()),
+            "mpc_ccopf": lambda dev: mpc_ccopf(),
+            "mpc_uc_cli": lambda dev: mpc_uc_check(mpc_uc_cli()),
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if argv[:1] == ["--only"]:
@@ -5045,12 +5730,21 @@ def run(argv) -> int:
     # [mip_round_profile], which then shares the card with the worker's
     # launches)
     CARD_WORKER.start("slice9_cli_runs", full)
+    # the slice-15 groups in two more card workers beside them (the CPU
+    # comparisons here, after the join)
+    CI_WORKER.start("ci_runs", sync["headline"]["xhat"],
+                    sync["headline"]["bounds"][1])
+    MPC_WORKER.start("mpc_and_ci_small_runs")
     _, _, mip_launches = mip_path(dev)
     torch.cuda.empty_cache()
     ext_launches = ext_path(dev, sync)
     torch.cuda.empty_cache()
     slice9_windows(dev)
     slice9_launches = CARD_WORKER.result()
+    ci_launches = CI_WORKER.result()
+    second = MPC_WORKER.result()
+    mpc_launches = mpc_check(second["mpc"])
+    merge_launches(ci_launches, ci_check(second["ci_small"]))
     torch.cuda.empty_cache()
     async_launches = async_path(dev, sync)
     torch.cuda.empty_cache()
@@ -5075,6 +5769,8 @@ def run(argv) -> int:
     credit(kernels, resilience_launches)
     credit(kernels, models_launches)
     credit(kernels, ext_launches)
+    credit(kernels, ci_launches)
+    credit(kernels, mpc_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

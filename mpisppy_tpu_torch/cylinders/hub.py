@@ -49,10 +49,15 @@
 # options['profile_iters']): a telemetry.profiler.ProfilerSession that
 # each sync advances before its wheel_sync range opens and finalize
 # closes, so its torch.profiler window holds whole hub iterations.
+#
+# A rolling-horizon window (mpc/driver.py) passes the previous window's
+# shifted W/x̄ plane as options['warm_plane']; the PH hub seeds it into
+# the state at its first sync (_apply_warm_plane).
 ###############################################################################
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 import threading
@@ -462,12 +467,50 @@ class PHHub(Hub):
     def _trace_extra(self) -> dict:
         return {"conv": self.opt._read_conv()}
 
+    def _apply_warm_plane(self, plane: dict):
+        """Seed a rolling-horizon window's shifted W/x̄ plane (host numpy
+        arrays, mpc/shift.py) into the PH state at the FIRST sync: the
+        WXBarReader.post_iter0 timing (iter0 has run, so the seeded duals
+        price iteration 1 onward) without the file round-trip;
+        mpc/driver.py passes the plane as options['warm_plane'].  A fused
+        wheel's wstate gets the same state, as a checkpoint restore keeps
+        the two consistent."""
+        opt = self.opt
+        st = getattr(opt, "state", None)
+        if st is None:
+            return
+        batch = opt.batch
+
+        def t(v):
+            return torch.as_tensor(np.asarray(v), dtype=st.W.dtype,
+                                   device=st.W.device)
+        kw = {}
+        if plane.get("W") is not None:
+            kw["W"] = t(plane["W"])
+        if plane.get("xbar_nodes") is not None:
+            xbj = t(plane["xbar_nodes"])
+            kw["xbar_nodes"] = xbj
+            kw["xbar"] = (
+                torch.gather(xbj, 0, batch.node_of_slot)
+                if batch.tree.num_nodes > 1
+                else xbj[0].expand(st.xbar.shape).clone())
+        if not kw:
+            return
+        new = dataclasses.replace(st, **kw)
+        wstate = getattr(opt, "wstate", None)
+        if wstate is not None:
+            opt.wstate = dataclasses.replace(wstate, ph=new)
+        opt.state = new
+
     def sync(self):
         """One hub<->spoke exchange (fused spokes every iteration,
         classic ones every spoke_sync_period): prologue, exchange,
         epilogue, as one profiler step; the --profile-dir session
-        advances first, so a window opens before a step range."""
+        advances first, so a window opens before a step range.  The
+        first sync seeds options['warm_plane'] when one is given."""
         self._iter += 1
+        if self._iter == 1 and self.options.get("warm_plane") is not None:
+            self._apply_warm_plane(self.options["warm_plane"])
         if self._profiler is not None:
             self._profiler.on_sync(self._iter)
         with _prof.step("wheel_sync", self._iter):

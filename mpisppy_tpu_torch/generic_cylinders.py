@@ -14,6 +14,8 @@
 #   python -m mpisppy_tpu_torch --module-name ... --grad-rho \
 #          --use-primal-dual-converger --W-fname w.csv --rho-file-out r.csv
 #   python -m mpisppy_tpu_torch --module-name ... --scenarios-per-bundle 10
+#   python -m mpisppy_tpu_torch --module-name mpisppy_tpu_torch.models.uc \
+#          ... --uc-mpc-step 1 --uc-mpc-stride 1     (a rolling-horizon window)
 #
 # The model module supplies the reference's 5-function API:
 # scenario_creator, scenario_names_creator, inparser_adder, kw_creator,
@@ -60,16 +62,9 @@ from mpisppy_tpu_torch.utils import cfg_vanilla as vanilla
 from mpisppy_tpu_torch.utils.config import Config
 
 
-def _queue_item(item: int, what: str) -> str:
-    return f"ROADMAP.md queue A, item {item} ({what})"
-
-
-_SERVING = _queue_item(13, "serving: the rolling-horizon uc windows")
-
 # The JAX package's CLI flags (its argument groups) that the port does
-# not implement, each with the queue item that ports it.
+# not implement, each with the reason.
 UNPORTED_FLAGS = {
-    **dict.fromkeys(("uc_mpc_step", "uc_mpc_stride"), _SERVING),
     "pallas_pipeline": "no port: it double-buffers the TPU kernel's tile "
                        "DMA; on the card ops/pdhg_window.plan_window picks "
                        "the design",
@@ -77,8 +72,8 @@ UNPORTED_FLAGS = {
 
 
 def refuse_unported(argv) -> None:
-    """Exit non-zero, naming the flag and its queue item, when `argv`
-    names a flag the port does not implement."""
+    """Exit non-zero, naming the flag and why it is not ported, when
+    `argv` names a flag the port does not implement."""
     for a in argv:
         if not a.startswith("--"):
             continue

@@ -23,10 +23,10 @@
 # only the balance and reserve right-hand sides vary, so the sparse
 # constraint matrix is one shared ELL block for any scenario count.
 # scenario_creator seeds the noise with numpy RandomState per scenario;
-# scenario_program draws it from threefry keys (scengen).
-#
-# Not ported: the rolling-horizon hooks mpc_instance/_mpc_demand and
-# the --uc-mpc-* flags (serving; ROADMAP queue A, item 13).
+# scenario_program draws it from threefry keys (scengen).  A rolling-
+# horizon window (--uc-mpc-step k, mpc/horizon.py) rolls the profile by
+# stride*k hours and draws the noise as the program does, from the base
+# key folded to step k (mpc_instance, _mpc_demand).
 ###############################################################################
 from __future__ import annotations
 
@@ -74,6 +74,48 @@ def scenario_demand(inst: dict, scennum: int) -> np.ndarray:
     for t in range(inst["n_hours"]):
         eps[t] = (0.6 * eps[t - 1] if t else 0.0) + rng.normal(0.0, 0.05)
     return inst["profile"] * (1.0 + eps)
+
+
+def mpc_instance(instance: dict, step: int, stride: int = 1) -> dict:
+    """Window `step` of the rolling horizon (mpc/horizon.py): the SAME
+    fleet with the demand profile advanced stride*step hours (periodic
+    diurnal extension) and the step recorded, so scenario_creator
+    re-keys the AR(1) noise through fold_in(base, step).  A cached
+    shared structure is carried over: it depends on the profile only
+    through profile.max() (the shed bound), which a roll keeps, so every
+    window of a stream shares one sparse A."""
+    inst = dict(instance)
+    inst["profile"] = np.roll(instance["profile"],
+                              -int(stride) * int(step))
+    inst["mpc_step"] = int(step)
+    inst["mpc_stride"] = int(stride)
+    return inst
+
+
+def _mpc_demand(inst: dict, scennum: int) -> np.ndarray:
+    """Step-re-keyed demand: the AR(1) noise as the JAX package draws it
+    (threefry normals, the f32 weight sum of scenario_program's sampler)
+    from the base key folded to the window's step.  The weight sum runs
+    in column order, one f32 multiply and one f32 add per term (no FMA):
+    XLA's CPU reduction of this row sum, so the demand equals the JAX
+    package's bit for bit."""
+    from mpisppy_tpu_torch.scengen import random as rnd
+    from mpisppy_tpu_torch.scengen.program import scen_key
+
+    T = inst["n_hours"]
+    key = rnd.prng_key(inst["seed"])
+    if inst["mpc_step"]:
+        key = rnd.fold_in(key, inst["mpc_step"])
+    z = (rnd.normal(scen_key(key, scennum), (T,)) * 0.05).numpy()
+    t_ix = np.arange(T)
+    W_ar = np.where(t_ix[None, :] <= t_ix[:, None],
+                    0.6 ** (t_ix[:, None] - t_ix[None, :]),
+                    0.0).astype(np.float32)
+    eps = np.zeros(T, np.float32)
+    for j in range(T):
+        eps = eps + W_ar[:, j] * z[j]
+    d = np.asarray(inst["profile"], np.float32) * (np.float32(1.0) + eps)
+    return d.astype(np.float64)
 
 
 def _shared_structure(inst: dict):
@@ -233,7 +275,9 @@ def scenario_creator(scenario_name: str, instance: dict | None = None,
     A, c, l, u, integer, nonant_idx, bal0, rsv0, m = \
         _shared_structure(instance)  # noqa: E741
     T = instance["n_hours"]
-    d = scenario_demand(instance, extract_num(scenario_name))
+    k = extract_num(scenario_name)
+    d = _mpc_demand(instance, k) if "mpc_step" in instance \
+        else scenario_demand(instance, k)
     bl, bu = _bound_skeleton(instance, bal0, m)
     bl[bal0:bal0 + T] = d
     bu[bal0:bal0 + T] = d
@@ -312,12 +356,22 @@ def inparser_adder(cfg):
     cfg.add_to_config("uc_n_gens", "number of thermal units", int, 10)
     cfg.add_to_config("uc_n_hours", "scheduling horizon (hours)", int, 24)
     cfg.add_to_config("uc_seed", "instance seed", int, 0)
+    cfg.add_to_config("uc_mpc_step",
+                      "rolling-horizon window index (mpc/): >= 0 rolls "
+                      "the profile and re-keys demand per step; -1 = "
+                      "not a rolling window", int, -1)
+    cfg.add_to_config("uc_mpc_stride",
+                      "hours the rolling window advances per step",
+                      int, 1)
 
 
 def kw_creator(cfg):
     instance = synthetic_instance(cfg.get("uc_n_gens", 10),
                                   cfg.get("uc_n_hours", 24),
                                   cfg.get("uc_seed", 0))
+    if cfg.get("uc_mpc_step", -1) >= 0:
+        instance = mpc_instance(instance, cfg["uc_mpc_step"],
+                                cfg.get("uc_mpc_stride", 1))
     return {
         "instance": instance,
         "num_scens": int(cfg["num_scens"]),

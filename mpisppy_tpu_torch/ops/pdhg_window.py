@@ -555,6 +555,36 @@ class WindowPlan:
     blocks: int    # blocks launched
 
 
+def _resident_plan(mode: str, m: int, n: int, S: int, smem_per_block: int,
+                   sm_count: int, cone_ints: int) -> WindowPlan | None:
+    """The resident design's plan for the shape, or None where its
+    layout does not fit the block's shared memory at any tile."""
+    if cone_ints:
+        return _plan_cones(mode, m, n, S, smem_per_block, sm_count,
+                           cone_ints)
+    L = resident_layout(mode, m, n)
+    if L is None or L.smem_bytes + _STATIC_SMEM > smem_per_block:
+        return None
+    tiles = -(-S // RESIDENT_TILE)
+    return WindowPlan("resident", RESIDENT_TILE, max(1, min(tiles, sm_count)))
+
+
+def streamed_fits(m: int, n: int, smem_per_block: int,
+                  cone_ints: int = 0) -> bool:
+    """Whether one streamed scenario's vectors fit a block's shared
+    memory (the streamed design takes every shape that passes)."""
+    return streamed_smem_bytes(m, n, 1, cone_ints) <= smem_per_block
+
+
+def design_fits(mode: str, m: int, n: int, S: int, smem_per_block: int,
+                sm_count: int, cone_ints: int = 0) -> bool:
+    """Whether some window design takes the shape: the condition under
+    which plan_window, with no design named, returns a plan."""
+    return _resident_plan(mode, m, n, S, smem_per_block, sm_count,
+                          cone_ints) is not None \
+        or streamed_fits(m, n, smem_per_block, cone_ints)
+
+
 def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
                 sm_count: int, cone_ints: int = 0,
                 design: str | None = None) -> WindowPlan:
@@ -572,34 +602,50 @@ def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
     batch); naming "resident" for a batch it cannot take raises, and so
     does a shape no design takes (one streamed scenario's vectors past
     the block's shared memory)."""
-    if cone_ints:
-        cone_plan = _plan_cones(mode, m, n, S, smem_per_block, sm_count,
-                                cone_ints)
-        fits = cone_plan is not None
-    else:
-        L = resident_layout(mode, m, n)
-        fits = L is not None and L.smem_bytes + _STATIC_SMEM <= smem_per_block
+    resident = _resident_plan(mode, m, n, S, smem_per_block, sm_count,
+                              cone_ints)
     if design is None:
-        design = "resident" if fits else "streamed"
+        design = "resident" if resident is not None else "streamed"
     if design == "resident":
-        if not fits:
+        if resident is None:
             raise ValueError(f"the resident design cannot take a {mode} "
                              f"window of shape ({m}, {n}) with cones="
                              f"{cone_ints > 0}")
-        if cone_ints:
-            return cone_plan
-        tiles = -(-S // RESIDENT_TILE)
-        return WindowPlan("resident", RESIDENT_TILE,
-                          max(1, min(tiles, sm_count)))
+        return resident
     if design != "streamed":
         raise ValueError(f"unknown window design {design!r}")
-    if streamed_smem_bytes(m, n, 1, cone_ints) > smem_per_block:
+    if not streamed_fits(m, n, smem_per_block, cone_ints):
         raise ValueError(f"no window design takes shape ({m}, {n}) with "
                          f"cones={cone_ints > 0}: one streamed scenario "
                          "needs more shared memory than a block has")
     spb = 4 if (S >= 8 * sm_count and streamed_smem_bytes(
         m, n, 4, cone_ints) <= smem_per_block) else 1
     return WindowPlan("streamed", spb, max(1, -(-S // spb)))
+
+
+def cone_ints_of(p: BoxQP, device) -> int:
+    """The cone layout's ints of `p` (the CSR offsets, rows and a flag
+    per row; 0 without cones), as the shape rule counts them."""
+    spec = p.cones
+    if spec is None or spec.num_cones == 0:
+        return 0
+    nnz = int(spec.csr(device)[1].numel())
+    return spec.num_cones + 1 + nnz + p.A.shape[0]
+
+
+def takes(p: BoxQP, precision=None) -> bool:
+    """Whether a window design takes the batch `p` on its device:
+    always on the CPU (the plain version runs any shape); on CUDA,
+    design_fits for its shape on this card (a dense A wider than one
+    streamed scenario's shared memory has no design)."""
+    if not supported(p):
+        return False
+    if p.c.device.type != "cuda":
+        return True
+    m, n = p.A.shape
+    return design_fits(as_precision(precision) or "f32", m, n, p.c.shape[0],
+                       *card_limits(p.c.device.index),
+                       cone_ints=cone_ints_of(p, p.c.device))
 
 
 def _check_synth(p: BoxQP, synth) -> None:
@@ -706,7 +752,7 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         # d_row = null: no synthesis
         draws = (0, 0, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0, 0, None)
     lib = _library()
-    cone_ints = num_cones + 1 + cone_nnz + m if num_cones else 0
+    cone_ints = cone_ints_of(p, x.device)
     plan = plan_window(mode, m, n, S, *card_limits(x.device.index),
                        cone_ints=cone_ints, design=design)
     A_main = A_lo = img = None

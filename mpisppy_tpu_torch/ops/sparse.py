@@ -17,6 +17,15 @@
 # every run and every device.  Column padding points at slot m * k, a
 # zero appended to vals at call time, and at row 0.
 #
+# A few columns far busier than the rest (an extensive form's first
+# scenario, linked to every other scenario of its tree node) would pad
+# every column to the busiest one's count: n x 10,000 slots for the
+# 10,000-scenario ccopf EF.  Such a pattern (SKEW_FACTOR times its
+# entries, at least SKEW_MIN_SLOTS slots) is cut into chunks of a width
+# near twice the mean count: a column's first chunk keeps its index, the
+# busy columns' further chunks follow at n, n + 1, ..., and t_heavy /
+# t_chunks add those chunks' sums to their columns, in chunk order.
+#
 # A product is a gather, a multiply and a sum over an (S, m, k)
 # intermediate.  With values shared by the batch and an intermediate of
 # at least BAG_MIN_ELEMENTS, it is one embedding_bag over the transposed
@@ -36,13 +45,25 @@ import torch
 Tensor = torch.Tensor
 
 
+# a transposed pattern is cut into chunks when padding every column to
+# the busiest one's count would take SKEW_FACTOR times its entries and
+# at least SKEW_MIN_SLOTS slots
+SKEW_FACTOR = 8
+SKEW_MIN_SLOTS = 1 << 24
+
+
 def transpose_pattern(cols: np.ndarray, n: int):
-    """(t_slots, t_rows) of an ELL pattern, numpy int64 (n, kt): the
-    flat slot and the row of each column's entries in slot order, padded
-    with slot m * k and row 0.  Each row's columns ascend (the
-    constructors sort them), so a column-0 slot after a row's first is
-    row padding (value 0) and is left out: listing every padding slot
-    under column 0 would make kt as large as the padding."""
+    """(t_slots, t_rows, t_heavy, t_chunks) of an ELL pattern, numpy
+    int64.  t_slots/t_rows (V, w): the flat slot and the row of each
+    (virtual) column's entries in slot order, padded with slot m * k and
+    row 0.  Each row's columns ascend (the constructors sort them), so a
+    column-0 slot after a row's first is row padding (value 0) and is
+    left out: listing every padding slot under column 0 would make w as
+    large as the padding.  A balanced pattern has V = n, w = the busiest
+    column's count, and t_heavy = t_chunks = None.  A skewed one is cut
+    into chunks of w entries: virtual column j < n is column j's first
+    chunk, and column t_heavy[i]'s further chunks are t_chunks[i]
+    (indices >= n, padded with V, a zero appended at call time)."""
     cols = np.asarray(cols, np.int64)
     m, k = cols.shape
     keep = ((cols != 0) | (np.arange(k)[None, :] == 0)).reshape(-1)
@@ -53,10 +74,31 @@ def transpose_pattern(cols: np.ndarray, n: int):
     kt = max(1, int(counts.max()) if flat.size else 1)
     start = np.concatenate([[0], np.cumsum(counts)[:-1]])
     pos = np.arange(flat.size) - np.repeat(start, counts)
-    t_slots = np.full((n, kt), m * k, np.int64)
-    t_slots[flat[order], pos] = slots[order]
+    t_heavy = t_chunks = None
+    w = max(1, 2 * -(-flat.size // max(n, 1)))
+    nchunks = np.maximum(1, -(-counts // w))
+    heavy = np.nonzero(nchunks > 1)[0]
+    if heavy.size and n * kt >= max(SKEW_MIN_SLOTS,
+                                    SKEW_FACTOR * flat.size):
+        chunk = pos // w                    # an entry's chunk in its column
+        extra = nchunks[heavy] - 1
+        # virtual index of chunk c >= 1 of heavy column heavy[i]
+        first_extra = n + np.concatenate([[0], np.cumsum(extra)[:-1]])
+        extra_of = np.zeros(n, np.int64)
+        extra_of[heavy] = first_extra
+        col = flat[order]                   # entries in column order
+        virt = np.where(chunk == 0, col, extra_of[col] + chunk - 1)
+        V = n + int(extra.sum())
+        t_slots = np.full((V, w), m * k, np.int64)
+        t_slots[virt, pos % w] = slots[order]
+        t_heavy = heavy
+        j = np.arange(int(extra.max()))[None, :]
+        t_chunks = np.where(j < extra[:, None], first_extra[:, None] + j, V)
+    else:
+        t_slots = np.full((n, kt), m * k, np.int64)
+        t_slots[flat[order], pos] = slots[order]
     t_rows = np.where(t_slots < m * k, t_slots // max(k, 1), 0)
-    return t_slots, t_rows
+    return t_slots, t_rows, t_heavy, t_chunks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,14 +108,16 @@ class EllMatrix:
     vals:    (..., m, k) nonzero values (an optional leading batch axis).
     cols:    (m, k) int64 column indices, shared across the batch.
     n:       number of columns.
-    t_slots, t_rows: the transposed pattern (see transpose_pattern),
-             derived from cols when not given."""
+    t_slots, t_rows, t_heavy, t_chunks: the transposed pattern (see
+             transpose_pattern), derived from cols when not given."""
 
     vals: Tensor
     cols: Tensor
     n: int
     t_slots: Tensor | None = None
     t_rows: Tensor | None = None
+    t_heavy: Tensor | None = None
+    t_chunks: Tensor | None = None
 
     def __post_init__(self):
         if self.t_slots is None or self.t_rows is None:
@@ -84,10 +128,11 @@ class EllMatrix:
                 raise ValueError(
                     "EllMatrix: a nonzero at column 0 after a row's first "
                     "slot (each row's columns must ascend, padding last)")
-            ts, tr = transpose_pattern(cols, self.n)
             dev = self.cols.device
-            object.__setattr__(self, "t_slots", torch.as_tensor(ts).to(dev))
-            object.__setattr__(self, "t_rows", torch.as_tensor(tr).to(dev))
+            for name, v in zip(("t_slots", "t_rows", "t_heavy", "t_chunks"),
+                               transpose_pattern(cols, self.n)):
+                object.__setattr__(self, name, None if v is None
+                                   else torch.as_tensor(v).to(dev))
 
     @property
     def shape(self) -> tuple:
@@ -103,9 +148,13 @@ class EllMatrix:
         return self.vals.shape[-1]
 
     def to(self, device) -> "EllMatrix":
+        def move(t):
+            return None if t is None else t.to(device)
         return EllMatrix(vals=self.vals.to(device), cols=self.cols.to(device),
                          n=self.n, t_slots=self.t_slots.to(device),
-                         t_rows=self.t_rows.to(device))
+                         t_rows=self.t_rows.to(device),
+                         t_heavy=move(self.t_heavy),
+                         t_chunks=move(self.t_chunks))
 
     def with_vals(self, vals: Tensor) -> "EllMatrix":
         """The same pattern with other values."""
@@ -117,15 +166,27 @@ class EllMatrix:
         return _product(self.cols, self.vals, x)
 
     def _t_vals(self) -> Tensor:
-        """vals on the transposed pattern, (..., n, kt)."""
+        """vals on the transposed pattern, (..., V, w)."""
         flat = self.vals.reshape(self.vals.shape[:-2] + (-1,))
         flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))],
                          dim=-1)
         return flat[..., self.t_slots]
 
+    def _fold(self, part: Tensor) -> Tensor:
+        """Per-column sums (..., n) from the virtual columns' (..., V):
+        a busy column's further chunks added to its first, in order."""
+        out = part[..., :self.n]
+        if self.t_heavy is None:
+            return out
+        part = torch.cat([part, part.new_zeros(part.shape[:-1] + (1,))],
+                         dim=-1)
+        out = out.clone()
+        out[..., self.t_heavy] += torch.sum(part[..., self.t_chunks], dim=-1)
+        return out
+
     def rmatvec(self, y: Tensor) -> Tensor:
         """A' @ y over the transposed pattern, batch-aware."""
-        return _product(self.t_rows, self._t_vals(), y)
+        return self._fold(_product(self.t_rows, self._t_vals(), y))
 
     def toarray(self) -> np.ndarray:
         """Dense (..., m, n) numpy copy (tests and debugging only)."""
@@ -142,7 +203,7 @@ class EllMatrix:
 
     def col_sqnorms(self) -> Tensor:
         sq = self.with_vals(self.vals * self.vals)._t_vals()
-        return torch.sum(sq, dim=-1)
+        return self._fold(torch.sum(sq, dim=-1))
 
 
 # the intermediate size (batch x rows x slots) from which a product over

@@ -264,6 +264,49 @@ def has_program(module) -> bool:
     return getattr(module, "scenario_program", None) is not None
 
 
+def program_from_cfg(module, cfg, num: int, start: int = 0,
+                     seed: int | None = None, drop: tuple = (),
+                     **overrides) -> ScenarioProgram | None:
+    """The cfg-gated resolver the confidence-interval layer shares
+    (ciutils, sample_tree): honor the `use_scengen` opt-in, forward the
+    cfg's model kwargs (kw_creator) so the program samples the instance
+    the host path would build, and return None (with a console line,
+    never silently) when the program cannot cover this sample.
+
+    drop: kw_creator keys the caller supplies itself or that must not
+    reach the factory; overrides: explicit factory kwargs."""
+    if not bool(cfg.get("use_scengen", False)):
+        return None
+    if not has_program(module):
+        return None
+    kw = {}
+    if hasattr(module, "kw_creator"):
+        try:
+            kw = dict(module.kw_creator(cfg))
+        except Exception:
+            kw = {}
+    kw.pop("num_scens", None)
+    for k in drop:
+        kw.pop(k, None)
+    kw.update(overrides)
+    if seed is None:
+        seed = int(cfg.get("scengen_seed", 0))
+    try:
+        return program_for(module, num, seed=int(seed), start=int(start),
+                           **kw)
+    except (TypeError, ValueError) as e:
+        # an explicit opt-in that cannot be honored must be audible: the
+        # caller draws from the host stream and its output carries no
+        # seed_provenance
+        from mpisppy_tpu_torch.telemetry import console
+        console.log(
+            f"scengen: use_scengen requested but "
+            f"{getattr(module, '__name__', module)!s} has no program "
+            f"covering this sample ({e}); drawing from the legacy "
+            f"host stream instead", level=console.INFO)
+        return None
+
+
 def estimate_materialized_bytes(program: ScenarioProgram,
                                 itemsize: int = 4) -> int:
     """What a host-materialized batch would keep resident for the qp

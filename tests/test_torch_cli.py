@@ -60,18 +60,16 @@ def test_cli_end_to_end(extra):
     (["--uc-mpc-stride", "2"], 13), (["--W-fname", "w.csv"], 8),
     (["--pickle-bundles-dir", "d"], 8), (["--rho-file-out=r.csv"], 8)])
 def test_unported_flags_are_refused(flag, item):
-    """The serving flags (item 13) are refused with their queue item; the
-    flags of item 8, which has landed (tests/test_torch_cli_ext.py runs
-    them), are not refused any more."""
+    """The flags of items 8 and 13 have landed (tests/test_torch_cli_ext.py
+    and tests/test_torch_mpc.py run them): none is refused any more, and
+    the one flag left, --pallas-pipeline, is refused by name."""
     name = flag[0].split("=")[0]
-    if item == 8:
-        gc.refuse_unported(flag)
-        assert name[2:].replace("-", "_") not in gc.UNPORTED_FLAGS
-        return
+    gc.refuse_unported(flag)
+    assert name[2:].replace("-", "_") not in gc.UNPORTED_FLAGS
     with pytest.raises(SystemExit) as exc:
-        gc.main(FARMER + ["--device", "cpu"] + flag)
+        gc.main(FARMER + ["--device", "cpu", "--pallas-pipeline"])
     msg = str(exc.value.code)
-    assert name in msg and f"queue A, item {item}" in msg
+    assert "--pallas-pipeline" in msg and "no port" in msg
 
 
 def test_fwph_and_presolve_are_accepted():
@@ -88,7 +86,7 @@ def test_fwph_and_presolve_are_accepted():
 def test_uc_module_runs_with_fwph():
     """`--module-name mpisppy_tpu_torch.models.uc` with the JAX CLI's uc
     flags: an ELL batch through the fused wheel and the FWPH spoke; the
-    rolling-horizon flag stays refused with its item."""
+    rolling-horizon flags parse into window 1's instance."""
     uc = ["--module-name", "mpisppy_tpu_torch.models.uc", "--num-scens", "3",
           "--uc-n-gens", "3", "--uc-n-hours", "6", "--device", "cpu",
           "--fused-wheel", "--lagrangian", "--xhatxbar", "--slammax",
@@ -96,16 +94,19 @@ def test_uc_module_runs_with_fwph():
     ws = gc.main(uc)
     assert type(ws.opt.batch.qp.A).__name__ == "EllMatrix"
     assert math.isfinite(ws.BestOuterBound)
-    with pytest.raises(SystemExit, match="queue A, item 13"):
-        gc.main(uc + ["--uc-mpc-step", "1"])
+    from mpisppy_tpu_torch.models import uc as uc_mod
+    cfg = gc._parse_args(uc_mod, uc + ["--uc-mpc-step", "1",
+                                       "--uc-mpc-stride", "2"])
+    inst = uc_mod.kw_creator(cfg)["instance"]
+    assert (inst["mpc_step"], inst["mpc_stride"]) == (1, 2)
 
 
 def test_unported_flag_exits_nonzero():
-    out = _run_cli(FARMER + ["--device", "cpu", "--uc-mpc-step", "1"],
+    out = _run_cli(FARMER + ["--device", "cpu", "--pallas-pipeline"],
                    timeout=120)
     assert out.returncode != 0
-    assert "--uc-mpc-step" in out.stderr
-    assert "queue A, item 13 (serving" in out.stderr
+    assert "--pallas-pipeline" in out.stderr
+    assert "no port" in out.stderr
     assert out.stdout.strip() == ""
 
 

@@ -48,15 +48,16 @@ def rows(ws):
 
 
 def test_only_three_flags_stay_refused():
+    """Since the rolling-horizon flags landed, only --pallas-pipeline of
+    the three stays refused."""
     assert len(A8_FLAGS) == 21
-    assert set(tgc.UNPORTED_FLAGS) == {"uc_mpc_step", "uc_mpc_stride",
-                                       "pallas_pipeline"}
+    assert set(tgc.UNPORTED_FLAGS) == {"pallas_pipeline"}
     from mpisppy_tpu_torch.models import farmer
     cfg = tgc._parse_args(farmer, PORT)
     for name in A8_FLAGS:
         assert name in cfg, name
-    with pytest.raises(SystemExit, match="queue A, item 13"):
-        tgc._parse_args(farmer, PORT + ["--uc-mpc-step", "1"])
+    with pytest.raises(SystemExit, match="no port"):
+        tgc._parse_args(farmer, PORT + ["--pallas-pipeline"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -143,6 +143,19 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/utils/proper_bundler.py",
                  "mpisppy_tpu_torch/utils/pickle_bundle.py",
                  "mpisppy_tpu_torch/utils/wtracker.py",
+                 "mpisppy_tpu_torch/confidence_intervals/__init__.py",
+                 "mpisppy_tpu_torch/confidence_intervals/ciutils.py",
+                 "mpisppy_tpu_torch/confidence_intervals/"
+                 "confidence_config.py",
+                 "mpisppy_tpu_torch/confidence_intervals/mmw_ci.py",
+                 "mpisppy_tpu_torch/confidence_intervals/mmw_conf.py",
+                 "mpisppy_tpu_torch/confidence_intervals/sample_tree.py",
+                 "mpisppy_tpu_torch/confidence_intervals/seqsampling.py",
+                 "mpisppy_tpu_torch/confidence_intervals/zhat4xhat.py",
+                 "mpisppy_tpu_torch/mpc/__init__.py",
+                 "mpisppy_tpu_torch/mpc/shift.py",
+                 "mpisppy_tpu_torch/mpc/horizon.py",
+                 "mpisppy_tpu_torch/mpc/driver.py",
                  *PORT_TOOLS):
         assert must in names
 

@@ -234,3 +234,38 @@ def test_ell_round_trips_through_convert():
     assert isinstance(tb.qp.A, tsparse.EllMatrix)
     np.testing.assert_array_equal(tb.qp.A.vals.numpy(),
                                   np.asarray(jb.qp.A.vals))
+
+
+def test_skewed_transposed_pattern_is_chunked(monkeypatch):
+    """A pattern with a few busy columns (an extensive form's first
+    scenario, linked to all the others) is cut into chunks instead of
+    padding every column to the busiest count: the slots stay within
+    twice the entries plus a chunk per column, and A'y and the column
+    norms equal the dense products and the unchunked pattern's
+    (ROADMAP C12)."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(5)
+    m, n = 400, 300
+    M = sps.random(m, n, density=0.01, random_state=3, format="lil")
+    M[:, 0] = rng.normal(size=(m, 1))          # two busy columns
+    M[::2, 7] = rng.normal(size=(m // 2, 1))
+    M = sps.csr_matrix(M)
+    plain = tsparse.ell_from_scipy(M)
+    assert plain.t_heavy is None
+    monkeypatch.setattr(tsparse, "SKEW_MIN_SLOTS", 1)
+    t = tsparse.ell_from_scipy(M)
+    assert t.t_heavy is not None and set(t.t_heavy.tolist()) >= {0, 7}
+    entries = int((t.vals != 0).sum())
+    assert t.t_slots.numel() <= 2 * (entries + n) + t.t_slots.shape[1] * n
+    assert t.t_slots.numel() < plain.t_slots.numel() / 4
+    Y = torch.as_tensor(rng.normal(size=(3, m)).astype(np.float32))
+    dense = torch.as_tensor(M.toarray().astype(np.float32))
+    np.testing.assert_allclose(t.rmatvec(Y).numpy(), (Y @ dense).numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(t.rmatvec(Y).numpy(),
+                               plain.rmatvec(Y).numpy(), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(t.col_sqnorms().numpy(),
+                               plain.col_sqnorms().numpy(), rtol=1e-6)
+    moved = t.to("cpu")
+    assert torch.equal(moved.t_chunks, t.t_chunks)

@@ -304,3 +304,24 @@ def test_library_is_stale_when_any_build_input_is_newer(tmp_path,
     assert not pw._stale()
     os.utime(csrc / "common.cuh", (300, 300))  # only the header changed
     assert pw._stale()
+
+
+@pytest.mark.parametrize("shape,cone_ints", [
+    ((60, 705), 0), ((64, 768), 0), ((660, 6345), 0), ((735, 7050), 0),
+    ((6_000, 4_000), 0), ((69, 81), 115), ((678, 777), 1_500)])
+@pytest.mark.parametrize("card", [H100, (100_000, 132)])
+@pytest.mark.parametrize("mode", MODES)
+def test_design_fits_is_the_condition_plan_window_plans_under(
+        mode, card, shape, cone_ints):
+    """design_fits (what takes() asks on the card) holds exactly where
+    plan_window, with no design named, returns a plan; where it fails,
+    plan_window raises its own "no window design" error."""
+    m, n = shape
+    fits = pw.design_fits(mode, m, n, 1, *card, cone_ints=cone_ints)
+    if fits:
+        plan = pw.plan_window(mode, m, n, 1, *card, cone_ints=cone_ints)
+        assert plan.design in ("resident", "streamed")
+    else:
+        assert not pw.streamed_fits(m, n, card[0], cone_ints)
+        with pytest.raises(ValueError, match="no window design"):
+            pw.plan_window(mode, m, n, 1, *card, cone_ints=cone_ints)
