@@ -23,6 +23,16 @@ nvcc per source, started together) and drives its main paths:
   the card and on the CPU, profiles a capped (100,100) wheel, then drives
   the (100,100) wheel at 10,000 scenarios and checks that every SOC
   window took the resident design;
+* the split design — one problem's columns and rows over many blocks of
+  a cooperative launch: timed against the streamed design at the
+  one-problem shapes the port launches (the sampled EFs of 9 and 10
+  sslp 15x45 scenarios, the L-shaped masters, [ci_seq]'s farmer EF, the
+  root-fixed ccopf --soc EF) with its P swept, at S=2-66 of the sampled
+  EF and at the cross-scenario view's batch, each with its bound and
+  the share of it reached ([window_time_split]); held to its plain
+  version at every one of those shapes in f32, bf16 and bf16x3 (SOC in
+  f32), a done problem kept bit for bit and two launches bit-identical
+  ([split_windows]);
 * scengen — seeded scenario synthesis: builds the sslp 15x45 program's
   VirtualBatch at 1,000,000 scenarios, holds the kernel's SYNTH
   instantiation (draws its bound rows in-kernel) bit for bit against the
@@ -71,7 +81,7 @@ nvcc per source, started together) and drives its main paths:
 * the decomposition hubs and bound spokes — one window of each new batch
   shape against its plain version with its route (L-shaped's
   fixed-nonant subproblems, the single- and multi-cut L-shaped masters
-  as one problem on the streamed design from a mid-solve state that the
+  as one problem on the split design from a mid-solve state that the
   window moves, APH's prox batch, all at 1,000 scenarios, and the
   cross-scenario PH and EF views with a round of cuts installed), then
   through the CLI at sslp 15x45: the L-shaped hub with the x̂-L-shaped
@@ -80,8 +90,8 @@ nvcc per source, started together) and drives its main paths:
   100, a PH hub with the subgradient, Lagranger, PH-OB and reduced-costs
   outer bounds at 1,000, cross-scenario cuts on sslp 5x15 with the
   augmented batch's route, each against the JAX CLI, ccopf (3,3)
-  --fused-wheel --xhatxbar with the root-fixed EF on the SOC kernel
-  (its window then held against its plain version), and the
+  --fused-wheel --xhatxbar with the root-fixed EF on the split SOC
+  kernel (its window then held against its plain version), and the
   Schur-complement interior point in f64 against HiGHS (the CLI runs,
   [cli_ccopf_fused] and [sc] in a second process on the card, the card
   worker, beside the exact-MIP phases and the extensions' phases: each
@@ -166,8 +176,10 @@ nvcc per source, started together) and drives its main paths:
   three fresh samples of 10,000 sslp 15x45 scenarios through K1 f32
   resident, zhatbar +/- eps beside the headline's inner bound
   ([ci_zhat], the slice's full-width path); MMW at a fixed candidate
-  over three batches of 9 (the dense sampled EF in streamed K1) against
-  the JAX package's Glist and CI ([ci_mmw]); Bayraksan-Morton and
+  over three batches of 9 (the dense sampled EF in the split design)
+  against the JAX package's Glist and CI ([ci_mmw]), with that EF's
+  windows in the kernel against the plain iteration ([ci_ef_route]);
+  Bayraksan-Morton and
   Bayraksan-Pierre-Louis sequential sampling on farmer with an EF x̂
   generator, card against CPU ([ci_seq]); the multistage gap
   estimators and zhats on aircond (3, 3, 2) through its scengen program
@@ -188,8 +200,9 @@ process under --only);
 
 each wheel through WheelSpinner(hub_dict, spokes).spin(), with the launch
 counts set to 0 just before it and read just after, to show that it went
-through its kernel.  One line per phase; then one JSON line describing
-each kernel, then the last line {"ok": true, "device": {...}}.  Any
+through its kernel.  One line per phase; the script's seconds
+([total]); then one JSON line describing each kernel, then the last
+line {"ok": true, "device": {...}}.  Any
 failed check raises (exit code 1); without CUDA the script exits 2 and
 prints no result.  `python3 chip_smoke.py --only headline_profile` (or
 `--only ccopf_profile`, or `--only farmer_profile`: the farmer program's
@@ -215,9 +228,11 @@ the wheel runs' sizes; `--only ext` (or ext_cli_headline: with
 [ext_grad_xhat] and [ext_cli_warm], which share its wheel and files;
 ext_sensi_mult, ext_bundles) the slice-14 phases; `--only ci` (or
 ci_zhat, which runs [headline] first for its x̂; ci_mmw, ci_seq,
-ci_mstage) the confidence-interval phases and `--only mpc` (or
-mpc_ccopf, mpc_uc_cli) the rolling-horizon phases.
+ci_mstage) the confidence-interval phases, `--only mpc` (or
+mpc_ccopf, mpc_uc_cli) the rolling-horizon phases and `--only
+window_time_split` the split design's.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -242,8 +257,9 @@ PROFILE_CLI_WINDOW = 2                # cap and its --profile-iters
 K2_KEY = "pdhg_window/bf16x3/resident"  # K2 in a device report
 # kernel vs plain version, max |k - r| <= ATOL + RTOL * |r| after one
 # window: f32 differs only in summation order (~1e-6 measured); bf16x3
-# splits a value whose last bits differ, so its terms move by ~2^-16
-TOLS = {"f32": (1e-4, 1e-4), "bf16x3": (1e-3, 1e-3)}
+# splits a value whose last bits differ, so its terms move by ~2^-16;
+# bf16 keeps 8 bits an operand (tests/test_torch_cuda.py's tolerance)
+TOLS = {"f32": (1e-4, 1e-4), "bf16x3": (1e-3, 1e-3), "bf16": (2e-2, 2e-2)}
 # ccopf --soc (tests/test_cones.py's wheel options, the fused wheel)
 CCOPF_BFS = (100, 100)                # 10,000 scenarios, 101 tree nodes
 CCOPF_SMALL_BFS = (3, 3)
@@ -766,15 +782,21 @@ def registers_by_instantiation(log):
     memory of each kernel instantiation, from the build's -Xptxas -v
     output: streamed kernels keyed mode/scenarios-per-block/kind (box,
     cones or synth), resident ones mode/resident/kind, resident cone
-    ones mode/resident_cones/scenarios-per-tile."""
+    ones mode/resident_cones/scenarios-per-tile, split ones
+    mode/split/kind/where A's slab sits (smem or L2)."""
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"pdhg_window_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
                       ln)
         r = re.search(r"pdhg_window_residentILi(\d+)ELb(\d)E", ln)
         c = re.search(r"pdhg_window_conesILi(\d+)ELi(\d+)E", ln)
-        if "Compiling entry function" in ln and (m or r or c):
-            if m:
+        sp = re.search(r"pdhg_window_splitILi(\d+)ELb(\d)ELb(\d)E", ln)
+        if "Compiling entry function" in ln and (m or r or c or sp):
+            if sp:
+                name = (f"{MODE_NAMES[sp[1]]}/split/"
+                        f"{'cones' if sp[2] == '1' else 'box'}/"
+                        f"{'smem' if sp[3] == '1' else 'L2'}")
+            elif m:
                 kind = "cones" if m[3] == "1" else "synth" if m[4] == "1" \
                     else "box"
                 name = f"{MODE_NAMES[m[1]]}/{m[2]}/{kind}"
@@ -805,6 +827,7 @@ def reset_launches():
 STREAMED_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window.cu"
 RESIDENT_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window_resident.cu"
 CONES_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window_cones.cu"
+SPLIT_SOURCE = "mpisppy_tpu_torch/csrc/pdhg_window_split.cu"
 
 
 def kernel_entry(name, source, replaces, launches, err, timing):
@@ -1105,18 +1128,20 @@ def check_designs(label, by_design, m, n, scens):
                              "bf16x3")
 
 
-_KERNEL_NAME = re.compile(r"pdhg_window_(kernel|resident|cones)<(\d+)")
+_KERNEL_NAME = re.compile(
+    r"pdhg_window_(kernel|resident|cones|split)<(\d+)")
 
 
 def window_kernel_key(name):
     """mode/design of a window kernel from its demangled name
     (pdhg_window_kernel<MODE, ...> is the streamed body,
     pdhg_window_resident<MODE, ...> and pdhg_window_cones<MODE, ...> the
-    resident ones), else None."""
+    resident ones, pdhg_window_split<MODE, ...> the split one), else
+    None."""
     m = _KERNEL_NAME.search(name)
     if m is None:
         return None
-    design = "streamed" if m[1] == "kernel" else "resident"
+    design = {"kernel": "streamed", "split": "split"}.get(m[1], "resident")
     return f"{MODE_NAMES[m[2]]}/{design}"
 
 
@@ -1421,6 +1446,212 @@ def ccopf_path(dev, sync):
                              if k.startswith("pdhg_window_soc/")
                              and k.endswith("/streamed")),
                          streamed_errs["f32"], timing[S, "f32", "streamed"])]
+
+
+# the split design ([window_time_split], [split_windows]): the small-S
+# points of the sampled EF and the cross-scenario view's batch, and the
+# (blocks an SM, least columns a block) pairs its f32 sweep of P times
+SPLIT_SMALL_S = (2, 4, 8, 16, 33, 66)
+CROSS_VIEW = (820, 85, 100)
+SPLIT_SWEEP = ((1, 1), (2, 1), (1, 8), (2, 8), (1, 32))
+
+
+def sslp_ef_problem(num_scens, dev):
+    """The dense sampled EF of num_scens sslp 15x45 scenarios as one
+    problem (gap_estimators' route): 660 x 6,345 at 9, 735 x 7,050 at
+    10."""
+    from mpisppy_tpu_torch.algos.ef import build_ef
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.ops import boxqp
+    inst = sslp.synthetic_instance(SSLP_SERVERS, SSLP_CLIENTS)
+    specs = [sslp.scenario_creator(nm, instance=inst, num_scens=num_scens,
+                                   lp_relax=True)
+             for nm in sslp.scenario_names_creator(num_scens)]
+    return boxqp.one_problem(build_ef(specs, device=dev).qp)
+
+
+def ccopf_ef_problem(dev):
+    """The ccopf --soc (3,3) EF as one problem: 663 x 729 with SOC rows,
+    the shape of EFXhatInnerBound's root-fixed EF."""
+    from mpisppy_tpu_torch.algos.ef import build_ef
+    from mpisppy_tpu_torch.models import ccopf
+    from mpisppy_tpu_torch.ops import boxqp
+    specs = [ccopf.scenario_creator(nm, branching_factors=CCOPF_SMALL_BFS,
+                                    soc=True)
+             for nm in ccopf.scenario_names_creator(9)]
+    qp = boxqp.one_problem(build_ef(
+        specs, tree=ccopf.make_tree(CCOPF_SMALL_BFS), device=dev).qp)
+    if qp.cones is None or not isinstance(qp.A, torch.Tensor):
+        raise AssertionError("ccopf EF: no cone spec, or not dense")
+    return qp
+
+
+def random_lp(m, n, S, dev, seed=8):
+    """A random dense box LP of one shape (an L-shaped master's cut
+    buffer, [ci_seq]'s farmer EF, the cross-scenario view) with S
+    problems: rows around a feasible point, one row one-sided."""
+    import numpy as np
+
+    from mpisppy_tpu_torch.ops import boxqp
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n))
+    b = rng.uniform(0.2, 0.8, size=(S, n)) @ A.T
+    bl = b - rng.uniform(0.5, 1.5, size=(S, m))
+    bu = b + rng.uniform(0.5, 1.5, size=(S, m))
+    bl[:, 0] = -np.inf
+    return boxqp.make_boxqp(rng.normal(size=(S, n)), A, bl, bu,
+                            np.zeros((S, n)), np.ones((S, n)), device=dev)
+
+
+def split_shapes(dev):
+    """[window_time_split]'s shapes: label -> window inputs (a random
+    mid-solve state; lane 1 done at each S > 1 of the sampled EF)."""
+    ef9 = sslp_ef_problem(9, dev)
+    one = random_state_args(ef9)
+    shapes = {"ef_660x6345": one,
+              "ef_735x7050": random_state_args(sslp_ef_problem(10, dev)),
+              "lshaped_master_256x16": random_state_args(
+                  random_lp(256, 16, 1, dev)),
+              "lshaped_master_256x1015": random_state_args(
+                  random_lp(256, 1015, 1, dev)),
+              "ci_seq_ef_197x240": random_state_args(
+                  random_lp(197, 240, 1, dev)),
+              "ccopf_ef_663x729": random_state_args(ccopf_ef_problem(dev))}
+    for S in SPLIT_SMALL_S:
+        a = tiled(one, S)
+        a[7][1] = True
+        shapes[f"ef_660x6345_S{S}"] = a
+    m, n, S = CROSS_VIEW
+    shapes[f"cross_scen_view_{m}x{n}_S{S}"] = random_state_args(
+        random_lp(m, n, S, dev))
+    return shapes
+
+
+@contextlib.contextmanager
+def split_knobs(per_sm, min_cols):
+    """The split design's P rule at (blocks an SM, least columns a
+    block), for the sweep of [window_time_split]."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    old = pdhg_window.SPLIT_BLOCKS_PER_SM, pdhg_window.SPLIT_MIN_COLS
+    pdhg_window.SPLIT_BLOCKS_PER_SM, pdhg_window.SPLIT_MIN_COLS = \
+        per_sm, min_cols
+    try:
+        yield
+    finally:
+        pdhg_window.SPLIT_BLOCKS_PER_SM, pdhg_window.SPLIT_MIN_COLS = old
+
+
+def split_time(label, args, mode):
+    """ms of one window split against streamed (in turns: split,
+    streamed, streamed, split; streamed where it takes the shape), the
+    plain version's, the bound and the share of it the split kernel
+    reaches.  Returns (split ms, plain ms, bound ms, bound_by)."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    qp, S = args[0], args[1].shape[0]
+    cone_ints = pdhg_window.cone_ints_of(qp, qp.device)
+    streams = pdhg_window.streamed_fits(qp.m, qp.n, pdhg_window.card_limits(
+        torch.cuda.current_device())[0], cone_ints)
+    order = ["split", "streamed", "streamed", "split"] if streams \
+        else ["split", "split"]
+    ms = {"split": [], "streamed": []}
+    for d in order:
+        ms[d].append(time_ms(lambda: pdhg_window.run_window(
+            *args, precision=mode, design=d), reps=5))
+    plain = time_ms(lambda: pdhg_window.run_window_reference(
+        *args, precision=mode), reps=2)
+    bound, by = window_bound_ms(args, mode)
+    split = sum(ms["split"]) / len(ms["split"])
+    stream = sum(ms["streamed"]) / len(ms["streamed"]) if streams else None
+    phase("window_time_split", shape=label, S=S, m=qp.m, n=qp.n, mode=mode,
+          n_iters=args[8], plan=plan_line(qp, S, mode),
+          split_ms="/".join(f"{v:.4f}" for v in ms["split"]),
+          streamed_ms="/".join(f"{v:.4f}" for v in ms["streamed"])
+          if streams else "none",
+          split_over_streamed=round(split / stream, 4) if streams
+          else "none", plain_ms=round(plain, 4), bound_ms=round(bound, 5),
+          bound_by=by, share_of_bound=round(bound / split, 5))
+    return split, plain, bound, by
+
+
+def split_sweep(label, args):
+    """f32 ms of one split window at each (blocks an SM, least columns a
+    block) of SPLIT_SWEEP, the P that gives and whether A's slab sat in
+    shared memory; a grid the card cannot hold prints its error."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    qp, S = args[0], args[1].shape[0]
+    out = []
+    for per_sm, min_cols in SPLIT_SWEEP:
+        with split_knobs(per_sm, min_cols):
+            plan = pdhg_window.plan_window(
+                "f32", qp.m, qp.n, S, *pdhg_window.card_limits(
+                    torch.cuda.current_device()),
+                cone_ints=pdhg_window.cone_ints_of(qp, qp.device),
+                design="split")
+            try:
+                ms = f"{time_ms(lambda: pdhg_window.run_window(*args, design='split'), reps=5):.4f}"
+            except RuntimeError as e:
+                ms = f"'{str(e)[:60]}'"
+        out.append(f"{per_sm}x{min_cols}:P{plan.tile}"
+                   f"{'s' if plan.a_smem else 'l'}={ms}")
+    phase("window_time_split", shape=label, S=S, sweep_f32=",".join(out))
+
+
+def split_path(dev):
+    """[window_time_split] and [split_windows]: the split design timed
+    against the streamed one at every shape of split_shapes (f32; bf16x3
+    too at the sampled EF), with its P swept at the one-problem shapes;
+    held to its plain version at every shape in f32, bf16 and bf16x3 (SOC
+    in f32), done lanes (S=4 with lane 1 done, and S=1 done) and two
+    launches bit-identical.  Returns the kernels line's entries of the
+    box and SOC split instantiations (launches 0: the main path's runs
+    credit them)."""
+    from mpisppy_tpu_torch.ops import pdhg_window
+    t0 = time.perf_counter()
+    shapes = split_shapes(dev)
+    timing, errs = {}, {}
+    for label, args in shapes.items():
+        soc = args[0].cones is not None
+        modes = ("f32",) if soc else ("f32", "bf16", "bf16x3")
+        for mode in modes:
+            e = held_window(label, args[0], args, soc=soc, modes=(mode,),
+                            group="split_windows", design="split",
+                            floor=mode == "bf16")
+            errs[label, mode] = e[mode]
+        timing[label, "f32"] = split_time(label, args, "f32")
+        if label == "ef_660x6345":
+            timing[label, "bf16x3"] = split_time(label, args, "bf16x3")
+        if args[1].shape[0] in (1, 4, 16):
+            split_sweep(label, args)
+    # S=1 done: the iterates stay bit for bit, the sums accumulate
+    one = shapes["ef_660x6345"]
+    frozen = one[:7] + (torch.ones_like(one[7]),) + one[8:]
+    k = pdhg_window.run_window(*frozen, design="split")
+    torch.cuda.synchronize()
+    kept = torch.equal(k[0], one[1]) and torch.equal(k[1], one[2])
+    sums = float((k[2] - (one[3] + N_ITERS * one[1])).abs().max())
+    # two launches bit-identical, box and SOC
+    same = {}
+    for label in ("ef_660x6345", "ccopf_ef_663x729"):
+        a = pdhg_window.run_window(*shapes[label], design="split")
+        b = pdhg_window.run_window(*shapes[label], design="split")
+        same[label] = all(torch.equal(u, v) for u, v in zip(a, b))
+    phase("split_windows", s1_done_unchanged=kept, s1_done_sum_err=sums,
+          deterministic=json.dumps(same).replace(" ", ""),
+          seconds=round(time.perf_counter() - t0, 2))
+    if not (kept and sums <= 1e-3 * max(1.0, float(one[1].abs().max()))
+            and all(same.values())):
+        raise AssertionError("split_windows: a done problem moved, or two "
+                             "launches differ")
+    del shapes
+    torch.cuda.empty_cache()
+    return [kernel_entry("pdhg_window_split", SPLIT_SOURCE,
+                         "mpisppy_tpu/ops/pdhg_pallas.py:491", 0,
+                         errs["ef_660x6345", "f32"],
+                         timing["ef_660x6345", "f32"]),
+            kernel_entry("pdhg_window_soc_split", SPLIT_SOURCE,
+                         "mpisppy_tpu/ops/pdhg_pallas.py:192", 0,
+                         errs["ccopf_ef_663x729", "f32"],
+                         timing["ccopf_ef_663x729", "f32"])]
 
 
 def counting_plain_windows(fn):
@@ -2610,14 +2841,19 @@ def mip_path(dev):
 
 
 
-def plan_line(qp, S, mode="f32"):
-    """The design plan_window gives a window of `qp` at S scenarios
-    (the SOC layout's ints with cones), as design/tile/blocks."""
+def plan_line(qp, S, mode="f32", design=None):
+    """The plan plan_window gives a window of `qp` at S scenarios (the
+    SOC layout's ints with cones) in `design` (None: the rule's), as
+    design/tile/blocks (split: /P with A's slab in shared memory or
+    /L2)."""
     from mpisppy_tpu_torch.ops import pdhg_window
     plan = pdhg_window.plan_window(
         mode, qp.m, qp.n, S, *pdhg_window.card_limits(
             torch.cuda.current_device()),
-        cone_ints=pdhg_window.cone_ints_of(qp, qp.device))
+        cone_ints=pdhg_window.cone_ints_of(qp, qp.device), design=design)
+    if plan.design == "split":
+        return (f"split/P{plan.tile}/blocks{plan.blocks}/"
+                f"{'smem' if plan.a_smem else 'L2'}")
     return f"{plan.design}/T{plan.tile}/blocks{plan.blocks}"
 
 
@@ -2651,10 +2887,10 @@ def random_state_args(qp, seed=5):
 
 
 def held_window(label, qp, args, soc=False, modes=("f32", "bf16x3"),
-                group="slice9_windows", floor=False, **extra):
+                group="slice9_windows", floor=False, design=None, **extra):
     """parity() of one window of a new batch shape in each of `modes` at
-    TOLS (or, with `floor`, parity's f32-floor rule), in the design
-    plan_window gives (printed as its route), on `group`'s lines; the
+    TOLS (or, with `floor`, parity's f32-floor rule), in `design` or
+    the one plan_window gives (printed as its route), on `group`'s lines; the
     window must move x and y (a state at a fixed point checks nothing).
     SOC windows also keep their duals in the polar cone.  Returns
     {mode: max_abs_err}."""
@@ -2663,8 +2899,9 @@ def held_window(label, qp, args, soc=False, modes=("f32", "bf16x3"),
     errs = {}
     for mode in modes:
         errs[mode], k = parity(args, mode, group, S, floor=floor,
-                               shape=label, m=qp.m, n=qp.n,
-                               route=plan_line(qp, S, mode), **extra)
+                               design=design, shape=label, m=qp.m, n=qp.n,
+                               route=plan_line(qp, S, mode, design),
+                               **extra)
         moved_x = float((k[0] - args[1]).abs().max())
         moved_y = float((k[1] - args[2]).abs().max())
         dcr = float(cones.dual_cone_residual_rows(qp.cones, k[1]).max()) \
@@ -2797,7 +3034,7 @@ def check_lshaped(label, result, by_design, ws):
           spokes=",".join(type(sp).__name__ for sp in ws.spcomm.spokes))
     if not (rows and all(r["sub_windows"] > 0 for r in rows)
             and by_design.get("pdhg_window/f32/resident", 0) > 0
-            and by_design.get("pdhg_window/f32/streamed", 0) > 0):
+            and by_design.get("pdhg_window/f32/split", 0) > 0):
         raise AssertionError(f"{label}: the subproblems or the master did "
                              "not run their windows in the kernel")
     if ws.opt.options.sub_pdhg.telemetry:   # --kernel-counters
@@ -2898,12 +3135,13 @@ def check_cross_scen(label, result, by_design, ws):
     a kernel design that ran."""
     ext = ws.opt.extobject
     qp = ws.opt.batch.qp
+    route = plan_line(qp, ws.opt.batch.num_scenarios)
     phase(label, cuts_installed=ext.cuts_installed,
           rounds=ext.meta.rounds_used, m_orig=ext.meta.m_orig, m=qp.m,
-          n=qp.n, route=plan_line(qp, ws.opt.batch.num_scenarios),
-          ob_char=ws.spcomm.latest_ob_char)
+          n=qp.n, route=route, ob_char=ws.spcomm.latest_ob_char)
+    design = route.split("/")[0]
     if not (ext.cuts_installed > 0 and qp.m == ext.meta.aug_ph.qp.m
-            and by_design.get("pdhg_window/f32/streamed", 0) > 0):
+            and by_design.get(f"pdhg_window/f32/{design}", 0) > 0):
         raise AssertionError(f"{label}: no cuts installed, or the "
                              "augmented view's windows not in the kernel")
 
@@ -4034,8 +4272,8 @@ def ef_bracket(label, outer, inner, ef_opt, slack=EF_SLACK):
 def models_windows(dev):
     """[models_windows]: one window of each new dense shared-A shape,
     kernel against plain version (parity with its f32 floor), in f32 and
-    bf16x3, in every design plan_window allows (resident where its
-    layout fits, streamed always): hydro on the (30, 30) tree, aircond
+    bf16x3, in every design plan_window allows (the rule's, and
+    streamed always): hydro on the (30, 30) tree, aircond
     on (3, 3, 2), gbd, sizes and usar at MODEL_WINDOW_SCENS, and
     eval_candidates_exact's K*S batch on sslp 15x45.  Prints each
     shape's route and resident layout (m_pad, n_pad).  Returns
@@ -4075,8 +4313,8 @@ def models_windows(dev):
         for mode in ("f32", "bf16x3"):
             L = pdhg_window.resident_layout(mode, qp.m, qp.n)
             rule = pdhg_window.plan_window(mode, qp.m, qp.n, Sb, *limits)
-            designs = (["resident"] if rule.design == "resident" else []) \
-                + ["streamed"]
+            designs = ([rule.design] if rule.design != "streamed"
+                       else []) + ["streamed"]
             for design in designs:
                 plan = pdhg_window.plan_window(mode, qp.m, qp.n, Sb, *limits,
                                                design=design)
@@ -5150,7 +5388,8 @@ def ci_mmw():
     """[ci_mmw]: MMWConfidenceIntervals on sslp 15x45 at MMW_XHAT (the
     root of the JAX package's sampled EF over scenarios 0-8),
     MMW_BATCHES batches of MMW_BATCH from scenario MMW_BATCH on: the
-    dense sampled EF in streamed K1, the evaluations in resident K1;
+    dense sampled EF in the split design, the evaluations in resident
+    K1;
     Glist and the CI within CI_RTOL of MMW_SCALE of the JAX package's
     (tools/ci_jax_reference.py).  Returns the launches by design."""
     import numpy as np
@@ -5171,8 +5410,8 @@ def ci_mmw():
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     by_design = launches_since_reset()
-    streamed = sum(v for k, v in by_design.items()
-                   if k.startswith("pdhg_window/") and k.endswith("/streamed"))
+    split = sum(v for k, v in by_design.items()
+                if k.startswith("pdhg_window/") and k.endswith("/split"))
     diff = max([abs(a - b) for a, b in zip(res["Glist"], MMW_JAX["Glist"])]
                + [abs(res[k] - MMW_JAX[k]) for k in
                   ("Gbar", "std", "gap_inner_bound")])
@@ -5182,13 +5421,14 @@ def ci_mmw():
           gap_ci=json.dumps([0.0, res["gap_inner_bound"]]),
           jax_Glist=json.dumps(MMW_JAX["Glist"]),
           jax_gap_inner=MMW_JAX["gap_inner_bound"], max_rel_diff_vs_jax=rel,
-          tol=CI_RTOL, streamed_launches=streamed, **log.fields(),
+          tol=CI_RTOL, split_launches=split, **log.fields(),
           seconds=round(secs, 2),
           by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
-    if not (rel <= CI_RTOL and streamed > 0
+    if not (rel <= CI_RTOL and split > 0
             and by_design.get("pdhg_window/f32/resident", 0) > 0):
         raise AssertionError("ci_mmw: Glist or the CI off the JAX "
-                             "package's, or the EF/evaluations missed K1")
+                             "package's, or the EF missed the split design "
+                             "or the evaluations K1")
     log.held("ci_mmw_windows")
     ci_ef_route(next(iter(log.one_problems.values())))
     return by_design
@@ -5198,7 +5438,8 @@ def ci_ef_route(qp):
     """[ci_ef_route]: [ci_mmw]'s first sampled EF (660 x 6,345), solved
     from a cold start at the CI default's tol both ways on the card for
     CI_EF_ROUTE_WINDOWS windows (short of the 413-500 it needs in
-    [ci_mmw]): as a batch of one in the streamed window kernel (the route
+    [ci_mmw]): as a batch of one in the window kernel, the split design
+    on an H100 (the route
     gap_estimators takes where a design takes the shape) and unbatched
     on the plain iteration (its route where none does): seconds per
     window, windows, whether tol was met and the objective.  Not on the
@@ -5221,7 +5462,9 @@ def ci_ef_route(qp):
         obj = float(boxqp.objective(p, st.x).reshape(-1)[0])
         out[route] = (secs, obj)
         windows = -(-k // opts.restart_period)
-        phase("ci_ef_route", route=route, m=qp.m, n=qp.n, iterations=k,
+        phase("ci_ef_route", route=route, m=qp.m, n=qp.n,
+              plan=plan_line(qp, 1) if route == "window" else "plain",
+              iterations=k,
               windows=windows,
               met_tol=bool((st.status == pdhg.OPTIMAL).all()),
               seconds=round(secs, 2),
@@ -5605,12 +5848,15 @@ def headline_xhat(dev):
 def credit(kernels, by_design):
     """Add main-path launches (by instantiation/mode/design) to the
     kernels line's entries: resident box bf16x3 -> K2, resident box f32
-    -> K1, streamed box -> the streamed entry, SOC by design."""
+    -> K1, streamed box -> the streamed entry, split box and SOC -> the
+    split entries, SOC by design."""
     names = {e["name"]: e for e in kernels}
     for key, count in by_design.items():
         inst, mode, design = key.split("/")
         if inst == "pdhg_window" and design == "resident":
             name = "pdhg_window" if mode == "bf16x3" else "pdhg_window_f32"
+        elif design == "split":
+            name = inst + "_split"
         elif inst == "pdhg_window":
             name = "pdhg_window_streamed"
         elif inst == "pdhg_window_soc":
@@ -5642,6 +5888,7 @@ def run(argv) -> int:
     from mpisppy_tpu_torch.ops import pdhg_window
     from mpisppy_tpu_torch.telemetry import roofline
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
@@ -5663,6 +5910,7 @@ def run(argv) -> int:
     full = "--full" in argv
     only = {"headline_profile": headline_profile,
             "ccopf_profile": ccopf_profile,
+            "window_time_split": split_path,
             "farmer_profile": farmer_profile,
             "uc_wheel_full": uc_wheel_full,
             "uc": uc_path,
@@ -5715,6 +5963,8 @@ def run(argv) -> int:
     torch.cuda.empty_cache()
     kernels.extend(ccopf_path(dev, sync))
     torch.cuda.empty_cache()
+    kernels.extend(split_path(dev))
+    torch.cuda.empty_cache()
     kernels.append(scengen_path(dev))
     torch.cuda.empty_cache()
     farmer_path(dev)
@@ -5753,8 +6003,9 @@ def run(argv) -> int:
     models_launches = models_path(dev, full)
     # [profile_cli]'s windows ran in K2 and K1 (its capped CLI headline);
     # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
-    # K2 (APH's bf16x3), the streamed box design (L-shaped masters, the
-    # cross-scenario view) and a SOC design (the root-fixed ccopf EF);
+    # K2 (APH's bf16x3), the split box design (L-shaped masters), the
+    # streamed one (the cross-scenario view) and the split SOC design
+    # (the root-fixed ccopf EF);
     # the async wheel's in K1, K2 (its bf16x3 stale-prox hub step) and
     # the resident SOC kernel (ccopf); the checkpointed headline's in K2
     # and K1; the models' in K2 (hydro's bf16x3 wheel) and K1 (its f32
@@ -5771,6 +6022,13 @@ def run(argv) -> int:
     credit(kernels, ext_launches)
     credit(kernels, ci_launches)
     credit(kernels, mpc_launches)
+    # the split design's main path: the sampled EFs and the L-shaped
+    # master (box rows), the root-fixed ccopf EFs (SOC rows)
+    idle = [e["name"] for e in kernels
+            if e["name"].endswith("_split") and e["launches"] == 0]
+    if idle:
+        raise AssertionError(f"no main-path launch of {idle}")
+    phase("total", seconds=round(time.perf_counter() - t_start, 2))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@
 #     It is solved as a batch of ONE problem, so on CUDA its windows run
 #     in the window kernel like every other dense shared A
 #     (ops/pdhg_window.plan_window picks the design: a 256-row cut buffer
-#     is past the resident design's rows and takes the streamed one).
+#     is past the resident design's rows, and one problem takes the
+#     split design, its columns and rows over many blocks).
 #
 # The JAX package jits each solve; here pdhg.solve is a host loop that
 # reads `all(done)` once per window, so each iteration reports its

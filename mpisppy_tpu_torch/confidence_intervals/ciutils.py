@@ -154,9 +154,10 @@ def gap_estimators(xhat_one, module, scenario_names, cfg,
 
     # the sampled EF for (zn_star, x*), as a batch of one problem where a
     # window design takes its shape (a dense EF then runs in the window
-    # kernel), else unbatched (the plain iteration: a dense EF wider
-    # than one streamed scenario's shared memory); the route is logged,
-    # audibly when it is the plain one
+    # kernel, on an H100 the split design: one problem over the card),
+    # else unbatched (the plain iteration: a dense EF past every
+    # design's shared memory); the route is logged, audibly when it is
+    # the plain one
     efp = build_ef(specs, device=dev)
     qp = boxqp.one_problem(efp.qp)
     if pdhg_window.takes(qp, opts.iter_precision):

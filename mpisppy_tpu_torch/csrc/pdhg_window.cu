@@ -17,7 +17,8 @@
 // compute the same function; the double buffering was a TPU data-movement
 // device), including the SOC dual prox (_tile_math.soc_prox).
 //
-// This file holds the streamed design: A stays in L2 and is read twice
+// This file holds the streamed design (and the entry of all four): A
+// stays in L2 and is read twice
 // per iteration (A'y and A v, 4*m*n flops), and each block keeps SPB
 // scenarios' state (~24 KB each at the sslp 15x45 shape, A 60 x 705) in
 // shared memory for the whole window, so each element of A read from L2
@@ -25,7 +26,9 @@
 // (A in shared memory once per launch: pdhg_window_resident.cu for box
 // rows, products on tensor cores; pdhg_window_cones.cu for SOC blocks)
 // do not: an A or tile too large for their layouts, such as the 33-bus
-// feeder's; ops/pdhg_window.py::plan_window decides.
+// feeder's, at batches large enough to fill the card; smaller batches
+// of such shapes take the split design (pdhg_window_split.cu: one
+// problem over many blocks); ops/pdhg_window.py::plan_window decides.
 //
 // Second-order-cone rows (template flag CONES; the box-only
 // instantiation compiles to the code it had without them).  The blocks
@@ -85,7 +88,8 @@
 // Build (ops/pdhg_window.py::build): each source compiled on its own,
 // all at once, with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
 // -O3 -Xcompiler -fPIC -c, then nvcc -shared links pdhg_window.o,
-// pdhg_window_resident.o and pdhg_window_cones.o into libpdhg_window.so
+// pdhg_window_resident.o, pdhg_window_cones.o and pdhg_window_split.o
+// into libpdhg_window.so
 // (no fast-math: sqrtf and the division stay IEEE).
 // Bound to Python with ctypes (ops/pdhg_window.py) through one entry,
 // pdhg_window_launch: the caller names the design; the instantiation
@@ -407,9 +411,14 @@ extern "C" long long pdhg_window_resident_bytes(int mode, int m, int n,
 // `blocks` persistent blocks from the packed image a_img of a_img_bytes
 // bytes: for box rows pdhg_window_resident.cu (ops/pdhg_window.py::
 // pack_resident), for SOC blocks pdhg_window_cones.cu with `tile` (8, 16
-// or 24) scenarios per tile (ops/pdhg_window.py::pack_cones).
+// or 24) scenarios per tile (ops/pdhg_window.py::pack_cones); design 2
+// runs the split kernel (pdhg_window_split.cu) from A (and A_lo) in
+// `blocks` = S x `tile` blocks, `tile` of them per problem, with A's
+// column slab in shared memory when split_res, split_part the (S, tile,
+// m) scratch, split_bar two zeroed words and split_layout the SOC row
+// partition (null without cones).
 // ops/pdhg_window.py::plan_window chooses; a launch that the chosen
-// design cannot take returns an error and is never retried on the other.
+// design cannot take returns an error and is never retried on another.
 // The synthesis arguments (key0 .. d_row, see SYNTH above) are read only
 // when d_row is not null; bl/bu then hold the shared scaled template that
 // rows outside the draw keep.
@@ -427,7 +436,8 @@ extern "C" int pdhg_window_launch(
     float* yso, unsigned key0, unsigned key1, int start, int num_real,
     int draw_row0, int draw_count, float draw_thr, float draw_below,
     float draw_above, int draw_bl, int draw_bu, const float* d_row,
-    void* stream) {
+    int split_res, float* split_part, unsigned* split_bar,
+    const int* split_layout, void* stream) {
   using pdhg::Args;
   if (S <= 0) return 0;
   if (m <= 0 || n <= 0 || n_iters < 0) return (int)cudaErrorInvalidValue;
@@ -446,6 +456,11 @@ extern "C" int pdhg_window_launch(
          draw_thr, draw_below, draw_above, draw_bl, draw_bu, d_row};
   const cudaStream_t st = (cudaStream_t)stream;
   if (design == 0) return (int)pdhg::dispatch_streamed(g, mode, tile, st);
+  if (design == 2) {
+    if ((long long)S * tile != blocks) return (int)cudaErrorInvalidValue;
+    return (int)pdhg::launch_split(g, mode, tile, split_res != 0, split_part,
+                                   split_bar, split_layout, st);
+  }
   if (design != 1 || a_img == nullptr) return (int)cudaErrorInvalidValue;
   if (num_cones > 0) {
     if (a_img_bytes != (long long)pdhg::cones_image_bytes(mode, m, n))

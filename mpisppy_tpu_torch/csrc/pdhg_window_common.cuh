@@ -186,4 +186,39 @@ size_t cones_image_bytes(int mode, int m, int n);
 cudaError_t launch_cones(const Args& g, int mode, int tile, int blocks,
                          cudaStream_t stream);
 
+// The split design (pdhg_window_split.cu): one problem's columns and rows
+// over P blocks of a cooperative launch.  Its slab's bytes in shared
+// memory (f32 values, or the bf16 hi (and lo) planes, each of (m, |J|max
+// | 1) with |J|max = ceil(n / P), rounded to 16 bytes) and a block's
+// whole dynamic shared memory: the slab when res, eight n-vectors of the
+// widest slab, four m-vectors (y, its window sum, sigma*bl, sigma*bu),
+// two more in the bf16 modes (y's hi and lo) and one with cones (w), and
+// the A'y row groups' partial sums.  ops/pdhg_window.py::split_smem_bytes
+// computes the same numbers.
+constexpr int kSplitThreads = 256;
+
+__host__ __device__ inline size_t split_slab_bytes(int mode, int m, int n,
+                                                   int P) {
+  const size_t as = (size_t)(((n + P - 1) / P) | 1);
+  const size_t elem = mode == MODE_F32 ? 4 : 2;
+  const size_t planes = mode == MODE_BF16X3 ? 2 : 1;
+  return (planes * (size_t)m * as * elem + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t split_smem_bytes(int mode, int m, int n,
+                                                   int P, bool cones,
+                                                   bool res) {
+  const size_t W = (size_t)((n + P - 1) / P);
+  const size_t mvecs = 4 + (mode == MODE_F32 ? 0 : 2) + (cones ? 1 : 0);
+  return (res ? split_slab_bytes(mode, m, n, P) : 0) +
+         sizeof(float) * (8 * W + mvecs * (size_t)m + kSplitThreads);
+}
+
+// Its launch: S x P blocks, A[:, J] in shared memory when res, `part` the
+// (S, P, m) scratch, `bar` two zeroed words, `layout` the SOC row
+// partition (ops/pdhg_window.py::split_rows; null without cones).
+cudaError_t launch_split(const Args& g, int mode, int P, bool res,
+                         float* part, unsigned* bar, const int* layout,
+                         cudaStream_t stream);
+
 }  // namespace pdhg

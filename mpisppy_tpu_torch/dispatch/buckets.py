@@ -16,8 +16,9 @@
 # same truth values padded or not.  Every reported bound keeps its
 # certificate either way.  On the card the window kernel's scenario tile
 # follows S (ops/pdhg_window.plan_window), so a lane of a padded batch
-# may run in another tile than unpadded; chip_smoke.py's [dispatch]
-# phase measures whether lanes stay bit-equal.  BnBOptions.jitter > 0
+# may run in another tile (or, in the split design, over another number
+# of blocks, summing in another order) than unpadded; chip_smoke.py's
+# [dispatch] phase measures whether lanes stay bit-equal.  BnBOptions.jitter > 0
 # draws shape-keyed randoms (padded solves then take different, equally
 # valid, tie-breaks).
 ###############################################################################

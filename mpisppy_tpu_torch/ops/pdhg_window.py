@@ -14,8 +14,8 @@
 # keys: run_window(synth=TileSynth), the port of the Pallas engine's
 # in-kernel tile synthesis).
 #
-# Two designs compute the same function; plan_window, a pure function of
-# the mode, the shape and the card's limits, picks one per launch:
+# Three designs compute the same function; plan_window, a pure function
+# of the mode, the shape and the card's limits, picks one per launch:
 # - resident: persistent blocks copy A into shared memory once per launch
 #   and walk tiles of scenarios.  Box and synth batches whose A fits
 #   resident_layout run csrc/pdhg_window_resident.cu (A packed by
@@ -26,7 +26,14 @@
 #   stays in shared memory, every product on CUDA cores).
 # - streamed (csrc/pdhg_window.cu): A read from L2 twice per iteration,
 #   one or four scenarios per block with their state in shared memory.
-#   It takes any A too large for the resident layouts.
+#   It takes any A too large for the resident layouts, at batches that
+#   fill the card.
+# - split (csrc/pdhg_window_split.cu): one problem's columns and rows cut
+#   into P slabs over P blocks of one cooperative launch (split_columns,
+#   split_rows), A's column slab in shared memory where it fits, two grid
+#   barriers an iteration.  It takes the small batches of those shapes
+#   (an EF, an L-shaped master: one problem), which the streamed design
+#   ran on one SM each.
 # run_window.launches_by_design counts each launch under
 # "<instantiation>/<mode>/<design>".
 #
@@ -62,7 +69,7 @@ _MODES = {"f32": 0, "bf16": 1, "bf16x3": 3}
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "pdhg_window.cu", CSRC / "pdhg_window_resident.cu",
-           CSRC / "pdhg_window_cones.cu")
+           CSRC / "pdhg_window_cones.cu", CSRC / "pdhg_window_split.cu")
 BUILD_DIR = _PKG / "_build"
 LIBRARY = BUILD_DIR / "libpdhg_window.so"
 BUILD_LOG = BUILD_DIR / "pdhg_window.log"
@@ -317,7 +324,8 @@ def _library():
     fn.argtypes = ([I, I, I, P, L]
                    + [P, P, I, I, I, I, I, P, P, P] + [P, L] * 6
                    + [P, P, I, I] + [P] * 8
-                   + [U, U, I, I, I, I, F, F, F, I, I, P, P])
+                   + [U, U, I, I, I, I, F, F, F, I, I, P]
+                   + [I, P, P, P, P])
     fn.restype = I
     lib.pdhg_window_limits.argtypes = [ctypes.POINTER(I)] * 2
     lib.pdhg_window_limits.restype = I
@@ -325,6 +333,8 @@ def _library():
     lib.pdhg_window_resident_bytes.restype = L
     lib.pdhg_window_cones_bytes.argtypes = [I, I, I, I, I, I]
     lib.pdhg_window_cones_bytes.restype = L
+    lib.pdhg_window_split_bytes.argtypes = [I] * 6
+    lib.pdhg_window_split_bytes.restype = L
     _lib = lib
     return lib
 
@@ -550,9 +560,11 @@ def streamed_smem_bytes(m: int, n: int, spb: int, cone_ints: int = 0) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class WindowPlan:
-    design: str    # "resident" or "streamed"
-    tile: int      # scenarios per tile (resident) or per block (streamed)
+    design: str    # "resident", "streamed" or "split"
+    tile: int      # scenarios per tile (resident) or per block (streamed),
+                   # blocks per problem (split: P)
     blocks: int    # blocks launched
+    a_smem: bool = False  # split: A's column slab held in shared memory
 
 
 def _resident_plan(mode: str, m: int, n: int, S: int, smem_per_block: int,
@@ -576,18 +588,119 @@ def streamed_fits(m: int, n: int, smem_per_block: int,
     return streamed_smem_bytes(m, n, 1, cone_ints) <= smem_per_block
 
 
+# ---- the split design: one problem over P blocks (pure) ---------------------
+
+SPLIT_THREADS = 256        # csrc/pdhg_window_common.cuh kSplitThreads
+SPLIT_BLOCKS_PER_SM = 2    # blocks of the grid an SM holds at most (the
+                           # kernel's __launch_bounds__(256, 2))
+SPLIT_MIN_COLS = 8         # columns a block takes at least
+SPLIT_MIN_SMS = 4          # SMs a problem gets at least: S <= 33 on an H100
+
+
+def split_columns(n: int, P: int) -> list[tuple[int, int]]:
+    """Block b's column slab [b*n//P, (b+1)*n//P): the formula the kernel
+    computes (ragged; empty slabs when P > n)."""
+    return [(b * n // P, (b + 1) * n // P) for b in range(P)]
+
+
+def split_rows(m: int, P: int, cone_ptr=None, cone_rows=None):
+    """The row partition of the split design as the kernel reads it with
+    SOC blocks: one int32 array [row_ptr (P+1) | box_cnt (P) | cone_ptr
+    (P+1) | rows (m) | cones (C)].  Block b owns rows[row_ptr[b]:
+    row_ptr[b+1]], its box rows first (box_cnt[b] of them), then the rows
+    of its SOC blocks cones[cone_ptr[b]:cone_ptr[b+1]] (whole cones, head
+    first).  Units (a box row, or a whole cone) are taken in order of
+    their first row and a unit goes to the block whose share
+    [b*m//P, (b+1)*m//P) of the running row count holds its start, so
+    without cones block b owns [b*m//P, (b+1)*m//P), the kernel's own
+    formula for box rows."""
+    import numpy as np
+    bounds = np.array([b * m // P for b in range(P + 1)])
+    units = []                      # (first row, rows, cone or -1)
+    is_soc = np.zeros(m, bool)
+    if cone_ptr is not None:
+        ptr = np.asarray(cone_ptr, dtype=np.int64)
+        rws = np.asarray(cone_rows, dtype=np.int64)
+        for k in range(len(ptr) - 1):
+            r = rws[ptr[k]:ptr[k + 1]]
+            is_soc[r] = True
+            units.append((int(r.min()), r, k))
+    units += [(i, np.array([i]), -1) for i in np.flatnonzero(~is_soc)]
+    units.sort(key=lambda u: u[0])
+    box = [[] for _ in range(P)]
+    soc = [[] for _ in range(P)]
+    cones = [[] for _ in range(P)]
+    start = 0
+    for _, r, k in units:
+        b = int(np.searchsorted(bounds, start, side="right")) - 1
+        if k < 0:
+            box[b].append(int(r[0]))
+        else:
+            soc[b].extend(int(v) for v in r)
+            cones[b].append(k)
+        start += len(r)
+    rows = [box[b] + soc[b] for b in range(P)]
+    row_ptr = np.cumsum([0] + [len(r) for r in rows])
+    cone_blk = np.cumsum([0] + [len(c) for c in cones])
+    flat = lambda parts: [v for part in parts for v in part]  # noqa: E731
+    return np.concatenate([row_ptr, [len(v) for v in box], cone_blk,
+                           flat(rows), flat(cones)]).astype(np.int32)
+
+
+def split_smem_bytes(mode: str, m: int, n: int, P: int, cones: bool,
+                     a_smem: bool) -> int:
+    """Dynamic shared memory of a split block (csrc/pdhg_window_common.cuh
+    ::split_smem_bytes): A's widest column slab (W = ceil(n / P) columns,
+    row stride W | 1: f32 values, or the bf16 hi (and lo) planes) when
+    a_smem, eight n-vectors of W, four m-vectors, two more in the bf16
+    modes and one with cones, and SPLIT_THREADS partial sums."""
+    W = -(-n // P)
+    elem, planes = (4, 1) if mode == "f32" else \
+        (2, 2 if mode == "bf16x3" else 1)
+    slab = _round_up(planes * m * (W | 1) * elem, 16) if a_smem else 0
+    mvecs = 4 + (0 if mode == "f32" else 2) + (1 if cones else 0)
+    return slab + 4 * (8 * W + mvecs * m + SPLIT_THREADS)
+
+
+def _split_plan(mode: str, m: int, n: int, S: int, smem_per_block: int,
+                sm_count: int, cones: bool) -> WindowPlan | None:
+    """The split design's plan, or None where it cannot run.  P = the
+    blocks an SM holds (SPLIT_BLOCKS_PER_SM where their shared memory
+    fits the SM's, else fewer) times the SMs, divided by S, and at most
+    n // SPLIT_MIN_COLS; A's slab in shared memory where it fits, else
+    read from L2.  None when S exceeds the blocks the card holds at once
+    or a block's vectors alone pass its shared memory.  The launch checks
+    the grid against the occupancy API and raises past it."""
+    if S <= 0:
+        return None
+    for per_sm in range(SPLIT_BLOCKS_PER_SM, 0, -1):
+        P = min(per_sm * sm_count // S, max(1, n // SPLIT_MIN_COLS))
+        if P < 1:
+            continue
+        for a_smem in (True, False):
+            need = split_smem_bytes(mode, m, n, P, cones, a_smem) \
+                + _STATIC_SMEM
+            if need <= smem_per_block and per_sm * (need + _SMEM_RESERVED) \
+                    <= smem_per_block + _SMEM_RESERVED:
+                return WindowPlan("split", P, S * P, a_smem)
+    return None
+
+
 def design_fits(mode: str, m: int, n: int, S: int, smem_per_block: int,
                 sm_count: int, cone_ints: int = 0) -> bool:
     """Whether some window design takes the shape: the condition under
     which plan_window, with no design named, returns a plan."""
     return _resident_plan(mode, m, n, S, smem_per_block, sm_count,
                           cone_ints) is not None \
-        or streamed_fits(m, n, smem_per_block, cone_ints)
+        or streamed_fits(m, n, smem_per_block, cone_ints) \
+        or _split_plan(mode, m, n, S, smem_per_block, sm_count,
+                       cone_ints > 0) is not None
 
 
 def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
                 sm_count: int, cone_ints: int = 0,
-                design: str | None = None) -> WindowPlan:
+                design: str | None = None,
+                synth: bool = False) -> WindowPlan:
     """The shape rule: which design runs a window.  The resident design
     takes every box or synth batch (cone_ints == 0) whose layout fits
     the card's shared memory per block, at any S, in min(tiles, SMs)
@@ -596,28 +709,60 @@ def plan_window(mode: str, m: int, n: int, S: int, smem_per_block: int,
     iterations, 8 of 132 SMs busy; chip_smoke.py [window_time]).  It
     takes every SOC batch (cone_ints > 0: the CSR offsets, rows and a
     flag per row) whose cone layout fits at some tile, with the tile and
-    grid of _plan_cones.  The streamed design takes the rest, four
+    grid of _plan_cones.  Of the rest, the split design (not with
+    in-kernel synthesis: `synth`) takes a batch of S <= SMs /
+    SPLIT_MIN_SMS problems (33 on an H100), with the P of _split_plan,
+    and any batch it can run that the streamed design cannot take (the
+    735 x 7,050 sampled EF); the streamed design takes the rest, four
     scenarios per block once S >= 8 x SMs and four fit, else one.
-    `design` names the design instead of the rule (to time both on one
-    batch); naming "resident" for a batch it cannot take raises, and so
-    does a shape no design takes (one streamed scenario's vectors past
-    the block's shared memory)."""
+    On an H100 80GB HBM3 at 700 W (chip_smoke.py [window_time_split],
+    f32, 40 iterations) the split window took 0.45-0.47 ms against 37.8
+    streamed on the 660 x 6,345 EF at S=1, 0.21-0.43 ms against 0.49-
+    10.4 on the other one-problem shapes, and on that EF 1.7, 3.6, 6.9,
+    13.6 and 26.9 ms against 37.3-39.4 at S=2, 4, 8, 16 and 33 (A read
+    from L2), but 50.8 against 39.6-42.8 at S=66 and 135.6 against 40.4
+    at S=100; the cross-scenario view (820 x 85, S=100) took 1.86 against
+    3.53 and stays streamed with the rest.  Its P: two blocks an SM and
+    at least 8 columns a block were the fastest of the sweep of
+    chip_smoke.py's SPLIT_SWEEP, or within 0.02 ms of it, at every
+    one-problem shape (0.45 against 0.47 ms for P=264 against 132 on
+    the EF; 0.21 against 0.25 for P=30 against 132 at 197 x 240), and
+    3.6 against 5.9 ms and 13.6 against 22.6 at S=4 and 16.
+    `design` names the design instead of the rule (to time them on one
+    batch); naming one for a batch it cannot take raises, and so does a
+    shape no design takes."""
     resident = _resident_plan(mode, m, n, S, smem_per_block, sm_count,
                               cone_ints)
+    split = None if synth else _split_plan(mode, m, n, S, smem_per_block,
+                                           sm_count, cone_ints > 0)
+    streamed = streamed_fits(m, n, smem_per_block, cone_ints)
     if design is None:
-        design = "resident" if resident is not None else "streamed"
+        if resident is not None:
+            design = "resident"
+        elif split is not None and (not streamed
+                                    or S * SPLIT_MIN_SMS <= sm_count):
+            design = "split"
+        else:
+            design = "streamed"
     if design == "resident":
         if resident is None:
             raise ValueError(f"the resident design cannot take a {mode} "
                              f"window of shape ({m}, {n}) with cones="
                              f"{cone_ints > 0}")
         return resident
+    if design == "split":
+        if split is None:
+            raise ValueError(f"the split design cannot take a {mode} "
+                             f"window of shape ({m}, {n}) at S={S} with "
+                             f"cones={cone_ints > 0}, synth={synth}")
+        return split
     if design != "streamed":
         raise ValueError(f"unknown window design {design!r}")
-    if not streamed_fits(m, n, smem_per_block, cone_ints):
-        raise ValueError(f"no window design takes shape ({m}, {n}) with "
-                         f"cones={cone_ints > 0}: one streamed scenario "
-                         "needs more shared memory than a block has")
+    if not streamed:
+        raise ValueError(f"no window design takes shape ({m}, {n}) at "
+                         f"S={S} with cones={cone_ints > 0}: one streamed "
+                         "scenario needs more shared memory than a block "
+                         "has, and the split design cannot run it")
     spb = 4 if (S >= 8 * sm_count and streamed_smem_bytes(
         m, n, 4, cone_ints) <= smem_per_block) else 1
     return WindowPlan("streamed", spb, max(1, -(-S // spb)))
@@ -636,8 +781,7 @@ def cone_ints_of(p: BoxQP, device) -> int:
 def takes(p: BoxQP, precision=None) -> bool:
     """Whether a window design takes the batch `p` on its device:
     always on the CPU (the plain version runs any shape); on CUDA,
-    design_fits for its shape on this card (a dense A wider than one
-    streamed scenario's shared memory has no design)."""
+    design_fits for its shape on this card."""
     if not supported(p):
         return False
     if p.c.device.type != "cuda":
@@ -679,9 +823,9 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     (S,); A (m, n) shared; l/u/bl/bu shared or per-scenario (a stride-0
     (S, k) view counts as shared).  `synth` (box rows only): the kernel
     draws the TileSynth's rows itself (scengen.window_inputs builds
-    both p and synth from a VirtualBatch).  `design` ("resident" or
-    "streamed") overrides the shape rule, to time both designs on one
-    batch; None lets plan_window decide.
+    both p and synth from a VirtualBatch).  `design` ("resident",
+    "streamed" or "split") overrides the shape rule, to time the designs
+    on one batch; None lets plan_window decide.
 
     CPU tensors take the plain version; CUDA tensors launch the planned
     kernel (counted in run_window.launches under the instantiation's name
@@ -754,8 +898,16 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     lib = _library()
     cone_ints = cone_ints_of(p, x.device)
     plan = plan_window(mode, m, n, S, *card_limits(x.device.index),
-                       cone_ints=cone_ints, design=design)
-    A_main = A_lo = img = None
+                       cone_ints=cone_ints, design=design,
+                       synth=synth is not None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    A_main = A_lo = img = part = layout = bar = None
+    if plan.design == "split":
+        part = torch.empty(S * plan.tile * m, dtype=torch.float32,
+                           device=x.device)
+        bar = _grid_barrier(x.device, stream)
+        if num_cones:
+            layout = _split_layout(spec, m, plan.tile, x.device)
     if plan.design == "resident" and num_cones:
         img = pack_cones(p.A, cone_layout(mode, m, n, plan.tile, cone_ints))
     elif plan.design == "resident":
@@ -780,7 +932,7 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
         else contextlib.nullcontext()
     with rng:
         rc = lib.pdhg_window_launch(
-            int(plan.design == "resident"), plan.tile, plan.blocks, addr(img),
+            _DESIGNS[plan.design], plan.tile, plan.blocks, addr(img),
             0 if img is None else img.numel() * img.element_size(),
             addr(A_main), addr(A_lo), m, n, S, int(n_iters), _MODES[mode],
             addr(tau), addr(sigma), addr(done_f),
@@ -790,7 +942,8 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
             addr(cone_ptr), addr(cone_rows), num_cones, cone_nnz,
             addr(x), addr(y), addr(x_sum), addr(y_sum),
             addr(xo), addr(yo), addr(xso), addr(yso),
-            *draws, ptr(torch.cuda.current_stream(x.device).cuda_stream))
+            *draws, int(plan.a_smem), addr(part), addr(bar), addr(layout),
+            ptr(stream))
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed ({plan.design} "
                            f"design): CUDA error {rc}")
@@ -798,6 +951,32 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     counts = run_window.launches_by_design
     counts[key] = counts.get(key, 0) + 1
     return xo, yo, xso, yso
+
+
+_DESIGNS = {"streamed": 0, "resident": 1, "split": 2}
+_BARRIERS: dict = {}
+
+
+def _grid_barrier(device, stream: int) -> Tensor:
+    """The split kernel's two barrier words (arrive count, blocks
+    finished) for launches on `stream`: zeroed once and left at 0 by
+    every launch that ends, so launches in stream order share them."""
+    key = (device.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIERS[key]
+
+
+def _split_layout(spec, m: int, P: int, device) -> Tensor:
+    """split_rows of the cone spec at P blocks on `device`, built once
+    per (P, device) and cached on the spec beside its CSR."""
+    key = f"split/{P}/{torch.device(device)}"
+    if key not in spec._csr:
+        cone_ptr, cone_rows = spec.csr("cpu")
+        spec._csr[key] = torch.as_tensor(
+            split_rows(m, P, cone_ptr.numpy(), cone_rows.numpy()),
+            device=device)
+    return spec._csr[key]
 
 
 run_window.launches = {"pdhg_window": 0, "pdhg_window_soc": 0,

@@ -317,9 +317,9 @@ def test_sampled_ef_route():
     """gap_estimators solves a sampled EF as a batch of one problem where
     a window design takes it (pdhg_window.takes; on the CPU always, the
     plain version), else unbatched.  On an H100 (232,448 bytes of shared
-    memory a block, 132 SMs) the dense sslp 15x45 EF of 9 scenarios
-    (660 x 6,345) fits one streamed scenario's vectors and that of 10
-    (735 x 7,050) does not: [ci_mmw]'s batch of 9."""
+    memory a block, 132 SMs) the dense sslp 15x45 EFs of 9 scenarios
+    (660 x 6,345) and of 10 (735 x 7,050, past one streamed scenario's
+    vectors) both take the split design: one problem over 264 blocks."""
     from mpisppy_tpu_torch.algos.ef import build_ef
     from mpisppy_tpu_torch.models import sslp as tsslp
     from mpisppy_tpu_torch.ops import boxqp, pdhg_window
@@ -335,7 +335,7 @@ def test_sampled_ef_route():
         assert pdhg_window.takes(one) and not pdhg_window.takes(efp.qp)
         shapes[S] = tuple(efp.qp.A.shape)
     assert shapes == {9: (660, 6345), 10: (735, 7050)}
-    assert pdhg_window.plan_window("f32", *shapes[9], 1, *H100).design \
-        == "streamed"
-    with pytest.raises(ValueError, match="no window design"):
-        pdhg_window.plan_window("f32", *shapes[10], 1, *H100)
+    for S in (9, 10):
+        assert pdhg_window.plan_window("f32", *shapes[S], 1, *H100) == \
+            pdhg_window.WindowPlan("split", 264, 264, True)
+    assert not pdhg_window.streamed_fits(*shapes[10], H100[0])

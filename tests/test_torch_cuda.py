@@ -22,7 +22,10 @@
 # take one box-kernel launch per window.  uc's ELL A runs the plain
 # iteration too (no launch, CPU-equal to f32 noise); the XLA-exact normal
 # draws the same numbers on the card; the box kernel takes FBBT's
-# per-scenario l/u.
+# per-scenario l/u.  The split design (one problem over many blocks of a
+# cooperative launch) is held to the plain version in the three modes at
+# one-problem shapes and at S=4, box and SOC rows, done problems kept
+# bit for bit, and must repeat itself bit for bit.
 # chip_smoke.py does the same at the main path's shapes.
 import dataclasses
 
@@ -677,7 +680,7 @@ def test_kernel_matches_plain_on_this_slices_batches(cuda, shape,
                                                      precision, tol):
     """The decomposition hubs' batches: the fixed-nonant subproblems
     (per-scenario nonant boxes), the single-cut L-shaped master (one
-    problem, a 256-row cut buffer: the streamed design, from a state the
+    problem, a 256-row cut buffer: the split design, from a state the
     window moves), APH's prox batch (q = rho on the nonants) and the
     cross-scenario PH and EF views after one round of cuts (cut rows
     under sslp's, streamed; the EF view's with eta columns and each
@@ -740,3 +743,127 @@ def test_schur_complement_runs_in_f64_on_the_card(cuda):
     assert g["backend_used"] == "cuda" and g["converged"]
     assert g["x"].dtype == np.float64
     assert g["objective"] == pytest.approx(c["objective"], rel=1e-9)
+
+
+# ---- the split design (csrc/pdhg_window_split.cu): one problem over P
+# blocks of a cooperative launch ----
+
+SPLIT_SHAPES = [(660, 6345), (197, 240), (256, 16), (5, 240)]
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("m,n", SPLIT_SHAPES)
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+def test_split_kernel_matches_plain_version(cuda, mode, m, n, S):
+    """The split design, named, against the plain version at n_iters 0,
+    1 and 40: the sampled EF's shape (A's slab in shared memory at S=1,
+    read from L2 at S=4), [ci_seq]'s, the L-shaped master's and a wide
+    one of 5 rows (P = 30 > m: blocks that own no row); at S=4 lane 1 is
+    done and stays bit for bit."""
+    run = pdhg_window.run_window
+    key = f"pdhg_window/{mode}/split"
+    for n_iters in (0, 1, 40):
+        args = _random_window(cuda, S, n_iters, m=m, n=n, seed=2)
+        before = run.launches_by_design.get(key, 0)
+        k = run(*args, precision=mode, design="split")
+        r = pdhg_window.run_window_reference(*args, precision=mode)
+        torch.cuda.synchronize()
+        assert run.launches_by_design[key] == before + 1
+        done = args[7]
+        assert torch.equal(k[0][done], args[1][done])
+        assert torch.equal(k[1][done], args[2][done])
+        if n_iters == 0:
+            for a, b in zip(k, args[1:5]):
+                assert torch.equal(a, b)
+            continue
+        tol = RESIDENT_TOLS[mode]
+        for name, a, b in zip(("x", "y", "x_sum", "y_sum"), k, r):
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol, msg=name)
+
+
+def test_split_kernel_keeps_a_done_problem(cuda):
+    """S=1 with its one problem done: x and y bit for bit, the window
+    sums accumulate."""
+    args = _random_window(cuda, 1, 40, m=660, n=6345, seed=3)
+    args = args[:7] + (torch.ones_like(args[7]),) + args[8:]
+    k = pdhg_window.run_window(*args, design="split")
+    assert torch.equal(k[0], args[1]) and torch.equal(k[1], args[2])
+    torch.testing.assert_close(k[2], args[3] + 40 * args[1], atol=1e-4,
+                               rtol=1e-5)
+    torch.testing.assert_close(k[3], args[4] + 40 * args[2], atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+def test_split_kernel_is_deterministic(cuda, mode):
+    args = _random_window(cuda, 1, 40, m=660, n=6345, seed=4)
+    a = pdhg_window.run_window(*args, precision=mode, design="split")
+    b = pdhg_window.run_window(*args, precision=mode, design="split")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16x3"])
+def test_split_and_streamed_designs_agree(cuda, mode):
+    """The same one-problem window through both designs, named."""
+    args = _random_window(cuda, 1, 40, m=660, n=6345, seed=5)
+    a = pdhg_window.run_window(*args, precision=mode, design="split")
+    b = pdhg_window.run_window(*args, precision=mode, design="streamed")
+    tol = RESIDENT_TOLS[mode]
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("problem", ["ccopf", "ragged"])
+def test_split_soc_kernel_matches_plain_version(cuda, problem, mode, S):
+    """The split design's SOC instantiation, named, against the plain
+    version: whole cones in one block's rows (the ragged blocks out of
+    row order), done lanes bit-unchanged, live duals in the polar cone."""
+    run = pdhg_window.run_window
+    key = f"pdhg_window_soc/{mode}/split"
+    qp = _soc_batch(problem, cuda, S)
+    args = _solver_args(qp)
+    before = run.launches_by_design.get(key, 0)
+    k = run(*args, precision=mode, design="split")
+    r = pdhg_window.run_window_reference(*args, precision=mode)
+    torch.cuda.synchronize()
+    assert run.launches_by_design[key] == before + 1
+    done = args[7]
+    assert torch.equal(k[0][done], args[1][done])
+    assert torch.equal(k[1][done], args[2][done])
+    _assert_soc_close(k, r, args, mode, args[8])
+    live = k[1][~done]
+    if live.numel():
+        dcr = cones.dual_cone_residual_rows(qp.cones, live)
+        assert float(dcr.max()) <= 1e-6 * max(1.0, float(live.abs().max()))
+    again = run(*args, precision=mode, design="split")
+    for u, v in zip(k, again):
+        assert torch.equal(u, v)
+
+
+def test_split_layout_matches_the_kernel(cuda):
+    """The shape rule's shared-memory count for the split design
+    (ops/pdhg_window.py) and the kernel's own agree byte for byte."""
+    lib = pdhg_window._library()
+    codes = {"f32": 0, "bf16": 1, "bf16x3": 3}
+    for mode, code in codes.items():
+        for m, n, P in ((660, 6345, 132), (735, 7050, 132), (256, 16, 16),
+                        (663, 729, 132), (13, 77, 200)):
+            for cones_, res in ((0, 0), (0, 1), (1, 0), (1, 1)):
+                assert lib.pdhg_window_split_bytes(code, m, n, P, cones_,
+                                                   res) == \
+                    pdhg_window.split_smem_bytes(mode, m, n, P, bool(cones_),
+                                                 bool(res)), (mode, m, n, P)
+
+
+def test_split_refuses_what_it_cannot_take(cuda):
+    """Naming the split design for a batch past the card's co-resident
+    blocks raises before any launch; it never falls back."""
+    args = _random_window(cuda, 400, 40, m=13, n=77)
+    before = dict(pdhg_window.run_window.launches_by_design)
+    with pytest.raises(ValueError, match="split design cannot take"):
+        pdhg_window.run_window(*args, design="split")
+    assert dict(pdhg_window.run_window.launches_by_design) == before

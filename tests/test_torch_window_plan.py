@@ -211,22 +211,30 @@ def test_layout_beyond_the_cards_shared_memory_is_streamed(mode):
 def test_this_slices_batches_take_the_streamed_design(mode, shape, S):
     """The batches of the decomposition hubs past the resident rows: the
     cross-scenario PH view of sslp 5x15 at S=100 (8 rounds of 100 cut
-    rows under its 20), the single-cut and the multi-cut L-shaped
-    masters (a 256-row cut buffer, one problem; multi-cut at S=1,000)."""
+    rows under its 20) fills the card and stays streamed, one scenario a
+    block; the single-cut and the multi-cut L-shaped masters (a 256-row
+    cut buffer, one problem; multi-cut at S=1,000) take the split
+    design, two blocks an SM and at least 8 columns a block."""
     plan = pw.plan_window(mode, *shape, S, *H100)
-    assert plan.design == "streamed" and plan.tile == 1
-    assert plan.blocks == S
+    if S > 1:
+        assert plan == pw.WindowPlan("streamed", 1, S)
+    else:
+        P = min(264, shape[1] // 8)
+        assert plan == pw.WindowPlan("split", P, P, True)
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_a_shape_no_design_takes_raises(mode):
-    """One streamed scenario's vectors past the block's shared memory:
-    no design takes the shape, and the rule says so instead of handing
-    the launch a block it cannot start."""
-    m, n = 6_000, 4_000
+    """One streamed scenario's vectors past the block's shared memory,
+    and a split block's m-vectors too: no design takes the shape, and
+    the rule says so instead of handing the launch a block it cannot
+    start.  (6,000 x 4,000, past the streamed design, now splits.)"""
+    m, n = 20_000, 4_000
     assert pw.streamed_smem_bytes(m, n, 1) > H100[0]
+    assert pw.split_smem_bytes(mode, m, n, 26, False, False) > H100[0]
     with pytest.raises(ValueError, match="no window design"):
         pw.plan_window(mode, m, n, 10, *H100)
+    assert pw.plan_window(mode, 6_000, 4_000, 10, *H100).design == "split"
 
 
 @pytest.mark.parametrize("m,n", [(60, 705), (13, 77), (20, 85)])
@@ -283,7 +291,8 @@ def test_build_inputs_cover_every_csrc_file():
     header under csrc/, not one file."""
     names = {p.name for p in pw._build_inputs()}
     assert {"pdhg_window.cu", "pdhg_window_resident.cu",
-            "pdhg_window_cones.cu", "pdhg_window_common.cuh"} <= names
+            "pdhg_window_cones.cu", "pdhg_window_split.cu",
+            "pdhg_window_common.cuh"} <= names
     assert {p.name for p in pw.SOURCES} <= names
 
 
@@ -308,7 +317,8 @@ def test_library_is_stale_when_any_build_input_is_newer(tmp_path,
 
 @pytest.mark.parametrize("shape,cone_ints", [
     ((60, 705), 0), ((64, 768), 0), ((660, 6345), 0), ((735, 7050), 0),
-    ((6_000, 4_000), 0), ((69, 81), 115), ((678, 777), 1_500)])
+    ((6_000, 4_000), 0), ((20_000, 4_000), 0), ((69, 81), 115),
+    ((678, 777), 1_500)])
 @pytest.mark.parametrize("card", [H100, (100_000, 132)])
 @pytest.mark.parametrize("mode", MODES)
 def test_design_fits_is_the_condition_plan_window_plans_under(
@@ -320,8 +330,9 @@ def test_design_fits_is_the_condition_plan_window_plans_under(
     fits = pw.design_fits(mode, m, n, 1, *card, cone_ints=cone_ints)
     if fits:
         plan = pw.plan_window(mode, m, n, 1, *card, cone_ints=cone_ints)
-        assert plan.design in ("resident", "streamed")
+        assert plan.design in ("resident", "streamed", "split")
     else:
         assert not pw.streamed_fits(m, n, card[0], cone_ints)
+        assert pw._split_plan(mode, m, n, 1, *card, cone_ints > 0) is None
         with pytest.raises(ValueError, match="no window design"):
             pw.plan_window(mode, m, n, 1, *card, cone_ints=cone_ints)
