@@ -191,6 +191,18 @@ nvcc per source, started together) and drives its main paths:
   against the JAX CLI ([mpc_uc_cli]) — the two groups in two more card
   workers beside the MIP phases, their CPU comparisons here after the
   join;
+* serving (serve/, mpc/stream.py) — an in-process WheelServer on a unix
+  socket, its sessions in its worker threads on the card: the CLI
+  headline (sslp 15x45, S=10,000, bf16x3, K2) served as one session and
+  held to [cli_headline] ([serve_headline]); loadgen's mixed farmer /
+  sslp / uc load from four clients of two tenants through the exchange
+  ring, each session held to its solo run ([serve_mix]); two sessions'
+  sslp node LPs (S=1,000 each) interned and coalesced into one K1
+  dispatch of 2,000 lanes, each lane held to its solo solve
+  ([serve_coalesce]); a uc MPC stream of 4 windows held to the
+  RollingDriver, and a stream preempted entering window 2 resumed bit
+  for bit ([serve_stream]) — in a card worker of its own, collected
+  after the models' phases;
 
 the CPU halves of the card-against-CPU phases ([wheel_small],
 [wheel_soc_small], [scengen_small], [farmer_wheel], [hydro_small],
@@ -229,7 +241,9 @@ the wheel runs' sizes; `--only ext` (or ext_cli_headline: with
 ext_sensi_mult, ext_bundles) the slice-14 phases; `--only ci` (or
 ci_zhat, which runs [headline] first for its x̂; ci_mmw, ci_seq,
 ci_mstage) the confidence-interval phases, `--only mpc` (or
-mpc_ccopf, mpc_uc_cli) the rolling-horizon phases and `--only
+mpc_ccopf, mpc_uc_cli) the rolling-horizon phases, `--only serve` (or
+serve_headline, which runs [cli_headline] first; serve_mix,
+serve_coalesce, serve_stream) the serving phases and `--only
 window_time_split` the split design's.
 """
 import contextlib
@@ -2454,27 +2468,35 @@ class MipCounts:
                     .replace(" ", ""))
 
 
-def bnb_node_args(batch, seed=0):
-    """B&B node operands at the batch's shapes: the integer root box,
-    lane s's first (s mod 97) integer columns fixed (l == u at 0 or 1),
-    lane 3's first integer column emptied (l > u), a window input two
-    windows into the solve (warm state) with every 7th lane done.
-    Returns (window args, node qp, the emptied column)."""
-    import dataclasses
-
+def node_boxes(batch, shift=0):
+    """B&B node boxes at the batch's shapes: the integer root box with
+    lane s's first ((s + shift) mod 97) integer columns fixed (l == u at
+    (s + shift) mod 2).  Returns (integer columns, lo, hi)."""
     from mpisppy_tpu_torch.ops import bnb
     qp, dev = batch.qp, batch.device
     ic = torch.nonzero(batch.integer_full)[:, 0]
     lo, hi = (torch.as_tensor(v, device=dev) for v in
               bnb._root_bounds(qp, batch.d_col, ic.cpu().numpy()))
     S = qp.c.shape[0]
-    k = torch.arange(S, device=dev) % 97
+    k = (torch.arange(S, device=dev) + shift) % 97
     fixed = torch.arange(ic.numel(), device=dev)[None, :] < k[:, None]
-    val = (torch.arange(S, device=dev) % 2).to(lo.dtype)[:, None]
+    val = ((torch.arange(S, device=dev) + shift) % 2).to(lo.dtype)[:, None]
     lo = torch.where(fixed, val.expand_as(lo), lo)
     hi = torch.where(fixed, val.expand_as(hi), hi)
+    return ic, lo, hi
+
+
+def bnb_node_args(batch, seed=0):
+    """B&B node operands at the batch's shapes: node_boxes, lane 3's
+    first integer column emptied (l > u), a window input two windows
+    into the solve (warm state) with every 7th lane done.  Returns
+    (window args, node qp, the emptied column)."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.ops import bnb
+    ic, lo, hi = node_boxes(batch)
     lo[3, 0], hi[3, 0] = 1.0, 0.0
-    node = bnb._node_qp(qp, batch.d_col, ic, lo, hi)
+    node = bnb._node_qp(batch.qp, batch.d_col, ic, lo, hi)
     nb = dataclasses.replace(batch, qp=node)
     return window_inputs(nb, seed=seed), node, int(ic[0])
 
@@ -3304,6 +3326,7 @@ class CardWorker:
 CARD_WORKER = CardWorker()
 CI_WORKER = CardWorker()
 MPC_WORKER = CardWorker()
+SERVE_WORKER = CardWorker()
 
 
 class EventProbe:
@@ -5242,17 +5265,23 @@ MSTAGE_JAX = {"G": 69.42533895704487, "s": 33.26155985625671, "seed": 194,
 MSTAGE_RTOL = 1e-4
 # [mpc_ccopf]: the (100,100) tree through the horizon's extra_args (after
 # the recipe's --num-scens 9, so the later value must win); the (3,3)
-# horizon against tools/mpc_jax_reference.py's JAX driver
+# horizon against tools/mpc_jax_reference.py's JAX driver, given the
+# port's --convthresh 0 (the horizon's recipe stops only on the gap,
+# ROADMAP C1)
 MPC_STEPS = 3
+# [mpc_ccopf] at (100,100): 2 windows of at most 5 hub iterations (cut
+# from 3 windows when the recipe began to stop only on the gap: window 0
+# then ran 201 hub iterations in 390.7 s on the card with no inner bound)
+MPC_CCOPF_STEPS = 2
 MPC_CCOPF_ARGS = ("--branching-factors", "100", "100", "--num-scens",
-                  str(CCOPF_BFS[0] * CCOPF_BFS[1]))
+                  str(CCOPF_BFS[0] * CCOPF_BFS[1]), "--max-iterations", "5")
 MPC_CCOPF_SMALL_JAX = [
     {"step": 0, "outer": 71.77212524414062, "inner": 71.77219394929853,
      "iterations": 2, "warm": False},
-    {"step": 1, "outer": 83.09886169433594, "inner": 83.10934694600292,
-     "iterations": 2, "warm": True},
-    {"step": 2, "outer": 82.66728210449219, "inner": 82.67946995515376,
-     "iterations": 2, "warm": True}]
+    {"step": 1, "outer": 83.09888458251953, "inner": 83.10305287968367,
+     "iterations": 3, "warm": True},
+    {"step": 2, "outer": 82.66729736328125, "inner": 82.6690691257827,
+     "iterations": 3, "warm": True}]
 MPC_RTOL = 1e-4
 MPC_UC_STEP = 1
 # the JAX CLI's outer bound at window MPC_UC_STEP and at window 0
@@ -5604,7 +5633,7 @@ def ci_mstage_check(g, by_design):
 def mpc_ccopf():
     """[mpc_ccopf]: RollingDriver on ccopf_horizon(soc=True) at the
     CCOPF_BFS tree (10,000 scenarios, MPC_CCOPF_ARGS after the recipe)
-    for MPC_STEPS windows, step 0 cold and the rest from the shifted
+    for MPC_CCOPF_STEPS windows, step 0 cold and the rest from the shifted
     plane: per step hub iterations, seconds, the flags and the resident
     SOC launches (> 0 each), and every wheel the driver spun
     ([mpc_ccopf_spin]: a warm attempt and its cold fallback are two);
@@ -5651,8 +5680,8 @@ def mpc_ccopf():
               .replace(" ", ""))
         return r
     t0 = time.perf_counter()
-    stream = drv.stream(MPC_STEPS)
-    for _ in range(MPC_STEPS):
+    stream = drv.stream(MPC_CCOPF_STEPS)
+    for _ in range(MPC_CCOPF_STEPS):
         runs.append(step("mpc_ccopf", lambda: next(stream),
                          S=cfg["num_scens"]))
     for r in runs[1:]:
@@ -5665,12 +5694,13 @@ def mpc_ccopf():
           cold_fallbacks=sum(r.cold_fallback for r in runs),
           degraded_steps=sum(r.degraded for r in runs),
           seconds=round(time.perf_counter() - t0, 2))
-    # a window may end degraded (no inner bound within its hub iterations,
-    # ROADMAP C11): the driver types it and the stream goes on.  At
-    # (10,10) both packages certify every window on the CPU, the warm
-    # ones after a cold fallback; at (30,30) every window ends degraded
-    # in both (tools/mpc_c11_probe.py); at this tree every window ends
-    # degraded on the card (the JAX driver not run at this size)
+    # a window may end degraded (no inner bound within its hub
+    # iterations): the driver types it and the stream goes on.  Since the
+    # recipe stops only on the gap (ROADMAP C1), the (10,10) windows
+    # certify on the CPU, the warm ones in more hub iterations than cold
+    # (tools/mpc_c11_probe.py); at this tree no x̂ bound landed in 201
+    # hub iterations on the card (ROADMAP C13; the JAX driver not run at
+    # this size)
     if not (later_wins and all(n > 0 for n in soc) and not runs[0].warm
             and all(math.isfinite(r.outer) for r in runs)):
         raise AssertionError("mpc_ccopf: --num-scens/--branching-factors "
@@ -5836,6 +5866,429 @@ def mpc_and_ci_small_runs():
     return {"mpc": mpc_runs(), "ci_small": ci_small_runs()}
 
 
+# serving (mpisppy_tpu_torch/serve/, mpc/stream.py): sessions served by an
+# in-process WheelServer on a unix socket, their wheels in the server's
+# worker threads on the card
+SERVE_HEADLINE_ARGS = ("--n-servers", str(SSLP_SERVERS), "--n-clients",
+                       str(SSLP_CLIENTS), "--xhatshuffle", "--slammin",
+                       "--iter-precision", "bf16x3", "--default-rho", "20",
+                       "--sslp-lp-relax")
+SERVE_HEADLINE_RTOL = 1e-6     # the same code on the same argv
+SERVE_MIX_RTOL = 1e-4          # the ring reorders host exchanges only
+SERVE_MIX_MAX_ITERS = 300      # bench.py's bench_serve_load smoke shape
+SERVE_MIX_DEADLINE_S = 600.0
+SERVE_COALESCE_SCENS = 1_000   # [bnb_operands]' node LPs, per session
+SERVE_STREAM_STEPS = 4
+SERVE_STREAM_ARGS = ("--uc-n-gens", "3", "--uc-n-hours", "6")
+SERVE_STREAM_GAP = 0.05
+# a window's hub iterations (SubmitRequest's default 200 cut to 100: a
+# warm window that misses the gap falls back cold, so a window costs at
+# most two wheels of this many)
+SERVE_STREAM_MAX_ITERS = 100
+SERVE_STREAM_RTOL = 1e-6
+SERVE_STREAM_PREEMPT_STEP = 2
+
+
+def serve_options(td, device, **kw):
+    import os
+
+    from mpisppy_tpu_torch.serve import ServeOptions
+    return ServeOptions(unix_path=os.path.join(td, "wheel.sock"),
+                        trace_dir=os.path.join(td, "traces"),
+                        spool_dir=os.path.join(td, "spool"),
+                        device=str(device), **kw)
+
+
+def served(address, spec, on_line=None, timeout=1800.0):
+    """Submit `spec` through a ServeClient and read the session's lines to
+    its terminal one: (the ack, the session's lines, client seconds)."""
+    from mpisppy_tpu_torch.serve import loadgen
+    from mpisppy_tpu_torch.serve.protocol import TERMINAL_EVENTS
+    cl = loadgen.ServeClient(address, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        ack = cl.submit(spec)
+        lines = []
+        if ack.get("ok"):
+            for msg in cl.stream():
+                if msg.get("session") not in (None, ack["session"]):
+                    continue
+                lines.append(msg)
+                if on_line is not None:
+                    on_line(msg)
+                if msg.get("event") in TERMINAL_EVENTS:
+                    break
+        return ack, lines, time.perf_counter() - t0
+    finally:
+        cl.close()
+
+
+def events_of(lines, kind):
+    return [m for m in lines if m.get("event") == kind]
+
+
+def max_rel(pairs):
+    return max(abs(a - b) / max(abs(b), 1.0) for a, b in pairs)
+
+
+def serve_headline(cli_headline, device="cuda", S=HEADLINE_SCENS):
+    """[serve_headline]: the CLI headline (sslp 15x45, S scenarios, bf16x3,
+    rho 20, all four fusable spokes, CLI_HEADLINE_ITERS hub iterations)
+    as one session of WheelServer(multiplex=False): accepted, a progress
+    line per hub row, done, its bounds [cli_headline]'s for the same
+    argv within SERVE_HEADLINE_RTOL, its windows in K2.  Returns the
+    launches by design."""
+    import tempfile
+
+    from mpisppy_tpu_torch.serve import SubmitRequest, WheelServer
+    spec = SubmitRequest(tenant="headline", sla="throughput", model="sslp",
+                         num_scens=S, gap_target=0.01,
+                         max_iterations=CLI_HEADLINE_ITERS,
+                         args=SERVE_HEADLINE_ARGS)
+    with tempfile.TemporaryDirectory(prefix="serve") as td:
+        srv = WheelServer(serve_options(td, device, multiplex=False,
+                                        max_running=1)).start()
+        try:
+            reset_launches()
+            ack, lines, secs = served(srv.address, spec)
+            by_design = launches_since_reset()
+        finally:
+            srv.stop()
+    done = events_of(lines, "done")
+    progress = events_of(lines, "progress")
+    # a capped run may end before its inner bound lands (null in both)
+    pairs = [(done[0][f], cli_headline[f + "_bound"])
+             for f in ("outer", "inner")
+             if done and cli_headline[f + "_bound"] is not None]
+    rel = max_rel(pairs) if done and cli_headline["outer_bound"] is not \
+        None and (done[0]["inner"] is None) == (
+            cli_headline["inner_bound"] is None) else math.inf
+    k2 = by_design.get("pdhg_window/bf16x3/resident", 0)
+    phase("serve_headline", S=S, accepted=bool(ack.get("ok")),
+          progress_lines=len(progress),
+          terminal=",".join(m["event"] for m in lines
+                            if m.get("event") in ("done", "failed",
+                                                  "rejected")),
+          hub_iters=done[0]["iterations"] if done else None,
+          outer=done[0]["outer"] if done else None,
+          inner=done[0]["inner"] if done else None,
+          cli_outer=cli_headline["outer_bound"],
+          cli_inner=cli_headline["inner_bound"], max_rel_diff_vs_cli=rel,
+          tol=SERVE_HEADLINE_RTOL, client_s=round(secs, 3),
+          solve_s=done[0]["solve_seconds"] if done else None,
+          k2_launches=k2,
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    on_card = torch.device(device).type == "cuda"
+    if not (ack.get("ok") and len(done) == 1 and lines[-1] is done[0]
+            and len(progress) >= done[0]["iterations"]
+            and done[0]["iterations"] == cli_headline["iterations"]
+            and rel <= SERVE_HEADLINE_RTOL and (k2 > 0 or not on_card)):
+        raise AssertionError("serve_headline: not accepted, no single done "
+                             "line, a hub row unstreamed, bounds off "
+                             "[cli_headline], or no K2 launch")
+    return by_design
+
+
+def serve_mix(device="cuda"):
+    """[serve_mix]: WheelServer(multiplex=True, max_running=3,
+    tenant_quota=1) under loadgen.run_load (4 clients, tenants acme and
+    zeta, one session each of DEFAULT_MIX, gap 1%, SERVE_MIX_MAX_ITERS):
+    every session ends in exactly one terminal outcome, done, and each
+    one's bounds equal the same spec solved alone through
+    WheelEngine(multiplexed=True) within SERVE_MIX_RTOL.  Prints p50/p99
+    time to gap, the ring's grants and waits, the interner's hits, the
+    scheduler's stats and the launches by design.  Returns the served
+    run's launches by design."""
+    import tempfile
+
+    from mpisppy_tpu_torch.serve import WheelServer, loadgen
+    from mpisppy_tpu_torch.serve.engine import WheelEngine
+    from mpisppy_tpu_torch.serve.session import Session
+    with tempfile.TemporaryDirectory(prefix="serve") as td:
+        srv = WheelServer(serve_options(
+            td, device, multiplex=True, max_running=3, tenant_quota=1,
+            max_queued=24, max_queued_per_tenant=8)).start()
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            recs = loadgen.run_load(
+                srv.address, n_clients=4, sessions_each=1,
+                tenants=("acme", "zeta"), mix=loadgen.DEFAULT_MIX,
+                gap_target=0.01, max_iterations=SERVE_MIX_MAX_ITERS,
+                deadline_s=SERVE_MIX_DEADLINE_S)
+            wall = time.perf_counter() - t0
+            by_design = launches_since_reset()
+            stats = srv.stats()
+            sessions = list(srv._sessions.values())
+            interner = srv.engine.interner.stats()
+        finally:
+            srv.stop()
+    summ = loadgen.summarize(recs)
+    phase("serve_mix", sessions=len(sessions),
+          outcomes=json.dumps(summ["outcomes"], sort_keys=True)
+          .replace(" ", ""),
+          time_to_gap_p50_s=summ["time_to_gap_p50_s"],
+          time_to_gap_p99_s=summ["time_to_gap_p99_s"],
+          total_p50_s=summ["total_p50_s"], wall_s=round(wall, 2),
+          ring=json.dumps(stats.get("exchange_ring")).replace(" ", ""),
+          interner=json.dumps(interner, sort_keys=True).replace(" ", ""),
+          dispatch=json.dumps({k: v for k, v in (stats.get("dispatch") or {})
+                               .items() if k != "by_key"})
+          .replace(" ", ""),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    ok = len(sessions) == len(recs) == 4 and all(
+        r["outcome"] == "done" for r in recs) and all(
+        s.state == "DONE" and s.outcome["event"] == "done"
+        for s in sessions)
+    worst = 0.0
+    for s in sessions:
+        if s.outcome is None or s.outcome["event"] != "done":
+            continue
+        t0 = time.perf_counter()
+        _, solo = WheelEngine(multiplexed=True, device=device).run(
+            Session(s.spec))
+        rel = max_rel(((s.outcome[f], solo[f]) for f in ("outer", "inner")))
+        worst = max(worst, rel)
+        phase("serve_mix_session", tenant=s.tenant, sla=s.sla,
+              model=s.spec.model, num_scens=s.spec.num_scens,
+              hub_iters=s.outcome["iterations"], outer=s.outcome["outer"],
+              inner=s.outcome["inner"], rel_gap=s.outcome["rel_gap"],
+              served_solve_s=s.outcome["solve_seconds"],
+              total_s=round(s.seconds(), 3),
+              solo_outer=solo["outer"], solo_inner=solo["inner"],
+              solo_hub_iters=solo["iterations"],
+              solo_s=round(time.perf_counter() - t0, 3),
+              max_rel_diff_vs_solo=rel, tol=SERVE_MIX_RTOL)
+    if not (ok and worst <= SERVE_MIX_RTOL
+            and stats["exchange_ring"]["grants"] > 0):
+        raise AssertionError("serve_mix: a session without exactly one "
+                             "done outcome, bounds off its solo run, or no "
+                             "exchange through the ring")
+    return by_design
+
+
+def node_lp_solve(qp, d_col, int_cols, opts, **kw):
+    """The scheduler's solve for [serve_coalesce]: the node LPs'
+    relaxation by the restarted PDHG from a cold start, ||A|| estimated
+    once from the shared A (so a lane's iterates do not depend on the
+    batch it rides in), the LP value as both bounds."""
+    import dataclasses
+
+    from mpisppy_tpu_torch.ops import bnb, pdhg
+    lp = mip_node_lp()
+    one = dataclasses.replace(qp, c=qp.c.reshape(-1, qp.n)[0])
+    st = pdhg.init_state(qp, lp, Lnorm=pdhg.estimate_norm(one,
+                                                         lp.power_iters))
+    st = pdhg.solve(qp, lp, state=st)
+    obj = (qp.c * st.x + 0.5 * qp.q * st.x * st.x).sum(-1)
+    S = st.x.shape[0]
+    return bnb.BnBResult(x=st.x, inner=obj, outer=obj,
+                         gap=torch.zeros_like(obj), feasible=st.done,
+                         nodes_solved=torch.ones(S, dtype=torch.int32,
+                                                 device=obj.device))
+
+
+def serve_coalesce(device="cuda", S=SERVE_COALESCE_SCENS):
+    """[serve_coalesce]: two sessions' sslp 15x45 node LPs (S lanes each,
+    node_boxes shifted by 13 lanes for the second; each session builds
+    its own batch) interned through one
+    StructureInterner and submitted concurrently from two threads, each
+    with its session token, to one coalescing SolveScheduler: one
+    dispatch of 2S lanes in resident K1 f32, every lane equal to its
+    solo solve within TOLS f32, the breakdown naming both runs; the
+    same submits uninterned make two dispatches.  Returns the coalesced
+    dispatch's launches by design."""
+    import threading
+
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.ops import bnb
+    from mpisppy_tpu_torch.serve import multiplex
+    interner = multiplex.StructureInterner()
+    raw, interned = [], []
+    for i in range(2):
+        batch, _ = sslp_mip_batch(S, SSLP_SERVERS, SSLP_CLIENTS, device)
+        cols, lo, hi = node_boxes(batch, shift=13 * i)
+        node = bnb._node_qp(batch.qp, batch.d_col, cols, lo, hi)
+        ic = cols.cpu().numpy()
+        raw.append((node, batch.d_col, ic))
+        qp, d = multiplex.intern_qp(node, batch.d_col, interner=interner)
+        interned.append((qp, d, ic))
+    same_A = interned[0][0].A is interned[1][0].A
+
+    def concurrent(sched, reqs):
+        out, barrier = {}, threading.Barrier(len(reqs))
+
+        def worker(i):
+            # both submit before either blocks: result() dispatches its
+            # window at once
+            dispatch.set_session_context(f"serve-coalesce-{i}", 0)
+            try:
+                ticket = sched.submit(*reqs[i])
+                barrier.wait(timeout=60)
+                out[i] = ticket.result(timeout=600)
+            finally:
+                dispatch.clear_session_context()
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        stats = sched.stats()
+        sched.close()
+        return out, stats
+
+    from mpisppy_tpu_torch import telemetry as tel
+    probe = EventProbe(tel.DISPATCH)
+    bus = tel.EventBus()
+    bus.subscribe(probe)
+    reset_launches()
+    t0 = time.perf_counter()
+    res, st = concurrent(dispatch.SolveScheduler(
+        dispatch.DispatchOptions(coalesce=True, max_wait_ms=5000.0),
+        solve_fn=node_lp_solve, bus=bus, run="serve-coalesce"), interned)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_design = launches_since_reset()
+    errs, within = [], True
+    for i, (qp, d, ic) in enumerate(interned):
+        solo = node_lp_solve(qp, d, ic, None)
+        err, ok = max_err([res[i].x, res[i].inner], [solo.x, solo.inner],
+                          "f32")
+        errs.append(err)
+        within = within and ok
+    _, control = concurrent(dispatch.SolveScheduler(
+        dispatch.DispatchOptions(coalesce=True, max_wait_ms=5000.0),
+        solve_fn=node_lp_solve), raw)
+    runs = sorted(s["run"] for d in probe.of(tel.DISPATCH)
+                  for s in d.get("sessions", ()))
+    phase("serve_coalesce", S_per_session=S, same_A_object=same_A,
+          interner=json.dumps(interner.stats(), sort_keys=True)
+          .replace(" ", ""),
+          batches=st["batches"], lanes=st["lanes"],
+          pad_lanes=st["pad_lanes"], coalesced_lanes=st["coalesced_lanes"],
+          runs=",".join(runs), seconds=round(secs, 3),
+          max_abs_err_vs_solo=max(errs), within_tol=within,
+          tol=json.dumps(TOLS["f32"]),
+          uninterned_batches=control["batches"],
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    on_card = torch.device(device).type == "cuda"
+    if not (same_A and st["batches"] == 1 and st["lanes"] == 2 * S
+            and st["coalesced_lanes"] == 2 * S
+            and runs == ["serve-coalesce-0", "serve-coalesce-1"]
+            and (set(by_design) == {"pdhg_window/f32/resident"}
+                 or not on_card)
+            and within and control["batches"] == 2):
+        raise AssertionError("serve_coalesce: not one coalesced K1 dispatch "
+                             "of both sessions' lanes, a lane off its solo "
+                             "solve, or the uninterned control coalesced")
+    return by_design
+
+
+def serve_stream(device="cuda", steps=SERVE_STREAM_STEPS,
+                 args=SERVE_STREAM_ARGS):
+    """[serve_stream]: a uc MPC stream (`steps` windows, gap
+    SERVE_STREAM_GAP) through WheelServer: a step line per window, then
+    done, each step's bounds those of RollingDriver(horizon_for(spec))
+    run directly within SERVE_STREAM_RTOL; then the same stream preempted
+    entering step SERVE_STREAM_PREEMPT_STEP (the hub's preempt_event,
+    set when the client reads the step before and cleared when it reads
+    the preempted line) resumes from its spool checkpoint with the
+    fault-free stream's step lines bit for bit.
+    Returns the launches by design (uc's ELL batch: none expected)."""
+    import tempfile
+
+    from mpisppy_tpu_torch.mpc import RollingDriver, horizon_for
+    from mpisppy_tpu_torch.serve import SubmitRequest, WheelServer
+    spec = SubmitRequest(tenant="grid", sla="latency", model="uc",
+                         num_scens=3, gap_target=SERVE_STREAM_GAP,
+                         max_iterations=SERVE_STREAM_MAX_ITERS, args=args,
+                         mpc_steps=steps, step_deadline_s=1200.0)
+    with tempfile.TemporaryDirectory(prefix="serve") as td:
+        srv = WheelServer(serve_options(td, device, multiplex=False,
+                                        max_running=1)).start()
+        try:
+            reset_launches()
+            ack, lines, secs = served(srv.address, spec)
+
+            def preempt(msg):
+                # the drain signal stays set until its owner clears it;
+                # the resumed window reaches its first sync only after
+                # its cold iter0 windows, long after this line is read
+                ev = srv._sessions[msg["session"]].preempt_event
+                if msg.get("event") == "step" \
+                        and msg["step"] == SERVE_STREAM_PREEMPT_STEP - 1:
+                    ev.set()
+                elif msg.get("event") == "preempted":
+                    ev.clear()
+            ack2, lines2, secs2 = served(srv.address, spec, on_line=preempt)
+            by_design = launches_since_reset()
+            stats = srv.stats()
+        finally:
+            srv.stop()
+    t0 = time.perf_counter()
+    direct = list(RollingDriver(horizon_for(spec), device=device)
+                  .stream(steps))
+    direct_s = time.perf_counter() - t0
+    base = {m["step"]: m for m in events_of(lines, "step")}
+    chaos = {m["step"]: m for m in events_of(lines2, "step")}
+    pairs = [(base[r.step][f], getattr(r, f)) for r in direct
+             if r.step in base for f in ("outer", "inner")
+             if math.isfinite(getattr(r, f))]
+    rel = max_rel(pairs) if pairs else math.inf
+    same = sorted(chaos) == sorted(base) and all(
+        chaos[k][f] == base[k][f] for k in base
+        for f in ("outer", "inner", "rel_gap", "x_root", "warm"))
+    done, done2 = events_of(lines, "done"), events_of(lines2, "done")
+    phase("serve_stream", steps=len(base), client_s=round(secs, 3),
+          outer=json.dumps([base[k]["outer"] for k in sorted(base)]),
+          inner=json.dumps([base[k]["inner"] for k in sorted(base)]),
+          warm=json.dumps([base[k]["warm"] for k in sorted(base)]),
+          step_latency_s=json.dumps([base[k]["latency_s"]
+                                     for k in sorted(base)]),
+          degraded_steps=done[0]["degraded_steps"] if done else None,
+          direct_s=round(direct_s, 3), max_rel_diff_vs_driver=rel,
+          tol=SERVE_STREAM_RTOL,
+          preempted_lines=len(events_of(lines2, "preempted")),
+          resumed_client_s=round(secs2, 3), resumed_equal_bit_for_bit=same,
+          preemptions=stats["preemptions"],
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (ack.get("ok") and ack2.get("ok") and len(done) == 1
+            and len(done2) == 1 and sorted(base) == list(range(steps))
+            and len(pairs) >= steps and rel <= SERVE_STREAM_RTOL
+            and len(events_of(lines2, "preempted")) == 1
+            and done2[0]["preemptions"] == 1 and same):
+        raise AssertionError("serve_stream: a step line missing, bounds off "
+                             "the RollingDriver's, or the resumed stream "
+                             "not bit-identical to the fault-free one")
+    return by_design
+
+
+def serve_runs(cli_headline):
+    """The serving phases (a card worker's entry beside the other
+    groups): returns the launches by design of the served runs."""
+    t0 = time.perf_counter()
+    total = {}
+    merge_launches(total, serve_headline(cli_headline))
+    torch.cuda.empty_cache()
+    merge_launches(total, serve_mix())
+    merge_launches(total, serve_coalesce())
+    torch.cuda.empty_cache()
+    merge_launches(total, serve_stream())
+    phase("serve_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return total
+
+
+def cli_headline_alone():
+    """--only serve / serve_headline: [cli_headline] run here for the
+    served headline's reference."""
+    result, _, _, _ = cli_run("cli_headline", cli_capped(
+        CLI_HEADLINE, "--max-iterations", CLI_HEADLINE_ITERS))
+    return result
+
+
 def headline_xhat(dev):
     """--only ci / ci_zhat: [headline] run here for its x̂ and inner
     bound."""
@@ -5878,7 +6331,7 @@ def main() -> int:
         return run(sys.argv[1:])
     finally:
         CPU_HALVES.close()
-        for worker in (CARD_WORKER, CI_WORKER, MPC_WORKER):
+        for worker in (CARD_WORKER, CI_WORKER, MPC_WORKER, SERVE_WORKER):
             worker.close()
 
 
@@ -5951,6 +6404,12 @@ def run(argv) -> int:
             "mpc": lambda dev: mpc_check(mpc_runs()),
             "mpc_ccopf": lambda dev: mpc_ccopf(),
             "mpc_uc_cli": lambda dev: mpc_uc_check(mpc_uc_cli()),
+            "serve": lambda dev: serve_runs(cli_headline_alone()),
+            "serve_headline": lambda dev: serve_headline(
+                cli_headline_alone()),
+            "serve_mix": lambda dev: serve_mix(),
+            "serve_coalesce": lambda dev: serve_coalesce(),
+            "serve_stream": lambda dev: serve_stream(),
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if argv[:1] == ["--only"]:
@@ -5984,6 +6443,10 @@ def run(argv) -> int:
     # comparisons here, after the join)
     CI_WORKER.start("ci_runs", sync["headline"]["xhat"],
                     sync["headline"]["bounds"][1])
+    # the serving phases in a card worker of their own, collected after
+    # the models' phases: its session threads share the card with every
+    # host loop until then
+    SERVE_WORKER.start("serve_runs", sync["cli_headline"])
     MPC_WORKER.start("mpc_and_ci_small_runs")
     _, _, mip_launches = mip_path(dev)
     torch.cuda.empty_cache()
@@ -6001,6 +6464,7 @@ def run(argv) -> int:
     resilience_launches = resilience_path(dev, sync)
     torch.cuda.empty_cache()
     models_launches = models_path(dev, full)
+    serve_launches = SERVE_WORKER.result()
     # [profile_cli]'s windows ran in K2 and K1 (its capped CLI headline);
     # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
     # K2 (APH's bf16x3), the split box design (L-shaped masters), the
@@ -6022,6 +6486,7 @@ def run(argv) -> int:
     credit(kernels, ext_launches)
     credit(kernels, ci_launches)
     credit(kernels, mpc_launches)
+    credit(kernels, serve_launches)
     # the split design's main path: the sampled EFs and the L-shaped
     # master (box rows), the root-fixed ccopf EFs (SOC rows)
     idle = [e["name"] for e in kernels

@@ -1092,6 +1092,14 @@ class AsyncPHHub(PHHub):
             return drv
         return int(mirror or 0)
 
+    def _exchange_gate(self):
+        """Context guarding the host-complete half.  The default is a
+        no-op; the serve layer's multiplexer (serve/multiplex.py)
+        overrides it with a token ring, so only one session at a time
+        runs its host exchange while every other session's device-issue
+        half keeps feeding the card."""
+        return contextlib.nullcontext()
+
     def _sync_body(self):
         staleness = self._async_staleness()
         if staleness <= 0:
@@ -1111,7 +1119,7 @@ class AsyncPHHub(PHHub):
                     "async_plane_staleness",
                     float(evd.get("staleness", 0)))
         t1 = time.perf_counter()
-        with self._span("exchange_complete"):
+        with self._span("exchange_complete"), self._exchange_gate():
             if plan is not None:
                 # a slow host harvest (AsyncExchangeFault) — the wedged
                 # exchange the watchdog must still catch

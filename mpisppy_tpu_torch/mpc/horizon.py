@@ -12,10 +12,15 @@
 # every stochastic draw from the step (uc's AR(1) demand through
 # fold_in(base, step); ccopf's branch multipliers) and roll the
 # deterministic data (uc's demand profile; ccopf's load drift) by
-# stride*step, so window k is reproducible from {base_seed, k} alone.
+# stride*step, so window k is reproducible from {base_seed, k} alone —
+# the property the serve stream's preemption resume leans on
+# (mpc/stream.py).  horizon_for bridges a streaming serve SubmitRequest
+# to its HorizonSpec.
 #
-# The JAX package's horizon_for (a serve SubmitRequest to its horizon)
-# comes with the serving layer.
+# One departure from the JAX package: ccopf_horizon's recipe stops only
+# on the gap (--convthresh 0).  With the CLI's default convthresh a warm
+# window stopped at hub iteration 2, its x̂ bound not yet landed: the
+# seeded x̄ leaves ||x - x̄|| ~1e-7 at once (ROADMAP C1).
 ###############################################################################
 from __future__ import annotations
 
@@ -103,7 +108,10 @@ def ccopf_horizon(soc: bool = True, gap_target: float = 0.01,
     setpoints to stage 1, re-keys the branch multipliers and drifts the
     load (models/ccopf.py's mpc hooks).  The window is the 2 nonant
     stages; the stride is one decision epoch.  `extra_args` come after
-    the recipe, so a later --num-scens or --branching-factors wins."""
+    the recipe, so a later --num-scens or --branching-factors (or a
+    --convthresh) wins.  The recipe stops only on the gap: the shifted
+    plane makes ||x - x̄|| ~1e-7 from the first sync, so the CLI's
+    default convthresh ended a warm window before its x̂ bound landed."""
     from mpisppy_tpu_torch.models import ccopf as ccopf_mod
     ng = len(ccopf_mod.grid_instance()["gens"])
     # 9 scenarios = the default (3, 3) tree's leaves
@@ -111,6 +119,7 @@ def ccopf_horizon(soc: bool = True, gap_target: float = 0.01,
                         max_step_iterations)
     if soc:
         argv += ["--soc"]
+    argv += ["--convthresh", "0"]
     argv += list(extra_args)
     return HorizonSpec(
         name=f"ccopf-{'soc' if soc else 'dc'}", model="ccopf",
@@ -118,3 +127,59 @@ def ccopf_horizon(soc: bool = True, gap_target: float = 0.01,
         base_argv=tuple(argv), step_flag="--ccopf-mpc-step",
         gap_target=float(gap_target),
         max_step_iterations=int(max_step_iterations))
+
+
+def horizon_for(spec) -> HorizonSpec:
+    """The serve bridge: a streaming SubmitRequest (spec.mpc_steps > 0)
+    to its HorizonSpec.  The session's model args ride along as
+    extra_args so clients tune scale the same way non-streaming
+    sessions do; uc window geometry is read back out of them because
+    the ShiftPlan must match the solved window exactly."""
+    args = list(spec.args)
+
+    def _flag(name: str, default: int) -> int:
+        val = default
+        for i, a in enumerate(args):
+            if a == name and i + 1 < len(args):
+                val = int(args[i + 1])
+            elif a.startswith(name + "="):
+                val = int(a.split("=", 1)[1])
+        return val
+
+    def _without(name: str) -> tuple:
+        """args minus a value-taking flag (both spellings) — the
+        driver owns the step counter; a stray client copy would
+        shadow every step with one frozen window."""
+        out, skip = [], False
+        for i, a in enumerate(args):
+            if skip:
+                skip = False
+                continue
+            if a == name:
+                skip = i + 1 < len(args)
+                continue
+            if a.startswith(name + "="):
+                continue
+            out.append(a)
+        return tuple(out)
+
+    if spec.model == "uc":
+        # the serve default stays interactive-sized (the engine's 3g/6h
+        # session scale); a client asking for a 24 h horizon passes
+        # --uc-n-hours 24 in spec.args
+        return uc_horizon(
+            n_gens=_flag("--uc-n-gens", 3),
+            n_hours=_flag("--uc-n-hours", 6),
+            stride=_flag("--uc-mpc-stride", 1),
+            num_scens=spec.num_scens, gap_target=spec.gap_target,
+            max_step_iterations=spec.max_iterations,
+            extra_args=_without("--uc-mpc-step"))
+    if spec.model == "ccopf":
+        return ccopf_horizon(
+            soc="--soc" in args, gap_target=spec.gap_target,
+            max_step_iterations=spec.max_iterations,
+            extra_args=tuple(a for a in _without("--ccopf-mpc-step")
+                             if a != "--soc"))
+    raise ValueError(
+        f"model {spec.model!r} has no rolling-horizon hook "
+        "(want uc or ccopf)")

@@ -52,6 +52,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -77,6 +78,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+# Sessions of the wheel server run in threads of one process, and two of
+# them may reach their first window together: the library is built and
+# loaded once under _LIB_LOCK, and the launch counters and the split
+# design's barrier words are updated under _COUNT_LOCK.
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,10 +315,16 @@ def _stale() -> bool:
 
 def _library():
     """Build (at first use, when missing or older than any file under
-    csrc/) and load the kernels' shared library."""
-    global _lib
+    csrc/) and load the kernels' shared library, once per process: a
+    thread that arrives while another builds waits for it."""
     if _lib is not None:
         return _lib
+    with _LIB_LOCK:
+        return _lib if _lib is not None else _load_library()
+
+
+def _load_library():                     # holds-lock: _LIB_LOCK
+    global _lib
     t0 = time.perf_counter()
     if _stale():
         build()
@@ -343,10 +356,12 @@ def build() -> str:
     """Compile the csrc/ sources with nvcc for sm_90a, one nvcc per
     source, all started together, and link them into one library in
     BUILD_DIR.  Returns the compiler's output (ptxas register, spill and
-    shared-memory lines of every kernel)."""
+    shared-memory lines of every kernel).  The objects and the library
+    are made under names of this process and thread, then renamed into
+    place, so concurrent builds never write one file."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = os.getpid()
+    tag = f"{os.getpid()}.{threading.get_ident()}"
     objs = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in SOURCES]
     cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
              str(src)] for src, obj in zip(SOURCES, objs)]
@@ -947,9 +962,10 @@ def run_window(p: BoxQP, x: Tensor, y: Tensor, x_sum: Tensor,
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed ({plan.design} "
                            f"design): CUDA error {rc}")
-    run_window.launches[kernel] += 1
-    counts = run_window.launches_by_design
-    counts[key] = counts.get(key, 0) + 1
+    with _COUNT_LOCK:
+        run_window.launches[kernel] += 1
+        counts = run_window.launches_by_design
+        counts[key] = counts.get(key, 0) + 1
     return xo, yo, xso, yso
 
 
@@ -962,9 +978,11 @@ def _grid_barrier(device, stream: int) -> Tensor:
     finished) for launches on `stream`: zeroed once and left at 0 by
     every launch that ends, so launches in stream order share them."""
     key = (device.index, stream)
-    if key not in _BARRIERS:
-        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _BARRIERS[key]
+    with _COUNT_LOCK:
+        if key not in _BARRIERS:
+            _BARRIERS[key] = torch.zeros(2, dtype=torch.int32,
+                                         device=device)
+        return _BARRIERS[key]
 
 
 def _split_layout(spec, m: int, P: int, device) -> Tensor:

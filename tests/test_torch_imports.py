@@ -156,6 +156,16 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/mpc/shift.py",
                  "mpisppy_tpu_torch/mpc/horizon.py",
                  "mpisppy_tpu_torch/mpc/driver.py",
+                 "mpisppy_tpu_torch/mpc/stream.py",
+                 "mpisppy_tpu_torch/serve/__init__.py",
+                 "mpisppy_tpu_torch/serve/__main__.py",
+                 "mpisppy_tpu_torch/serve/protocol.py",
+                 "mpisppy_tpu_torch/serve/session.py",
+                 "mpisppy_tpu_torch/serve/admission.py",
+                 "mpisppy_tpu_torch/serve/multiplex.py",
+                 "mpisppy_tpu_torch/serve/engine.py",
+                 "mpisppy_tpu_torch/serve/server.py",
+                 "mpisppy_tpu_torch/serve/loadgen.py",
                  *PORT_TOOLS):
         assert must in names
 

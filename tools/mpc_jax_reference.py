@@ -6,10 +6,11 @@ CPU.
     JAX_PLATFORMS=cpu python tools/mpc_jax_reference.py
 
 Prints:
-  * the JAX RollingDriver on ccopf_horizon(soc=True) at the (3, 3) tree
-    for MPC_STEPS windows (step 0 cold, then warm from the shifted
-    plane): per step the outer and inner bounds, hub iterations and the
-    warm / cold-fallback / degraded flags;
+  * the JAX RollingDriver on ccopf_horizon(soc=True) at the (3, 3) tree,
+    given the port's --convthresh 0 (its recipe stops only on the gap,
+    ROADMAP C1), for MPC_STEPS windows (step 0 cold, then warm from the
+    shifted plane): per step the outer and inner bounds, hub iterations
+    and the warm / cold-fallback / degraded flags;
   * the JAX CLI on the uc horizon's recipe at tests/test_mpc.py's size
     (2 units, 4 hours, 3 scenarios) with --uc-mpc-step 1 --uc-mpc-stride
     1 --max-iterations 1: its JSON line; and the same at window 0 (the
@@ -40,7 +41,8 @@ def main():
     steps = [{"step": r.step, "outer": r.outer, "inner": r.inner,
               "iterations": r.iterations, "warm": r.warm,
               "cold_fallback": r.cold_fallback, "degraded": r.degraded}
-             for r in RollingDriver(ccopf_horizon(soc=True))
+             for r in RollingDriver(ccopf_horizon(
+                 soc=True, extra_args=("--convthresh", "0")))
              .stream(MPC_STEPS)]
     print("MPC_CCOPF_SMALL_JAX =", json.dumps(steps))
     for step, name in ((UC_STEP, "MPC_UC_CLI_JAX"),
