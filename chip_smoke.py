@@ -202,7 +202,20 @@ nvcc per source, started together) and drives its main paths:
   ([serve_coalesce]); a uc MPC stream of 4 windows held to the
   RollingDriver, and a stream preempted entering window 2 resumed bit
   for bit ([serve_stream]) — in a card worker of its own, collected
-  after the models' phases;
+  after the models' phases; then the served headline through a
+  FleetRouter of two replicas on the card, its replica killed after hub
+  iteration 2, migrated through the shared spool and held bit for bit
+  to [serve_headline]'s rows ([fleet_migrate]);
+* the scenario mesh (parallel/) — an NCCL process group of one rank in
+  the CI worker: the headline batch sharded (shard_batch, pad=True) and
+  its fused wheel's first 10 rows held bit for bit to [headline]'s, one
+  hub iteration profiled for its NCCL calls ([mesh_nccl]); a sharded
+  hydro (3,3) PH step's node averages against the unsharded step's
+  ([mesh_hydro]); the sharded headline under run_elastic with a
+  straggler past the harvest deadline at hub iteration 3: the emergency
+  checkpoint, one re-shard onto 6 of 8 device slots (the scenario axis
+  re-padded 10,000 -> 10,002) and the run to 1%, its bracket held to
+  [headline]'s ([mesh_elastic]);
 
 the CPU halves of the card-against-CPU phases ([wheel_small],
 [wheel_soc_small], [scengen_small], [farmer_wheel], [hydro_small],
@@ -243,8 +256,12 @@ ci_zhat, which runs [headline] first for its x̂; ci_mmw, ci_seq,
 ci_mstage) the confidence-interval phases, `--only mpc` (or
 mpc_ccopf, mpc_uc_cli) the rolling-horizon phases, `--only serve` (or
 serve_headline, which runs [cli_headline] first; serve_mix,
-serve_coalesce, serve_stream) the serving phases and `--only
-window_time_split` the split design's.
+serve_coalesce, serve_stream) the serving phases, `--only fleet`
+([fleet_migrate], with [cli_headline] and [serve_headline] first) and
+`--only mesh` (with [headline] first for its rows) this slice's, and
+`--only window_time_split` the split design's.  Several cards are
+needed for a mesh of more than one rank (NCCL takes one rank per card):
+this script runs a world of one.
 """
 import contextlib
 import dataclasses
@@ -5931,6 +5948,11 @@ def max_rel(pairs):
     return max(abs(a - b) / max(abs(b), 1.0) for a, b in pairs)
 
 
+#: [serve_headline]'s progress lines, done line and K2 launches, the
+#: reference [fleet_migrate] holds its migrated session to
+SERVED_HEADLINE = {}
+
+
 def serve_headline(cli_headline, device="cuda", S=HEADLINE_SCENS):
     """[serve_headline]: the CLI headline (sslp 15x45, S scenarios, bf16x3,
     rho 20, all four fusable spokes, CLI_HEADLINE_ITERS hub iterations)
@@ -5978,6 +6000,8 @@ def serve_headline(cli_headline, device="cuda", S=HEADLINE_SCENS):
           solve_s=done[0]["solve_seconds"] if done else None,
           k2_launches=k2,
           by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    SERVED_HEADLINE.update(progress=progress, done=done[0] if done else None,
+                           k2=k2)
     on_card = torch.device(device).type == "cuda"
     if not (ack.get("ok") and len(done) == 1 and lines[-1] is done[0]
             and len(progress) >= done[0]["iterations"]
@@ -6271,6 +6295,8 @@ def serve_runs(cli_headline):
     total = {}
     merge_launches(total, serve_headline(cli_headline))
     torch.cuda.empty_cache()
+    merge_launches(total, fleet_migrate(SERVED_HEADLINE))
+    torch.cuda.empty_cache()
     merge_launches(total, serve_mix())
     merge_launches(total, serve_coalesce())
     torch.cuda.empty_cache()
@@ -6279,6 +6305,449 @@ def serve_runs(cli_headline):
           launches_by_design=json.dumps(total, sort_keys=True)
           .replace(" ", ""))
     return total
+
+
+# the fleet and the scenario mesh (mpisppy_tpu_torch/fleet/, parallel/)
+FLEET_KILL_AFTER = 2          # the hub iteration after which the kill lands
+MESH_NCCL_ITERS = 10          # [mesh_nccl]'s rows, held to [headline]'s
+MESH_PROFILE_ITER = 5         # the profiled hub iteration
+MESH_SLOTS = 8                # the elastic layout: 8 device slots ...
+MESH_HOSTS = 4                # ... over 4 hosts (2 slots each)
+MESH_STRAGGLE_AT = 3          # the straggling harvest's hub iteration
+MESH_DEADLINE_S = 5.0         # the harvest deadline it misses ...
+MESH_STRAGGLE_S = 7.0         # ... by this delay
+MESH_BRACKET_RTOL = 1e-3      # [mesh_elastic]'s bounds against [headline]'s
+MESH_HYDRO_RTOL = 1e-6        # node averages: atomic add order (index_add_)
+
+
+def kill_after(at, sessions):
+    """A FaultPlan whose ReplicaFault("kill") hits the replica running a
+    session once that session's hub reaches the sync of hub iteration
+    `at`; that sync then waits for the drain to set the session's
+    preempt_event, so the next sync checkpoints — the migration lands at
+    one hub iteration on every run.  `sessions()` lists the router's
+    sessions."""
+    import threading
+
+    from mpisppy_tpu_torch.resilience.faults import FaultPlan, ReplicaFault
+
+    class KillAfter(FaultPlan):
+        def __init__(self):
+            super().__init__(replicas=(ReplicaFault("kill"),))
+            self.target = None
+            self.gate = threading.Event()
+
+        def replica_kill(self, rid, beat):
+            return self.gate.is_set() and rid == self.target \
+                and super().replica_kill(rid, beat)
+
+        def maybe_preempt(self, hub_iter):
+            super().maybe_preempt(hub_iter)
+            if hub_iter != at or self.gate.is_set():
+                return
+            running = [s for s in sessions() if s.state == "RUNNING"]
+            self.target = running[0].replica if running else None
+            self.gate.set()
+            deadline = time.perf_counter() + 120.0
+            while time.perf_counter() < deadline and not any(
+                    s.preempt_event.is_set() for s in running):
+                time.sleep(0.01)
+
+    return KillAfter()
+
+
+def fleet_migrate(ref, device="cuda", S=HEADLINE_SCENS):
+    """[fleet_migrate]: [serve_headline]'s spec through a FleetRouter of
+    two replicas on the card (multiplex off, one slot each); the
+    replica running it is killed (ReplicaFault "kill") after hub
+    iteration FLEET_KILL_AFTER, the session checkpoints into the shared
+    spool at the next sync and finishes on the other replica.  Its rows
+    after the resume and its done line must equal [serve_headline]'s
+    bit for bit, fleet_migrations_lost_total must stay 0.  Prints the
+    migration gap (the preempted line to the destination's first
+    progress line, client clock), the snapshot's bytes and the K2
+    launches against [serve_headline]'s.  Returns the launches by
+    design."""
+    import os
+    import tempfile
+
+    from mpisppy_tpu_torch.fleet import FleetOptions, FleetRouter
+    from mpisppy_tpu_torch.serve import SubmitRequest
+    from mpisppy_tpu_torch.telemetry import metrics as _metrics
+    spec = SubmitRequest(tenant="headline", sla="throughput", model="sslp",
+                         num_scens=S, gap_target=0.01,
+                         max_iterations=CLI_HEADLINE_ITERS,
+                         args=SERVE_HEADLINE_ARGS)
+    stamps = []
+
+    def on_line(msg):
+        stamps.append((time.perf_counter(), msg))
+
+    lost0 = _metrics.REGISTRY.get("fleet_migrations_lost_total")
+    router = None
+    plan = kill_after(FLEET_KILL_AFTER,
+                      lambda: list(router._sessions.values()))
+    with tempfile.TemporaryDirectory(prefix="fleet") as td:
+        router = FleetRouter(FleetOptions(
+            unix_path=os.path.join(td, "fleet.sock"), n_replicas=2,
+            max_running_per_replica=1, multiplex=False,
+            trace_dir=os.path.join(td, "traces"),
+            spool_dir=os.path.join(td, "spool"), heartbeat_s=0.1,
+            drain_grace_s=120.0, fault_plan=plan,
+            device=str(device))).start()
+        try:
+            reset_launches()
+            ack, lines, secs = served(router.address, spec, on_line)
+            by_design = launches_since_reset()
+            stats = router.stats()
+        finally:
+            router.stop()
+        sid = ack.get("session")
+        writes = []
+        for rid in ("r0", "r1"):
+            p = os.path.join(td, "traces", rid, f"session-{sid}.jsonl")
+            if os.path.exists(p):
+                with open(p) as f:
+                    writes += [json.loads(ln)["data"] for ln in f
+                               if '"checkpoint-write"' in ln]
+    lost = _metrics.REGISTRY.get("fleet_migrations_lost_total") - lost0
+    done = events_of(lines, "done")
+    pre = [(t, m) for t, m in stamps if m.get("event") == "preempted"]
+    after = [(t, m) for t, m in stamps if pre and t > pre[0][0]
+             and m.get("event") == "progress"]
+    gap_s = after[0][0] - pre[0][0] if pre and after else None
+    resumed = [m for _, m in after]
+    want = {m["iter"]: m for m in ref["progress"]}
+    keys = ("iter", "outer", "inner", "rel_gap")
+    same_rows = bool(resumed) and all(
+        m["iter"] in want and all(m[k] == want[m["iter"]][k] for k in keys)
+        for m in resumed)
+    same_done = bool(done) and ref["done"] is not None and all(
+        done[0][k] == ref["done"][k]
+        for k in ("outer", "inner", "rel_gap", "iterations"))
+    k2 = by_design.get("pdhg_window/bf16x3/resident", 0)
+    mig = stats["migration"]
+    phase("fleet_migrate", S=S, replicas=2, killed=plan.target,
+          preempted_at=pre[0][1].get("iter") if pre else None,
+          resumed_iters=json.dumps([m["iter"] for m in resumed]),
+          rows_equal_serve_headline=same_rows,
+          done_equal_serve_headline=same_done,
+          outer=done[0]["outer"] if done else None,
+          inner=done[0]["inner"] if done else None,
+          migration_gap_s=None if gap_s is None else round(gap_s, 3),
+          snapshot_bytes=writes[-1]["bytes"] if writes else None,
+          migrations=json.dumps(mig).replace(" ", ""),
+          fleet_migrations_lost_total=lost,
+          health=json.dumps(stats["health"]).replace(" ", ""),
+          k2_launches=k2, serve_headline_k2=ref["k2"],
+          client_s=round(secs, 3),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (ack.get("ok") and len(done) == 1 and pre and resumed
+            and mig["started"] == 1 and mig["completed"] == 1
+            and mig["lost"] == 0 and lost == 0 and same_rows
+            and same_done and k2 > 0):
+        raise AssertionError("fleet_migrate: no single migration, a loss, "
+                             "or rows after the resume off "
+                             "[serve_headline]'s")
+    return by_design
+
+
+class NcclProfile:
+    """PH extension: torch.profiler (host and device) over hub iteration
+    `at`; `out` gets the collectives the mesh issued during it, the host
+    ranges the NCCL process group recorded for them, and the NCCL
+    kernels' count and device ms (none in a group of one rank: an
+    in-place all-reduce over one rank launches nothing)."""
+
+    def __init__(self, opt, at, out):
+        self.opt, self.at, self.out = opt, at, out
+        self.prof = None
+
+    def miditer(self):
+        from torch.profiler import ProfilerActivity, profile
+        if self.opt._iter == self.at:
+            torch.cuda.synchronize()
+            self.before = dict(self.opt.batch.mesh.calls)
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+
+    def enditer_after_sync(self):
+        if self.prof is None or self.opt._iter != self.at:
+            return
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        events = recorded_events(self.prof)
+        nccl = [(a, b) for name, on_dev, a, b in events
+                if on_dev and "nccl" in name.lower()]
+        host = [(a, b) for name, on_dev, a, b in events
+                if not on_dev and "nccl" in name.lower()]
+        busy = busy_us(device_spans(self.prof))
+        self.out.update(
+            nccl_host_ranges=len(host),
+            nccl_host_ms=round(sum(b - a for a, b in host) / 1e3, 4),
+            nccl_kernels=len(nccl),
+            nccl_device_ms=round(sum(b - a for a, b in nccl) / 1e3, 4),
+            device_busy_ms=round(busy / 1e3, 3),
+            wall_ms=round(1e3 * wall, 3),
+            collectives=json.dumps({
+                k: self.opt.batch.mesh.calls[k] - self.before[k]
+                for k in self.before}).replace(" ", ""))
+        self.prof = None
+
+
+def mesh_nccl(batch, ref):
+    """[mesh_nccl]: the headline batch sharded over the NCCL group of one
+    rank (shard_batch, pad=True), its fused wheel ([headline]'s options)
+    for MESH_NCCL_ITERS hub iterations: rows equal to [headline]'s first
+    ones bit for bit (every collective over one rank is the identity);
+    hub iteration MESH_PROFILE_ITER profiled for its NCCL kernels.
+    Returns the launches by design."""
+    import functools
+
+    from mpisppy_tpu_torch.parallel import mesh as mesh_mod
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    mesh = mesh_mod.make_mesh()
+    sb = mesh_mod.shard_batch(batch, mesh, pad=True)
+    opts = sslp_options("bf16x3", MESH_NCCL_ITERS, 1e-6, 8)
+    hub, spokes = wheel_dicts(sb, opts)
+    prof = {}
+    hub["opt_kwargs"]["extensions"] = functools.partial(
+        NcclProfile, at=MESH_PROFILE_ITER, out=prof)
+    reset_launches()
+    t0 = time.perf_counter()
+    ws = WheelSpinner(hub, spokes).spin()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    by_design = launches_since_reset()
+    rows = trace_rows(ws)
+    keys = ("iter", "conv", "outer", "inner")
+    want = {r["iter"]: r for r in ref["rows"]}
+    differ = next((r["iter"] for r in rows if r["iter"] not in want
+                   or any(r[k] != want[r["iter"]][k] for k in keys)), None)
+    calls = dict(mesh.calls)
+    import torch.distributed as dist
+    iters = ws.opt._iter
+    phase("mesh_nccl", S=sb.num_scenarios, world=mesh.world,
+          backend=dist.get_backend(mesh.group), ph_iters=iters,
+          rows=len(rows),
+          first_differing_row=differ, rows_equal_headline=differ is None,
+          seconds=round(secs, 2),
+          collectives=json.dumps(calls).replace(" ", ""),
+          all_reduce_per_hub_iter=round(calls["all_reduce"]
+                                        / max(1, iters), 2),
+          **{f"profiled_iter{MESH_PROFILE_ITER}_{k}": v
+             for k, v in prof.items()},
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (differ is None and iters == MESH_NCCL_ITERS
+            and dist.get_backend(mesh.group) == "nccl"
+            and calls["all_reduce"] > 0
+            and by_design.get("pdhg_window/bf16x3/resident", 0) > 0):
+        raise AssertionError("mesh_nccl: rows off [headline]'s, not NCCL, "
+                             "no all-reduce or no K2 launch")
+    return by_design
+
+
+def mesh_hydro(dev):
+    """[mesh_hydro]: one PH step (iter0 + iterk) of hydro (3,3) sharded
+    over the NCCL group against the unsharded step: the multistage node
+    averages (index_add_ over the global node count, then the
+    all-reduce) within MESH_HYDRO_RTOL of the node values' scale (atomic
+    add order on the card).  Returns the launches by design."""
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.core import batch as batch_mod
+    from mpisppy_tpu_torch.models import hydro
+    from mpisppy_tpu_torch.parallel import mesh as mesh_mod
+    b = batch_mod.from_specs(
+        [hydro.scenario_creator(nm) for nm in hydro.scenario_names_creator(9)],
+        tree=hydro.make_tree((3, 3)), device=dev)
+    opts = ph_mod.PHOptions(default_rho=1.0, subproblem_windows=8,
+                            iter0_windows=100)
+    rho = torch.ones(b.num_nonants, device=dev)
+    reset_launches()
+
+    def step(batch):
+        st, _, _ = ph_mod.ph_iter0(batch, rho, opts)
+        return ph_mod.ph_iterk(batch, st, opts).xbar_nodes
+
+    whole = step(b)
+    split = step(mesh_mod.shard_batch(b, mesh_mod.make_mesh(), pad=True))
+    by_design = launches_since_reset()
+    err = float((split - whole).abs().max())
+    scale = float(whole.abs().max())
+    phase("mesh_hydro", S=b.num_scenarios, tree_nodes=b.tree.num_nodes,
+          max_abs_diff=err, scale=scale, tol=MESH_HYDRO_RTOL,
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not err <= MESH_HYDRO_RTOL * max(1.0, scale):
+        raise AssertionError("mesh_hydro: sharded node averages off the "
+                             "unsharded step's")
+    return by_design
+
+
+def mesh_elastic(batch, ref):
+    """[mesh_elastic]: the headline batch under run_elastic on a mesh of
+    MESH_SLOTS device slots over MESH_HOSTS hosts (the NCCL group of one
+    rank underneath), its harvest deadline MESH_DEADLINE_S: a straggler
+    (MeshFault) delays hub iteration MESH_STRAGGLE_AT's harvest past it,
+    MeshDegraded trips and the emergency checkpoint lands; the
+    straggling host is fenced (a host whose collective missed its
+    deadline leaves the mesh), run_elastic re-shards once onto the
+    survivors' 6 slots (the scenario axis re-padded 10,000 -> 10,002
+    through adapt_checkpoint_arrays) and runs to 1%.  Prints the
+    re-shard gap (the re-shard event to the resumed run's first hub
+    iteration), the iterations to 1% against [headline]'s, and the
+    bracket against [headline]'s (held at MESH_BRACKET_RTOL).  Returns
+    the launches by design."""
+    import os
+    import tempfile
+
+    from mpisppy_tpu_torch import telemetry as tel
+    from mpisppy_tpu_torch.parallel import elastic
+    from mpisppy_tpu_torch.parallel import mesh as mesh_mod
+    from mpisppy_tpu_torch.resilience.faults import FaultPlan, MeshFault
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+
+    class FenceStraggler(elastic.MeshMembership):
+        """Membership that fences the last host once a harvest missed
+        its deadline."""
+        tripped = False
+
+        def dead_hosts(self):
+            if self.tripped and self.state(MESH_HOSTS - 1) != elastic.DEAD:
+                self.force(MESH_HOSTS - 1, elastic.DEAD,
+                           "straggler-fenced")
+            return super().dead_hosts()
+
+    stamps = {}
+
+    class Probe:
+        def handle(self, e):
+            now = time.perf_counter()
+            if e.kind == tel.MESH_STRAGGLER and e.data["mode"] == "deadline":
+                mm.tripped = True
+                stamps.setdefault("straggler", now)
+            elif e.kind == tel.MESH_RESHARD:
+                stamps.setdefault("reshard", now)
+            elif e.kind == tel.HUB_ITERATION and "reshard" in stamps:
+                stamps.setdefault("resumed", now)
+            elif e.kind == tel.CHECKPOINT_WRITE and "straggler" in stamps:
+                stamps.setdefault("bytes", e.data["bytes"])
+
+        def close(self):
+            pass
+
+    bus = tel.EventBus()
+    bus.subscribe(Probe())
+    mm = FenceStraggler(MESH_HOSTS, bus=bus, run="mesh_elastic")
+    opts = sslp_options("bf16x3", HEADLINE_MAX_ITERS, 1e-6, 8)
+    plan = FaultPlan(meshes=(MeshFault("straggler",
+                                       at_iters=(MESH_STRAGGLE_AT,),
+                                       delay_s=MESH_STRAGGLE_S),))
+    with tempfile.TemporaryDirectory(prefix="mesh") as td:
+        ckpt = os.path.join(td, "mesh.npz")
+
+        def build(mesh):
+            sb = mesh_mod.shard_batch(batch, mesh, pad=True)
+            return WheelSpinner(*wheel_dicts(sb, opts, hub_extra={
+                "checkpoint_path": ckpt, "checkpoint_every_s": 1e9,
+                "telemetry_bus": bus}))
+
+        reset_launches()
+        t0 = time.perf_counter()
+        ws, info = elastic.run_elastic(
+            build, num_hosts=MESH_HOSTS, checkpoint_path=ckpt, plan=plan,
+            bus=bus, run_id="mesh_elastic",
+            harvest_deadline_s=MESH_DEADLINE_S, membership=mm,
+            devices=list(range(MESH_SLOTS)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        by_design = launches_since_reset()
+    outer, inner = ws.BestOuterBound, ws.BestInnerBound
+    rel_gap = ws.spcomm.compute_gaps()[1]
+    ro, ri = ref["bounds"]
+    rel = max(abs(outer - ro) / abs(ro), abs(inner - ri) / abs(ri))
+    r = info["reshards"][0] if info["reshards"] else {}
+    gap = stamps["resumed"] - stamps["reshard"] \
+        if "resumed" in stamps and "reshard" in stamps else None
+    phase("mesh_elastic", slots=MESH_SLOTS, hosts=MESH_HOSTS,
+          reshards=len(info["reshards"]), reason=r.get("reason"),
+          hub_iter=r.get("hub_iter"), old_devices=r.get("old_devices"),
+          new_devices=r.get("new_devices"),
+          scenarios=ws.spcomm.opt.batch.num_scenarios,
+          snapshot_bytes=stamps.get("bytes"),
+          reshard_gap_s=None if gap is None else round(gap, 3),
+          iterations=ws.spcomm._iter, headline_iterations=ref["iterations"],
+          outer=outer, inner=inner, rel_gap=rel_gap,
+          headline_outer=ro, headline_inner=ri,
+          max_rel_diff_vs_headline=rel, tol=MESH_BRACKET_RTOL,
+          seconds=round(secs, 2),
+          by_design=json.dumps(by_design, sort_keys=True).replace(" ", ""))
+    if not (len(info["reshards"]) == 1
+            and r.get("reason") == "straggler-deadline"
+            and (r.get("old_devices"), r.get("new_devices"))
+            == (MESH_SLOTS, MESH_SLOTS - MESH_SLOTS // MESH_HOSTS)
+            and ws.spcomm.opt.batch.num_scenarios != batch.num_scenarios
+            and rel_gap <= 0.01 and rel <= MESH_BRACKET_RTOL):
+        raise AssertionError("mesh_elastic: not one re-shard onto the "
+                             "survivors, no 1% certificate, or a bracket "
+                             "off [headline]'s")
+    return by_design
+
+
+def mesh_runs(ref):
+    """The mesh phases in an NCCL process group of one rank (this card;
+    NCCL takes one rank per card, so a larger world needs more cards):
+    [mesh_nccl], [mesh_hydro], [mesh_elastic].  `ref`: [headline]'s
+    rows, bounds and iterations.  Returns the launches by design."""
+    import os
+    import tempfile
+
+    from mpisppy_tpu_torch.parallel import mesh as mesh_mod
+    t0 = time.perf_counter()
+    total = {}
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="nccl") as td:
+        mesh_mod.init_multihost(f"file://{os.path.join(td, 'store')}", 1,
+                                0, device="cuda")
+        try:
+            batch = sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS,
+                               dev)
+            merge_launches(total, mesh_nccl(batch, ref))
+            torch.cuda.empty_cache()
+            merge_launches(total, mesh_hydro(dev))
+            merge_launches(total, mesh_elastic(batch, ref))
+        finally:
+            mesh_mod.shutdown()
+    phase("mesh_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return total
+
+
+def ci_and_mesh_runs(xhat, inner, ref):
+    """The CI worker's entry: the sslp confidence-interval phases, then
+    the mesh phases.  Returns {"ci", "mesh"}: their launches by
+    design."""
+    return {"ci": ci_runs(xhat, inner), "mesh": mesh_runs(ref)}
+
+
+def headline_ref(dev):
+    """--only mesh: [headline] run here for its rows and bounds."""
+    sync = {}
+    headline(sslp_batch(HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev),
+             sync)
+    h = sync["headline"]
+    return {"rows": h["rows"], "bounds": h["bounds"],
+            "iterations": h["iterations"]}
+
+
+def fleet_alone():
+    """--only fleet: [cli_headline] and [serve_headline] run here for
+    [fleet_migrate]'s reference."""
+    serve_headline(cli_headline_alone())
+    return fleet_migrate(SERVED_HEADLINE)
 
 
 def cli_headline_alone():
@@ -6410,6 +6879,8 @@ def run(argv) -> int:
             "serve_mix": lambda dev: serve_mix(),
             "serve_coalesce": lambda dev: serve_coalesce(),
             "serve_stream": lambda dev: serve_stream(),
+            "fleet": lambda dev: fleet_alone(),
+            "mesh": lambda dev: mesh_runs(headline_ref(dev)),
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if argv[:1] == ["--only"]:
@@ -6441,8 +6912,10 @@ def run(argv) -> int:
     CARD_WORKER.start("slice9_cli_runs", full)
     # the slice-15 groups in two more card workers beside them (the CPU
     # comparisons here, after the join)
-    CI_WORKER.start("ci_runs", sync["headline"]["xhat"],
-                    sync["headline"]["bounds"][1])
+    CI_WORKER.start("ci_and_mesh_runs", sync["headline"]["xhat"],
+                    sync["headline"]["bounds"][1],
+                    {k: sync["headline"][k]
+                     for k in ("rows", "bounds", "iterations")})
     # the serving phases in a card worker of their own, collected after
     # the models' phases: its session threads share the card with every
     # host loop until then
@@ -6454,7 +6927,8 @@ def run(argv) -> int:
     torch.cuda.empty_cache()
     slice9_windows(dev)
     slice9_launches = CARD_WORKER.result()
-    ci_launches = CI_WORKER.result()
+    ci_mesh = CI_WORKER.result()
+    ci_launches, mesh_launches = ci_mesh["ci"], ci_mesh["mesh"]
     second = MPC_WORKER.result()
     mpc_launches = mpc_check(second["mpc"])
     merge_launches(ci_launches, ci_check(second["ci_small"]))
@@ -6487,6 +6961,7 @@ def run(argv) -> int:
     credit(kernels, ci_launches)
     credit(kernels, mpc_launches)
     credit(kernels, serve_launches)
+    credit(kernels, mesh_launches)
     # the split design's main path: the sampled EFs and the L-shaped
     # master (box rows), the root-fixed ccopf EFs (SOC rows)
     idle = [e["name"] for e in kernels

@@ -34,7 +34,7 @@ import torch
 
 from mpisppy_tpu_torch.algos.ph import PH, iter0_solve_and_certify, \
     ph_eobjective
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
 from mpisppy_tpu_torch.ops import pdhg
 
 Tensor = torch.Tensor
@@ -122,6 +122,28 @@ def aph_iter0(batch: ScenarioBatch, rho: Tensor, opts: APHOptions):
         it=scalar(0, torch.int32), pusq_prev=scalar(0.0),
         pvsq_prev=scalar(0.0))
     return st, trivial_bound, certified
+
+
+def aph_state_template(batch: ScenarioBatch, opts: APHOptions) -> APHState:
+    """aph_iter0's state as shapes and dtypes (meta-device tensors, no
+    solve) — the unflatten template of an APH checkpoint restore.  The
+    JAX package's APH inherits PH's template and restores no APH
+    snapshot; the port restores them (ROADMAP.md C1)."""
+    S, N = batch.num_scenarios, batch.num_nonants
+    dt = batch.qp.c.dtype
+    nodes = batch.tree.num_nodes
+
+    def t(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return APHState(
+        solver=pdhg.state_template((S,), batch.qp.n, batch.qp.m, dt,
+                                   opts.pdhg),
+        W=t(S, N), y=t(S, N), z=t(S, N), xbar=t(S, N),
+        xbar_nodes=t(nodes, N), ybar_nodes=t(nodes, N), conv=t(),
+        theta=t(), rho=t(N), gamma=t(),
+        last_solved=t(S, dtype=torch.int32), it=t(dtype=torch.int32),
+        pusq_prev=t(), pvsq_prev=t())
 
 
 def _row_sq(v: Tensor) -> Tensor:
@@ -261,8 +283,12 @@ class APH(PH):
     _label = "APH"
 
     def __init__(self, options: APHOptions, batch: ScenarioBatch, **kw):
+        require_unsharded(batch, "APH")
         super().__init__(options, batch, **kw)
         self.state: APHState | None = None
+
+    def state_template(self):
+        return aph_state_template(self.batch, self.options)
 
     def _iter0_impl(self):
         return aph_iter0(self.batch, self.rho, self.options)

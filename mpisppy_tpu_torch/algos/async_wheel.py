@@ -41,6 +41,7 @@ import dataclasses
 
 from mpisppy_tpu_torch.algos import fused_wheel as fw
 from mpisppy_tpu_torch.algos import ph as ph_mod
+from mpisppy_tpu_torch.core.batch import require_unsharded
 from mpisppy_tpu_torch.utils.host_copy import HostCopy
 
 
@@ -71,6 +72,9 @@ class AsyncFusedPH(fw.FusedPH):
 
     def __init__(self, options, batch, wheel_options=None,
                  async_options: AsyncWheelOptions | None = None, **kw):
+        # the stale-plane damping (aph.projective_theta) reduces over
+        # scenarios without the mesh
+        require_unsharded(batch, "AsyncFusedPH")
         super().__init__(options, batch, wheel_options, **kw)
         self.async_options = async_options or AsyncWheelOptions()
         # double buffer of ExchangePlane slots; a "write" is a host-side

@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
 
@@ -119,6 +119,7 @@ def make_meta(batch: ScenarioBatch, eta_lb: np.ndarray,
               max_rounds: int = 8) -> CrossScenMeta:
     """Build both augmented views
     (ref:cross_scen_extension.py:273-300 post_iter0 analog)."""
+    require_unsharded(batch, "cross_scen.make_meta")
     S, N = batch.num_scenarios, batch.num_nonants
     R = max_rounds * S
     aug_ph = _add_rows(batch, R, 0, cut_k=N)
@@ -140,6 +141,7 @@ def launch_cuts(batch: ScenarioBatch, nonants: Tensor, xbar: Tensor,
     """Spoke-side cut generation on the ORIGINAL batch: the scenario x
     farthest from x̄ (ref:cross_scen_spoke.py:190-230, first index on
     ties), every scenario's recourse solved there in one batch."""
+    require_unsharded(batch, "cross_scen.launch_cuts")
     from mpisppy_tpu_torch.algos.lshaped import _subproblem_cuts
     nonants = torch.as_tensor(nonants, device=batch.device)
     xbar = torch.as_tensor(xbar, device=batch.device)
@@ -335,6 +337,7 @@ def eta_lower_bounds(batch: ScenarioBatch, opts: pdhg.PDHGOptions,
     sum_j min_{x_j in [l,u]} (c_j x_j + q_j/2 x_j^2), always valid,
     possibly -inf.  Floored at -1e12 (a -inf pin degenerates the EF
     check's own-eta column)."""
+    require_unsharded(batch, "cross_scen.eta_lower_bounds")
     qp = batch.qp
     st = pdhg.solve_fixed(qp, windows, opts, pdhg.init_state(qp, opts))
     dual = boxqp.dual_objective(qp, st.x, st.y).cpu().numpy() \

@@ -117,8 +117,7 @@ def _lag_step(batch: ScenarioBatch, W: Tensor, solver: pdhg.PDHGState,
     dual = boxqp.dual_objective(qp, st.x, st.y)
     _, rd, _ = boxqp.kkt_residuals(qp, st.x, st.y)
     tol = max(wopts.lag_pdhg.tol, 5.0 * torch.finfo(st.x.dtype).eps)
-    real = batch.p > 0.0
-    certified = torch.all(torch.where(real, rd <= 10.0 * tol, True))
+    certified = batch.all_real(rd <= 10.0 * tol)
     return st, batch.expectation(dual), certified
 
 
@@ -176,7 +175,7 @@ def _scatter_scen(st: pdhg.PDHGState, sub: pdhg.PDHGState, idx: Tensor,
 
 def _tail_rescue(qp: boxqp.BoxQP, st: pdhg.PDHGState, rp: Tensor,
                  real: Tensor, wopts: FusedWheelOptions,
-                 feas_tol: float) -> pdhg.PDHGState:
+                 feas_tol: float, batch=None) -> pdhg.PDHGState:
     """In-loop straggler sub-solve: the top-k worst-residual scenarios
     get xhat_tail_windows extra windows at the tier-2 rescue profile on
     a gathered sub-batch, state scattered back.  k is capped at S/8 and
@@ -184,19 +183,33 @@ def _tail_rescue(qp: boxqp.BoxQP, st: pdhg.PDHGState, rp: Tensor,
     scheduler's when one exists (--dispatch-bucket-growth governs both
     the MIP megabatches and these gathers), else the default.  The sub-solve runs only while
     some real scenario misses the publication gate: `needed` is read on
-    the host, one device sync per exchange."""
+    the host, one device sync per exchange.  On a batch sharded over
+    several ranks, S, k and the top-k are those of the WHOLE axis (an
+    all-gather of the masked residuals), so every rank takes the same
+    decision; each rank re-solves the chosen scenarios it holds."""
     S = st.omega.shape[0]
-    k = min(wopts.xhat_tail_k, max(8, S // 8), S)
+    masked = torch.where(real, rp, -1.0)
+    mesh = getattr(batch, "mesh", None)
+    sharded = mesh is not None and getattr(mesh, "world", 1) > 1
+    if sharded:
+        masked = batch.scen_gather(masked)
+    k = min(wopts.xhat_tail_k, max(8, masked.shape[0] // 8),
+            masked.shape[0])
     if k > 0:
         sched = _dispatch.get_scheduler(create=False)
         ladder = sched.ladder if sched is not None \
             else _dispatch.default_ladder()
-        k = min(ladder.bucket_floor(k), S)
+        k = min(ladder.bucket_floor(k), masked.shape[0])
     if k <= 0 or wopts.xhat_tail_windows <= 0:
         return st
-    if not bool(torch.any(torch.where(real, rp > feas_tol, False))):
+    if not bool(torch.any(masked > feas_tol)):
         return st
-    _, idx = torch.topk(torch.where(real, rp, -1.0), k)
+    _, idx = torch.topk(masked, k)
+    if sharded:
+        off = batch.scen_offset
+        idx = idx[(idx >= off) & (idx < off + S)] - off
+        if idx.numel() == 0:
+            return st
     sub_qp = _gather_qp(qp, idx)
     sub_st = _gather_scen(st, idx, S)
     topts = dataclasses.replace(
@@ -227,7 +240,8 @@ def _eval_step(batch: ScenarioBatch, cand: Tensor,
     real = batch.p > 0.0
     if tail:
         rp0, _, _ = boxqp.kkt_residuals(qp, st.x, st.y)
-        st = _tail_rescue(qp, st, rp0, real, wopts, wopts.xhat_feas_tol)
+        st = _tail_rescue(qp, st, rp0, real, wopts, wopts.xhat_feas_tol,
+                          batch)
     obj = torch.sum(qp.c * st.x + 0.5 * qp.q * st.x * st.x, dim=-1)
     viol = boxqp.primal_residual(qp, st.x)
     comp = xhat_mod.COMP_SAFETY * torch.sum(st.y.abs() * viol, dim=-1)
@@ -236,8 +250,8 @@ def _eval_step(batch: ScenarioBatch, cand: Tensor,
     bad_status = (st.status == pdhg.INFEASIBLE) \
         | (st.status == pdhg.UNBOUNDED)
     ok = (rp <= wopts.xhat_feas_tol) & ~bad_status
-    feas = torch.all(torch.where(real, ok, True))
-    dead = torch.any(torch.where(real, bad_status, False))
+    feas = batch.all_real(ok)
+    dead = batch.any_real(bad_status)
     inf = torch.full_like(obj[0], float("inf"))
     value = torch.where(feas, batch.expectation(obj), inf)
     ecomp = batch.expectation(comp)
@@ -385,7 +399,8 @@ def _slam_step(batch, x, solver, wopts, windows, sense_max):
 def _shuf_step(batch, x, solver, sid, wopts, windows):
     """Scenario `sid`'s own nonants (integers rounded) as the candidate,
     its recourse evaluation advanced a fixed warm budget."""
-    fcand = xhat_mod.round_integers(batch, batch.nonants(x)[sid])
+    fcand = xhat_mod.round_integers(batch,
+                                    batch.scen_row(batch.nonants(x), sid))
     st, value, feas, _ = _eval_step(batch, fcand, solver, windows, wopts)
     return st, fcand, value, feas
 
@@ -564,8 +579,22 @@ class FusedPH(ph_mod.PH):
         if pipelined and self._scalars_inflight is not None:
             ready = self._scalars_inflight
         self._scalars_inflight = inflight
+        # the ONE place the hub loop blocks on the device (and, sharded,
+        # on the mesh: the scalars finish the iteration's all-reduces):
+        # with an elastic MeshRuntime armed (parallel/elastic.py) the
+        # read is deadline-bounded and chaos-seamed, so a straggler or a
+        # lost host trips a typed MeshDegraded instead of hanging the
+        # hub; without one it is the plain read
+        spcomm = getattr(self, "spcomm", None)
+        rt = None if spcomm is None \
+            else spcomm.options.get("mesh_runtime")
+        if rt is not None:
+            vals = rt.harvest(lambda: np.array(ready.values()[0]),
+                              hub_iter=self._iter)
+        else:
+            vals = ready.values()[0]
         self.scalar_cache = dict(zip(SCALAR_KEYS,
-                                     (float(v) for v in ready.values()[0])))
+                                     (float(v) for v in vals)))
         self.cand_cache = ready.cands
 
     def flush_scalars(self):

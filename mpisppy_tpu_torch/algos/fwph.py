@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
+from mpisppy_tpu_torch.core.batch import (
+    ScenarioBatch, concretize, require_unsharded,
+)
 from mpisppy_tpu_torch.ops import boxqp, pdhg, simplex_qp
 
 Tensor = torch.Tensor
@@ -223,6 +225,7 @@ class FWPH:
 
     def __init__(self, options: FWPHOptions, batch: ScenarioBatch,
                  scenario_names=None, rho: Tensor | float | None = None):
+        require_unsharded(batch, "FWPH")
         self.options = options
         self.batch = batch
         self.scenario_names = scenario_names or [

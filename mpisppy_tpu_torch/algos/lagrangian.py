@@ -51,8 +51,7 @@ def lagrangian_bound(batch: ScenarioBatch, W: Tensor,
     dual = boxqp.dual_objective(qp, st.x, st.y)
     _, rd, _ = boxqp.kkt_residuals(qp, st.x, st.y)
     tol = max(opts.tol, 5.0 * torch.finfo(st.x.dtype).eps)
-    real = batch.p > 0.0
-    certified = torch.all(torch.where(real, rd <= 10.0 * tol, True))
+    certified = batch.all_real(rd <= 10.0 * tol)
     return LagrangianResult(bound=batch.expectation(dual), per_scenario=dual,
                             dual_resid=rd, certified=certified, solver=st)
 
@@ -81,8 +80,7 @@ def subgradient_step(batch: ScenarioBatch, st: SubgradientState,
     dual = boxqp.dual_objective(qp, solver.x, solver.y)
     _, rd, _ = boxqp.kkt_residuals(qp, solver.x, solver.y)
     tol = max(opts.tol, 5.0 * torch.finfo(solver.x.dtype).eps)
-    real = batch.p > 0.0
-    certified = torch.all(torch.where(real, rd <= 10.0 * tol, True))
+    certified = batch.all_real(rd <= 10.0 * tol)
     bound = batch.expectation(dual)
     x_non = batch.nonants(solver.x)
     xbar, _ = batch.node_average(x_non)

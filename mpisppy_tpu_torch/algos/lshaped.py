@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
+from mpisppy_tpu_torch.core.batch import (
+    ScenarioBatch, concretize, require_unsharded,
+)
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 from mpisppy_tpu_torch.ops.boxqp import BoxQP
 
@@ -133,6 +135,7 @@ class LShapedMethod:
 
     def __init__(self, options: LShapedOptions | dict,
                  batch: ScenarioBatch, scenario_names=None):
+        require_unsharded(batch, "LShapedMethod")
         if isinstance(options, dict):
             options = LShapedOptions(**options)
         self.options = options

@@ -36,7 +36,7 @@ import torch
 
 from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
 from mpisppy_tpu_torch.ops import bnb
 from mpisppy_tpu_torch.ops.bnb import BnBOptions
 
@@ -86,6 +86,7 @@ def lagrangian_mip_bound(batch: ScenarioBatch, W,
     per-node probability-weighted mean of W is 0, the PH invariant):
     each scenario's Lagrangian subproblem is solved AS A MIP
     (ref:mpisppy/cylinders/lagrangian_bounder.py:21-44)."""
+    require_unsharded(batch, "mip.lagrangian_mip_bound")
     W = _as_tensor(batch, W)
     qp = batch.with_nonant_linear_quad(W, torch.zeros_like(W))
     res = _dispatch.solve_mip(qp, batch.d_col, _int_cols(batch), opts)
@@ -118,6 +119,7 @@ def evaluate_mip(batch: ScenarioBatch, xhat,
     B&B.  `value` is +inf unless every real scenario found an
     integer-feasible recourse.  A POLISH context: swap_rounds 0 (auto)
     promotes to bnb.POLISH_SWAP_ROUNDS."""
+    require_unsharded(batch, "mip.evaluate_mip")
     opts = _polish_swap(opts)
     xhat = _round_slots(batch, xhat)
     qp = batch.with_fixed_nonants(xhat)
@@ -147,6 +149,7 @@ def evaluate_mip_polished(batch: ScenarioBatch, xhat,
     (bnb.dive_multistart) merged with the B&B incumbents, then
     large-neighborhood repair (bnb.lns_repair).  `base`: a fresh
     evaluate_mip dict for the SAME xhat (skips the internal re-solve)."""
+    require_unsharded(batch, "mip.evaluate_mip_polished")
     opts = _polish_swap(opts)
     if base is None:
         base = evaluate_mip(batch, xhat, opts)
@@ -192,6 +195,7 @@ def evaluate_mip_many(batch: ScenarioBatch, xhats,
     xhatshufflelooper_bounder.py:23-157 tries them sequentially).
     Returns one evaluate_mip-style dict per candidate.  A POLISH
     context (pass a negative swap_rounds for cheap screening)."""
+    require_unsharded(batch, "mip.evaluate_mip_many")
     opts = _polish_swap(opts)
     K = len(xhats)
     if K == 0:
@@ -277,6 +281,7 @@ def mip_dual_ascent_polyak(batch: ScenarioBatch, W, inner: float,
     with lam halved after two non-improving steps.  Each step is one
     batched scenario-MIP solve; stops early at `target`.  Returns
     {'bound','W','history'}."""
+    require_unsharded(batch, "mip.mip_dual_ascent_polyak")
     W = _as_tensor(batch, W)
     best, best_W = -float("inf"), W
     lam, since = float(lam0), 0
@@ -328,6 +333,7 @@ def mip_dual_bundle(batch: ScenarioBatch, W, inner: float,
     (a host LP, scipy/HiGHS): a direction-finder only, since ANY W it
     proposes yields a certified bound from the oracle.  Two-stage trees
     only.  Returns {'bound','W','history'}."""
+    require_unsharded(batch, "mip.mip_dual_bundle")
     from scipy.optimize import linprog
 
     if batch.tree.num_stages != 2:
@@ -444,6 +450,7 @@ def mip_dual_ascent(batch: ScenarioBatch, W, rho, steps: int,
     W += rho (x - xbar) from the INTEGER solutions
     (ref:mpisppy/cylinders/subgradient_bounder.py:12-54).  Returns the
     best certified bound and the W that achieved it."""
+    require_unsharded(batch, "mip.mip_dual_ascent")
     W = _as_tensor(batch, W)
     best, best_W = -float("inf"), W
     rho = _as_tensor(batch, rho)
@@ -504,6 +511,7 @@ def decomposition_bnb(batch: ScenarioBatch, W,
     the scheduler (only the search order changes; every bound stays
     certified).  Returns {'inner','outer','gap','xhat','nodes',
     'failed_nodes'}."""
+    require_unsharded(batch, "mip.decomposition_bnb")
     int_slots = np.nonzero(_host(batch.integer_slot))[0]
     if int_slots.size == 0:
         raise ValueError("no integer first-stage slots to branch on")
@@ -675,6 +683,7 @@ def certified_mip_gap(batch: ScenarioBatch, ph_options=None,
 
     The reference runs this as hub + xhatshuffle + Lagrangian spokes with
     exact MIP subproblems (ref:mpisppy/generic_cylinders.py:109-312)."""
+    require_unsharded(batch, "mip.certified_mip_gap")
     from mpisppy_tpu_torch.algos import ph as ph_mod
     from mpisppy_tpu_torch.algos import xhat as xhat_mod
 

@@ -103,8 +103,7 @@ def iter0_solve_and_certify(batch: ScenarioBatch, windows: int,
     dual = boxqp.dual_objective(batch.qp, solver.x, solver.y)
     _, rd, _ = boxqp.kkt_residuals(batch.qp, solver.x, solver.y)
     tol = max(pdhg_opts.tol, 5.0 * torch.finfo(solver.x.dtype).eps)
-    real = batch.p > 0.0
-    certified = torch.all(torch.where(real, rd <= 10.0 * tol, True))
+    certified = batch.all_real(rd <= 10.0 * tol)
     return solver, batch.expectation(dual), certified
 
 
@@ -226,8 +225,8 @@ class PH:
     def state_template(self):
         """Shape/dtype template of this driver's state (meta-device
         tensors) — the unflatten template of a checkpoint restore
-        (hub.load_checkpoint) without paying an Iter0 solve.  APH
-        inherits it as the JAX package's APH does (ROADMAP.md C5)."""
+        (hub.load_checkpoint) without paying an Iter0 solve (APH has its
+        own, aph.aph_state_template)."""
         return ph_state_template(self.batch, self.options)
 
     # -- algorithm step hooks (overridden by FusedPH) ---------------------

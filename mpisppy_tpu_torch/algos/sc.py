@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
 
 Tensor = torch.Tensor
@@ -300,6 +300,7 @@ class SchurComplement:
 
     def __init__(self, options, batch: ScenarioBatch,
                  scenario_names=None):
+        require_unsharded(batch, "SchurComplement")
         if isinstance(options, dict):
             options = SCOptions(**options)
         self.options = options

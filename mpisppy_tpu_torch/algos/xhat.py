@@ -91,8 +91,7 @@ def _result(batch: ScenarioBatch, qp: boxqp.BoxQP, st: pdhg.PDHGState,
     """The evaluation's result: value counts only when every real
     scenario passes the feasibility test."""
     obj, comp, rp, scen_ok = _per_scenario(qp, st, feas_tol)
-    real = batch.p > 0.0
-    feas = torch.all(torch.where(real, scen_ok, True))
+    feas = batch.all_real(scen_ok)
     value = torch.where(feas, batch.expectation(obj),
                         torch.full_like(obj[0], float("inf")))
     return XhatResult(value=value, per_scenario=obj, feasible=feas,
@@ -168,7 +167,7 @@ def _rescue_merge(batch: ScenarioBatch, xhat: Tensor, res: XhatResult,
     # rescue when only certified-infeasible scenarios fail
     rescueable = real & ~ok & (status != pdhg.INFEASIBLE) \
         & (status != pdhg.UNBOUNDED)
-    if not bool(torch.any(rescueable)):
+    if not bool(batch.any_real(rescueable)):
         return res
     for om, rper, mul in _RESCUE_TIERS:
         rescue = dataclasses.replace(
@@ -183,9 +182,9 @@ def _rescue_merge(batch: ScenarioBatch, xhat: Tensor, res: XhatResult,
         status = torch.where(newly, r2.status, status)
         comp = torch.where(newly, r2.comp, comp)
         ok = ok | ok2
-        if bool(torch.all(torch.where(real, ok, True))):
+        if bool(batch.all_real(ok)):
             break
-    feas = torch.all(torch.where(real, ok, True))
+    feas = batch.all_real(ok)
     value = torch.where(feas, batch.expectation(per),
                         torch.full_like(per[0], float("inf")))
     return XhatResult(value=value, per_scenario=per, feasible=feas,
@@ -253,8 +252,8 @@ def xhat_shuffle(batch: ScenarioBatch, x_non: Tensor, scen_ids, k: int,
     (rounded) candidate tensor evaluated, comps each value's expected
     compensation for the comp_tight gate."""
     batch = concretize(batch)  # scengen: draw the scenario data here
-    ids = torch.as_tensor(scen_ids, device=x_non.device)
-    cands = round_integers(batch, x_non[ids])  # (k, N)
+    cands = round_integers(batch, torch.stack(
+        [batch.scen_row(x_non, int(i)) for i in scen_ids]))  # (k, N)
     S = batch.num_scenarios
     qp = fixed_stack(batch, cands)
     opts = dataclasses.replace(opts, detect_infeas=True)
@@ -264,23 +263,20 @@ def xhat_shuffle(batch: ScenarioBatch, x_non: Tensor, scen_ids, k: int,
     st = pdhg.solve(qp, opts, pdhg.init_state(qp, opts, Lnorm=L))
     obj, comp, _, scen_ok = (t.reshape(k, S)
                              for t in _per_scenario(qp, st, feas_tol))
-    real = batch.p > 0.0
-    feas = torch.all(torch.where(real, scen_ok, True), dim=-1)
-    values = torch.where(feas, torch.sum(batch.p * obj, dim=-1),
+    feas = batch.all_real(scen_ok, dim=-1)
+    values = torch.where(feas, batch.scen_sum(batch.p * obj, dim=-1),
                          torch.full_like(feas, float("inf"),
                                          dtype=obj.dtype))
-    return values, feas, cands, torch.sum(batch.p * comp, dim=-1)
+    return values, feas, cands, batch.scen_sum(batch.p * comp, dim=-1)
 
 
 def slam_candidate(batch: ScenarioBatch, x_non: Tensor,
                    sense_max: bool) -> Tensor:
     """(N,) candidate from slamming each nonant to its across-scenario
     max (ceil for integers) or min (floor), over real scenarios."""
-    mask = (batch.p > 0.0)[:, None]
+    xhat = batch.scen_extreme(x_non, sense_max)
     if sense_max:
-        xhat = torch.where(mask, x_non, float("-inf")).amax(dim=0)
         return torch.where(batch.integer_slot, torch.ceil(xhat), xhat)
-    xhat = torch.where(mask, x_non, float("inf")).amin(dim=0)
     return torch.where(batch.integer_slot, torch.floor(xhat), xhat)
 
 

@@ -68,8 +68,14 @@ class ScenarioBatch:
     integer_slot: (N,) bool integrality of each nonant slot.
     integer_full: (n,) bool integrality of every column.
     tree:         ScenarioTree metadata.
-    num_real:     scenarios before padding.
-    var_prob:     (S, N) per-(scenario, slot) weights or None."""
+    num_real:     scenarios before padding (over the whole scenario axis
+                  on a sharded batch).
+    var_prob:     (S, N) per-(scenario, slot) weights or None.
+    mesh:         the parallel.mesh.ScenarioMesh of a sharded batch, else
+                  None.  A sharded batch holds its rank's contiguous
+                  slice of every scenario-major field (rows scen_offset
+                  onward); its scenario reductions finish with an
+                  all-reduce over the mesh's process group."""
 
     qp: BoxQP
     d_col: Tensor
@@ -83,6 +89,8 @@ class ScenarioBatch:
     tree: ScenarioTree
     num_real: int
     var_prob: Tensor | None = None
+    mesh: object | None = None
+    scen_offset: int = 0
 
     @property
     def num_scenarios(self) -> int:
@@ -110,7 +118,8 @@ class ScenarioBatch:
         """Probability-weighted mean of per-scenario slot values within
         each owning tree node — the nonanticipativity reduction
         (ref:mpisppy/phbase.py:32-112).  vals: (S, N).  Returns
-        (avg_per_scen (S, N), avg_nodes (num_nodes, N))."""
+        (avg_per_scen (S, N), avg_nodes (num_nodes, N)).  On a sharded
+        batch the numerator and denominator are summed over the mesh."""
         if weights is None:
             weights = self.var_prob  # may still be None
         w = self.p[:, None] if weights is None else weights
@@ -119,6 +128,7 @@ class ScenarioBatch:
         if self.tree.num_nodes == 1:
             num = torch.sum(w * vals, dim=0)
             den = torch.sum(wb, dim=0)
+            num, den = _mesh_sum_pair(self, num, den)
             avg = num / torch.clamp(den, min=tiny)
             return torch.broadcast_to(avg, vals.shape), avg[None, :]
         N = self.num_nonants
@@ -129,6 +139,7 @@ class ScenarioBatch:
         num.index_add_(0, key, (w * vals).reshape(-1))
         den = torch.zeros(nseg, dtype=vals.dtype, device=vals.device)
         den.index_add_(0, key, wb.reshape(-1))
+        num, den = _mesh_sum_pair(self, num, den)
         avg_nodes = (num / torch.clamp(den, min=tiny)).reshape(
             self.tree.num_nodes, N)
         avg_scen = torch.gather(avg_nodes, 0, self.node_of_slot)
@@ -146,7 +157,56 @@ class ScenarioBatch:
 
     def expectation(self, vals: Tensor) -> Tensor:
         """E[vals] over scenarios (ref:mpisppy/spopt.py:344-436)."""
-        return torch.sum(self.p * vals)
+        return mesh_reduce(self, torch.sum(self.p * vals), "sum")
+
+    # ---- scenario reductions that see the whole (sharded) axis ----------
+    def all_real(self, ok: Tensor, dim: int | None = None) -> Tensor:
+        """True where `ok` holds on every real (p > 0) scenario; ok has
+        the scenario axis first, or last with dim=-1."""
+        real = self.p > 0.0
+        if dim is None:
+            t = torch.all(torch.where(real, ok, True))
+        else:
+            t = torch.all(torch.where(real, ok, True), dim=dim)
+        return mesh_reduce(self, t, "min")
+
+    def any_real(self, bad: Tensor) -> Tensor:
+        """True where `bad` holds on some real scenario."""
+        t = torch.any(torch.where(self.p > 0.0, bad, False))
+        return mesh_reduce(self, t, "max")
+
+    def scen_sum(self, vals: Tensor, dim: int = 0) -> Tensor:
+        """Plain sum over the scenario axis (`dim`) of the whole batch."""
+        return mesh_reduce(self, torch.sum(vals, dim=dim), "sum")
+
+    def scen_extreme(self, vals: Tensor, sense_max: bool) -> Tensor:
+        """Max (min) over the real scenarios of (S, N) values."""
+        mask = (self.p > 0.0)[:, None]
+        if sense_max:
+            t = torch.where(mask, vals, float("-inf")).amax(dim=0)
+            return mesh_reduce(self, t, "max")
+        t = torch.where(mask, vals, float("inf")).amin(dim=0)
+        return mesh_reduce(self, t, "min")
+
+    def scen_row(self, vals: Tensor, sid: int) -> Tensor:
+        """Row `sid` (a global scenario index) of scenario-major values;
+        on a sharded batch its owner supplies it and the others add
+        zeros."""
+        if self.mesh is None or getattr(self.mesh, "group", None) is None:
+            return vals[sid - self.scen_offset]
+        local = sid - self.scen_offset
+        if 0 <= local < vals.shape[0]:
+            row = vals[local]
+        else:
+            row = torch.zeros_like(vals[0])
+        return mesh_reduce(self, row, "sum")
+
+    def scen_gather(self, vals: Tensor) -> Tensor:
+        """Every rank's rows of scenario-major values, in global order."""
+        mesh = self.mesh
+        if mesh is None or getattr(mesh, "group", None) is None:
+            return vals
+        return mesh.all_gather_cat(vals)
 
     def with_nonant_linear_quad(self, w: Tensor, rho_quad: Tensor) -> BoxQP:
         """A qp whose objective adds, in ORIGINAL space,
@@ -178,6 +238,43 @@ class ScenarioBatch:
         l_full[:, self.nonant_idx] = xs
         u_full[:, self.nonant_idx] = xs
         return dataclasses.replace(self.qp, l=l_full, u=u_full)
+
+
+def mesh_reduce(batch, t: Tensor, op: str) -> Tensor:
+    """Finish a rank-local scenario reduction over the batch's mesh
+    ("sum", "min" or "max"); the identity without a process group."""
+    mesh = getattr(batch, "mesh", None)
+    if mesh is None or getattr(mesh, "group", None) is None:
+        return t
+    return mesh.all_reduce(t, op)
+
+
+def _mesh_sum_pair(batch, a: Tensor, b: Tensor):
+    """Sum two same-dtype tensors over the mesh in ONE all-reduce."""
+    mesh = getattr(batch, "mesh", None)
+    if mesh is None or getattr(mesh, "group", None) is None:
+        return a, b
+    both = mesh.all_reduce(torch.cat([a.reshape(-1), b.reshape(-1)]),
+                           "sum")
+    return (both[:a.numel()].reshape(a.shape),
+            both[a.numel():].reshape(b.shape))
+
+
+class ShardedBatchUnsupported(NotImplementedError):
+    """An algorithm that does not shard its scenario reductions was
+    handed a batch sharded over more than one rank: it would return a
+    rank-local answer, so it refuses."""
+
+
+def require_unsharded(batch, what: str) -> None:
+    """Raise ShardedBatchUnsupported when `batch` is sharded over a mesh
+    of more than one rank (a world of one is the serial path)."""
+    mesh = getattr(batch, "mesh", None)
+    if mesh is not None and int(getattr(mesh, "world", 1)) > 1:
+        raise ShardedBatchUnsupported(
+            f"{what} does not shard its scenario reductions: run it on "
+            f"an unsharded batch (this one is split over {mesh.world} "
+            "ranks)")
 
 
 def concretize(batch):

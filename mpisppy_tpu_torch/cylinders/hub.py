@@ -100,11 +100,29 @@ def _unread(v):
     return np.asarray(v)
 
 
+class CheckpointUnsupported(ValueError):
+    """A checkpoint path given to a hub whose driver keeps no restorable
+    state (the L-shaped method: its cut buffer grows every Benders
+    iteration, so no fixed-shape template can restore it).  Raised when
+    the wheel is built — never at the first save — and typed for a
+    serve session (`reason`)."""
+
+    reason = "checkpoint-unsupported"
+
+
 class Hub(SPCommunicator):
     """Bound bookkeeping + termination (ref:cylinders/hub.py:28-243)."""
 
     def __init__(self, opt, options: dict | None = None, spokes=None):
         super().__init__(opt, options)
+        if self.options.get("checkpoint_path") \
+                and not hasattr(opt, "state") \
+                and not hasattr(opt, "state_template"):
+            raise CheckpointUnsupported(
+                f"{type(opt).__name__} keeps no restorable state: a "
+                "checkpoint path (--checkpoint-path, a serve spool) is "
+                "refused with it (the L-shaped hub cannot be "
+                "checkpointed, resumed or migrated)")
         self.spokes = spokes or []
         self.BestOuterBound = -math.inf  # min problems: lower bound
         self.BestInnerBound = math.inf
@@ -157,6 +175,7 @@ class Hub(SPCommunicator):
                 self, float(budget),
                 action=self.options.get("watchdog_action", "abort"),
                 interval_s=self.options.get("watchdog_interval_s"),
+                shrink_fn=self.options.get("watchdog_shrink_fn"),
             ).start()
         self._profiler = None
         if self.options.get("profile_dir"):
@@ -679,6 +698,12 @@ class PHHub(Hub):
         if not path:
             return
         every_it = self.options.get("checkpoint_every_iters")
+        if not every_it and self._mesh() is not None:
+            # on a mesh of several ranks a save is a collective every
+            # rank enters at the same iteration: only the iteration
+            # cadence is deterministic (a wall-clock one would desync
+            # the ranks' collective streams and deadlock them)
+            return
         if every_it:
             if self._iter > 0 and self._iter % int(every_it) == 0 \
                     and self._iter != getattr(self, "_last_ckpt_iter", -1):
@@ -733,6 +758,14 @@ class PHHub(Hub):
                 if isinstance(meta[k], (torch.Tensor, HostCopy))}
         tensors = {f"leaf{i}": wxbarutils.leaf_tensor(x)
                    for i, x in enumerate(wxbarutils.state_leaves(st))}
+        mesh = self._mesh()
+        if mesh is not None:
+            # the whole scenario axis: every rank enters the gather,
+            # rank 0 writes (synchronously: a save is a collective)
+            tensors = self._gather_leaves(tensors, mesh)
+            background = False
+            if mesh.rank != 0:
+                return True
         tensors.update((k, v) for k, v in late.items()
                        if isinstance(v, torch.Tensor))
         pending = (list(tensors), HostCopy(list(tensors.values())),
@@ -747,6 +780,71 @@ class PHHub(Hub):
             return True
         self._write_checkpoint(path, pending, meta, tmp_tag)
         return True
+
+    def _mesh(self):
+        """The process mesh of a batch sharded over several ranks, else
+        None (a world of one saves and restores as the serial path)."""
+        mesh = getattr(getattr(self.opt, "batch", None), "mesh", None)
+        if mesh is None or getattr(mesh, "group", None) is None \
+                or int(getattr(mesh, "world", 1)) <= 1:
+            return None
+        return mesh
+
+    def _gather_leaves(self, tensors: dict, mesh) -> dict:
+        """All-gather the scenario-major leaves (leading axis = this
+        rank's scenario count) into the whole axis; the others are the
+        same on every rank.  Bounded by checkpoint_gather_timeout_s: with
+        a peer rank dead the gather cannot complete, and a last-gasp save
+        must give up (the last complete snapshot stays in place) rather
+        than hang the survivor."""
+        S = self.opt.batch.num_scenarios
+
+        def run():
+            return {k: (mesh.all_gather_cat(v)
+                        if v.ndim >= 1 and v.shape[0] == S else v)
+                    for k, v in tensors.items()}
+
+        timeout = self.options.get("checkpoint_gather_timeout_s")
+        if timeout is None:
+            return run()
+        box: list = []
+
+        def target():
+            try:
+                box.append(("ok", run()))
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                box.append(("err", e))
+
+        t = threading.Thread(target=target, daemon=True,
+                             name="mpisppy-torch-ckpt-gather")
+        t.start()
+        t.join(float(timeout))
+        if not box:
+            raise TimeoutError(
+                f"checkpoint gather over the mesh exceeded {timeout}s "
+                "(peer rank unreachable?)")
+        kind, val = box[0]
+        if kind == "err":
+            raise val
+        return val
+
+    def _local_slice(self, arrays: dict) -> dict:
+        """A snapshot of the whole scenario axis restored on one rank of
+        a mesh: each scenario-major leaf keeps this rank's rows."""
+        mesh = self._mesh()
+        if mesh is None:
+            return arrays
+        batch = self.opt.batch
+        S, off = batch.num_scenarios, batch.scen_offset
+        specs = wxbarutils.leaf_specs(self.opt.state_template())
+        out = dict(arrays)
+        for i, spec in enumerate(specs):
+            a = arrays.get(f"leaf{i}")
+            if a is None or not spec.shape or spec.shape[0] != S:
+                continue
+            if a.ndim >= 1 and a.shape[0] == S * mesh.world:
+                out[f"leaf{i}"] = a[off:off + S]
+        return out
 
     def emergency_checkpoint(self, path: str) -> bool:
         """Synchronous last-gasp save for SIGTERM/SIGINT/preemption or a
@@ -888,10 +986,18 @@ class PHHub(Hub):
             i += 1
         return out
 
-    def load_checkpoint(self, path: str) -> dict:
+    def load_checkpoint(self, path: str, transform=None) -> dict:
         """Restore a snapshot (this package's or the JAX package's) into
         the built, unspun wheel; ph_main then skips Iter0 and resumes the
-        loop.  Returns the extras dict.  The newest VALID snapshot wins:
+        loop.  Returns the extras dict.
+
+        transform: optional arrays-dict -> arrays-dict hook applied after
+        the integrity check and before the shape validation — the elastic
+        re-shard's seam (parallel/elastic.adapt_checkpoint_arrays maps the
+        scenario-major leaves onto another padded axis).  On a mesh of
+        several ranks each rank then keeps its rows of the whole axis.
+
+        The newest VALID snapshot wins:
         candidates are ordered by the hub_iter stored in each (an
         emergency save racing a slow background write can leave the
         older snapshot at `path`), and a torn, corrupt or incompatible
@@ -913,7 +1019,10 @@ class PHHub(Hub):
                 errors.append(f"{cand}: {type(e).__name__}: {e}")
                 continue
             try:
-                extras = self._restore_from_arrays(arrays)
+                if transform is not None:
+                    arrays = transform(arrays)
+                extras = self._restore_from_arrays(
+                    self._local_slice(arrays))
             except ValueError as e:  # wrong shapes/dtypes/leaf count
                 errors.append(f"{cand}: {e}")
                 continue

@@ -341,6 +341,12 @@ def build_wheel(cfg, module):
     converger = _converger(cfg)
     lshaped, aph = cfg.get("lshaped_hub"), cfg.get("aph_hub")
     if lshaped:
+        if cfg.get("checkpoint_path"):
+            from mpisppy_tpu_torch.cylinders.hub import CheckpointUnsupported
+            raise CheckpointUnsupported(
+                "--checkpoint-path is refused with --lshaped-hub: the "
+                "L-shaped method keeps no restorable state (its cut "
+                "buffer grows every Benders iteration)")
         if converger is not None:
             global_toc("WARNING: converger options are ignored with "
                        "--lshaped-hub (Benders has its own termination)",

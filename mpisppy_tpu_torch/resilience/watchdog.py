@@ -25,7 +25,11 @@
 #                    a checkpoint_path (hub.emergency_checkpoint), then
 #                    exit 75 (EX_TEMPFAIL, the code a preemption exits
 #                    with) so the pool scheduler restarts the run and
-#                    --checkpoint-restore resumes it.
+#                    --checkpoint-restore resumes it;
+#        'shrink'  — degrade, then (one budget later) call the hub's
+#                    shrink_fn (options['watchdog_shrink_fn']: re-home
+#                    the wheel onto the survivor mesh,
+#                    parallel/elastic.py), then abort.
 #
 # While healthy the thread reads host state only (never a tensor, never
 # torch.cuda.synchronize) and costs one monotonic-clock read per
@@ -47,12 +51,12 @@ class HubWatchdog:
 
     `hub` is duck-typed: telemetry (bus), run_id.  `abort_fn` is
     injectable for tests (default os._exit — a hung process cannot be
-    unwound politely).  The JAX watchdog's 'shrink' rung (re-home onto
-    a survivor mesh) waits for the multi-GPU slice."""
+    unwound politely)."""
 
     def __init__(self, hub, budget_s: float, action: str = "abort",
-                 interval_s: float | None = None, abort_fn=None):
-        if action not in ("abort", "degrade"):
+                 interval_s: float | None = None, abort_fn=None,
+                 shrink_fn=None):
+        if action not in ("abort", "degrade", "shrink"):
             raise ValueError(f"unknown watchdog action {action!r}")
         self.hub = hub
         self.budget_s = float(budget_s)
@@ -60,11 +64,19 @@ class HubWatchdog:
         self.interval_s = max(0.01, float(interval_s)) \
             if interval_s is not None else max(0.05, self.budget_s / 4.0)
         self.abort_fn = abort_fn or os._exit
+        # shrink_fn: the elastic-mesh rung, called once between degrade
+        # and abort when action='shrink'; True when the wheel was
+        # re-homed onto the survivor mesh (parallel/elastic.py supplies
+        # it).  A missing or failing shrink falls through to abort on
+        # the next trip.
+        self.shrink_fn = shrink_fn
         # trips/degraded are touched only on the supervisor thread
         # (and read by tests after stop()); the beat path shares only
         # the two _lock-guarded fields below
         self.trips = 0
         self.degraded = False
+        self.shrunk = False
+        self._shrink_attempted = False
         self._lock = threading.Lock()
         self._last_progress = time.perf_counter()  # guarded-by: _lock
         self._last = (None, None, None)            # guarded-by: _lock
@@ -122,9 +134,19 @@ class HubWatchdog:
             return
         self.trips += 1
         # escalation ladder: 'abort' goes straight there; 'degrade'
-        # gives one degraded budget first
-        rung = "abort" if self.action == "abort" or self.degraded \
-            else "degrade"
+        # gives one degraded budget first; 'shrink' walks degrade ->
+        # shrink (re-home onto the survivor mesh) -> abort, each rung
+        # consuming one full stall budget
+        if self.action == "abort":
+            rung = "abort"
+        elif self.action == "degrade":
+            rung = "abort" if self.degraded else "degrade"
+        elif not self.degraded:
+            rung = "degrade"
+        elif not self._shrink_attempted and self.shrink_fn is not None:
+            rung = "shrink"
+        else:
+            rung = "abort"
         self._emit(action=rung, stalled_s=round(stalled, 3),
                    budget_s=self.budget_s, trips=self.trips)
         try:
@@ -135,6 +157,8 @@ class HubWatchdog:
         self._dump_flight(stalled)
         if rung == "abort":
             self._abort(stalled)
+        elif rung == "shrink":
+            self._shrink(stalled)
         else:
             self._degrade()
 
@@ -175,6 +199,26 @@ class HubWatchdog:
             from mpisppy_tpu_torch.telemetry import console as _console
             _console.log("watchdog: hub stalled past budget — degraded "
                          "dispatch to direct un-coalesced mode")
+        except Exception:
+            pass
+
+    def _shrink(self, stalled: float) -> None:
+        """The elastic rung: ask parallel/elastic.py to checkpoint and
+        re-home the wheel onto the surviving mesh.  A shrink that fails
+        (or returns False) leaves `shrunk` unset, so the NEXT trip
+        aborts: the ladder never wedges."""
+        self._shrink_attempted = True
+        try:
+            self.shrunk = bool(self.shrink_fn(stalled))
+        except Exception:
+            self.shrunk = False
+        try:
+            from mpisppy_tpu_torch.telemetry import console as _console
+            _console.log(
+                "watchdog: hub stalled past degraded budget — "
+                + ("re-homed the wheel onto the survivor mesh"
+                   if self.shrunk else
+                   "shrink failed; next trip aborts (exit 75)"))
         except Exception:
             pass
 

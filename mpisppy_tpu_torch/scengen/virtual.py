@@ -13,8 +13,11 @@
 # each jitted step.  The host-side loops (PH, the hub, the spokes) read
 # only the surface below, which never draws.
 #
-# virtual_batch emits the JAX package's `scengen` event and metrics.  Not
-# ported yet: sharded synthesis over several devices.
+# virtual_batch emits the JAX package's `scengen` event and metrics.  A
+# VirtualBatch sharded by parallel.mesh.shard_batch keeps its rank's
+# rows of the probabilities (and the multistage node map) and draws each
+# row from its GLOBAL scenario index (scen_offset onward), so the draws
+# do not depend on the layout.
 ###############################################################################
 from __future__ import annotations
 
@@ -85,6 +88,8 @@ class VirtualBatch:
     shared: dict
     program: ScenarioProgram
     num_real: int
+    mesh: object | None = None
+    scen_offset: int = 0
 
     is_virtual = True
 
@@ -113,8 +118,13 @@ class VirtualBatch:
     def var_prob(self):
         return None
 
-    def expectation(self, vals: Tensor) -> Tensor:
-        return torch.sum(self.p * vals)
+    expectation = ScenarioBatch.expectation
+    all_real = ScenarioBatch.all_real
+    any_real = ScenarioBatch.any_real
+    scen_sum = ScenarioBatch.scen_sum
+    scen_extreme = ScenarioBatch.scen_extreme
+    scen_row = ScenarioBatch.scen_row
+    scen_gather = ScenarioBatch.scen_gather
 
     def nonants(self, x_scaled: Tensor) -> Tensor:
         """Original-space nonants: d_non is SHARED by the template-
@@ -138,8 +148,10 @@ class VirtualBatch:
     # -- synthesis --------------------------------------------------------
     def scenario_indices(self) -> Tensor:
         """(S,) program index of each row: pad rows (p == 0) clone the
-        last real scenario's index, mirroring pad_to_multiple."""
-        i = torch.arange(self.num_scenarios, device=self.device)
+        last real scenario's index, mirroring pad_to_multiple.  A shard's
+        rows start at its global offset."""
+        i = torch.arange(self.num_scenarios, device=self.device) \
+            + self.scen_offset
         return torch.clamp(i, max=self.num_real - 1) + self.program.start
 
     def realize(self) -> ScenarioBatch:
@@ -169,7 +181,8 @@ class VirtualBatch:
             p=self.p, nonant_idx=self.nonant_idx, node_of_slot=nos,
             integer_slot=self.integer_slot,
             integer_full=self.integer_full,
-            tree=prog.tree, num_real=self.num_real)
+            tree=prog.tree, num_real=self.num_real, mesh=self.mesh,
+            scen_offset=self.scen_offset)
 
     def persistent_bytes(self) -> int:
         """Resident bytes of this batch's tensors — what synthesis keeps

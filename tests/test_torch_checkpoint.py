@@ -5,8 +5,9 @@
 #     farmer S=3 and the fused wheel (all four planes) on sslp 5x15 S=16,
 #     each with kernel counters off and on — and equal the leaves of the
 #     port's real Iter0 state;
-#   * an APH snapshot restores in neither package (the JAX APH inherits
-#     PH's template; ROADMAP.md C5);
+#   * an APH snapshot does not restore in the JAX package (its APH
+#     inherits PH's template); the port's restores and resumes the
+#     uninterrupted rows (ROADMAP.md C1);
 #   * a snapshot the JAX hub writes after k iterations loads into the
 #     port's hub: every restored leaf equals convert.py's copy of the
 #     state the JAX hub restores from the same file, exactly, and so do
@@ -189,33 +190,48 @@ def test_fused_template_leaves_match_jax(sslp, telemetry):
 
 def test_aph_snapshot_restores_in_neither_package(farmer, tmp_path):
     """APH defines no template of its own in the JAX package: it inherits
-    PH's, which is a PHState while APH's state is an APHState.  The JAX
+    PH's, which is a PHState while APH's state is an APHState, so the JAX
     hub's restore of an APH snapshot raises (ph_iter0 reads PHOptions
-    fields APHOptions lacks); the port inherits PH's template the same
-    way, so its restore finds no valid snapshot (ROADMAP.md C5)."""
+    fields APHOptions lacks).  The port builds its template from
+    aph_iter0's shapes (ROADMAP.md C1, formerly C5): its APH hub
+    preempted at hub iteration k restores the snapshot and continues the
+    uninterrupted run's trace rows exactly."""
     path = str(tmp_path / "aph.npz")
     spinners = {}
     for pkg, aph_mod in (("jax", japh), ("torch", taph)):
-        _, pdhg, _, sm, hm, spinner, _ = PKG[pkg]
-        opts = aph_mod.APHOptions(max_iterations=2, conv_thresh=0.0,
+        _, pdhg, _, sm, hm, spinner, faults = PKG[pkg]
+        opts = aph_mod.APHOptions(max_iterations=6, conv_thresh=0.0,
                                   iter0_windows=20,
                                   pdhg=pdhg.PDHGOptions(tol=1e-7))
-        spinners[pkg] = lambda hm=hm, aph_mod=aph_mod, opts=opts, pkg=pkg, \
-            spinner=spinner: spinner(
+        spinners[pkg] = lambda extra=None, hm=hm, aph_mod=aph_mod, \
+            opts=opts, spinner=spinner, pkg=pkg: spinner(
                 {"hub_class": hm.APHHub,
-                 "hub_kwargs": {"options": {"rel_gap": 1e-9,
-                                            "checkpoint_path": path}},
+                 "hub_kwargs": {"options": {
+                     "rel_gap": 1e-9, "checkpoint_path": path,
+                     "checkpoint_every_s": 1e9, **(extra or {})}},
                  "opt_class": aph_mod.APH,
                  "opt_kwargs": {"options": opts, "batch": farmer[pkg]}},
                 [])
-    ws = spinners["torch"]().spin()
-    assert ws.spcomm.save_checkpoint(path)
+    ws0 = spinners["torch"]().spin()
+    plan = tfaults.FaultPlan(seed=0, preempt_at_iter=3)
+    with pytest.raises(tfaults.SimulatedPreemption):
+        spinners["torch"]({"fault_plan": plan}).spin()
     with np.load(path) as d:
         assert bytes(d["which"]).decode() == "state"
     with pytest.raises(AttributeError, match="smooth_beta"):
         spinners["jax"]().build().spcomm.load_checkpoint(path)
-    with pytest.raises(FileNotFoundError, match="no valid checkpoint"):
-        spinners["torch"]().build().spcomm.load_checkpoint(path)
+    ws1 = spinners["torch"]().build()
+    ws1.spcomm.load_checkpoint(path)
+    assert ws1.spcomm._iter == 3
+    ws1.spin()
+
+    def rows(ws):
+        return [{k: v for k, v in r.items() if k != "t"}
+                for r in ws.spcomm.trace]
+    assert rows(ws1) == rows(ws0)[3:]
+    assert (ws1.BestOuterBound, ws1.BestInnerBound) \
+        == (ws0.BestOuterBound, ws0.BestInnerBound)
+    assert ws1.opt._iter == ws0.opt._iter
 
 
 # ---------------------------------------------------------------------------

@@ -166,8 +166,34 @@ def test_port_tree_is_scanned():
                  "mpisppy_tpu_torch/serve/engine.py",
                  "mpisppy_tpu_torch/serve/server.py",
                  "mpisppy_tpu_torch/serve/loadgen.py",
+                 "mpisppy_tpu_torch/fleet/__init__.py",
+                 "mpisppy_tpu_torch/fleet/health.py",
+                 "mpisppy_tpu_torch/fleet/placement.py",
+                 "mpisppy_tpu_torch/fleet/replica.py",
+                 "mpisppy_tpu_torch/fleet/migration.py",
+                 "mpisppy_tpu_torch/fleet/router.py",
+                 "mpisppy_tpu_torch/parallel/__init__.py",
+                 "mpisppy_tpu_torch/parallel/mesh.py",
+                 "mpisppy_tpu_torch/parallel/elastic.py",
+                 "mpisppy_tpu_torch/parallel/_multihost_dryrun.py",
+                 "mpisppy_tpu_torch/parallel/_elastic_dryrun.py",
                  *PORT_TOOLS):
         assert must in names
+
+
+def test_every_jax_module_has_a_counterpart():
+    """A file-list comparison of the two packages: every module of the
+    JAX package has one of the same relative name in the port, apart
+    from ops/pdhg_pallas.py, whose counterparts are ops/pdhg_window.py
+    and csrc/."""
+    jax_pkg = ROOT / "mpisppy_tpu"
+    missing = sorted(
+        p.relative_to(jax_pkg).as_posix() for p in jax_pkg.rglob("*.py")
+        if "__pycache__" not in p.parts
+        and not (PORT / p.relative_to(jax_pkg)).exists())
+    assert missing == ["ops/pdhg_pallas.py"]
+    assert (PORT / "ops" / "pdhg_window.py").exists()
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
