@@ -216,6 +216,17 @@ nvcc per source, started together) and drives its main paths:
   checkpoint, one re-shard onto 6 of 8 device slots (the scenario axis
   re-padded 10,000 -> 10,002) and the run to 1%, its bracket held to
   [headline]'s ([mesh_elastic]);
+* every other algorithm on that mesh, in a card worker of its own
+  collected after the serving worker: each phase runs its algorithm
+  unsharded, then on the same batch sharded over the NCCL group of one
+  rank, and holds the results bit for bit, the collectives it issues and
+  its launches by design to the unsharded run's — [mesh_lshaped] (the
+  L-shaped hub at S=1,000, 2 Benders iterations, the master on rank 0
+  broadcast), [mesh_mip] (the Lagrangian MIP bound at S=1,000),
+  [mesh_cross_scen] (one cut round, S=100), [mesh_aph] (the APH hub at
+  S=10,000, 3 hub iterations), [mesh_async] (the headline's async wheel,
+  3 hub iterations), [mesh_fwph] (uc FWPH, no kernel), [mesh_sc] (the
+  Schur complement);
 
 the CPU halves of the card-against-CPU phases ([wheel_small],
 [wheel_soc_small], [scengen_small], [farmer_wheel], [hydro_small],
@@ -258,7 +269,10 @@ mpc_ccopf, mpc_uc_cli) the rolling-horizon phases, `--only serve` (or
 serve_headline, which runs [cli_headline] first; serve_mix,
 serve_coalesce, serve_stream) the serving phases, `--only fleet`
 ([fleet_migrate], with [cli_headline] and [serve_headline] first) and
-`--only mesh` (with [headline] first for its rows) this slice's, and
+`--only mesh` (with [headline] first for its rows) [mesh_nccl],
+[mesh_hydro] and [mesh_elastic],
+`--only mesh_algos` (or one of its phases by name) the other
+algorithms', and
 `--only window_time_split` the split design's.  Several cards are
 needed for a mesh of more than one rank (NCCL takes one rank per card):
 this script runs a world of one.
@@ -3344,6 +3358,7 @@ CARD_WORKER = CardWorker()
 CI_WORKER = CardWorker()
 MPC_WORKER = CardWorker()
 SERVE_WORKER = CardWorker()
+MESH_WORKER = CardWorker()
 
 
 class EventProbe:
@@ -6733,6 +6748,281 @@ def ci_and_mesh_runs(xhat, inner, ref):
     return {"ci": ci_runs(xhat, inner), "mesh": mesh_runs(ref)}
 
 
+# every other algorithm on the scenario mesh: each phase
+# runs its algorithm unsharded, then on the same batch shard_batch-ed over
+# the NCCL group of one rank, and holds the two bit for bit (every
+# collective over one rank is the identity)
+MESH_LSHAPED_ITERS = 2        # [mesh_lshaped]'s Benders iterations
+MESH_APH_ITERS = 3            # [mesh_aph]'s hub iterations
+# [mesh_aph] runs [aph_hub]'s hub without its classic Lagrangian and
+# x̂-x̄ spokes, which [mesh_lshaped] and [mesh_cross_scen] run sharded:
+# with them, on an H100 80GB HBM3 at 700 W, its two runs took 356 s of
+# this worker's 705 s, and the worker's load on the card slowed every
+# other host loop (the script 1,067.6 s)
+MESH_APH_FLAGS = APH_FLAGS[:5]
+MESH_ASYNC_ITERS = 3          # [mesh_async]'s hub iterations
+
+
+def cli_module(args):
+    import importlib
+    return importlib.import_module(args[args.index("--module-name") + 1])
+
+
+def cli_batch(args, dev):
+    """The batch the CLI builds for `args` (generic_cylinders: on the
+    card unless `dev` is the CPU)."""
+    from mpisppy_tpu_torch import generic_cylinders as gc
+    module = cli_module(args)
+    cfg = gc._parse_args(module, list(args))
+    return gc._build_batch(cfg, module)[0]
+
+
+def cli_wheel(args, batch):
+    """The CLI's wheel for `args` (generic_cylinders.build_wheel) built
+    on `batch` and spun."""
+    from mpisppy_tpu_torch import generic_cylinders as gc
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    module = cli_module(args)
+    cfg = gc._parse_args(module, list(args))
+    hub, spokes, *_ = gc.build_wheel(cfg, module, batch=batch)
+    return WheelSpinner(hub, spokes).spin()
+
+
+def hub_rows(ws):
+    """The hub's trace rows without their clock."""
+    return [{k: v for k, v in r.items() if k != "t"}
+            for r in ws.spcomm.trace]
+
+
+def mesh_held(name, mesh, batch, run, calls_needed, kernels):
+    """Phase `name`: run(batch) unsharded, then run(shard_batch(batch,
+    mesh)); their results (JSON of floats: exact) must be equal, the
+    sharded run must issue each collective kind of `calls_needed`, and
+    its launches by design must equal the unsharded run's, with a launch
+    under every key containing one of `kernels` (none at all when
+    `kernels` is empty).  Returns both runs' launches by design."""
+    from mpisppy_tpu_torch.parallel import mesh as mesh_mod
+    reset_launches()
+    t0 = time.perf_counter()
+    ref = run(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref_launches = launches_since_reset()
+    sb = mesh_mod.shard_batch(batch, mesh, pad=True)
+    reset_launches()
+    before = dict(mesh.calls)
+    t2 = time.perf_counter()
+    got = run(sb)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = launches_since_reset()
+    calls = {k: mesh.calls[k] - before[k] for k in before}
+    a, b = (json.dumps(v, sort_keys=True) for v in (ref, got))
+    launched = all(any(k in key and n > 0 for key, n in launches.items())
+                   for k in kernels) if kernels else not launches
+    phase(name, S=sb.num_scenarios, world=mesh.world,
+          equal_unsharded=a == b, seconds_unsharded=round(t1 - t0, 2),
+          seconds_sharded=round(t3 - t2, 2),
+          collectives=json.dumps(calls).replace(" ", ""),
+          launches_equal=launches == ref_launches,
+          by_design=json.dumps(launches, sort_keys=True).replace(" ", ""),
+          result=json.dumps(got, sort_keys=True)[:400].replace(" ", ""))
+    missing = [k for k in calls_needed if calls[k] <= 0]
+    if not (a == b and not missing and launches == ref_launches
+            and launched):
+        raise AssertionError(
+            f"{name}: sharded run off the unsharded one, no {missing} "
+            "collective, or its launches differ or miss a kernel")
+    total = dict(ref_launches)
+    merge_launches(total, launches)
+    return total
+
+
+def mesh_lshaped(mesh, dev):
+    """[mesh_lshaped]: [lshaped_hub]'s CLI wheel (the L-shaped hub with
+    the x̂-L-shaped spoke, sslp 15x45 LP at LSHAPED_SCENS) for
+    MESH_LSHAPED_ITERS Benders iterations: the Benders rows (bounds, cut
+    count, windows) and the bounds; the master solved on rank 0 and
+    broadcast.  K1 resident f32 (subproblems) and the split master."""
+    args = sslp_cli(LSHAPED_SCENS, *LSHAPED_FLAGS, "--lshaped-max-iter",
+                    str(MESH_LSHAPED_ITERS), "--kernel-counters")
+
+    def run(b):
+        ws = cli_wheel(args, b)
+        return {"benders": [[r[k] for k in ("lb", "ub", "ncuts",
+                                            "sub_windows",
+                                            "master_windows")]
+                            for r in ws.opt.trace],
+                "bounds": [ws.BestOuterBound, ws.BestInnerBound],
+                "xhat": [float(v) for v in ws.opt.xhat]}
+    return mesh_held("mesh_lshaped", mesh, cli_batch(args, dev), run,
+                     ("all_gather", "broadcast", "all_reduce"),
+                     ("pdhg_window/f32/resident", "/split"))
+
+
+def mesh_mip(mesh, dev):
+    """[mesh_mip]: lagrangian_mip_bound at [mip_lagrangian]'s sslp 15x45
+    integer batch (MIP_SCENS), W from its short LP PH run, the same
+    capped B&B: the bound, every scenario's outer and closure.  K1."""
+    from mpisppy_tpu_torch import dispatch
+    from mpisppy_tpu_torch.algos import mip
+    from mpisppy_tpu_torch.algos import ph as ph_mod
+    from mpisppy_tpu_torch.ops import bnb
+    batch, _ = sslp_mip_batch(MIP_SCENS, SSLP_SERVERS, SSLP_CLIENTS, dev)
+    drv = ph_mod.PH(ph_mod.PHOptions(max_iterations=MIP_LAG_PH_ITERS,
+                                     default_rho=MIP_RHO, conv_thresh=0.0),
+                    batch)
+    drv.ph_main()
+    W = drv.state.W
+    opts = bnb.BnBOptions(max_rounds=MIP_LAG_MAX_ROUNDS,
+                          pump_rounds=MIP_LAG_PUMP_ROUNDS, lp=mip_node_lp())
+    dispatch.configure()
+
+    def run(b):
+        lag = mip.lagrangian_mip_bound(
+            b, W[b.scen_start:b.scen_start + b.num_scenarios], opts)
+        return {"bound": lag["bound"],
+                "outer": lag["per_scenario"].tolist(),
+                "closed": int(lag["solved"].sum()),
+                "feasible": lag["feasible"],
+                "nodes": int(lag["result"].nodes_solved.sum())}
+    return mesh_held("mesh_mip", mesh, batch, run, ("all_gather",),
+                     ("pdhg_window/f32/resident",))
+
+
+def mesh_cross_scen(mesh, dev):
+    """[mesh_cross_scen]: [cross_scen]'s CLI wheel (sslp 5x15 LP, S=100,
+    the cut spoke with the Lagrangian and x̂-shuffle spokes), one cut
+    round: the hub's rows, the bounds, the cuts installed.  Streamed
+    K1 (the PH view with its cut rows)."""
+    args = CROSS_SCEN + ["--cross-scenario-iter-cnt", "1",
+                         "--max-iterations", "1"]
+
+    def run(b):
+        ws = cli_wheel(args, b)
+        ext = ws.opt.extobject
+        exts = list(getattr(ext, "extdict", {}).values()) or [ext]
+        cuts = [e.cuts_installed for e in exts
+                if hasattr(e, "cuts_installed")]
+        return {"rows": hub_rows(ws), "cuts": cuts,
+                "bounds": [ws.BestOuterBound, ws.BestInnerBound]}
+    return mesh_held("mesh_cross_scen", mesh, cli_batch(args, dev), run,
+                     ("all_gather", "all_reduce"),
+                     ("pdhg_window/f32/streamed",))
+
+
+def mesh_aph(mesh, dev):
+    """[mesh_aph]: [aph_hub]'s CLI hub (APH, half the scenarios
+    dispatched from the second iteration, bf16x3; MESH_APH_FLAGS) at
+    APH_SCENS for MESH_APH_ITERS hub iterations: the hub's rows and
+    bounds, the last dispatch record.  K2."""
+    args = sslp_cli(APH_SCENS, *MESH_APH_FLAGS, *APH_BF16X3[:2],
+                    "--max-iterations", str(MESH_APH_ITERS))
+
+    def run(b):
+        ws = cli_wheel(args, b)
+        st = ws.opt.state
+        return {"rows": hub_rows(ws),
+                "bounds": [ws.BestOuterBound, ws.BestInnerBound],
+                "dispatched": int((b.scen_host(st.last_solved)
+                                   == int(st.it)).sum())}
+    return mesh_held("mesh_aph", mesh, cli_batch(args, dev), run,
+                     ("all_gather", "all_reduce"),
+                     ("pdhg_window/bf16x3/resident",))
+
+
+def mesh_async(mesh, batch):
+    """[mesh_async]: the headline batch's async wheel (AsyncFusedPH under
+    AsyncPHHub, [headline]'s options) at staleness 1 for
+    MESH_ASYNC_ITERS hub iterations: the hub's rows, theta.  K2."""
+    from mpisppy_tpu_torch.spin_the_wheel import WheelSpinner
+    opts = sslp_options("bf16x3", MESH_ASYNC_ITERS, 1e-6, 8)
+
+    def run(b):
+        ws = WheelSpinner(*wheel_dicts(b, opts, staleness=1)).spin()
+        return {"rows": hub_rows(ws), "theta": ws.opt.last_theta,
+                "bounds": [ws.BestOuterBound, ws.BestInnerBound]}
+    return mesh_held("mesh_async", mesh, batch, run, ("all_reduce",),
+                     ("pdhg_window/bf16x3/resident",))
+
+
+def mesh_fwph(mesh, dev):
+    """[mesh_fwph]: [uc_fwph_hub]'s FWPH (uc_10g24h, S=UC_SCENS, its
+    options) for UC_FWPH_OUTER_ITERS outer iterations: the trivial and
+    iteration bounds, conv and x̄.  No kernel: the uc batch's ELL A runs
+    the plain iteration (check_no_kernel)."""
+    from mpisppy_tpu_torch.algos import fwph
+    from mpisppy_tpu_torch.ops import pdhg
+    opts = fwph.FWPHOptions(
+        fw_iter_limit=2, max_columns=16,
+        max_iterations=UC_FWPH_OUTER_ITERS, conv_thresh=0.0,
+        default_rho=200.0, oracle_windows=10, iter0_windows=UC_ITER0_WINDOWS,
+        pdhg=pdhg.PDHGOptions(tol=1e-6, restart_period=N_ITERS))
+
+    def run(b):
+        drv = fwph.FWPH(opts, b)
+        tb = drv.fw_prep()
+        for _ in range(opts.max_iterations):
+            drv.state = fwph.fwph_iter(b, drv.state, opts)
+        st = drv.state
+        check_no_kernel("mesh_fwph")
+        return {"trivial": tb, "bound": float(st.bound),
+                "best": float(st.best_bound), "conv": float(st.conv),
+                "xbar": st.xbar_nodes[0].tolist()}
+    return mesh_held("mesh_fwph", mesh, uc_batch(UC_SCENS, dev), run,
+                     ("all_reduce",), ())
+
+
+def mesh_sc(mesh, dev):
+    """[mesh_sc]: [sc]'s SchurComplement (sslp 5x15 LP, S=SC_SCENS, f64
+    on the card): objective, x, mu and residual.  No window kernel."""
+    from mpisppy_tpu_torch.algos.sc import SchurComplement, SCOptions
+
+    def run(b):
+        r = SchurComplement(SCOptions(max_iter=250, tol=SC_TOL), b).solve()
+        return {"objective": r["objective"], "x": r["x"].tolist(),
+                "mu": r["mu"], "resid": r["resid"],
+                "converged": r["converged"]}
+    return mesh_held("mesh_sc", mesh, sslp_batch(SC_SCENS, 5, 15, dev),
+                     run, ("all_reduce", "all_gather"), ())
+
+
+MESH_ALGOS = {"mesh_lshaped": lambda m, d: mesh_lshaped(m, d),
+              "mesh_aph": lambda m, d: mesh_aph(m, d),
+              "mesh_mip": lambda m, d: mesh_mip(m, d),
+              "mesh_cross_scen": lambda m, d: mesh_cross_scen(m, d),
+              "mesh_async": lambda m, d: mesh_async(m, sslp_batch(
+                  HEADLINE_SCENS, SSLP_SERVERS, SSLP_CLIENTS, d)),
+              "mesh_fwph": lambda m, d: mesh_fwph(m, d),
+              "mesh_sc": lambda m, d: mesh_sc(m, d)}
+
+
+def mesh_algo_runs(names=tuple(MESH_ALGOS)):
+    """The other algorithms' mesh phases (a card worker's entry) in an NCCL
+    process group of one rank.  Returns the launches by design."""
+    import os
+    import tempfile
+
+    from mpisppy_tpu_torch.parallel import mesh as mesh_mod
+    t0 = time.perf_counter()
+    total = {}
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="nccl") as td:
+        mesh_mod.init_multihost(f"file://{os.path.join(td, 'store')}", 1,
+                                0, device="cuda")
+        try:
+            mesh = mesh_mod.make_mesh()
+            for name in names:
+                merge_launches(total, MESH_ALGOS[name](mesh, dev))
+                torch.cuda.empty_cache()
+        finally:
+            mesh_mod.shutdown()
+    phase("mesh_algos_path", seconds=round(time.perf_counter() - t0, 2),
+          launches_by_design=json.dumps(total, sort_keys=True)
+          .replace(" ", ""))
+    return total
+
+
 def headline_ref(dev):
     """--only mesh: [headline] run here for its rows and bounds."""
     sync = {}
@@ -6800,7 +7090,8 @@ def main() -> int:
         return run(sys.argv[1:])
     finally:
         CPU_HALVES.close()
-        for worker in (CARD_WORKER, CI_WORKER, MPC_WORKER, SERVE_WORKER):
+        for worker in (CARD_WORKER, CI_WORKER, MPC_WORKER, SERVE_WORKER,
+                       MESH_WORKER):
             worker.close()
 
 
@@ -6881,6 +7172,9 @@ def run(argv) -> int:
             "serve_stream": lambda dev: serve_stream(),
             "fleet": lambda dev: fleet_alone(),
             "mesh": lambda dev: mesh_runs(headline_ref(dev)),
+            "mesh_algos": lambda dev: mesh_algo_runs(),
+            **{name: (lambda dev, n=name: mesh_algo_runs((n,)))
+               for name in MESH_ALGOS},
             **{name: (lambda dev, n=name: slice9_runs(
                 slice9_table(full), n, CHECKS[n])) for name in CHECKS}}
     if argv[:1] == ["--only"]:
@@ -6920,6 +7214,9 @@ def run(argv) -> int:
     # the models' phases: its session threads share the card with every
     # host loop until then
     SERVE_WORKER.start("serve_runs", sync["cli_headline"])
+    # the other algorithms' mesh phases in a card worker of their own,
+    # collected after the serving worker
+    MESH_WORKER.start("mesh_algo_runs")
     MPC_WORKER.start("mpc_and_ci_small_runs")
     _, _, mip_launches = mip_path(dev)
     torch.cuda.empty_cache()
@@ -6939,6 +7236,7 @@ def run(argv) -> int:
     torch.cuda.empty_cache()
     models_launches = models_path(dev, full)
     serve_launches = SERVE_WORKER.result()
+    mesh_algo_launches = MESH_WORKER.result()
     # [profile_cli]'s windows ran in K2 and K1 (its capped CLI headline);
     # the MIP phases' node LPs ran in K1 (f32); the slice-9 paths in K1,
     # K2 (APH's bf16x3), the split box design (L-shaped masters), the
@@ -6962,6 +7260,7 @@ def run(argv) -> int:
     credit(kernels, mpc_launches)
     credit(kernels, serve_launches)
     credit(kernels, mesh_launches)
+    credit(kernels, mesh_algo_launches)
     # the split design's main path: the sampled EFs and the L-shaped
     # master (box rows), the root-fixed ccopf EFs (SOC rows)
     idle = [e["name"] for e in kernels

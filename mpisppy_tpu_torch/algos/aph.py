@@ -24,6 +24,11 @@
 # All four norms are probability-weighted (the JAX package's documented
 # deviation from the reference's unweighted u/v sums; identical up to a
 # constant factor for uniform probabilities, which cancels in theta).
+#
+# On a sharded batch (parallel/mesh.py) every reduction above finishes
+# over the mesh (node_average, expectation) and the dispatch mask is a
+# global top-k over the whole scenario axis (batch.scen_topk_mask), so
+# each rank dispatches its rows of the same selection.
 ###############################################################################
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import torch
 
 from mpisppy_tpu_torch.algos.ph import PH, iter0_solve_and_certify, \
     ph_eobjective
-from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
+from mpisppy_tpu_torch.core.batch import ScenarioBatch
 from mpisppy_tpu_torch.ops import pdhg
 
 Tensor = torch.Tensor
@@ -176,21 +181,22 @@ def _dispatch_mask(batch: ScenarioBatch, st: APHState,
     """The n_dispatch stalest real scenarios (the dispatch record,
     ref:opt/aph.py:164-168,756+: least recently solved first); equal
     staleness round-robins through a rotating offset, and exact ties go
-    to the lower index (top-k as a stable descending sort)."""
-    S = batch.num_scenarios
+    to the lower index (top-k as a stable descending sort), over the
+    whole scenario axis; returns this rank's rows of the mask."""
+    S = batch.scen_total
     dev = batch.device
     if n_dispatch >= S:
-        return torch.ones(S, dtype=torch.bool, device=dev)
+        return torch.ones(batch.num_scenarios, dtype=torch.bool,
+                          device=dev)
     staleness = (st.it - st.last_solved).to(torch.float32)
     # padded scenarios never win a slot over real ones
     staleness = torch.where(batch.p > 0.0, staleness,
                             torch.full_like(staleness, -1.0))
-    idx = torch.arange(S, dtype=torch.float32, device=dev)
+    idx = torch.arange(batch.scen_start,
+                       batch.scen_start + batch.num_scenarios,
+                       dtype=torch.float32, device=dev)
     rot = torch.remainder(idx - st.it.to(torch.float32), S) / (2.0 * S)
-    order = torch.sort(staleness + rot, descending=True, stable=True)[1]
-    mask = torch.zeros(S, dtype=torch.bool, device=dev)
-    mask[order[:n_dispatch]] = True
-    return mask
+    return batch.scen_topk_mask(staleness + rot, n_dispatch)
 
 
 def aph_iterk(batch: ScenarioBatch, st: APHState,
@@ -283,7 +289,6 @@ class APH(PH):
     _label = "APH"
 
     def __init__(self, options: APHOptions, batch: ScenarioBatch, **kw):
-        require_unsharded(batch, "APH")
         super().__init__(options, batch, **kw)
         self.state: APHState | None = None
 

@@ -33,7 +33,9 @@
 #     x̂ plane's straggler tail, fused_wheel._tail_rescue).
 #
 # staleness = 0 degrades to the synchronous FusedPH path untouched, so
-# trajectories equal the sync wheel's (tested).
+# trajectories equal the sync wheel's (tested).  On a sharded batch the
+# stale-plane step reduces as the sync wheel does: its node averages,
+# conv and aph.projective_theta's expectations finish over the mesh.
 ###############################################################################
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ import dataclasses
 
 from mpisppy_tpu_torch.algos import fused_wheel as fw
 from mpisppy_tpu_torch.algos import ph as ph_mod
-from mpisppy_tpu_torch.core.batch import require_unsharded
 from mpisppy_tpu_torch.utils.host_copy import HostCopy
 
 
@@ -72,9 +73,6 @@ class AsyncFusedPH(fw.FusedPH):
 
     def __init__(self, options, batch, wheel_options=None,
                  async_options: AsyncWheelOptions | None = None, **kw):
-        # the stale-plane damping (aph.projective_theta) reduces over
-        # scenarios without the mesh
-        require_unsharded(batch, "AsyncFusedPH")
         super().__init__(options, batch, wheel_options, **kw)
         self.async_options = async_options or AsyncWheelOptions()
         # double buffer of ExchangePlane slots; a "write" is a host-side

@@ -20,6 +20,12 @@
 #   * EF view (aug_ef): eta columns + ALL cut rows, used only by the
 #     periodic bound check.  Subproblem s pins its OWN eta at its lower
 #     bound and deactivates its own optimality-cut rows.
+#
+# On a sharded batch (parallel/mesh.py) both views hold this rank's
+# scenarios with EVERY scenario's cut rows and eta columns (S below is
+# the whole axis): the winner is the global first-index argmax, the cut
+# pieces come to the host as global rows (batch.scen_host), and the
+# per-cut scale and the EF check's bound finish over the mesh.
 ###############################################################################
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, mesh_reduce
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
 
@@ -37,7 +43,9 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class CrossScenMeta:
-    """Host bookkeeping: both augmented views + the cut registry."""
+    """Host bookkeeping: both augmented views + the cut registry.  S is
+    the whole scenario axis (every rank's rows); d_max the per-slot
+    largest nonant column scale over it (None: read off aug_ph)."""
 
     n_orig: int
     m_orig: int
@@ -48,6 +56,7 @@ class CrossScenMeta:
     aug_ef: ScenarioBatch           # eta-columns view (all cuts)
     is_opt: np.ndarray              # (R,) slot holds an optimality cut
     rounds_used: int = 0
+    d_max: np.ndarray | None = None  # (N,)
 
     @property
     def R(self) -> int:
@@ -63,11 +72,12 @@ def _extend_cols(x: Tensor, fill: float, width: int) -> Tensor:
 def _add_rows(batch: ScenarioBatch, R: int, n_new: int,
               cut_k: int) -> ScenarioBatch:
     """Append R inactive rows (and, for the EF view, n_new eta columns)
-    to a batch; a cut row holds `cut_k` nonzeros in ELL form."""
+    to a batch; a cut row holds `cut_k` nonzeros in ELL form (the EF
+    view's eta columns: one per scenario of the whole axis)."""
     qp = batch.qp
     n, m = qp.n, qp.m
     dt, dev = qp.c.dtype, qp.device
-    S, N = batch.num_scenarios, batch.num_nonants
+    N = batch.num_nonants
 
     def cols(t, fill):
         return _extend_cols(t, fill, n_new) if n_new else t
@@ -88,8 +98,8 @@ def _add_rows(batch: ScenarioBatch, R: int, n_new: int,
         # scenario-k row's eta column, then padding (column 0)
         pat = [torch.broadcast_to(batch.nonant_idx, (R, N))]
         if n_new:
-            pat.append((n + torch.arange(S, device=dev).repeat(R // S))
-                       [:, None])
+            pat.append((n + torch.arange(n_new, device=dev)
+                        .repeat(R // n_new))[:, None])
         pat.append(torch.zeros((R, k_new - N - (1 if n_new else 0)),
                                dtype=batch.nonant_idx.dtype, device=dev))
         cut_cols = torch.cat(pat, dim=-1).to(acols.dtype)
@@ -119,8 +129,7 @@ def make_meta(batch: ScenarioBatch, eta_lb: np.ndarray,
               max_rounds: int = 8) -> CrossScenMeta:
     """Build both augmented views
     (ref:cross_scen_extension.py:273-300 post_iter0 analog)."""
-    require_unsharded(batch, "cross_scen.make_meta")
-    S, N = batch.num_scenarios, batch.num_nonants
+    S, N = batch.scen_total, batch.num_nonants
     R = max_rounds * S
     aug_ph = _add_rows(batch, R, 0, cut_k=N)
     aug_ef = _add_rows(batch, R, S, cut_k=N + 1)
@@ -129,27 +138,37 @@ def make_meta(batch: ScenarioBatch, eta_lb: np.ndarray,
                                           dtype=l.dtype, device=l.device)
     aug_ef = dataclasses.replace(
         aug_ef, qp=dataclasses.replace(aug_ef.qp, l=l))
+    d_non = batch.d_col[..., batch.nonant_idx]
+    if d_non.ndim == 2:
+        d_non = mesh_reduce(batch, d_non.amax(dim=0), "max")
     return CrossScenMeta(n_orig=batch.qp.n, m_orig=batch.qp.m, S=S,
                          max_rounds=max_rounds,
                          eta_lb=np.asarray(eta_lb, np.float64),
                          aug_ph=aug_ph, aug_ef=aug_ef,
-                         is_opt=np.zeros(R, bool))
+                         is_opt=np.zeros(R, bool),
+                         d_max=d_non.cpu().numpy())
 
 
 def launch_cuts(batch: ScenarioBatch, nonants: Tensor, xbar: Tensor,
                 opts: pdhg.PDHGOptions) -> dict:
     """Spoke-side cut generation on the ORIGINAL batch: the scenario x
     farthest from x̄ (ref:cross_scen_spoke.py:190-230, first index on
-    ties), every scenario's recourse solved there in one batch."""
-    require_unsharded(batch, "cross_scen.launch_cuts")
+    ties), every scenario's recourse solved there in one batch.  `sid`
+    is the winner's global index; the per-scenario results are host
+    arrays of the whole axis (identical on every rank), `state` this
+    rank's solve."""
     from mpisppy_tpu_torch.algos.lshaped import _subproblem_cuts
     nonants = torch.as_tensor(nonants, device=batch.device)
     xbar = torch.as_tensor(xbar, device=batch.device)
     dist = torch.linalg.vector_norm(nonants - xbar, dim=-1)
     dist = torch.where(batch.p > 0.0, dist,
                        torch.full_like(dist, -float("inf")))
-    xhat = nonants[int(torch.argmax(dist))]
-    return {"xhat": xhat, **_subproblem_cuts(batch, xhat, opts)}
+    sid = batch.scen_argmax(dist)
+    xhat = batch.scen_row(nonants, sid)
+    res = _subproblem_cuts(batch, xhat, opts)
+    keys = [k for k, v in res.items() if isinstance(v, Tensor)]
+    res.update(zip(keys, batch.scen_host(*(res[k] for k in keys))))
+    return {"xhat": xhat, "sid": sid, **res}
 
 
 def package_cuts(raw: dict, opts: pdhg.PDHGOptions) -> dict:
@@ -159,7 +178,9 @@ def package_cuts(raw: dict, opts: pdhg.PDHGOptions) -> dict:
     (dual_objective overestimates when rd is large).  A scenario passing
     neither is `usable=False` and writes no row."""
     def host(k):
-        return raw[k].detach().cpu().numpy()
+        v = raw[k]
+        return v.detach().cpu().numpy() if isinstance(v, Tensor) \
+            else np.asarray(v)
 
     tol = np.maximum(opts.certificate_tol, 1e-6)
     feas_const, feas_g = host("feas_const"), host("feas_g")
@@ -173,15 +194,21 @@ def package_cuts(raw: dict, opts: pdhg.PDHGOptions) -> dict:
             "opt_alpha": host("alpha")}
 
 
-def _scaled_rows(batch_view: ScenarioBatch, g: np.ndarray,
+def _d_max(meta: CrossScenMeta) -> np.ndarray:
+    """Per nonant slot, the largest column scale over the scenarios."""
+    if meta.d_max is None:
+        view = meta.aug_ph
+        d_all = view.d_col.cpu().numpy()[..., view.nonant_idx.cpu().numpy()]
+        meta.d_max = d_all if d_all.ndim == 1 else d_all.max(axis=0)
+    return meta.d_max
+
+
+def _scaled_rows(d_max: np.ndarray, g: np.ndarray,
                  eta_coef: np.ndarray, rhs: np.ndarray):
     """(slot coefficient block, eta coefficients, scaled rhs): cut slopes
     in the scaled column space with one inf-norm equilibration scale per
     cut, shared across subproblems (cut coefficient spreads stall the
     first-order solver otherwise)."""
-    nonant_idx = batch_view.nonant_idx.cpu().numpy()
-    d_all = batch_view.d_col.cpu().numpy()[..., nonant_idx]
-    d_max = d_all if d_all.ndim == 1 else d_all.max(axis=0)
     scale = np.maximum(np.max(np.abs(g) * d_max[None, :], axis=-1),
                        np.abs(eta_coef))
     scale = np.maximum(scale, 1e-8)
@@ -251,11 +278,12 @@ def write_cuts(meta: CrossScenMeta, package: dict) -> None:
     # not even occupy its inactive rows (they would inflate the PH
     # subproblems' operator norm)
     feas = infeas & usable
+    d_max = _d_max(meta)
     g_ph, _, rhs_ph = _scaled_rows(
-        meta.aug_ph, np.where(feas[:, None], g, 0.0),
+        d_max, np.where(feas[:, None], g, 0.0),
         np.zeros_like(eta_coef), np.where(feas, rhs, np.inf))
     _write_rows(meta.aug_ph, meta, row0, g_ph, None, rhs_ph, active=feas)
-    g_ef, eta_ef, rhs_ef = _scaled_rows(meta.aug_ef, g, eta_coef, rhs)
+    g_ef, eta_ef, rhs_ef = _scaled_rows(d_max, g, eta_coef, rhs)
     _write_rows(meta.aug_ef, meta, row0, g_ef, eta_ef, rhs_ef,
                 active=usable)
     meta.is_opt[row0 - meta.m_orig:row0 - meta.m_orig + S] = \
@@ -268,21 +296,26 @@ def _ef_bound_qp(aug: ScenarioBatch, owner: Tensor, is_opt: Tensor,
     """The batch of EF-objective problems on the eta view: subproblem s
     minimizes p_s f_s + sum_{k != s} p_k eta_k under its constraints and
     the cuts, its OWN eta pinned at the lower bound and its own
-    optimality-cut rows deactivated."""
+    optimality-cut rows deactivated.  On a sharded batch this rank's
+    rows: p over the whole axis (an all-gather), the rows' global
+    indices from the rank's offset."""
     qp = aug.qp
     S = aug.num_scenarios
     dt, dev = qp.c.dtype, qp.device
     p = aug.p
+    p_all = aug.scen_gather(p)
     ar = torch.arange(S, device=dev)
-    eta_c = torch.broadcast_to(p[None, :], (S, S)) \
-        * (1.0 - torch.eye(S, dtype=dt, device=dev))
+    gid = ar + aug.scen_start
+    eta_c = torch.broadcast_to(p_all[None, :], (S, p_all.shape[0])) \
+        * (1.0 - torch.nn.functional.one_hot(
+            gid, p_all.shape[0]).to(dt))
     c_ef = torch.cat([torch.broadcast_to(qp.c[..., :n_orig], (S, n_orig))
                       * p[:, None], eta_c], dim=-1)
     u = torch.broadcast_to(qp.u, (S, qp.n)).clone()
-    u[ar, n_orig + ar] = eta_lb.to(dt)
+    u[ar, n_orig + gid] = eta_lb.to(dt)[gid]
     m_orig = qp.m - owner.shape[0]
     bu = torch.broadcast_to(qp.bu, (S, qp.m)).clone()
-    own = (owner[None, :] == ar[:, None]) & is_opt[None, :]
+    own = (owner[None, :] == gid[:, None]) & is_opt[None, :]
     bu[:, m_orig:] = torch.where(own, torch.full_like(own, float("inf"),
                                                       dtype=dt),
                                  bu[:, m_orig:])
@@ -305,8 +338,8 @@ def _ef_bound_solve(aug: ScenarioBatch, owner: Tensor, is_opt: Tensor,
     _, rd, _ = boxqp.kkt_residuals(qp_ef, st.x, st.y)
     tol = max(opts.tol, 5.0 * torch.finfo(dt).eps)
     ok = (rd <= 10.0 * tol) & (p > 0.0)
-    bound = torch.max(torch.where(ok, dual,
-                                  torch.full_like(dual, -float("inf"))))
+    bound = mesh_reduce(aug, torch.max(torch.where(
+        ok, dual, torch.full_like(dual, -float("inf")))), "max")
     return bound, st
 
 
@@ -336,16 +369,16 @@ def eta_lower_bounds(batch: ScenarioBatch, opts: pdhg.PDHGOptions,
     minus a safety margin; elsewhere the all-rows-dropped box relaxation
     sum_j min_{x_j in [l,u]} (c_j x_j + q_j/2 x_j^2), always valid,
     possibly -inf.  Floored at -1e12 (a -inf pin degenerates the EF
-    check's own-eta column)."""
-    require_unsharded(batch, "cross_scen.eta_lower_bounds")
+    check's own-eta column).  Returns the whole scenario axis's bounds
+    (on a sharded batch: each rank's rows, all-gathered)."""
     qp = batch.qp
     st = pdhg.solve_fixed(qp, windows, opts, pdhg.init_state(qp, opts))
-    dual = boxqp.dual_objective(qp, st.x, st.y).cpu().numpy() \
-        .astype(np.float64)
+    dual_t = boxqp.dual_objective(qp, st.x, st.y)
+    dual = dual_t.cpu().numpy().astype(np.float64)
     _, rd, _ = boxqp.kkt_residuals(qp, st.x, st.y)
     tol = max(opts.tol, 5.0 * float(np.finfo(np.float32).eps))
     certified = rd.cpu().numpy() <= 10.0 * tol
-    span = max(1.0, float(np.abs(dual).max()))
+    span = max(1.0, float(mesh_reduce(batch, dual_t.abs().max(), "max")))
 
     S = batch.num_scenarios
 
@@ -365,5 +398,6 @@ def eta_lower_bounds(batch: ScenarioBatch, opts: pdhg.PDHGOptions,
         interior = (q > 0) & (xs > l) & (xs < u)
         at_s = np.where(interior, c * xs + 0.5 * q * xs * xs, np.inf)
     box_min = np.minimum(np.minimum(at_l, at_u), at_s).sum(axis=-1)
-    lb = np.where(certified, dual - margin * span, box_min)
-    return np.maximum(lb, -1e12)
+    lb = np.maximum(np.where(certified, dual - margin * span, box_min),
+                    -1e12)
+    return batch.scen_host(torch.as_tensor(lb, device=batch.device))

@@ -21,6 +21,8 @@
 # After the inner loop: xbar <- node_average(x), W += rho (x - xbar), as
 # in PH.  Nothing here reaches a kernel of its own: the oracle is the
 # PDHG solver, on whatever engine window_engine names for the batch.
+# On a sharded batch (parallel/mesh.py) each rank holds its scenarios'
+# columns; x̄, conv and the certified dual bound finish over the mesh.
 ###############################################################################
 from __future__ import annotations
 
@@ -31,9 +33,7 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import (
-    ScenarioBatch, concretize, require_unsharded,
-)
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, concretize
 from mpisppy_tpu_torch.ops import boxqp, pdhg, simplex_qp
 
 Tensor = torch.Tensor
@@ -124,9 +124,7 @@ def _certified_dual(batch: ScenarioBatch, qp: boxqp.BoxQP,
     dual = boxqp.dual_objective(qp, sol.x, sol.y)
     _, rd, _ = boxqp.kkt_residuals(qp, sol.x, sol.y)
     tol = max(tol, 5.0 * torch.finfo(sol.x.dtype).eps)
-    real = batch.p > 0.0
-    cert = torch.all(torch.where(real, rd <= 10.0 * tol, True))
-    return batch.expectation(dual), cert
+    return batch.expectation(dual), batch.all_real(rd <= 10.0 * tol)
 
 
 def fwph_iter(batch: ScenarioBatch, st: FWPHState,
@@ -161,7 +159,8 @@ def fwph_iter(batch: ScenarioBatch, st: FWPHState,
         st = _push_column(dataclasses.replace(st, oracle=oracle), v)
         H, g = _inner_qp(batch, st)
         lam = simplex_qp.solve_simplex_qp(H, g, st.valid, st.lam,
-                                          iters=opts.qp_iters)
+                                          iters=opts.qp_iters,
+                                          rows=batch.qp.rows)
         x = torch.bmm(lam[:, None, :], st.cols)[:, 0, :]
         st = dataclasses.replace(st, lam=lam, x=x, gamma=gamma)
         x_non = batch.nonants(x)
@@ -225,7 +224,6 @@ class FWPH:
 
     def __init__(self, options: FWPHOptions, batch: ScenarioBatch,
                  scenario_names=None, rho: Tensor | float | None = None):
-        require_unsharded(batch, "FWPH")
         self.options = options
         self.batch = batch
         self.scenario_names = scenario_names or [
@@ -275,6 +273,6 @@ class FWPH:
             if (self.options.time_limit is not None
                     and time.time() - t0 > self.options.time_limit):
                 break
-        weights = {nm: self.state.lam[i].cpu().numpy()
-                   for i, nm in enumerate(self.scenario_names)}
+        lam = self.batch.scen_host(self.state.lam)   # the global rows
+        weights = {nm: lam[i] for i, nm in enumerate(self.scenario_names)}
         return itr, weights, self.state.xbar_nodes.cpu().numpy()

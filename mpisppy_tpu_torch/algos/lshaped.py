@@ -22,6 +22,13 @@
 # The JAX package jits each solve; here pdhg.solve is a host loop that
 # reads `all(done)` once per window, so each iteration reports its
 # windows (trace rows: sub_windows, master_windows).
+#
+# On a sharded batch (parallel/mesh.py) each rank solves its scenarios'
+# subproblems; the host reads the cut pieces' GLOBAL rows (one
+# all-gather, batch.scen_host), so every rank builds the same cut buffer,
+# and rank 0 alone solves the master and broadcasts the next x̂ with its
+# bound: the ranks cannot drift apart even where a kernel is not bitwise
+# reproducible across cards.
 ###############################################################################
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import torch
 
 from mpisppy_tpu_torch import global_toc
 from mpisppy_tpu_torch.core.batch import (
-    ScenarioBatch, concretize, require_unsharded,
+    ScenarioBatch, concretize, is_root, mesh_broadcast, mesh_reduce,
 )
 from mpisppy_tpu_torch.ops import boxqp, pdhg
 from mpisppy_tpu_torch.ops.boxqp import BoxQP
@@ -70,7 +77,7 @@ def _subproblem_cuts(batch: ScenarioBatch, xhat: Tensor,
     primal objective and residual (inner-bound material), the status,
     and Farkas feasibility-cut pieces from two candidate rays
     (ref:mpisppy/opt/lshaped.py:387-513).  `windows` is the solve's
-    restart-window count."""
+    restart-window count (the most any rank's solve ran)."""
     batch = concretize(batch)
     qp = batch.with_fixed_nonants(xhat)
     st = pdhg.solve(qp, opts)
@@ -114,7 +121,10 @@ def _subproblem_cuts(batch: ScenarioBatch, xhat: Tensor,
                 status=st.status, feas_qval=torch.maximum(q1, q2),
                 feas_const=torch.where(take2, c2, c1),
                 feas_g=torch.where(take2[..., None], g2, g1),
-                windows=_windows(st, opts), state=st)
+                windows=int(mesh_reduce(
+                    batch, torch.tensor(_windows(st, opts),
+                                        device=batch.device), "max")),
+                state=st)
 
 
 def _master_solve(qp: BoxQP, opts: pdhg.PDHGOptions):
@@ -135,7 +145,6 @@ class LShapedMethod:
 
     def __init__(self, options: LShapedOptions | dict,
                  batch: ScenarioBatch, scenario_names=None):
-        require_unsharded(batch, "LShapedMethod")
         if isinstance(options, dict):
             options = LShapedOptions(**options)
         self.options = options
@@ -145,7 +154,7 @@ class LShapedMethod:
             raise ValueError("LShaped is two-stage only "
                              "(ref:mpisppy/opt/lshaped.py:29 docstring)")
         qnon = batch.qp.q[..., batch.nonant_idx]
-        if float(qnon.abs().max()) > 0.0:
+        if float(mesh_reduce(batch, qnon.abs().max(), "max")) > 0.0:
             raise ValueError("LShaped requires linear first-stage cost "
                              "(quadratic nonant cost breaks cut affinity)")
         self._setup_master_box()
@@ -161,17 +170,17 @@ class LShapedMethod:
 
     def _setup_master_box(self):
         """First-stage box in original space: the tightest intersection
-        across scenarios."""
+        across scenarios (p: the whole scenario axis)."""
         self._x_l, self._x_u = self.batch.nonant_box()
         self._N = self.batch.num_nonants
-        self._p = self.batch.p.cpu().numpy().astype(np.float64)
+        self._p = self.batch.scen_host(self.batch.p).astype(np.float64)
 
     def _master_qp(self, cuts_A, cuts_bl, cuts_bu, eta_lb):
         """Master BoxQP over [x (N); eta (1 or S)] with the cut buffer,
         Ruiz-scaled at every rebuild (cut coefficients mix cost and value
         magnitudes), as a batch of one problem on the batch's device."""
         N = self._N
-        n_eta = self.batch.num_scenarios if self.options.multicut else 1
+        n_eta = self.batch.scen_total if self.options.multicut else 1
         c = np.zeros(N + n_eta)
         if self.options.multicut:
             c[N:] = self._p
@@ -185,12 +194,30 @@ class LShapedMethod:
         qp, scaling = boxqp.ruiz_scale(qp)
         return boxqp.one_problem(qp), scaling
 
+    def _master_step(self, cuts_A, cuts_bl, cuts_bu, eta_lb):
+        """(x̂, lower bound, dual residual, windows) of the master: rank
+        0 solves it and broadcasts them (f64) to every rank."""
+        N = self._N
+        b = self.batch
+        msg = np.zeros(N + 3)
+        if is_root(b):
+            qp_m, scal = self._master_qp(cuts_A, cuts_bl, cuts_bu, eta_lb)
+            xm, _, lb_m, rd_m, _, m_windows = _master_solve(
+                qp_m, self.options.master_pdhg)
+            x_orig = xm.cpu().numpy().astype(np.float64) * scal.d_col
+            msg[:N] = x_orig[:N]
+            msg[N:] = float(lb_m), float(rd_m), m_windows
+        msg = mesh_broadcast(b, torch.as_tensor(
+            msg, dtype=torch.float64, device=b.device)).cpu().numpy()
+        return (np.clip(msg[:N], self._x_l, self._x_u), float(msg[N]),
+                float(msg[N + 1]), int(msg[N + 2]))
+
     def lshaped_algorithm(self) -> dict:
         """ref:mpisppy/opt/lshaped.py:515 lshaped_algorithm()."""
         opts = self.options
         b = self.batch
         N = self._N
-        n_eta = b.num_scenarios if opts.multicut else 1
+        n_eta = b.scen_total if opts.multicut else 1
         ncols = N + n_eta
         real = self._p > 0.0
         dt, dev = b.qp.c.dtype, b.device
@@ -204,13 +231,13 @@ class LShapedMethod:
             eta_lb = opts.eta_lb
         elif opts.multicut:
             # per-scenario eta_s needs a PER-SCENARIO valid lower bound
-            wsd = ws_dual.cpu().numpy().astype(np.float64)
+            wsd = b.scen_host(ws_dual).astype(np.float64)
             eta_lb = wsd - 0.05 * np.abs(wsd) - 1.0
             eta_lb[~real] = 0.0  # padded scenarios: p=0, keep bounded
         else:
             eta_lb = ws - 0.05 * abs(ws) - 1.0
         x_non0 = b.nonants(st0.x)
-        xhat = torch.sum(b.p[:, None] * x_non0, dim=0).cpu().numpy()
+        xhat = b.scen_sum(b.p[:, None] * x_non0).cpu().numpy()
         xhat = np.clip(xhat.astype(np.float64), self._x_l, self._x_u)
 
         # host-side master cut buffer (float64; fixed shapes)
@@ -236,8 +263,8 @@ class LShapedMethod:
                                                       device=dev),
                                    opts.sub_pdhg)
             self.sub_state = res["state"]
-            host = {k: v.cpu().numpy() for k, v in res.items()
-                    if isinstance(v, Tensor)}
+            keys = [k for k, v in res.items() if isinstance(v, Tensor)]
+            host = dict(zip(keys, b.scen_host(*(res[k] for k in keys))))
             infeas = real & (host["status"] == pdhg.INFEASIBLE)
             cuts_before = ncuts
             if infeas.any():
@@ -280,13 +307,10 @@ class LShapedMethod:
                     row[N] = 1.0
                     add_row(row, bl=float(np.sum(self._p * alpha)))
 
-            qp_m, scal = self._master_qp(cuts_A, cuts_bl, cuts_bu, eta_lb)
-            xm, _, lb_m, rd_m, _, m_windows = _master_solve(
-                qp_m, opts.master_pdhg)
-            x_orig = xm.cpu().numpy().astype(np.float64) * scal.d_col
-            xhat = np.clip(x_orig[:N], self._x_l, self._x_u)
-            if float(rd_m) <= 10.0 * opts.master_pdhg.tol:
-                self.lb = max(self.lb, float(lb_m))
+            xhat, lb_m, rd_m, m_windows = self._master_step(
+                cuts_A, cuts_bl, cuts_bu, eta_lb)
+            if rd_m <= 10.0 * opts.master_pdhg.tol:
+                self.lb = max(self.lb, lb_m)
 
             gap = self.ub - self.lb
             rel = gap / max(1e-10, abs(self.ub)) if np.isfinite(gap) \

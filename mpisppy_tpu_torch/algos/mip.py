@@ -25,6 +25,18 @@
 # fault domain a quarantined solve raises dispatch.SolveFailed:
 # decomposition_bnb absorbs per-node failures (the parent bound stays a
 # certified stand-in); the one-shot oracles propagate it.
+#
+# On a sharded batch (parallel/mesh.py) each rank solves its scenarios'
+# lanes and every host reduction over p reads the GLOBAL rows
+# (batch.scen_host), so every rank takes the same decisions: branching,
+# candidates, bundle steps (rank 0 solves the bundle master and
+# broadcasts it).  On a mesh of several ranks each B&B's host loops
+# (the dive, the pump, the swap repair, the round loop) decide over the
+# whole axis's lanes (bnb's `sync`, _MeshLanes), so a lane runs the
+# rounds it runs unsharded; those solves go to ops/bnb.py directly, not
+# through the dispatch scheduler, whose megabatches and pad lanes are
+# this process's.  A solve quarantined on one rank fails on every rank
+# (_agreed), so the ranks never part ways.
 ###############################################################################
 from __future__ import annotations
 
@@ -36,7 +48,9 @@ import torch
 
 from mpisppy_tpu_torch import dispatch as _dispatch
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
+from mpisppy_tpu_torch.core.batch import (
+    ScenarioBatch, is_root, mesh_broadcast, mesh_reduce, on_mesh,
+)
 from mpisppy_tpu_torch.ops import bnb
 from mpisppy_tpu_torch.ops.bnb import BnBOptions
 
@@ -57,6 +71,61 @@ def _aggregate_inner(per_scenario, feas_s, p):
     value = float(np.sum(np.where(real, p * inner_s, 0.0))) if feas \
         else float("inf")
     return value, feas, inner_s
+
+
+def _agreed(batch, err):
+    """`err` (a SolveFailed or None) agreed over the batch's mesh: when
+    a solve failed on some rank, every rank gets a SolveFailed."""
+    if not on_mesh(batch):
+        return err
+    failed = mesh_reduce(batch, torch.tensor(
+        err is not None, device=batch.device), "max")
+    if bool(failed) and err is None:
+        err = _dispatch.SolveFailed(
+            "mesh-peer", "a solve on another rank of the mesh failed")
+    return err
+
+
+class _MeshLanes:
+    """bnb's `sync` over a sharded batch's mesh: lane masks reduced over
+    every rank, the lanes' place on the axis."""
+
+    def __init__(self, batch: ScenarioBatch):
+        self.batch = batch
+        self.rows = (batch.scen_start, batch.num_scenarios,
+                     batch.scen_total)
+
+    def reduce(self, t: Tensor, op: str) -> Tensor:
+        return mesh_reduce(self.batch, t.to(self.batch.device), op)
+
+
+def _lanes_sync(batch: ScenarioBatch):
+    """_MeshLanes on a mesh of several ranks, else None."""
+    return _MeshLanes(batch) if on_mesh(batch) and batch.mesh.world > 1 \
+        else None
+
+
+def _solve(batch: ScenarioBatch, qp, d_col, int_cols, opts):
+    """solve_mip over this rank's lanes (through the dispatch scheduler,
+    or on a mesh of several ranks directly, its loops decided over the
+    mesh); a failure on any rank raises SolveFailed on every rank."""
+    sync = _lanes_sync(batch)
+    try:
+        res = bnb.solve_mip(qp, d_col, int_cols, opts, sync=sync) \
+            if sync is not None \
+            else _dispatch.solve_mip(qp, d_col, int_cols, opts)
+        err = None
+    except _dispatch.SolveFailed as e:
+        res, err = None, e
+    err = _agreed(batch, err)
+    if err is not None:
+        raise err
+    return res
+
+
+def _local(batch: ScenarioBatch, rows: np.ndarray) -> np.ndarray:
+    """This rank's rows of a host array over the whole scenario axis."""
+    return rows[batch.scen_start:batch.scen_start + batch.num_scenarios]
 
 
 def _int_cols(batch: ScenarioBatch) -> np.ndarray:
@@ -85,19 +154,21 @@ def lagrangian_mip_bound(batch: ScenarioBatch, W,
     """Certified MIP outer bound at multiplier W (valid when the
     per-node probability-weighted mean of W is 0, the PH invariant):
     each scenario's Lagrangian subproblem is solved AS A MIP
-    (ref:mpisppy/cylinders/lagrangian_bounder.py:21-44)."""
-    require_unsharded(batch, "mip.lagrangian_mip_bound")
+    (ref:mpisppy/cylinders/lagrangian_bounder.py:21-44).  The
+    per-scenario arrays cover the whole scenario axis; `feasible`: every
+    real scenario found an integer point; `result` is this rank's."""
     W = _as_tensor(batch, W)
     qp = batch.with_nonant_linear_quad(W, torch.zeros_like(W))
-    res = _dispatch.solve_mip(qp, batch.d_col, _int_cols(batch), opts)
-    p = _host(batch.p)
-    outer_s = _host(res.outer)
+    res = _solve(batch, qp, batch.d_col, _int_cols(batch), opts)
+    p, outer_s, gap_s, feas_s = batch.scen_host(batch.p, res.outer,
+                                                res.gap, res.feasible)
     # padded scenarios (p=0) may carry -inf outers; mask before weighing
     bound = float(np.sum(np.where(p > 0.0, p * outer_s, 0.0)))
     return {
         "bound": bound,
         "per_scenario": outer_s,
-        "solved": _host(res.gap) <= opts.gap_tol,
+        "solved": gap_s <= opts.gap_tol,
+        "feasible": bool(np.all(feas_s[p > 0.0])),
         "result": res,
     }
 
@@ -119,16 +190,16 @@ def evaluate_mip(batch: ScenarioBatch, xhat,
     B&B.  `value` is +inf unless every real scenario found an
     integer-feasible recourse.  A POLISH context: swap_rounds 0 (auto)
     promotes to bnb.POLISH_SWAP_ROUNDS."""
-    require_unsharded(batch, "mip.evaluate_mip")
     opts = _polish_swap(opts)
     xhat = _round_slots(batch, xhat)
     qp = batch.with_fixed_nonants(xhat)
-    res = _dispatch.solve_mip(qp, batch.d_col, _int_cols(batch), opts)
-    p = _host(batch.p)
+    res = _solve(batch, qp, batch.d_col, _int_cols(batch), opts)
+    p, inner, outer, feas_s = batch.scen_host(batch.p, res.inner,
+                                              res.outer, res.feasible)
     real = p > 0.0
-    value, feas, inner_s = _aggregate_inner(res.inner, res.feasible, p)
+    value, feas, inner_s = _aggregate_inner(inner, feas_s, p)
     # the recourse B&B's outer bounds bracket the true E[f(xhat)]
-    lower = float(np.sum(np.where(real, p * _host(res.outer), 0.0)))
+    lower = float(np.sum(np.where(real, p * outer, 0.0)))
     return {
         "value": value,
         "value_lower": lower,
@@ -149,7 +220,6 @@ def evaluate_mip_polished(batch: ScenarioBatch, xhat,
     (bnb.dive_multistart) merged with the B&B incumbents, then
     large-neighborhood repair (bnb.lns_repair).  `base`: a fresh
     evaluate_mip dict for the SAME xhat (skips the internal re-solve)."""
-    require_unsharded(batch, "mip.evaluate_mip_polished")
     opts = _polish_swap(opts)
     if base is None:
         base = evaluate_mip(batch, xhat, opts)
@@ -157,24 +227,27 @@ def evaluate_mip_polished(batch: ScenarioBatch, xhat,
     inc, x_inc, feas_s = res.inner, res.x, res.feasible
     qp = batch.with_fixed_nonants(_as_tensor(batch, base["xhat"]))
     int_cols = _int_cols(batch)
-    sos1 = bnb.detect_sos1_groups(qp, batch.d_col, int_cols)
+    sync = _lanes_sync(batch)
+    sos1 = bnb.detect_sos1_groups(qp, batch.d_col, int_cols, sync)
     if multistart > 0:
         ms = bnb.dive_multistart(qp, batch.d_col, int_cols, opts,
-                                 K=multistart, sos1=sos1)
+                                 K=multistart, sos1=sos1, sync=sync)
         inc, x_inc, feas_s = bnb.merge_incumbents(inc, x_inc, feas_s, *ms)
         global_toc(f"[polish] multistart merge: {_host(inc)}", verbose)
     if lns_rounds > 0:
         rep = bnb.lns_repair(qp, batch.d_col, int_cols, x_inc, inc,
                              feas_s, opts, rounds=lns_rounds,
-                             destroy_frac=0.35, sos1=sos1, verbose=verbose)
+                             destroy_frac=0.35, sos1=sos1, verbose=verbose,
+                             sync=sync)
         if rep is not None:
             inc, x_inc, feas_s = bnb.merge_incumbents(inc, x_inc, feas_s,
                                                       *rep)
-    value, feas, inner_s = _aggregate_inner(inc, feas_s, _host(batch.p))
+    p, inc, x_inc, feas_s = batch.scen_host(batch.p, inc, x_inc, feas_s)
+    value, feas, inner_s = _aggregate_inner(inc, feas_s, p)
     out = dict(base)
     out.update({"value": value, "per_scenario": inner_s, "feasible": feas,
                 # the POLISHED per-scenario solutions
-                "x": _host(x_inc)})
+                "x": x_inc})
     return out
 
 
@@ -195,7 +268,6 @@ def evaluate_mip_many(batch: ScenarioBatch, xhats,
     xhatshufflelooper_bounder.py:23-157 tries them sequentially).
     Returns one evaluate_mip-style dict per candidate.  A POLISH
     context (pass a negative swap_rounds for cheap screening)."""
-    require_unsharded(batch, "mip.evaluate_mip_many")
     opts = _polish_swap(opts)
     K = len(xhats)
     if K == 0:
@@ -210,12 +282,13 @@ def evaluate_mip_many(batch: ScenarioBatch, xhats,
         bl=_tile(qp0.bl, K, 2), bu=_tile(qp0.bu, K, 2),
         l=torch.cat([q.l for q in qps]), u=torch.cat([q.u for q in qps]))
     d_col = _tile(batch.d_col, K, 2)
-    res = _dispatch.solve_mip(qp, d_col, _int_cols(batch), opts)
-    p = _host(batch.p)
+    res = _solve(batch, qp, d_col, _int_cols(batch), opts)
+    # (S, K) per rank, gathered over the scenario axis
+    p, feas_ks, inner_ks, outer_ks = batch.scen_host(
+        batch.p, *(v.reshape(K, S).T for v in (res.feasible, res.inner,
+                                               res.outer)))
+    feas_ks, inner_ks, outer_ks = feas_ks.T, inner_ks.T, outer_ks.T
     real = p > 0.0
-    feas_ks = _host(res.feasible).reshape(K, S)
-    inner_ks = _host(res.inner).reshape(K, S)
-    outer_ks = _host(res.outer).reshape(K, S)
     out = []
     for k in range(K):
         feas = bool(np.all(np.where(real, feas_ks[k], True)))
@@ -281,12 +354,10 @@ def mip_dual_ascent_polyak(batch: ScenarioBatch, W, inner: float,
     with lam halved after two non-improving steps.  Each step is one
     batched scenario-MIP solve; stops early at `target`.  Returns
     {'bound','W','history'}."""
-    require_unsharded(batch, "mip.mip_dual_ascent_polyak")
     W = _as_tensor(batch, W)
     best, best_W = -float("inf"), W
     lam, since = float(lam0), 0
     level_frac = 0.3
-    p = _host(batch.p)
     hist = []
     for t in range(steps):
         lag = lagrangian_mip_bound(batch, W, opts)
@@ -304,11 +375,11 @@ def mip_dual_ascent_polyak(batch: ScenarioBatch, W, inner: float,
                 since = 0
         if target is not None and best >= target:
             break
-        res = lag["result"]
-        if not bool(np.all(_host(res.feasible)[p > 0.0])):
+        if not lag["feasible"]:
             break  # no integer point to take a subgradient from
-        _, g = _subgradient(batch, res)
-        gnorm2 = float(torch.sum(batch.p[:, None] * g * g))
+        _, g = _subgradient(batch, lag["result"])
+        gnorm2 = float(mesh_reduce(batch, torch.sum(batch.p[:, None] * g * g),
+                                   "sum"))
         if gnorm2 <= 1e-12 or not np.isfinite(inner):
             break
         base = best if np.isfinite(best) else L
@@ -332,14 +403,16 @@ def mip_dual_bundle(batch: ScenarioBatch, W, inner: float,
     model over the PH-invariant subspace inside an inf-norm trust region
     (a host LP, scipy/HiGHS): a direction-finder only, since ANY W it
     proposes yields a certified bound from the oracle.  Two-stage trees
-    only.  Returns {'bound','W','history'}."""
-    require_unsharded(batch, "mip.mip_dual_bundle")
+    only.  On a sharded batch W (in and out) is this rank's rows; the
+    cuts and the master span the whole axis, and rank 0 solves the
+    master.  Returns {'bound','W','history'}."""
     from scipy.optimize import linprog
 
     if batch.tree.num_stages != 2:
         raise ValueError("mip_dual_bundle: two-stage batches only")
-    W = np.asarray(_host(W), np.float64)
-    p = np.asarray(_host(batch.p), np.float64)
+    W = batch.scen_host(torch.as_tensor(np.asarray(_host(W), np.float64),
+                                        device=batch.device))
+    p = batch.scen_host(batch.p).astype(np.float64)
     real = p > 0.0
     S, N = W.shape
     nv = S * N
@@ -352,7 +425,7 @@ def mip_dual_bundle(batch: ScenarioBatch, W, inner: float,
     nonant_idx = _host(batch.nonant_idx)
     for t in range(steps):
         Wk = center if t == 0 else W_try
-        lag = lagrangian_mip_bound(batch, Wk + 0.0, opts)
+        lag = lagrangian_mip_bound(batch, _local(batch, Wk) + 0.0, opts)
         L = lag["bound"]
         hist.append(L)
         # plain > while best is still -inf (-inf + inf would be nan)
@@ -369,12 +442,12 @@ def mip_dual_bundle(batch: ScenarioBatch, W, inner: float,
         if target is not None and best >= target:
             break
         res = lag["result"]
-        if bool(np.all(_host(res.feasible)[real])):
-            x_non = _host(res.x)[:, nonant_idx]
+        if lag["feasible"]:
+            x_non, inner_s = batch.scen_host(res.x[:, nonant_idx], res.inner)
             # res.inner is the LAGRANGIAN objective f_s(x_k)+W_k.x_non:
             # the cut needs the raw f_s(x_k)
             wdot = np.sum(np.asarray(Wk) * x_non, axis=-1)
-            fvals = _host(res.inner) - wdot
+            fvals = inner_s - wdot
             cuts_a.append((p[:, None] * x_non).reshape(nv))
             cuts_b.append(float(np.sum(np.where(real, p * fvals, 0.0))))
         if not cuts_a:
@@ -396,19 +469,27 @@ def mip_dual_bundle(batch: ScenarioBatch, W, inner: float,
         b_eq = np.zeros(N)
         lb = np.concatenate([(center - trust).reshape(nv), [-np.inf]])
         ub = np.concatenate([(center + trust).reshape(nv), [np.inf]])
-        sol = linprog(c_lp, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq,
-                      bounds=np.stack([lb, ub], axis=1), method="highs")
-        if not sol.success:
-            global_toc(f"[bundle] master failed: {sol.message}", verbose)
+        # rank 0 solves the master: (success, W, model value), f64
+        msg, why = np.zeros(nv + 2), "on rank 0"
+        if is_root(batch):
+            sol = linprog(c_lp, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq,
+                          bounds=np.stack([lb, ub], axis=1), method="highs")
+            why = sol.message
+            if sol.success:
+                msg[0], msg[1:nv + 1], msg[-1] = 1.0, sol.x[:nv], -sol.fun
+        msg = mesh_broadcast(batch, torch.as_tensor(
+            msg, dtype=torch.float64, device=batch.device)).cpu().numpy()
+        if msg[0] != 1.0:
+            global_toc(f"[bundle] master failed: {why}", verbose)
             break
-        W_try = sol.x[:nv].reshape(S, N)
-        model_val = -sol.fun
+        W_try = msg[1:nv + 1].reshape(S, N)
+        model_val = msg[-1]
         # model agrees with reality: the dual is (locally) maxed out
         if np.isfinite(best) \
                 and model_val <= best + 1e-7 * max(1.0, abs(best)) \
                 and trust <= 1e-4:
             break
-    return {"bound": best, "W": best_W, "history": hist}
+    return {"bound": best, "W": _local(batch, best_W), "history": hist}
 
 
 def ef_mip(ef_problem, specs, opts: BnBOptions = BnBOptions(),
@@ -450,19 +531,16 @@ def mip_dual_ascent(batch: ScenarioBatch, W, rho, steps: int,
     W += rho (x - xbar) from the INTEGER solutions
     (ref:mpisppy/cylinders/subgradient_bounder.py:12-54).  Returns the
     best certified bound and the W that achieved it."""
-    require_unsharded(batch, "mip.mip_dual_ascent")
     W = _as_tensor(batch, W)
     best, best_W = -float("inf"), W
     rho = _as_tensor(batch, rho)
-    p = _host(batch.p)
     for _ in range(steps):
         lag = lagrangian_mip_bound(batch, W, opts)
         if lag["bound"] > best:
             best, best_W = lag["bound"], W
-        res = lag["result"]
-        if not bool(np.all(_host(res.feasible)[p > 0.0])):
+        if not lag["feasible"]:
             break  # no integer solution to take a subgradient from
-        _, g = _subgradient(batch, res)
+        _, g = _subgradient(batch, lag["result"])
         W = W + rho * g
     lag = lagrangian_mip_bound(batch, W, opts)
     if lag["bound"] > best:
@@ -511,7 +589,6 @@ def decomposition_bnb(batch: ScenarioBatch, W,
     the scheduler (only the search order changes; every bound stays
     certified).  Returns {'inner','outer','gap','xhat','nodes',
     'failed_nodes'}."""
-    require_unsharded(batch, "mip.decomposition_bnb")
     int_slots = np.nonzero(_host(batch.integer_slot))[0]
     if int_slots.size == 0:
         raise ValueError("no integer first-stage slots to branch on")
@@ -522,9 +599,8 @@ def decomposition_bnb(batch: ScenarioBatch, W,
     W = _as_tensor(batch, W)
     qp_W = batch.with_nonant_linear_quad(W, torch.zeros_like(W))
     int_cols = _int_cols(batch)
-    p = _host(batch.p)
+    p = batch.scen_host(batch.p)
     real = p > 0.0
-    nonant_idx = _host(batch.nonant_idx)
 
     inner = float(inner0)
     xhat_best = None if xhat0 is None else _host(xhat0)
@@ -539,7 +615,8 @@ def decomposition_bnb(batch: ScenarioBatch, W,
     def scale(v):
         return max(1.0, abs(v)) if np.isfinite(v) else 1.0
 
-    sched = _dispatch.get_scheduler()
+    sync = _lanes_sync(batch)
+    sched = None if sync is not None else _dispatch.get_scheduler()
     fanout = max(1, int(node_fanout))
     while heap and nodes < max_nodes:
         # pop up to `fanout` surviving best-first nodes; the scheduler
@@ -560,11 +637,16 @@ def decomposition_bnb(batch: ScenarioBatch, W,
         qp_nodes = [_restrict_first_stage(batch, qp_W, int_slots, lo, hi)
                     for _, lo, hi in popped]
         tickets = [sched.submit(qpn, batch.d_col, int_cols, opts)
-                   for qpn in qp_nodes]
+                   for qpn in qp_nodes] if sched is not None else qp_nodes
         for (node_bound, lo, hi), ticket in zip(popped, tickets):
             try:
-                res = ticket.result()
-            except _dispatch.SolveFailed as e:
+                res, e = (ticket.result() if sched is not None else
+                          bnb.solve_mip(ticket, batch.d_col, int_cols,
+                                        opts, sync=sync)), None
+            except _dispatch.SolveFailed as exc:
+                res, e = None, exc
+            e = _agreed(batch, e)
+            if e is not None:
                 # the PARENT bound still bounds everything under the
                 # node: fold it into the fathom floor (never re-queue)
                 nodes += 1
@@ -575,13 +657,12 @@ def decomposition_bnb(batch: ScenarioBatch, W,
                            verbose)
                 continue
             nodes += 1
-            outer_s = _host(res.outer)
+            outer_s, feas_s, x_non = batch.scen_host(
+                res.outer, res.feasible, res.x[:, batch.nonant_idx])
             nb = float(np.sum(np.where(real, p * outer_s, 0.0)))
             nb = max(nb, node_bound)  # parent bound still valid
 
-            feas_s = _host(res.feasible)
             if bool(np.all(feas_s[real])):
-                x_non = _host(res.x)[:, nonant_idx]
                 xbar = (p[:, None] * x_non).sum(0)
                 cand = xbar.copy()
                 cand[int_slots] = np.clip(np.round(xbar[int_slots]), lo, hi)
@@ -682,8 +763,10 @@ def certified_mip_gap(batch: ScenarioBatch, ph_options=None,
          over the decomposition (decomposition_bnb), up to dd_nodes.
 
     The reference runs this as hub + xhatshuffle + Lagrangian spokes with
-    exact MIP subproblems (ref:mpisppy/generic_cylinders.py:109-312)."""
-    require_unsharded(batch, "mip.certified_mip_gap")
+    exact MIP subproblems (ref:mpisppy/generic_cylinders.py:109-312).
+    On a sharded batch scenario s's vectors come from their owner
+    (batch.scen_row) and the first scenarios' own MIPs from the ranks
+    holding them."""
     from mpisppy_tpu_torch.algos import ph as ph_mod
     from mpisppy_tpu_torch.algos import xhat as xhat_mod
 
@@ -699,17 +782,32 @@ def certified_mip_gap(batch: ScenarioBatch, ph_options=None,
     cands.append(xhat_mod.slam_candidate(batch, x_non, sense_max=False))
     S = batch.num_real
     for s in range(min(n_shuffle, S)):
-        cands.append(xhat_mod.round_integers(batch, x_non[s]))
+        cands.append(xhat_mod.round_integers(batch,
+                                             batch.scen_row(x_non, s)))
     # wait-and-see INTEGER candidates: a few scenarios' own exact-MIP
-    # first stages (one batched B&B on a slice of the batch)
-    k_ws = min(S, 8)
+    # first stages (one batched B&B on a slice of the batch; on a mesh
+    # every rank gathers the first k_ws scenarios and solves them all)
+    k_ws = min(S, 8, batch.scen_total)
     qp0 = batch.qp
+
+    def head(x, nd):
+        if getattr(x, "ndim", 0) == nd:
+            x = batch.scen_gather(x)
+        elif hasattr(x, "vals") and x.vals.ndim == nd:
+            x = x.with_vals(batch.scen_gather(x.vals))
+        return _head(x, k_ws, nd)
     qp_ws = dataclasses.replace(
-        qp0, c=qp0.c[:k_ws], q=qp0.q[:k_ws], A=_head(qp0.A, k_ws, 3),
-        bl=_head(qp0.bl, k_ws, 2), bu=_head(qp0.bu, k_ws, 2),
-        l=_head(qp0.l, k_ws, 2), u=_head(qp0.u, k_ws, 2))
-    ws = _dispatch.solve_mip(qp_ws, _head(batch.d_col, k_ws, 2),
-                             _int_cols(batch), opts)
+        qp0, c=head(qp0.c, 2), q=head(qp0.q, 2), A=head(qp0.A, 3),
+        bl=head(qp0.bl, 2), bu=head(qp0.bu, 2), l=head(qp0.l, 2),
+        u=head(qp0.u, 2), rows=None)
+    try:
+        ws, err = _dispatch.solve_mip(qp_ws, head(batch.d_col, 2),
+                                      _int_cols(batch), opts), None
+    except _dispatch.SolveFailed as e:
+        ws, err = None, e
+    err = _agreed(batch, err)
+    if err is not None:
+        raise err
     ws_x = _host(ws.x)[:, _host(batch.nonant_idx)]
     ws_feas = _host(ws.feasible)
     int_slot = _host(batch.integer_slot)

@@ -20,6 +20,12 @@
 # the same reason).  The whole loop runs in f64 on the batch's device:
 # on CUDA that is the card (an H100 has full-rate f64), never f32.  The
 # JAX package runs the same loop under x64 on the host CPU.
+#
+# On a sharded batch (parallel/mesh.py) each rank factors its scenarios'
+# blocks; every scenario reduction finishes with one all-reduce: the
+# shared normalizations, the Schur sum K and its right-hand side, rx,
+# the complementarity mean, the step lengths and the stopping tests.
+# The N-vector x is replicated: every rank solves the same small system.
 ###############################################################################
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from mpisppy_tpu_torch import global_toc
-from mpisppy_tpu_torch.core.batch import ScenarioBatch, require_unsharded
+from mpisppy_tpu_torch.core.batch import ScenarioBatch, mesh_reduce
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
 
 Tensor = torch.Tensor
@@ -48,16 +54,29 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
 
 
+def _gmax(batch: ScenarioBatch, v) -> np.ndarray:
+    """A host f64 max finished over the batch's mesh."""
+    return mesh_reduce(batch, torch.as_tensor(np.asarray(v, np.float64),
+                                              device=batch.device),
+                       "max").cpu().numpy()
+
+
 def _structure(batch: ScenarioBatch) -> dict:
     """Problem structure (host side, f64): dense G blocks, the slack
     layout, boxes and costs, normalized.  Needs a shared equality-row
-    pattern across scenarios, no integer slot and a two-stage tree."""
+    pattern across scenarios, no integer slot and a two-stage tree.  The
+    shared scales (nonant columns, objective, consensus rows) are taken
+    over the whole scenario axis."""
     qp = batch.qp
     S, n, m = batch.num_scenarios, qp.n, qp.m
     bl = np.broadcast_to(_host(qp.bl), (S, m))
     bu = np.broadcast_to(_host(qp.bu), (S, m))
     eq = np.isclose(bl, bu)
-    if not (eq == eq[0:1]).all():
+    ref = mesh_reduce(batch, torch.as_tensor(eq[0], device=batch.device),
+                      "min").cpu().numpy()
+    same = mesh_reduce(batch, torch.as_tensor(
+        bool((eq == ref[None]).all()), device=batch.device), "min")
+    if not bool(same):
         raise ValueError("SchurComplement needs a shared equality-row "
                          "pattern across scenarios")
     eq = eq[0]
@@ -115,14 +134,14 @@ def _structure(batch: ScenarioBatch) -> dict:
     finite_mag = np.maximum(np.where(np.isfinite(lw), np.abs(lw), 0.0),
                             np.where(np.isfinite(uw), np.abs(uw), 0.0))
     col_s = np.maximum(1.0, finite_mag)            # (S, nw)
-    col_s[:, nonant_idx] = col_s[:, nonant_idx].max(axis=0)[None, :]
+    col_s[:, nonant_idx] = _gmax(batch, col_s[:, nonant_idx].max(axis=0))
     G = G * col_s[:, None, :]
     lw, uw = lw / col_s, uw / col_s
     cw, qw = cw * col_s, qw * col_s * col_s
-    obj_scale = max(1.0, float(np.abs(cw).max()))
+    obj_scale = max(1.0, float(_gmax(batch, np.abs(cw).max())))
     cw, qw = cw / obj_scale, qw / obj_scale
     row_s = np.maximum(np.linalg.norm(G, axis=2), 1e-8)  # (S, m+N)
-    row_s[:, m:] = row_s[:, m:].max(axis=0)[None, :]
+    row_s[:, m:] = _gmax(batch, row_s[:, m:].max(axis=0))
     G = G / row_s[:, :, None]
     b = b / row_s
     # the solved x is original-space up to the shared consensus row
@@ -132,12 +151,16 @@ def _structure(batch: ScenarioBatch) -> dict:
 
 
 def _sc_solve(G: Tensor, b: Tensor, lw: Tensor, uw: Tensor, cw: Tensor,
-              qw: Tensor, p: Tensor, N: int, opts: SCOptions):
+              qw: Tensor, p: Tensor, N: int, opts: SCOptions, batch=None):
     """Batched Mehrotra predictor-corrector in the dtype of G (f64).
     Shapes: G (S, mc, nw), b (S, mc), boxes/costs (S, nw), p (S,).  The
     LAST N rows of G are the consensus rows; their x coupling is
     J = -I.  Returns the best iterate (w, x), done, its mu and its
-    residual."""
+    residual.  `batch`: the sharded batch whose mesh finishes every
+    scenario reduction (None: these rows are the whole axis)."""
+
+    def red(t, op):
+        return mesh_reduce(batch, t, op)
     S, mc, nw = G.shape
     dt, dev = G.dtype, G.device
     eps = torch.finfo(dt).eps
@@ -145,7 +168,7 @@ def _sc_solve(G: Tensor, b: Tensor, lw: Tensor, uw: Tensor, cw: Tensor,
     zero = torch.zeros((), dtype=dt, device=dev)
     l_safe = torch.where(has_l, lw, zero)
     u_safe = torch.where(has_u, uw, zero)
-    n_act = float(max(int(has_l.sum() + has_u.sum()), 1))
+    n_act = float(max(int(red(has_l.sum() + has_u.sum(), "sum")), 1))
 
     # objective scaled by p so the consensus duals balance globally
     cw = p[:, None] * cw
@@ -165,26 +188,27 @@ def _sc_solve(G: Tensor, b: Tensor, lw: Tensor, uw: Tensor, cw: Tensor,
     EJ[mc - N:, :] = -torch.eye(N, dtype=dt, device=dev)
     eye_mc = torch.eye(mc, dtype=dt, device=dev)
     floor = eps ** 0.9
-    scale_p = 1.0 + float(torch.max(torch.abs(b)))
-    scale_d = 1.0 + float(torch.max(torch.abs(cw)))
+    scale_p = 1.0 + float(red(torch.max(torch.abs(b)), "max"))
+    scale_d = 1.0 + float(red(torch.max(torch.abs(cw)), "max"))
 
     def mu_of(w, zl, zu):
         gaps = torch.where(has_l, (w - l_safe) * zl, zero) \
             + torch.where(has_u, (u_safe - w) * zu, zero)
-        return torch.sum(gaps) / n_act
+        return red(torch.sum(gaps), "sum") / n_act
 
     def residuals(w, y, zl, zu, x):
         rp = torch.einsum("smw,sw->sm", G, w) - b
         rp[:, mc - N:] -= x[None, :]
         rd = cw + qw * w - torch.einsum("smw,sm->sw", G, y) - zl + zu
-        rx = torch.sum(y[:, mc - N:], dim=0)
+        rx = red(torch.sum(y[:, mc - N:], dim=0), "sum")
         return rp, rd, rx
 
     def max_step(v, dv, mask):
         r = torch.where(mask & (dv < 0.0),
                         -v / torch.clamp(dv, max=-1e-30),
                         torch.full_like(v, float("inf")))
-        return min(1.0, opts.frac_to_bound * float(torch.min(r)))
+        return min(1.0, opts.frac_to_bound * float(red(torch.min(r),
+                                                        "min")))
 
     done = False
     best = None
@@ -225,7 +249,7 @@ def _sc_solve(G: Tensor, b: Tensor, lw: Tensor, uw: Tensor, cw: Tensor,
 
         # P = M^-1 J (S, mc, N); K = sum_s P[last N rows] (neg. def.)
         P = msolve(torch.broadcast_to(EJ, (S, mc, N)))
-        K = torch.sum(P[:, mc - N:, :], dim=0) \
+        K = red(torch.sum(P[:, mc - N:, :], dim=0), "sum") \
             - 1e-9 * torch.eye(N, dtype=dt, device=dev)
 
         def kkt_solve(rl, ru):
@@ -234,8 +258,8 @@ def _sc_solve(G: Tensor, b: Tensor, lw: Tensor, uw: Tensor, cw: Tensor,
                 + torch.where(has_u, ru / du, zero)
             g = -rp + torch.einsum("smw,sw->sm", GD, rd_hat)
             Mg = msolve(g)
-            dx = torch.linalg.solve(K, rx + torch.sum(Mg[:, mc - N:],
-                                                      dim=0))
+            dx = torch.linalg.solve(K, rx + red(torch.sum(
+                Mg[:, mc - N:], dim=0), "sum"))
             dy = Mg - torch.einsum("smn,n->sm", P, dx)
             dw = Dinv * (torch.einsum("smw,sm->sw", G, dy) - rd_hat)
             dzl = torch.where(has_l, (rl - zl * dw) / dl, zero)
@@ -271,11 +295,11 @@ def _sc_solve(G: Tensor, b: Tensor, lw: Tensor, uw: Tensor, cw: Tensor,
                           zero)
         mu1 = float(mu_of(w1, zl1, zu1))
         rp1, rd1, rx1 = residuals(w1, y1, zl1, zu1, x1)
-        resid = max(float(torch.max(torch.abs(rp1))) / scale_p,
-                    float(torch.max(torch.abs(rd1))) / scale_d,
+        resid = max(float(red(torch.max(torch.abs(rp1)), "max")) / scale_p,
+                    float(red(torch.max(torch.abs(rd1)), "max")) / scale_d,
                     float(torch.max(torch.abs(rx1))) / scale_d)
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in (w1, y1, x1, zl1, zu1)) and np.isfinite(mu1)
+        finite = bool(red(torch.stack([torch.isfinite(t).all() for t in (
+            w1, y1, x1, zl1, zu1)]).all(), "min")) and np.isfinite(mu1)
         if not finite:
             # past the precision floor a step degrades or NaNs: stop on
             # the best point seen
@@ -300,7 +324,6 @@ class SchurComplement:
 
     def __init__(self, options, batch: ScenarioBatch,
                  scenario_names=None):
-        require_unsharded(batch, "SchurComplement")
         if isinstance(options, dict):
             options = SCOptions(**options)
         self.options = options
@@ -321,15 +344,18 @@ class SchurComplement:
         t0 = time.perf_counter()
         w, x, done, mu, resid = _sc_solve(
             t(s["G"]), t(s["b"]), t(s["lw"]), t(s["uw"]), t(s["cw"]),
-            t(s["qw"]), t(p), s["N"], self.options)
-        w, x = _host(w), _host(x)
+            t(s["qw"]), t(p), s["N"], self.options, batch)
+        # the whole scenario axis's rows (one all-gather on a mesh)
+        w, p = batch.scen_host(w, t(p))
+        x = _host(x)
         solve_seconds = time.perf_counter() - t0
         # undo the IPM column scaling -> batch (Ruiz) space -> original
-        v = w[:, :s["n"]] * s["col_s"][:, :s["n"]]
-        shape = v.shape
-        v_orig = v * np.broadcast_to(_host(batch.d_col), shape)
-        c = np.broadcast_to(_host(batch.qp.c), shape)
-        q = np.broadcast_to(_host(batch.qp.q), shape)
+        col_s, d_col, c, q = batch.scen_host(*(t(np.broadcast_to(
+            v, (batch.num_scenarios, s["n"]))) for v in (
+                s["col_s"][:, :s["n"]], _host(batch.d_col),
+                _host(batch.qp.c), _host(batch.qp.q))))
+        v = w[:, :s["n"]] * col_s
+        v_orig = v * d_col
         obj = float((p * (c * v + 0.5 * q * v * v).sum(axis=1)).sum())
         x_orig = x * s["x_row_scale"]
         if self.options.display_progress:

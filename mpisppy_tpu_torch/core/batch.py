@@ -147,13 +147,22 @@ class ScenarioBatch:
 
     def nonant_box(self) -> "tuple[np.ndarray, np.ndarray]":
         """(lb, ub) of the nonant slots in ORIGINAL space: the tightest
-        intersection across scenarios (host arrays; static per batch)."""
+        intersection across scenarios (host arrays; static per batch).
+        On a sharded batch with per-scenario boxes or scalings the
+        intersection finishes over the mesh."""
         idx = self.nonant_idx.cpu().numpy()
         S, n = self.num_scenarios, self.qp.n
         d = np.broadcast_to(self.d_non.cpu().numpy(), (S, len(idx)))
         l_s = np.broadcast_to(self.qp.l.cpu().numpy(), (S, n))[:, idx] * d
         u_s = np.broadcast_to(self.qp.u.cpu().numpy(), (S, n))[:, idx] * d
-        return l_s.max(0), u_s.min(0)
+        lb, ub = l_s.max(0), u_s.min(0)
+        if on_mesh(self) and max(self.d_non.ndim, self.qp.l.ndim,
+                                  self.qp.u.ndim) == 2:
+            lb = mesh_reduce(self, torch.as_tensor(lb, device=self.device),
+                             "max").cpu().numpy()
+            ub = mesh_reduce(self, torch.as_tensor(ub, device=self.device),
+                             "min").cpu().numpy()
+        return lb, ub
 
     def expectation(self, vals: Tensor) -> Tensor:
         """E[vals] over scenarios (ref:mpisppy/spopt.py:344-436)."""
@@ -208,6 +217,70 @@ class ScenarioBatch:
             return vals
         return mesh.all_gather_cat(vals)
 
+    def scen_host(self, *vals: Tensor):
+        """Host (numpy) copies of scenario-major tensors, their GLOBAL
+        rows: the JAX package's np.asarray of a sharded array.  On a
+        sharded batch the tensors are packed into one all-gather per
+        dtype, so every rank gets the same arrays and runs the same host
+        logic on them.  One tensor in, one array out; several, a tuple."""
+        if not on_mesh(self):
+            out = [v.detach().cpu().numpy() for v in vals]
+            return out[0] if len(vals) == 1 else tuple(out)
+        groups: dict = {}
+        for i, v in enumerate(vals):
+            groups.setdefault(torch.int32 if v.dtype == torch.bool
+                              else v.dtype, []).append(i)
+        out = [None] * len(vals)
+        for dt, idx in groups.items():
+            flat = [vals[i].detach().to(dt).reshape(vals[i].shape[0], -1)
+                    for i in idx]
+            every = self.mesh.all_gather_cat(torch.cat(flat, dim=1))
+            col = 0
+            for i, f in zip(idx, flat):
+                a = every[:, col:col + f.shape[1]].reshape(
+                    (every.shape[0],) + tuple(vals[i].shape[1:]))
+                if vals[i].dtype == torch.bool:
+                    a = a.to(torch.bool)
+                out[i] = a.cpu().numpy()
+                col += f.shape[1]
+        return out[0] if len(vals) == 1 else tuple(out)
+
+    @property
+    def scen_start(self) -> int:
+        """Global index of this rank's first row (0 unsharded)."""
+        return self.scen_offset if on_mesh(self) else 0
+
+    @property
+    def scen_total(self) -> int:
+        """Scenarios on the whole (padded) axis: every rank's rows."""
+        return self.num_scenarios * (self.mesh.world if on_mesh(self)
+                                     else 1)
+
+    def scen_argmax(self, vals: Tensor) -> int:
+        """GLOBAL index of the largest of (S,) values, the first one on
+        ties (torch.argmax's rule over the whole axis): each rank's
+        first maximum and its global index, gathered in rank order."""
+        local = int(torch.argmax(vals))
+        if not on_mesh(self):
+            return local
+        pair = torch.stack([vals[local].to(torch.float64),
+                            torch.tensor(float(local + self.scen_start),
+                                         dtype=torch.float64,
+                                         device=vals.device)])
+        every = self.mesh.all_gather_cat(pair[None]).cpu().numpy()
+        return int(every[int(np.argmax(every[:, 0])), 1])
+
+    def scen_topk_mask(self, keys: Tensor, k: int) -> Tensor:
+        """(S,) bool: this rank's rows among the k largest of (S,) keys
+        over the whole scenario axis, by a stable descending sort (the
+        lower global index first on ties)."""
+        every = self.scen_gather(keys)
+        order = torch.sort(every, descending=True, stable=True)[1]
+        mask = torch.zeros(every.shape[0], dtype=torch.bool,
+                           device=keys.device)
+        mask[order[:k]] = True
+        return mask[self.scen_start:self.scen_start + keys.shape[0]]
+
     def with_nonant_linear_quad(self, w: Tensor, rho_quad: Tensor) -> BoxQP:
         """A qp whose objective adds, in ORIGINAL space,
         w·x_non + 1/2 x_non' diag(rho_quad) x_non over the nonant slots
@@ -240,6 +313,28 @@ class ScenarioBatch:
         return dataclasses.replace(self.qp, l=l_full, u=u_full)
 
 
+def on_mesh(batch) -> bool:
+    """Whether the batch is sharded over a process group (a layout
+    without one runs no collective)."""
+    mesh = getattr(batch, "mesh", None)
+    return mesh is not None and getattr(mesh, "group", None) is not None
+
+
+def mesh_broadcast(batch, t: Tensor, src: int = 0) -> Tensor:
+    """Rank `src`'s `t` on every rank of the batch's mesh: a replicated
+    host decision made once, so ranks cannot drift apart; the identity
+    without a process group."""
+    if not on_mesh(batch):
+        return t
+    return batch.mesh.broadcast(t, src)
+
+
+def is_root(batch) -> bool:
+    """Whether this rank makes the batch's replicated decisions (rank
+    0, or the only rank)."""
+    return not on_mesh(batch) or batch.mesh.rank == 0
+
+
 def mesh_reduce(batch, t: Tensor, op: str) -> Tensor:
     """Finish a rank-local scenario reduction over the batch's mesh
     ("sum", "min" or "max"); the identity without a process group."""
@@ -258,23 +353,6 @@ def _mesh_sum_pair(batch, a: Tensor, b: Tensor):
                            "sum")
     return (both[:a.numel()].reshape(a.shape),
             both[a.numel():].reshape(b.shape))
-
-
-class ShardedBatchUnsupported(NotImplementedError):
-    """An algorithm that does not shard its scenario reductions was
-    handed a batch sharded over more than one rank: it would return a
-    rank-local answer, so it refuses."""
-
-
-def require_unsharded(batch, what: str) -> None:
-    """Raise ShardedBatchUnsupported when `batch` is sharded over a mesh
-    of more than one rank (a world of one is the serial path)."""
-    mesh = getattr(batch, "mesh", None)
-    if mesh is not None and int(getattr(mesh, "world", 1)) > 1:
-        raise ShardedBatchUnsupported(
-            f"{what} does not shard its scenario reductions: run it on "
-            f"an unsharded batch (this one is split over {mesh.world} "
-            "ranks)")
 
 
 def concretize(batch):

@@ -527,7 +527,8 @@ class ReducedCostsSpoke(LagrangianOuterBound):
     (ref:mpisppy/cylinders/reduced_costs_spoke.py:16-175).  Publishes,
     besides the bound, `rc_global` (N,) expected reduced costs — NaN where
     the scenarios disagree (x̄ variance above sqrt(bound_tol)) or x̄ sits
-    away from both bounds — and `rc_scenario` (S, N)."""
+    away from both bounds — and `rc_scenario` (S, N), the whole scenario
+    axis on a sharded batch."""
 
     converger_spoke_char = "R"
 
@@ -558,9 +559,10 @@ class ReducedCostsSpoke(LagrangianOuterBound):
         # the certified bound of the SAME solve the rcs come from: the
         # fixer's bound-tightening gap needs it
         self.last_lagrangian_bound = float(self._pending.bound)
-        rc = self._rc_dev.cpu().numpy().astype(np.float64)      # (S, N)
-        x = self._x_dev.cpu().numpy().astype(np.float64)
-        p = self.batch.p.cpu().numpy().astype(np.float64)
+        # the GLOBAL rows (one all-gather on a sharded batch): every rank
+        # publishes the same rc_global, reduced over the whole axis
+        rc, x, p = (a.astype(np.float64) for a in self.batch.scen_host(
+            self._rc_dev, self._x_dev, self.batch.p))            # (S, N)
         xbar = (p[:, None] * x).sum(0)
         var = (p[:, None] * x * x).sum(0) - xbar * xbar
         self.rc_scenario = rc

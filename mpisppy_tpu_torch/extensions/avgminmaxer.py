@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from mpisppy_tpu_torch.core.batch import mesh_reduce
 from mpisppy_tpu_torch.extensions.extension import Extension
 from mpisppy_tpu_torch.telemetry import console as _console
 
@@ -36,8 +37,10 @@ class MinMaxAvg(Extension):
         vals = self._component()
         real = batch.p > 0.0
         avg = batch.expectation(vals)
-        vmin = torch.where(real, vals, float("inf")).min()
-        vmax = torch.where(real, vals, -float("inf")).max()
+        vmin = mesh_reduce(batch, torch.where(real, vals, float("inf"))
+                           .min(), "min")
+        vmax = mesh_reduce(batch, torch.where(real, vals, -float("inf"))
+                           .max(), "max")
         out = torch.stack([avg, vmin, vmax]).cpu().numpy()  # one read
         return float(out[0]), float(out[1]), float(out[2])
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import os
 
+from mpisppy_tpu_torch.core.batch import is_root
 from mpisppy_tpu_torch.extensions.extension import Extension
 
 
@@ -26,18 +27,26 @@ class Diagnoser(Extension):
         self.dirname = opts.get("diagnoser_outdir", "diagnostics")
         self.flush_period = int(opts.get("flush_period", 20))
         self._since_flush = 0
+        # on a sharded batch every rank gathers the whole axis's
+        # objectives; rank 0 writes them
+        self._writer = is_root(ph.batch)
+        self._rows: dict[str, list[str]] = {}
+        if not self._writer:
+            return
         if os.path.exists(self.dirname):
             raise RuntimeError(
                 f"Diagnoser: output directory exists: {self.dirname} "
                 "(refusing to clobber, ref:diagnoser.py:29-34)")
         os.makedirs(self.dirname)
-        self._rows: dict[str, list[str]] = {}
 
     def write_loop(self):
         st = self.opt.state
         if st is None:
             return
-        objs = self.opt.batch.objective(st.solver.x).cpu().numpy()
+        objs = self.opt.batch.scen_host(
+            self.opt.batch.objective(st.solver.x))
+        if not self._writer:
+            return
         it = self.opt._iter
         for i, name in enumerate(self.opt.scenario_names):
             self._rows.setdefault(name, []).append(f"{it},{objs[i]}\n")
@@ -46,6 +55,8 @@ class Diagnoser(Extension):
             self._flush()
 
     def _flush(self):
+        if not self._writer:
+            return
         for name, rows in self._rows.items():
             with open(os.path.join(self.dirname, f"{name}.dag"), "a") as f:
                 f.writelines(rows)

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mpisppy_tpu_torch.core.batch import mesh_reduce
 from mpisppy_tpu_torch.extensions.extension import Extension
 
 
@@ -46,8 +47,9 @@ class Fixer(Extension):
         st = ph.state
         x_non = batch.nonants(st.solver.x)
         real = (batch.p > 0.0)[:, None]
-        spread = torch.where(real, (x_non - st.xbar).abs(), 0.0) \
-            .amax(dim=0).cpu().numpy()
+        spread = mesh_reduce(batch, torch.where(
+            real, (x_non - st.xbar).abs(), 0.0).amax(dim=0),
+            "max").cpu().numpy()
         conv = spread <= self.tol
         self._streak = np.where(conv, self._streak + 1, 0)
 

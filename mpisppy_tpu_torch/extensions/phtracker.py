@@ -22,6 +22,7 @@ from __future__ import annotations
 import os
 
 from mpisppy_tpu_torch import telemetry as tel
+from mpisppy_tpu_torch.core.batch import is_root
 from mpisppy_tpu_torch.extensions.extension import Extension
 from mpisppy_tpu_torch.utils import atomic_io
 
@@ -41,6 +42,7 @@ class TrackedData:
         self.columns: list[str] | None = None
         self.rows: list[list] = []          # buffered, not yet on disk
         self._wrote_header = False
+        self.write = True   # False on all but one rank of a mesh
 
     def initialize_df(self, columns):
         self.columns = list(columns)
@@ -49,7 +51,7 @@ class TrackedData:
         self.rows.append(list(row))
 
     def write_out_data(self):
-        if self.columns is None:
+        if self.columns is None or not self.write:
             return
         lines = [",".join(repr(v) if isinstance(v, float) else str(v)
                           for v in r) for r in self.rows]
@@ -81,7 +83,10 @@ class PHTracker(Extension):
         self.write_every = max(1, int(opts.get("write_every",
                                                write_every)))
         cyl_folder = os.path.join(self.folder, self.name)
-        os.makedirs(cyl_folder, exist_ok=True)
+        # a sharded batch's tracks hold the whole axis; rank 0 writes
+        writer = is_root(ph.batch)
+        if writer:
+            os.makedirs(cyl_folder, exist_ok=True)
         flags = {
             "convergence": track_convergence, "gaps": track_gaps,
             "bounds": track_bounds, "nonants": track_nonants,
@@ -93,7 +98,8 @@ class PHTracker(Extension):
             if opts.get(f"track_{t}", flags[t]):
                 self.track_dict[t] = TrackedData(
                     t, cyl_folder, plot=opts.get(f"plot_{t}", plots))
-        S = ph.batch.num_scenarios
+                self.track_dict[t].write = writer
+        S = ph.batch.scen_total
         N = ph.batch.num_nonants
         heads = {
             "convergence": ["iteration", "conv"],
@@ -159,17 +165,18 @@ class PHTracker(Extension):
                                   float("nan") if tb is None else tb])
         st = ph.state
         if "nonants" in td:
-            x = ph.batch.nonants(st.solver.x).cpu().numpy().reshape(-1)
+            x = ph.batch.scen_host(ph.batch.nonants(st.solver.x)) \
+                .reshape(-1)
             td["nonants"].add_row([k] + x.tolist())
         if "duals" in td:
             td["duals"].add_row(
-                [k] + st.W.cpu().numpy().reshape(-1).tolist())
+                [k] + ph.batch.scen_host(st.W).reshape(-1).tolist())
         if "xbars" in td:
             td["xbars"].add_row(
                 [k] + st.xbar_nodes[0].cpu().numpy().tolist())
         if "scen_gaps" in td:
             td["scen_gaps"].add_row(
-                [k] + st.solver.score.cpu().numpy().tolist())
+                [k] + ph.batch.scen_host(st.solver.score).tolist())
         if k % (self.save_every * self.write_every) == 0:
             for t in td.values():
                 t.write_out_data()
@@ -177,7 +184,7 @@ class PHTracker(Extension):
     def post_everything(self):
         for td in self.track_dict.values():
             td.write_out_data()
-            if td.plot:
+            if td.plot and td.write:
                 self._plot(td)
 
     # -- plots (ref:phtracker.py:452-530 plot_* helpers) -------------------

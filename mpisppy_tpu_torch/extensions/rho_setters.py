@@ -34,9 +34,10 @@ def _set_rho(ph, rho_new) -> None:
 
 def _orig_cost_per_slot(batch) -> np.ndarray:
     """|c_i| of each nonant slot in ORIGINAL space, averaged over
-    scenarios (the scaled c absorbs d_col: c_orig = c_scaled / d_col)."""
-    c = batch.qp.c.cpu().numpy()
-    d_col = batch.d_col.cpu().numpy()
+    scenarios (the scaled c absorbs d_col: c_orig = c_scaled / d_col;
+    the whole axis's rows on a sharded batch)."""
+    c, d_col = batch.scen_host(batch.qp.c, torch.broadcast_to(
+        batch.d_col, batch.qp.c.shape))
     idx = batch.nonant_idx.cpu().numpy()
     c_non = (c / d_col)[..., idx]
     if c_non.ndim == 2:
@@ -88,8 +89,8 @@ class SepRho(Extension):
     def post_iter0(self):
         ph = self.opt
         batch = concretize(ph.batch)
-        x_non = batch.nonants(ph.state.solver.x).cpu().numpy()
-        real = (batch.p > 0.0).cpu().numpy()
+        x_non, real = batch.scen_host(batch.nonants(ph.state.solver.x),
+                                      batch.p > 0.0)
         xr = x_non[real]
         spread = xr.max(axis=0) - xr.min(axis=0)
         cost = _orig_cost_per_slot(batch)
@@ -163,7 +164,7 @@ class SensiRho(Extension):
         )
         ph = self.opt
         sens = np.abs(nonant_sensitivities(ph.batch, ph.state.solver))
-        p = ph.batch.p.cpu().numpy().astype(np.float64)
+        p = ph.batch.scen_host(ph.batch.p).astype(np.float64)
         rho = order_stat_aggregate(sens, p, self.order_stat)
         rho = np.maximum(rho, 1e-6) * self.multiplier
         _set_rho(ph, rho)

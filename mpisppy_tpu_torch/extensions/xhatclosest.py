@@ -53,9 +53,10 @@ class XhatClosest(Extension):
                                     max=3.0),
                         0.0)
         dist = z.sum(dim=-1)                            # (S,)
-        # padded (probability-0) scenarios can never win
+        # padded (probability-0) scenarios can never win; the global
+        # first-index argmin on a sharded batch
         dist = torch.where(batch.p > 0.0, dist, float("inf"))
-        return int(torch.argmin(dist))
+        return batch.scen_argmax(-dist)
 
     def xhat_closest_to_xbar(self, verbose: bool = False):
         """Returns (obj or None if infeasible, {"ROOT": winning scenario
@@ -63,7 +64,7 @@ class XhatClosest(Extension):
         sidx = self.closest_scenario()
         batch = concretize(self.opt.batch)
         x_non = batch.nonants(self.opt.state.solver.x)
-        cand = xhat_mod.round_integers(batch, x_non[sidx])
+        cand = xhat_mod.round_integers(batch, batch.scen_row(x_non, sidx))
         res = xhat_mod.evaluate(batch, cand,
                                 getattr(self.opt.options, "pdhg",
                                         pdhg.PDHGOptions()))

@@ -333,11 +333,17 @@ def _converger(cfg):
         tol=cfg.get("primal_dual_converger_tol", 1e-2))
 
 
-def build_wheel(cfg, module):
+def build_wheel(cfg, module, batch=None):
     """Assemble (hub, spokes, names, specs, batch) from a parsed
     Config: the hub from --lshaped-hub, --aph-hub or PH (in that order
-    of precedence, as the JAX package), then the spoke list."""
-    batch, names, specs = _build_batch(cfg, module)
+    of precedence, as the JAX package), then the spoke list.  `batch`: a
+    prepared batch of the same model to build the wheel on instead (a
+    parallel.mesh.shard_batch-ed one: the CLI has no mesh flag); specs
+    are then None."""
+    if batch is None:
+        batch, names, specs = _build_batch(cfg, module)
+    else:
+        names, specs = _model_plumbing(cfg, module)[0], None
     converger = _converger(cfg)
     lshaped, aph = cfg.get("lshaped_hub"), cfg.get("aph_hub")
     if lshaped:

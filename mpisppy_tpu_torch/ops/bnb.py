@@ -61,6 +61,25 @@ JITTER_SEED = 17
 _INF = float("inf")
 
 
+# A batch's host loops (the dive's waves, the pump's cycle breaks and
+# exit, the swap repair's exit, the round loop's exit) and the SOS1
+# detection decide on ALL of its lanes.  `sync` makes those decisions
+# over a scenario mesh's lanes (algos/mip.py passes its batch's,
+# parallel/mesh.py): each rank's lanes then run the rounds the whole
+# axis runs.  Its reduce(t, op) finishes a lane reduction ("min", "max",
+# "sum") elementwise over the mesh; rows = (offset, per, total) places
+# the lanes on the axis (lns_repair's per-lane draws).  None: this
+# batch's lanes are all.
+def _all(sync, t: Tensor) -> bool:
+    t = t.all()
+    return bool(t if sync is None else sync.reduce(t, "min"))
+
+
+def _count(sync, t: Tensor) -> int:
+    t = t.sum()
+    return int(t if sync is None else sync.reduce(t, "sum"))
+
+
 @dataclasses.dataclass(frozen=True)
 class BnBOptions:
     """Branch-and-bound options (frozen and hashable: the dispatch
@@ -395,7 +414,7 @@ def feasibility_pump(qp: BoxQP, d_col: Tensor, int_cols,
                      x_warm: Tensor | None = None,
                      y_warm: Tensor | None = None,
                      omega: Tensor | None = None,
-                     Lnorm: Tensor | None = None):
+                     Lnorm: Tensor | None = None, sync=None):
     """Batched objective feasibility pump.  Returns (value (S,),
     x (S, n) original space, feasible (S,)) for the BEST integer point
     each scenario's pump visited (evaluated by pinning the rounding and
@@ -449,7 +468,8 @@ def feasibility_pump(qp: BoxQP, d_col: Tensor, int_cols,
         # fractional entries (deterministic count, seeded)
         key_now = _np(new_xint)
         fr = _np(frac)
-        if prev_key is not None and np.array_equal(key_now, prev_key):
+        if prev_key is not None and _all(
+                sync, torch.as_tensor(key_now == prev_key)):
             nflip = 1 + rng.randint(0, 4)
             idx = np.argsort(-fr, axis=1)[:, :nflip]
             flip = np.array(key_now)
@@ -464,8 +484,8 @@ def feasibility_pump(qp: BoxQP, d_col: Tensor, int_cols,
             new_xint = torch.as_tensor(flip, dtype=dt, device=dev)
         prev_key = _np(new_xint)
         xint = new_xint
-        if bool(np.all(np.isfinite(_np(best_val)))) \
-                and bool(np.all(fr.max(axis=1) < 1e-3)):
+        if _all(sync, torch.isfinite(best_val)) \
+                and _all(sync, torch.as_tensor(fr.max(axis=1) < 1e-3)):
             break
     return best_val, best_x, torch.isfinite(best_val)
 
@@ -473,7 +493,7 @@ def feasibility_pump(qp: BoxQP, d_col: Tensor, int_cols,
 # --------------------------------------------------------------------------
 # Dive heuristic: fix-and-round to a full integer assignment.
 # --------------------------------------------------------------------------
-def detect_sos1_groups(qp: BoxQP, d_col: Tensor, int_cols):
+def detect_sos1_groups(qp: BoxQP, d_col: Tensor, int_cols, sync=None):
     """Host-side detection of SOS1-like equality rows: bl == bu, every
     nonzero on an INTEGER column, and (in ORIGINAL space) each
     coefficient equal to the row rhs — rows sum_j y_j = h with y binary,
@@ -482,7 +502,8 @@ def detect_sos1_groups(qp: BoxQP, d_col: Tensor, int_cols):
 
     Returns (groups (G, L) int64 positions into int_cols padded with -1,
     active (S, G) bool: rhs ~= coefficient for that scenario), both on
-    the problem's device, or (None, None) when no groups exist."""
+    the problem's device, or (None, None) when no groups exist.  With
+    `sync` the rows are those of the mesh's whole lane axis."""
     A = qp.A
     if hasattr(A, "vals"):  # ELL: reconstruct rows over int cols
         A2 = A.toarray()
@@ -503,6 +524,8 @@ def detect_sos1_groups(qp: BoxQP, d_col: Tensor, int_cols):
     pos_of = np.full(n, -1, np.int64)
     pos_of[int_cols_np] = np.arange(len(int_cols_np))
     eq = np.all(np.abs(bl - bu) <= 1e-9, axis=0)  # equality in every scen
+    if sync is not None:
+        eq = sync.reduce(torch.as_tensor(eq), "min").cpu().numpy()
     groups, actives = [], []
     # A2[i, j] / d_col_j == d_row_i * orig coef and bl[s, i] == d_row_i *
     # orig rhs: their equality is orig coef == orig rhs
@@ -516,10 +539,14 @@ def detect_sos1_groups(qp: BoxQP, d_col: Tensor, int_cols):
         if np.abs(coefs - coefs[0]).max() > 1e-6 * max(1.0, abs(coefs[0])):
             continue
         act = np.abs(bl[:, i] - coefs[0]) <= 1e-6 * max(1.0, abs(coefs[0]))
-        if not act.any():
-            continue
         groups.append(pos_of[nz])
         actives.append(act)
+    # a group active in some scenario (of the whole axis)
+    live = np.asarray([a.any() for a in actives], bool)
+    if sync is not None and live.size:
+        live = sync.reduce(torch.as_tensor(live), "max").cpu().numpy()
+    groups = [g for g, on in zip(groups, live) if on]
+    actives = [a for a, on in zip(actives, live) if on]
     if not groups:
         return None, None
     L = max(len(g) for g in groups)
@@ -657,7 +684,7 @@ def dive(qp: BoxQP, d_col: Tensor, int_cols,
          lo: Tensor | None = None, hi: Tensor | None = None,
          x_warm: Tensor | None = None, y_warm: Tensor | None = None,
          omega: Tensor | None = None, Lnorm: Tensor | None = None,
-         sos1=None):
+         sos1=None, sync=None):
     """Fix-and-round dive to one integer-feasible point per scenario
     (host loop over rounds).  Returns (value (S,), x (S,n) orig,
     feasible (S,), warm) where warm = (x, y, omega, Lnorm) for reuse;
@@ -680,12 +707,12 @@ def dive(qp: BoxQP, d_col: Tensor, int_cols,
         Lnorm = pdhg.estimate_norm(qp, opts.lp.power_iters).to(dt)
 
     def all_fixed():
-        return bool(torch.equal(lo, hi))
+        return _all(sync, lo == hi)
 
     # SOS1-like assignment rows round winner-take-all (detected once;
     # repeated callers — lns_repair — pass the cached detection in)
     if sos1 is None:
-        sos1 = detect_sos1_groups(qp, d_col, int_cols)
+        sos1 = detect_sos1_groups(qp, d_col, int_cols, sync)
 
     def step(mode):
         return dive_round(qp, d_col, int_cols, lo, hi, x_warm, y_warm,
@@ -694,7 +721,7 @@ def dive(qp: BoxQP, d_col: Tensor, int_cols,
     prev_fixed = -1
     for _ in range(max(1, opts.dive_rounds)):
         lo, hi, x_warm, y_warm, omega, obj, feas = step("wave")
-        nfixed = int((lo == hi).sum())
+        nfixed = _count(sync, lo == hi)
         if all_fixed() or nfixed == prev_fixed:  # no confident cols left
             break
         prev_fixed = nfixed
@@ -780,7 +807,8 @@ def _swap_round(qp: BoxQP, d_col: Tensor, int_cols: Tensor,
 def sos1_swap_repair(qp: BoxQP, d_col: Tensor, int_cols,
                      x_inc_orig: Tensor, feas: Tensor,
                      opts: BnBOptions,
-                     warm=None, sos1=None, verbose: bool = False):
+                     warm=None, sos1=None, verbose: bool = False,
+                     sync=None):
     """Polish integral incumbents by dual-guided SOS1 winner swaps.
 
     x_inc_orig: (S, n) incumbent points in ORIGINAL space.  Returns
@@ -789,7 +817,7 @@ def sos1_swap_repair(qp: BoxQP, d_col: Tensor, int_cols,
     if opts.swap_rounds <= 0:
         return None
     if sos1 is None:
-        sos1 = detect_sos1_groups(qp, d_col, int_cols)
+        sos1 = detect_sos1_groups(qp, d_col, int_cols, sync)
     groups, active = sos1
     if groups is None:
         return None
@@ -817,7 +845,7 @@ def sos1_swap_repair(qp: BoxQP, d_col: Tensor, int_cols,
         xi, obj, feas_cur, x_cur, y_cur, om, moved = _swap_round(
             qp, d_col, int_cols, xi, hi_root, groups, active,
             obj, feas_cur, x_cur, y_cur, om, Ln, opts)
-        if not bool(moved.any()):
+        if _all(sync, ~moved):
             break
         if (r + 1) % 8 == 0:
             global_toc(f"[swap] round {r + 1}: obj={_np(obj)}", verbose)
@@ -852,7 +880,7 @@ def _tile(x, K: int, nd: int):
 
 def dive_multistart(qp: BoxQP, d_col: Tensor, int_cols,
                     opts: BnBOptions = BnBOptions(), K: int = 16,
-                    sos1=None):
+                    sos1=None, sync=None):
     """K jitter-diversified dives per scenario in ONE batched program:
     each copy solves the SAME scenario with a different deterministic
     objective perturbation (tie-breaking only; values are always
@@ -870,7 +898,7 @@ def dive_multistart(qp: BoxQP, d_col: Tensor, int_cols,
         sos1K = (groups, active.repeat(K, 1))
     else:
         sos1K = sos1
-    val, x, feas, _ = dive(qpK, dK, int_cols, o2, sos1=sos1K)
+    val, x, feas, _ = dive(qpK, dK, int_cols, o2, sos1=sos1K, sync=sync)
     val = torch.where(feas, val, _INF).reshape(K, S)
     x = x.reshape(K, S, n)
     k_best = torch.argmin(val, dim=0)                      # (S,)
@@ -883,14 +911,15 @@ def lns_repair(qp: BoxQP, d_col: Tensor, int_cols,
                x_inc_orig: Tensor, value0: Tensor, feas0: Tensor,
                opts: BnBOptions = BnBOptions(),
                rounds: int = 16, destroy_frac: float = 0.25,
-               seed: int = 7, sos1=None, verbose: bool = False):
+               seed: int = 7, sos1=None, verbose: bool = False,
+               sync=None):
     """Large-neighborhood polish of integral incumbents: per round,
     UNFIX a random per-scenario subset of SOS1 groups (the rest stay
     pinned at the incumbent) and re-dive warm, accepting per-scenario
     strict improvements only.  Deterministic via `seed`.  Returns
     (value, x_orig, feasible) or None when structureless."""
     if sos1 is None:
-        sos1 = detect_sos1_groups(qp, d_col, int_cols)
+        sos1 = detect_sos1_groups(qp, d_col, int_cols, sync)
     groups, active = sos1
     if groups is None or rounds <= 0:
         return None
@@ -911,7 +940,12 @@ def lns_repair(qp: BoxQP, d_col: Tensor, int_cols,
     rng = np.random.default_rng(seed)
     warm_omega = warm_L = None   # captured from the first dive
     for r in range(rounds):
-        destroyed = (rng.random((S, G)) < destroy_frac) & active_np
+        if sync is None:
+            draw = rng.random((S, G))
+        else:   # this rank's rows of the whole axis's draw
+            off, _, total = sync.rows
+            draw = rng.random((total, G))[off:off + S]
+        destroyed = (draw < destroy_frac) & active_np
         unfix = destroyed @ membership                     # (S, nI) bool
         cur = np.where(feas[:, None], xi, lo_root)         # infeasible:
         lo = np.where(unfix | ~feas[:, None], lo_root, cur)  # full re-dive
@@ -920,7 +954,7 @@ def lns_repair(qp: BoxQP, d_col: Tensor, int_cols,
             qp, d_col, int_cols, opts,
             lo=torch.as_tensor(lo, dtype=dt, device=dev),
             hi=torch.as_tensor(hi, dtype=dt, device=dev),
-            omega=warm_omega, Lnorm=warm_L, sos1=sos1)
+            omega=warm_omega, Lnorm=warm_L, sos1=sos1, sync=sync)
         if warm_L is None:
             warm_omega, warm_L = warm[2], warm[3]
         val, x_new, f_new = _np(val), _np(x_new), _np(f_new)
@@ -989,7 +1023,7 @@ def root_state(qp: BoxQP, d_col: Tensor, int_cols,
 def solve_mip(qp: BoxQP, d_col: Tensor, int_cols,
               opts: BnBOptions = BnBOptions(),
               x_warm: Tensor | None = None, y_warm: Tensor | None = None,
-              verbose: bool = False) -> BnBResult:
+              verbose: bool = False, sync=None) -> BnBResult:
     """Batched exact MIP solve: dive for an incumbent, then best-first
     branch-and-bound until every scenario's certified gap closes (or the
     round budget runs out — the bracket stays valid either way).
@@ -1001,23 +1035,25 @@ def solve_mip(qp: BoxQP, d_col: Tensor, int_cols,
     dt, dev = qp.c.dtype, qp.c.device
     int_cols = _cols(int_cols, dev)
 
-    sos1 = detect_sos1_groups(qp, d_col, int_cols)
+    sos1 = detect_sos1_groups(qp, d_col, int_cols, sync)
     inc, x_inc, feas, warm = dive(qp, d_col, int_cols, opts,
-                                  x_warm=x_warm, y_warm=y_warm, sos1=sos1)
+                                  x_warm=x_warm, y_warm=y_warm, sos1=sos1,
+                                  sync=sync)
     dive_x, dive_y, omega, Lnorm = warm
     if verbose and bool(feas.any()):
         global_toc(f"[bnb] dive incumbents: {_np(inc)}", True)
     if opts.pump_rounds > 0:
         p_val, p_x, p_feas = feasibility_pump(
             qp, d_col, int_cols, opts, rounds=opts.pump_rounds,
-            x_warm=dive_x, y_warm=dive_y, omega=omega, Lnorm=Lnorm)
+            x_warm=dive_x, y_warm=dive_y, omega=omega, Lnorm=Lnorm,
+            sync=sync)
         inc, x_inc, feas = merge_incumbents(inc, x_inc, feas,
                                             p_val, p_x, p_feas)
         global_toc(f"[bnb] pump incumbents: {_np(p_val)}", verbose)
 
     rep = sos1_swap_repair(qp, d_col, int_cols, x_inc, feas, opts,
                            warm=(dive_x, dive_y, omega, Lnorm),
-                           sos1=sos1, verbose=verbose)
+                           sos1=sos1, verbose=verbose, sync=sync)
     if rep is not None:
         inc, x_inc, feas = merge_incumbents(inc, x_inc, feas, *rep)
         global_toc(f"[bnb] swap-repaired incumbents: {_np(inc)}", verbose)
@@ -1028,7 +1064,7 @@ def solve_mip(qp: BoxQP, d_col: Tensor, int_cols,
                     warm=(dive_x, dive_y, omega, Lnorm))
     for r in range(opts.max_rounds):
         st = bnb_round(qp, d_col, int_cols, st, opts)
-        if bool(st.done.all()):
+        if _all(sync, st.done):
             break
         if (r + 1) % 25 == 0:
             global_toc(f"[bnb] round {r + 1}: inc={_np(st.incumbent)} "
@@ -1039,7 +1075,7 @@ def solve_mip(qp: BoxQP, d_col: Tensor, int_cols,
     rep = sos1_swap_repair(
         qp, d_col, int_cols, st.x_inc, torch.isfinite(st.incumbent), opts,
         warm=(st.x_warm, st.y_warm, st.omega_warm, st.Lnorm),
-        sos1=sos1, verbose=verbose)
+        sos1=sos1, verbose=verbose, sync=sync)
     if rep is not None:
         new_inc, new_x, _ = merge_incumbents(
             st.incumbent, st.x_inc, torch.isfinite(st.incumbent), *rep)

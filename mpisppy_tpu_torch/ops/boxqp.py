@@ -76,7 +76,12 @@ class BoxQP:
 
     cones: optional ConeSpec partitioning the rows into box rows and
     second-order-cone blocks, shared across the batch.  SOC rows store
-    their shift b in both bl and bu.  None is the pure box problem."""
+    their shift b in both bl and bu.  None is the pure box problem.
+
+    rows: (offset, per, total) when the batch is one rank's shard of a
+    scenario axis (parallel/mesh.shard_batch): its `per` lanes are rows
+    offset.. of `total`; the solvers' random starts are drawn for the
+    whole axis (shard_rows), so a lane does not depend on the split."""
 
     c: Tensor
     q: Tensor
@@ -86,6 +91,7 @@ class BoxQP:
     l: Tensor  # noqa: E741
     u: Tensor
     cones: ConeSpec | None = None
+    rows: tuple | None = None
 
     @property
     def n(self) -> int:
@@ -114,6 +120,21 @@ class BoxQP:
         if self.A.ndim == y.ndim + 1:
             return (y.unsqueeze(-2) @ self.A).squeeze(-2)
         return y @ self.A
+
+
+def shard_rows(draw, shape: tuple, rows) -> Tensor:
+    """draw(shape) for a shard's lanes: with rows = (offset, per, total)
+    and shape[0] a multiple K of per (K tiled copies of the shard), the
+    rows of draw((K * total,) + rest) that the lanes hold on the whole
+    axis (lane k*per + s is row k*total + offset + s); draw(shape)
+    otherwise."""
+    if rows is None or not shape or shape[0] % rows[1]:
+        return draw(shape)
+    off, per, total = rows
+    K = shape[0] // per
+    rest = tuple(shape[1:])
+    whole = draw((K * total,) + rest).reshape((K, total) + rest)
+    return whole[:, off:off + per].reshape(shape)
 
 
 def make_boxqp(c, A, bl, bu, l, u, q=None,  # noqa: E741

@@ -33,7 +33,7 @@ from mpisppy_tpu_torch.ops import cones as cones_mod
 from mpisppy_tpu_torch.ops import pdhg_window
 from mpisppy_tpu_torch.ops.boxqp import (
     BoxQP, as_precision, infeasibility_certificate, kkt_residuals,
-    unboundedness_certificate,
+    shard_rows, unboundedness_certificate,
 )
 from mpisppy_tpu_torch.ops.sparse import EllMatrix
 from mpisppy_tpu_torch.scengen.random import normal, prng_key
@@ -131,7 +131,8 @@ def estimate_norm(p: BoxQP, iters: int = 30) -> Tensor:
     difference rows), drawn on the CPU and moved, so the card and the
     CPU start from the same vector.  Floored by the max row/column
     2-norms, both lower bounds on ||A||_2."""
-    v = _start_vector(tuple(p.c.shape)).to(dtype=p.c.dtype, device=p.device)
+    v = shard_rows(_start_vector, tuple(p.c.shape), p.rows).to(
+        dtype=p.c.dtype, device=p.device)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     lam = torch.ones(_bshape(p), dtype=p.c.dtype, device=p.device)
     if isinstance(p.A, Tensor) and p.A.ndim == 3:

@@ -17,6 +17,7 @@ import functools
 
 import torch
 
+from mpisppy_tpu_torch.ops.boxqp import shard_rows
 from mpisppy_tpu_torch.scengen.random import normal, prng_key
 
 Tensor = torch.Tensor
@@ -48,11 +49,14 @@ def _power_start(shape: tuple) -> Tensor:
     return normal(prng_key(3), shape)
 
 
-def _estimate_L(H: Tensor, valid: Tensor, iters: int = 12) -> Tensor:
+def _estimate_L(H: Tensor, valid: Tensor, iters: int = 12,
+                rows=None) -> Tensor:
     """Power-iteration estimate of lambda_max(H) per batch element over
     the valid columns, floored by max |H_ii| (a lower bound for PSD H)
-    so a degenerate iterate cannot underestimate."""
-    v = _power_start(tuple(H.shape[:-1])).to(dtype=H.dtype, device=H.device)
+    so a degenerate iterate cannot underestimate.  rows: a shard's lanes
+    (boxqp.shard_rows)."""
+    v = shard_rows(_power_start, tuple(H.shape[:-1]), rows).to(
+        dtype=H.dtype, device=H.device)
     v = torch.where(valid, v, torch.zeros_like(v))
     v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
                         min=1e-30)
@@ -70,13 +74,14 @@ def _estimate_L(H: Tensor, valid: Tensor, iters: int = 12) -> Tensor:
 
 def solve_simplex_qp(H: Tensor, g: Tensor, valid: Tensor,
                      lam0: Tensor | None = None,
-                     iters: int = 200) -> Tensor:
+                     iters: int = 200, rows=None) -> Tensor:
     """FISTA with adaptive (gradient-scheme) restart.
 
     H: (..., K, K) PSD, g: (..., K), valid: (..., K) bool mask of usable
     columns, lam0: optional warm start (projected first).  Returns
-    (..., K) weights on the simplex, zero at invalid columns."""
-    L = _estimate_L(H, valid)[..., None]
+    (..., K) weights on the simplex, zero at invalid columns.  rows: a
+    shard's lanes (boxqp.shard_rows)."""
+    L = _estimate_L(H, valid, rows=rows)[..., None]
     if lam0 is None:
         nv = torch.clamp(valid.sum(dim=-1, keepdim=True), min=1)
         lam0 = torch.where(valid, 1.0 / nv.to(g.dtype),

@@ -12,10 +12,16 @@
 # scenario axis; ScenarioBatch.node_average/expectation and the
 # feasibility, certification and slam reductions (core/batch.py) do their
 # rank-local reduction as before and finish it with an all-reduce over
-# the group.  `shard_batch` is the one seam: with no process group it is
-# the serial path (a world of one without collectives); a group of one
-# rank runs every collective as the identity, so its rows equal the
-# unsharded rows bit for bit.
+# the group.  Host code reads scenario-major tensors as their GLOBAL rows
+# (ScenarioBatch.scen_host, an all-gather: every rank runs the same host
+# logic on the same arrays), and a replicated decision that feeds a
+# device solve (the L-shaped master, the MIP bundle's master) is made on
+# rank 0 and broadcast, so ranks cannot drift apart.  `shard_batch` is
+# the one seam: with no process group it is the serial path (a world of
+# one without collectives); a group of one rank runs every collective as
+# the identity, so its rows equal the unsharded rows bit for bit.  A
+# shard's qp carries `rows`, its place on the axis, so the solvers' random
+# starts are drawn for the whole axis (ops/boxqp.shard_rows).
 #
 # A mesh's `size` is the multiple the scenario axis is padded to: the
 # world size of a process group, or, in one process, the number of
@@ -33,10 +39,6 @@ import dataclasses
 import datetime
 
 import torch
-
-from mpisppy_tpu_torch.core.batch import (  # noqa: F401  (re-exported)
-    ShardedBatchUnsupported, require_unsharded,
-)
 
 def _dist():
     import torch.distributed as dist
@@ -133,7 +135,8 @@ class ScenarioMesh:
     device: torch.device | None
     size: int
     calls: dict = dataclasses.field(
-        default_factory=lambda: {"all_reduce": 0, "all_gather": 0},
+        default_factory=lambda: {"all_reduce": 0, "all_gather": 0,
+                                 "broadcast": 0},
         compare=False)
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
@@ -168,6 +171,21 @@ class ScenarioMesh:
             raise _failed("all_gather", e) from e
         self.calls["all_gather"] += 1
         return torch.cat(parts, dim=0)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """A new tensor: rank `src`'s `t` (equal shapes and dtypes on
+        every rank) on every rank; a bool travels as int32."""
+        if self.group is None:
+            return t
+        dist = _dist()
+        is_bool = t.dtype == torch.bool
+        buf = (t.to(torch.int32) if is_bool else t.clone()).contiguous()
+        try:
+            dist.broadcast(buf, src=src, group=self.group)
+        except RuntimeError as e:
+            raise _failed("broadcast", e) from e
+        self.calls["broadcast"] += 1
+        return buf.to(torch.bool) if is_bool else buf
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> ScenarioMesh:
@@ -245,7 +263,7 @@ def shard_batch(batch, mesh: ScenarioMesh, pad: bool = False):
             qp, c=take(qp.c, 2), q=take(qp.q, 2),
             A=take(qp.A, 3),
             bl=take(qp.bl, 2), bu=take(qp.bu, 2), l=take(qp.l, 2),
-            u=take(qp.u, 2))
+            u=take(qp.u, 2), rows=(off, per, S))
     return dataclasses.replace(
         batch, qp=qp,
         d_col=take(batch.d_col, 2), d_row=take(batch.d_row, 2),

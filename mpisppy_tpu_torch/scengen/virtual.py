@@ -125,6 +125,11 @@ class VirtualBatch:
     scen_extreme = ScenarioBatch.scen_extreme
     scen_row = ScenarioBatch.scen_row
     scen_gather = ScenarioBatch.scen_gather
+    scen_host = ScenarioBatch.scen_host
+    scen_total = ScenarioBatch.scen_total
+    scen_start = ScenarioBatch.scen_start
+    scen_argmax = ScenarioBatch.scen_argmax
+    scen_topk_mask = ScenarioBatch.scen_topk_mask
 
     def nonants(self, x_scaled: Tensor) -> Tensor:
         """Original-space nonants: d_non is SHARED by the template-
@@ -172,6 +177,10 @@ class VirtualBatch:
         qp = BoxQP(c=vals["c"].expand(S, n), q=vals["q"].expand(S, n),
                    A=vals["A"], bl=vals["bl"], bu=vals["bu"],
                    l=vals["l"], u=vals["u"])
+        if self.mesh is not None and self.mesh.world > 1:
+            # a shard's lanes (boxqp.shard_rows)
+            qp = dataclasses.replace(qp, rows=(
+                self.scen_offset, S, S * self.mesh.world))
         nos = self.node_of_slot
         if nos is None:
             nos = torch.zeros((S, self.num_nonants), dtype=torch.int64,

@@ -36,11 +36,11 @@ E1_TOLERANCE = 1e-5  # ref:spbase E1_tolerance default
 def _grad_costs(batch: ScenarioBatch, solver_x: torch.Tensor) -> np.ndarray:
     """(S, N) float64 negated objective gradients at the nonant columns,
     in ORIGINAL space (ref:gradient.py:55-90 compute_grad): one read of
-    the device result."""
+    the device result (the whole axis's rows on a sharded batch)."""
     qp = batch.qp
     grad = qp.c + qp.q * solver_x
     g = -(grad[..., batch.nonant_idx] / batch.d_non)
-    return g.cpu().numpy().astype(np.float64)
+    return batch.scen_host(g).astype(np.float64)
 
 
 def find_grad_cost(batch: ScenarioBatch, xhat,
@@ -76,7 +76,7 @@ def grad_denom(batch: ScenarioBatch, x_non: np.ndarray,
                grad_rho_relative_bound: float = 1e3) -> np.ndarray:
     """(N,) scenario-independent denominator E[max(|x - xbar|, 1)]
     (ref:find_rho.py:117-150)."""
-    p = batch.p.cpu().numpy().astype(np.float64)
+    p = batch.scen_host(batch.p).astype(np.float64)
     d = np.maximum(np.abs(np.asarray(x_non) - np.asarray(xbar)), 1.0)
     g = (p[:, None] * d).sum(0)
     return np.maximum(g, 1.0 / grad_rho_relative_bound)
@@ -131,13 +131,13 @@ class Find_Rho:
         ph = self.ph
         batch = concretize(ph.batch)
         st = ph.state
-        x_non = batch.nonants(st.solver.x).cpu().numpy().astype(np.float64)
-        xbar = st.xbar.cpu().numpy().astype(np.float64)
+        # the whole axis's rows on a sharded batch (one all-gather)
+        x_non, xbar, W, p = (a.astype(np.float64) for a in batch.scen_host(
+            batch.nonants(st.solver.x), st.xbar, st.W, batch.p))
         if self.c is None:
             # costs at the current iterates (the xhat-file path of the
             # reference is find_grad_cost)
             self.c = _grad_costs(batch, st.solver.x)
-        W = st.W.cpu().numpy().astype(np.float64)
         if indep_denom:
             denom = grad_denom(
                 batch, x_non, xbar,
@@ -147,7 +147,6 @@ class Find_Rho:
         else:
             denom = w_denom(x_non, xbar)
         rho_scen = np.abs((self.c - W) / denom)
-        p = batch.p.cpu().numpy().astype(np.float64)
         return order_stat_aggregate(rho_scen, p,
                                     float(self._get("grad_order_stat",
                                                     0.5)))

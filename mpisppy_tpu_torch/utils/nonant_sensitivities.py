@@ -27,4 +27,4 @@ def nonant_sensitivities(batch: ScenarioBatch,
     W0 = torch.zeros((batch.num_scenarios, batch.num_nonants),
                      dtype=batch.qp.c.dtype, device=batch.device)
     rc = nonant_reduced_costs(batch, W0, solver)
-    return rc.cpu().numpy().astype(np.float64)
+    return batch.scen_host(rc).astype(np.float64)

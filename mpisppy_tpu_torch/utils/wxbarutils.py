@@ -30,6 +30,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mpisppy_tpu_torch.core.batch import is_root
+
+
 class LeafSpec(NamedTuple):
     """The shape and numpy dtype a checkpoint leaf must have."""
 
@@ -97,8 +100,11 @@ def state_from_leaves(template, arrays, device):
 
 # ---- W ---------------------------------------------------------------------
 def write_W_to_file(ph, fname: str, sep_files: bool = False):
-    """ref:wxbarutils.py:47-90.  csv rows: scenario_name,slot,value."""
-    W = ph.state.W.cpu().numpy()
+    """ref:wxbarutils.py:47-90.  csv rows: scenario_name,slot,value.  On
+    a sharded batch the whole axis's rows, written by rank 0."""
+    W = ph.batch.scen_host(ph.state.W)
+    if not is_root(ph.batch):
+        return
     with open(fname, "w") as f:
         for s, nm in enumerate(ph.scenario_names):
             for i in range(W.shape[1]):
@@ -108,8 +114,9 @@ def write_W_to_file(ph, fname: str, sep_files: bool = False):
 def set_W_from_file(fname: str, ph, disable_check: bool = False):
     """ref:wxbarutils.py:92-134.  Loads W and installs it into the PH
     state; checks that its p-weighted node mean is ~0 (the PH invariant,
-    ref:wxbarutils.py:224-275 _check_W) unless disabled."""
-    W = ph.state.W.cpu().numpy().copy()
+    ref:wxbarutils.py:224-275 _check_W) unless disabled.  On a sharded
+    batch each rank installs its rows of the file's whole axis."""
+    W = ph.batch.scen_host(ph.state.W).copy()
     index = {nm: s for s, nm in enumerate(ph.scenario_names)}
     with open(fname) as f:
         for line in f:
@@ -117,8 +124,9 @@ def set_W_from_file(fname: str, ph, disable_check: bool = False):
             if nm not in index:
                 raise ValueError(f"unknown scenario {nm!r} in {fname}")
             W[index[nm], int(i)] = float(v)
-    Wt = torch.as_tensor(W, dtype=ph.batch.qp.c.dtype,
-                         device=ph.batch.device)
+    start = ph.batch.scen_start
+    Wt = torch.as_tensor(W[start:start + ph.batch.num_scenarios],
+                         dtype=ph.batch.qp.c.dtype, device=ph.batch.device)
     if not disable_check:
         wbar, _ = ph.batch.node_average(Wt)
         if float(wbar.abs().max()) > 1e-4 * (1.0 + np.abs(W).max()):
@@ -130,7 +138,10 @@ def set_W_from_file(fname: str, ph, disable_check: bool = False):
 
 # ---- xbar ------------------------------------------------------------------
 def write_xbar_to_file(ph, fname: str):
-    """ref:wxbarutils.py:276-296.  csv rows: node,slot,value."""
+    """ref:wxbarutils.py:276-296.  csv rows: node,slot,value (rank 0
+    writes on a sharded batch)."""
+    if not is_root(ph.batch):
+        return
     xb = ph.state.xbar_nodes.cpu().numpy()
     with open(fname, "w") as f:
         for nd in range(xb.shape[0]):
@@ -157,8 +168,10 @@ def set_xbar_from_file(fname: str, ph):
 
 
 def ROOT_xbar_npy_serializer(ph, fname: str):
-    """ref:wxbarutils.py:378-388: flat npy of the root-node x̄."""
-    np.save(fname, ph.state.xbar_nodes[0].cpu().numpy())
+    """ref:wxbarutils.py:378-388: flat npy of the root-node x̄ (rank 0
+    writes on a sharded batch)."""
+    if is_root(ph.batch):
+        np.save(fname, ph.state.xbar_nodes[0].cpu().numpy())
 
 
 # ---- full-state checkpointing ----------------------------------------------

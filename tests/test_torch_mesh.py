@@ -13,8 +13,7 @@
 #     node averages equal the unsharded ones; one fused-wheel iteration
 #     of sslp 5x15 (S=8) whose packed scalars equal the unsharded
 #     iteration's within 1e-5;
-#   * an algorithm this slice does not shard refuses a batch split over
-#     several ranks with a typed error.
+#   * every algorithm takes a batch split over several ranks.
 import json
 import os
 import subprocess
@@ -69,6 +68,8 @@ def spawn(tmp_path, body: str, world: int = 2, timeout=240) -> list:
         mesh = mesh_mod.make_mesh()
         out = {}
     """) + textwrap.dedent(body) + textwrap.dedent("""
+        # every rank past its last collective before the group goes
+        torch.distributed.barrier()
         mesh_mod.shutdown()
         print("OUT " + json.dumps(out), flush=True)
     """))
@@ -149,25 +150,34 @@ def test_virtual_shard_draws_global_rows():
         assert got.mesh is part.mesh and got.scen_offset == 4 * r
 
 
-def test_unsharded_algorithms_refuse_a_split_batch():
-    from mpisppy_tpu_torch.algos import aph, fwph, lshaped, mip
+def test_every_algorithm_takes_a_split_batch():
+    """Every algorithm takes a batch split over several ranks (a layout
+    without a process group: rank 0's rows of two); the two-rank runs
+    are held in tests/test_torch_mesh_{decomp,mip,aph}.py."""
+    from mpisppy_tpu_torch.algos import aph, async_wheel, fwph, lshaped, mip
+    from mpisppy_tpu_torch.algos import ph as ph_mod
     from mpisppy_tpu_torch.algos import sc as sc_mod
+    from mpisppy_tpu_torch.models import sslp
+    from mpisppy_tpu_torch.ops import bnb
     b = batch_mod.pad_to_multiple(farmer_batch(3), 4)
     sb = mesh_mod.shard_batch(b, fake_mesh(0, 2))
-    Refused = mesh_mod.ShardedBatchUnsupported
-    with pytest.raises(Refused, match="FWPH"):
-        fwph.FWPH(fwph.FWPHOptions(), sb)
-    with pytest.raises(Refused, match="LShaped"):
-        lshaped.LShapedMethod({}, sb)
-    with pytest.raises(Refused, match="APH"):
-        aph.APH(aph.APHOptions(), sb)
-    with pytest.raises(Refused, match="SchurComplement"):
-        sc_mod.SchurComplement({}, sb)
-    with pytest.raises(Refused, match="certified_mip_gap"):
-        mip.certified_mip_gap(sb)
-    assert issubclass(Refused, NotImplementedError)
-    # a world of one is the serial path
-    fwph.FWPH(fwph.FWPHOptions(), mesh_mod.shard_batch(b, fake_mesh(0, 1)))
+    assert sb.num_scenarios == 2 and sb.mesh.world == 2
+    assert not hasattr(mesh_mod, "ShardedBatchUnsupported")
+    fwph.FWPH(fwph.FWPHOptions(), sb)
+    lshaped.LShapedMethod({}, sb)
+    aph.APH(aph.APHOptions(), sb)
+    sc_mod.SchurComplement({}, sb)
+    async_wheel.AsyncFusedPH(ph_mod.PHOptions(), sb)
+    inst = sslp.synthetic_instance(3, 6, seed=4)
+    ib = batch_mod.from_specs(
+        [sslp.scenario_creator(nm, instance=inst, num_scens=4)
+         for nm in sslp.scenario_names_creator(4)], device="cpu")
+    res = mip.certified_mip_gap(
+        mesh_mod.shard_batch(ib, fake_mesh(0, 2)),
+        ph_mod.PHOptions(max_iterations=1),
+        bnb.BnBOptions(pool_size=8, max_rounds=4, dive_rounds=4,
+                       dive_tail=8, pump_rounds=0), n_shuffle=1, dd_nodes=0)
+    assert np.isfinite(res.outer)
 
 
 # ---------------------------------------------------------------------------
